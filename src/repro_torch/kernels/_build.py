@@ -1,0 +1,182 @@
+"""Build and bind the hand-written CUDA kernels under ``repro_torch/csrc``.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library with
+a plain C interface (``-gencode arch=compute_90a,code=sm_90a``), loaded
+with ``ctypes``.  Libraries are built at first use into
+``<repo>/build/kernels/<hash>/`` where the hash covers every source under
+``csrc/`` and the compiler flags, so an edited source rebuilds and an
+unchanged one loads the cached library.  :func:`build_all` starts one
+``nvcc`` per source at once and waits for all of them.
+
+Every C entry point returns ``cudaGetLastError()`` after its launch;
+:meth:`KernelLib.launch` raises on a non-zero code and is the one place
+each kernel's launch count goes up.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, List, Optional
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+REPO_ROOT = Path(__file__).resolve().parents[3]
+BUILD_ROOT = REPO_ROOT / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+
+P = ctypes.c_void_p
+I32 = ctypes.c_int
+F32 = ctypes.c_float
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                       "source at first use and need the CUDA toolkit")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cu*")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_dir() -> Path:
+    return BUILD_ROOT / _digest()
+
+
+class KernelLib:
+    """One ``csrc/<name>.cu`` shared library and its launch count."""
+
+    def __init__(self, name: str, signatures: Dict[str, list]):
+        self.name = name
+        self.signatures = signatures
+        self.launches = 0
+        self._lib: Optional[ctypes.CDLL] = None
+
+    @property
+    def so_path(self) -> Path:
+        return build_dir() / f"lib{self.name}.so"
+
+    def _start_build(self):
+        """Popen of nvcc for this library (None when already built)."""
+        if self.so_path.exists():
+            return None
+        self.so_path.parent.mkdir(parents=True, exist_ok=True)
+        tmp = self.so_path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(CSRC),
+               "-o", str(tmp), str(CSRC / f"{self.name}.cu")]
+        log = open(self.so_path.with_suffix(".log"), "w")
+        return subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), \
+            tmp, log
+
+    def _finish_build(self, job) -> None:
+        if job is None:
+            return
+        proc, tmp, log = job
+        rc = proc.wait()
+        log.close()
+        if rc != 0:
+            text = self.so_path.with_suffix(".log").read_text()
+            raise RuntimeError(f"nvcc failed for {self.name}.cu "
+                               f"(exit {rc}):\n{text[-4000:]}")
+        os.replace(tmp, self.so_path)
+
+    def lib(self) -> ctypes.CDLL:
+        if self._lib is None:
+            self._finish_build(self._start_build())
+            lib = ctypes.CDLL(str(self.so_path))
+            for sym, argtypes in self.signatures.items():
+                fn = getattr(lib, sym)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            self._lib = lib
+        return self._lib
+
+    def launch(self, symbol: str, *args) -> None:
+        """Call the C entry point ``symbol``; raise on a CUDA error code;
+        count the launch."""
+        rc = getattr(self.lib(), symbol)(*args)
+        if rc != 0:
+            raise RuntimeError(
+                f"CUDA kernel {self.name}:{symbol} failed to launch "
+                f"(cudaError {rc})")
+        self.launches += 1
+
+    def ptxas_report(self) -> str:
+        """What ``nvcc -Xptxas -v`` said (registers, shared memory,
+        spills) when this library was built in this checkout."""
+        log = self.so_path.with_suffix(".log")
+        return log.read_text() if log.exists() else ""
+
+
+_LIBS: List[KernelLib] = []
+
+
+def register(lib: KernelLib) -> KernelLib:
+    _LIBS.append(lib)
+    return lib
+
+
+def build_all() -> float:
+    """Build every registered library, one ``nvcc`` per source, all
+    started together.  Returns the wall-clock seconds it took."""
+    t0 = time.perf_counter()
+    jobs = [(lib, lib._start_build()) for lib in _LIBS]
+    for lib, job in jobs:
+        lib._finish_build(job)
+    for lib in _LIBS:
+        lib.lib()
+    return time.perf_counter() - t0
+
+
+def stream_ptr(device) -> ctypes.c_void_p:
+    import torch
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def ptr(t) -> ctypes.c_void_p:
+    """A tensor's device address for a C entry point (NULL for None)."""
+    return ctypes.c_void_p(t.data_ptr() if t is not None else None)
+
+
+# The formats the kernels specialise at compile time (fmt_code in csrc/);
+# any other (e, m) runs the generic decode of its container width.
+_FMT_CODES = {(5, 2): 1, (4, 3): 2, (5, 10): 3, (8, 7): 4}
+
+
+def fmt_code(fmt) -> int:
+    """``fmt_code`` of the C entry points for a format (None = f32)."""
+    if fmt is None or fmt.is_binary32:
+        return 0
+    code = _FMT_CODES.get((fmt.e, fmt.m))
+    if code is not None:
+        return code
+    return {1: 5, 2: 6, 4: 7}[fmt.container_bytes]
+
+
+def check_operands(what: str, device, **tensors) -> None:
+    """Every operand a contiguous tensor on ``device`` (None skipped)."""
+    for name, t in tensors.items():
+        if t is not None and (t.device != device or not t.is_contiguous()):
+            raise ValueError(f"{what}: {name} must be a contiguous tensor "
+                             f"on {device}, got {t.device}")
