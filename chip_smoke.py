@@ -47,6 +47,11 @@ SRC = os.path.join(ROOT, "src")
 F32_PEAK_FLOPS = 67e12      # H100 SXM, f32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 
+# the serve phase's workload: full llama3-8b, 8 requests x (128 prompt
+# + 32 new tokens) over 4 slots, capacity 256, page 64
+SERVE_REQUESTS, SERVE_SLOTS, SERVE_PROMPT, SERVE_MAX_NEW = 8, 4, 128, 32
+SERVE_CAPACITY, SERVE_PAGE = 256, 64
+
 
 def fail(msg: str, code: int = 1):
     print(f"chip_smoke: {msg}", file=sys.stderr)
@@ -369,13 +374,17 @@ def time_attention(torch, np, report, timer, serve_len):
                                                  tables))
     nbytes = PA.paged_hbm_bytes([serve_len] * B, H, dh, BINARY8,
                                 page_size=page, g=G)
+    flops = 4 * dh * H * G * serve_len * B     # q.k and p.v, 2 ops each
+    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    b_ops = flops / F32_PEAK_FLOPS * 1e3
     report["timings"].append(dict(
         kernel="paged_decode", B=B, length=serve_len, ms=t_k, plain_ms=t_p,
-        library_ms=None, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-        bytes=nbytes, host_us=host))
+        library_ms=None, bound_ms=max(b_bytes, b_ops),
+        bound_by="bytes" if b_bytes >= b_ops else "operations",
+        bytes=nbytes, flops=flops, host_us=host))
     print(f"[timing] paged_decode B=4 len={serve_len} kernel {t_k:.4f} ms  "
-          f"plain {t_p:.4f} ms  bound "
-          f"{nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms  host {host:.1f} us/call")
+          f"plain {t_p:.4f} ms  bound {max(b_bytes, b_ops):.6f} ms  host "
+          f"{host:.1f} us/call")
 
     Sq, Skv, q_off = 64, 256, 64
     qq = torch.randn(1, Sq, H, G, dh, device="cuda")
@@ -494,9 +503,10 @@ def run_serve(torch, report, libs, args):
     worker.PrefillWorker.step = counting("prefill", orig[1])
     argv = ["--arch", "llama3-8b", "--policy", "transprecision",
             "--decode-impl", "paged", "--matmul-impl", "qmm_pallas",
-            "--page-size", "64", "--requests", str(args.requests),
-            "--slots", "4", "--prompt-len", "128", "--max-new",
-            str(args.max_new), "--capacity", "256", "--seed",
+            "--page-size", str(SERVE_PAGE), "--requests",
+            str(SERVE_REQUESTS), "--slots", str(SERVE_SLOTS),
+            "--prompt-len", str(SERVE_PROMPT), "--max-new",
+            str(SERVE_MAX_NEW), "--capacity", str(SERVE_CAPACITY), "--seed",
             str(args.seed), "--stats-out",
             os.path.join(args.out, "serve_stats.jsonl")]
     torch.cuda.reset_peak_memory_stats()
@@ -513,7 +523,7 @@ def run_serve(torch, report, libs, args):
     peak = torch.cuda.max_memory_allocated()
 
     ok = all(r.done and not r.failed for r in reqs)
-    ok &= all(len(r.generated) == args.max_new for r in reqs)
+    ok &= all(len(r.generated) == SERVE_MAX_NEW for r in reqs)
     ok &= all(0 <= t < 128256 for r in reqs for t in r.generated)
     dec_ok = all(c == (193, 32, 0) for c in per_step["decode"])
     pre_ok = all(c == (193, 0, 32) for c in per_step["prefill"])
@@ -549,6 +559,7 @@ def run_serve(torch, report, libs, args):
 # ---------------------------------------------------------------------------
 
 def run_profile(torch, report, args):
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.engine import scheduler
     from repro_torch.launch import serve
@@ -581,7 +592,12 @@ def run_profile(torch, report, args):
         return (getattr(e, "self_device_time_total", 0)
                 or getattr(e, "self_cuda_time_total", 0))
 
-    events = [e for e in prof.key_averages() if dev_us(e) > 0]
+    # only the device's own rows (kernels, memcpys, memsets): a CPU op's
+    # row also carries the device time of what it launched, so summing
+    # every row would count that time twice (torch's table footer sums
+    # the same rows)
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
     busy = sum(dev_us(e) for e in events) / 1e6
     top = sorted(events, key=dev_us, reverse=True)[:10]
     report["profile"] = dict(
@@ -691,8 +707,6 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out"))
-    ap.add_argument("--requests", type=int, default=8)
-    ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--phases",
                     default="build,kernels,casts,serve,logits,profile")
     args = ap.parse_args()
@@ -744,7 +758,7 @@ def main() -> int:
                 ok &= check_paged(torch, np, report, timer)
                 ok &= check_prefill(torch, np, report, timer)
                 time_attention(torch, np, report, timer,
-                               serve_len=128 + args.max_new // 2)
+                               serve_len=SERVE_PROMPT + SERVE_MAX_NEW // 2)
             elif phase == "casts":
                 ok = check_casts(torch, np, report)
             elif phase == "serve":

@@ -10,13 +10,18 @@ from typing import List
 
 import torch
 
+from repro_torch import resolve_device
+
 
 def synchronous_generate(model, cfg, policy, params, prompts, *,
                          max_new: int, capacity: int,
                          device=None) -> List[List[int]]:
-    """Greedy-decode each prompt independently; returns the generated
-    token lists (first token included, like ``Request.generated``)."""
+    """Greedy-decode each prompt independently on ``device`` (default
+    ``cuda``; raises when no card is present unless ``device="cpu"``);
+    returns the generated token lists (first token included, like
+    ``Request.generated``)."""
     del cfg
+    device = resolve_device(device)
     outs: List[List[int]] = []
     for prompt in prompts:
         batch = {"tokens": torch.tensor([list(prompt)], dtype=torch.int32,

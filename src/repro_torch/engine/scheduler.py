@@ -29,6 +29,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.kernels import paged_cache
 
 from .stats import EngineStats
@@ -68,8 +69,10 @@ class Request:
 
 
 class Engine:
-    """Paged continuous-batching engine over a fixed number of slots; runs
-    on the device the parameters live on."""
+    """Paged continuous-batching engine over a fixed number of slots.  Its
+    pools and token buffers live on ``device`` (default ``cuda``; raises
+    when no card is present unless ``device="cpu"``), which must be the
+    device the parameters live on."""
 
     def __init__(self, model, cfg, policy, params, *, slots: int,
                  capacity: int,
@@ -82,8 +85,7 @@ class Engine:
         self.params = params
         self.slots = slots
         self.capacity = capacity
-        self.device = torch.device(device) if device is not None \
-            else torch.device("cpu")
+        self.device = resolve_device(device)
         if cfg.window is not None and capacity > cfg.window:
             raise ValueError(
                 f"arch {cfg.arch}: --capacity {capacity} exceeds the "

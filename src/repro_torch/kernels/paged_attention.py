@@ -126,10 +126,13 @@ def paged_decode(q, k_pool, v_pool, fmt, lengths, block_tables, *,
 
 def paged_hbm_bytes(lengths, n_kv: int, head_dim: int, fmt, *,
                     page_size: int, g: int = 1) -> int:
-    """Bytes one paged decode call must move: every live page of K and V
-    (container width, whole pages), block-table entries, q in and out."""
+    """Bytes one paged decode call must move: the live tokens of K and V
+    (container width; the kernel reads only ``min(page, len - base)`` rows
+    of a sequence's last page), the block-table entries of live pages, the
+    lengths, q in and out."""
     item = 4 if fmt is None else get_format(fmt).container_bytes
     lengths = np.asarray(lengths, np.int64)
     pages = int((-(-lengths // page_size)).sum())
-    kv = 2 * pages * page_size * n_kv * head_dim * item
-    return kv + pages * 4 + 2 * len(lengths) * n_kv * g * head_dim * 4
+    kv = 2 * int(lengths.sum()) * n_kv * head_dim * item
+    return (kv + pages * 4 + len(lengths) * 4
+            + 2 * len(lengths) * n_kv * g * head_dim * 4)

@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core.formats import get_format
 from repro_torch.core.qtensor import QTensor
 
@@ -36,13 +37,19 @@ def tensor_from_numpy(a, device=None) -> torch.Tensor:
 
 def params_from_numpy(tree, device=None):
     """Nested dicts/lists of numpy arrays (packed leaves as
-    ``(payload, format name)``) -> the port's param tree on ``device``."""
+    ``(payload, format name)``) -> the port's param tree on ``device``
+    (default ``cuda``; raises when no card is present unless
+    ``device="cpu"``)."""
+    return _convert(tree, resolve_device(device))
+
+
+def _convert(tree, device):
     if isinstance(tree, dict):
-        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+        return {k: _convert(v, device) for k, v in tree.items()}
     if isinstance(tree, tuple) and len(tree) == 2 and isinstance(tree[1],
                                                                  str):
         payload, name = tree
         return QTensor(tensor_from_numpy(payload, device), get_format(name))
     if isinstance(tree, (list, tuple)):
-        return [params_from_numpy(v, device) for v in tree]
+        return [_convert(v, device) for v in tree]
     return tensor_from_numpy(tree, device)

@@ -1,7 +1,8 @@
 """The dense decoder-only LM: the port of ``repro.models.transformer``
 for the ``dense`` family (MoE, rwkv, rglru, prefix-LM, enc-dec and
-``verify_step`` wait).  Parameters are plain nested dicts of tensors;
-every entry point runs on the device its parameters live on.
+``verify_step`` wait).  Parameters are plain nested dicts of tensors,
+made on ``cuda`` unless the caller passes ``device="cpu"``; the forward
+entry points run on the device their parameters live on.
 """
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core.policy import PrecisionPolicy
 
 from . import attention as attn
@@ -33,8 +35,11 @@ class Model:
     def init_params(self, gen: torch.Generator, policy: PrecisionPolicy,
                     device=None) -> Dict[str, Any]:
         """Random weights from ``gen`` (normal, 1/sqrt(fan_in) scale, the
-        embedding at unit scale), stored in the policy's dtypes."""
+        embedding at unit scale), stored in the policy's dtypes on
+        ``device`` (default ``cuda``; raises when no card is present
+        unless ``device="cpu"``).  ``gen`` must live on that device."""
         cfg = self.cfg
+        device = resolve_device(device)
         edt = policy.dtype("embed_w")
         params: Dict[str, Any] = {
             "embed": dense_init(gen, (cfg.vocab, cfg.d_model), scale=1.0,
@@ -74,8 +79,10 @@ class Model:
         return lm_logits(x, self._head_w(params), policy)
 
     def init_state(self, batch_size, capacity, policy, device=None):
-        """Contiguous per-layer KV caches (the synchronous loop's)."""
+        """Contiguous per-layer KV caches (the synchronous loop's) on
+        ``device`` (default ``cuda``, as :meth:`init_params`)."""
         cfg = self.cfg
+        device = resolve_device(device)
         shape = (batch_size, capacity, cfg.n_kv, cfg.head_dim)
         return [attn.KVCache(
             k=torch.zeros(shape, dtype=policy.dtype("kv_cache", li),

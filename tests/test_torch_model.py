@@ -59,7 +59,7 @@ def _models(pol, decode_impl, matmul_impl, jdecode=None, jmatmul=None):
     jparams = jmodel.init_params(jax.random.PRNGKey(0), jpol)
     model, cfg = build("llama3-8b", reduced=True)
     tpol = get_policy(pol, decode_impl=decode_impl, matmul_impl=matmul_impl)
-    tparams = params_from_numpy(to_numpy(jparams))
+    tparams = params_from_numpy(to_numpy(jparams), device="cpu")
     if matmul_impl == "qmm_pallas":
         tparams = qparams.encode_params(tparams, tpol)
     if (jmatmul or matmul_impl) == "qmm_pallas":

@@ -149,6 +149,8 @@ def test_page_pool_bookkeeping_matches_reference():
 
 
 def test_paged_hbm_bytes_counts_whole_live_pages():
-    # 2 sequences: 1 + 3 live pages of 8 tokens, e5m2 K and V
+    # 2 sequences of 5 + 20 tokens over 1 + 3 live pages of 8 tokens: e5m2
+    # K and V for the live tokens only (the last page's dead rows are not
+    # read), the 4 live table entries, 2 lengths, q in and out
     assert paged_hbm_bytes([5, 20], 2, 16, "binary8", page_size=8, g=4) == (
-        2 * 4 * 8 * 2 * 16 * 1 + 4 * 4 + 2 * 2 * 2 * 4 * 16 * 4)
+        2 * 25 * 2 * 16 * 1 + 4 * 4 + 2 * 4 + 2 * 2 * 2 * 4 * 16 * 4)

@@ -14,7 +14,7 @@ from repro.core.policy import get_policy as jget_policy  # noqa: E402
 from repro.launch import serve as jserve  # noqa: E402
 from repro.models.registry import build as jbuild  # noqa: E402
 from repro_torch.core.policy import get_policy  # noqa: E402
-from repro_torch.engine import synchronous_generate  # noqa: E402
+from repro_torch.engine import Engine, synchronous_generate  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models import qparams  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
@@ -36,7 +36,7 @@ def _jax_weights():
 def test_serve_tokens_match_jax_cli_and_synchronous_loop(capsys):
     want = jserve.main(FLAGS + ["--decode-impl", "xla",
                                 "--matmul-impl", "xla"])
-    params = params_from_numpy(_jax_weights())
+    params = params_from_numpy(_jax_weights(), device="cpu")
     got = tserve.main(FLAGS + ["--decode-impl", "paged", "--matmul-impl",
                                "qmm_pallas", "--device", "cpu"],
                       params=params)
@@ -71,7 +71,7 @@ def test_serve_evicts_lifo_and_still_matches_synchronous_loop():
     params = model.init_params(gen, policy, device="cpu")
     sync = synchronous_generate(model, cfg, policy, params,
                                 [r.prompt for r in reqs], max_new=6,
-                                capacity=24)
+                                capacity=24, device="cpu")
     assert sync == [r.generated for r in reqs]
 
 
@@ -82,3 +82,19 @@ def test_entry_points_refuse_a_missing_card():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         tserve.main(["--reduced", "--requests", "1"])
+    model, cfg = build("llama3-8b", reduced=True)
+    policy = get_policy("binary32")
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init_params(gen, policy)
+    params = model.init_params(gen, policy, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init_state(1, 8, policy)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_numpy({"w": np.zeros(2, np.float32)})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        synchronous_generate(model, cfg, policy, params, [[1, 2]],
+                             max_new=1, capacity=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine(model, cfg, policy, params, slots=1, capacity=8,
+               page_size=8)
