@@ -76,6 +76,12 @@ class PrecisionPolicy:
             return self.fmt(role, layer).native_dtype
         return torch.float32
 
+    def with_overrides(self, **roles) -> "PrecisionPolicy":
+        """This policy with ``roles`` (role name -> format) replaced."""
+        f = dict(self.formats)
+        f.update({k: get_format(v) for k, v in roles.items()})
+        return dataclasses.replace(self, formats=f)
+
     def at_layer(self, layer: int) -> "PrecisionPolicy":
         if not any("." in k for k in self.formats):
             return self

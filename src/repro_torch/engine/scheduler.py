@@ -12,15 +12,23 @@ Each engine step does, in order:
 3. **Growth / eviction** -- every decoding slot gets a mapped page for its
    next token; when the pool runs dry the most recently admitted sequence
    is evicted back to the queue head (LIFO) and its pages reused.
-4. **One batched decode step** over every decoding slot; a mid-prefill
+4. **One batched decode step** over every decoding slot, or with a
+   :class:`~repro_torch.engine.speculative.SpeculativeDecoder` one
+   speculation round (k draft steps + one target verify); a mid-prefill
    slot's block-table row is masked to -1, so its writes drop and its
    length stays.
 
-The argmax tokens and the NaN/Inf verdicts cross to the host in one
-transfer per step (:func:`_host`).  A slot whose logits are not finite
-fails with a classified ``NonFiniteLogits`` result (the reference's
-quarantine-and-replay, speculative decoding, fault injection, deadlines
-and the router wait).
+With speculation every slot also owns pages in the pool's ``draft``
+namespace: admission reserves both sides, growth maps this round's worst
+case (k tokens, clamped to what the request can still emit) on both,
+acceptance truncates both, and finishing or eviction frees both.
+
+The argmax tokens and the NaN/Inf verdicts (a round's targets, emit and
+accept counts) cross to the host in one transfer per step
+(:func:`_host`).  A slot whose logits are not finite fails with a
+classified ``NonFiniteLogits`` result (the reference's
+quarantine-and-replay, fault injection, the speculative circuit breaker,
+deadlines and the router wait).
 """
 from __future__ import annotations
 
@@ -42,9 +50,15 @@ class NonFiniteLogits(RuntimeError):
 
 
 def _host(*tensors) -> List[np.ndarray]:
-    """The loop's single device -> host synchronization point per step."""
-    flat = torch.stack([t.to(torch.int32) for t in tensors])
-    return list(flat.cpu().numpy())
+    """The loop's single device -> host synchronization point per step:
+    every tensor as int32, in one copy, back in its own shape."""
+    flat = torch.cat([t.to(torch.int32).reshape(-1) for t in tensors])
+    flat = flat.cpu().numpy()
+    out, at = [], 0
+    for t in tensors:
+        out.append(flat[at:at + t.numel()].reshape(t.shape))
+        at += t.numel()
+    return out
 
 
 class Request:
@@ -80,7 +94,7 @@ class Engine:
                  pool_pages: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
                  transport=None, stats: Optional[EngineStats] = None,
-                 device=None):
+                 speculative=None, device=None):
         self.model, self.cfg, self.policy = model, cfg, policy
         self.params = params
         self.slots = slots
@@ -118,6 +132,9 @@ class Engine:
                                             self.transport, self.stats,
                                             chunk_tokens=chunk_tokens)
         self.decode_worker = DecodeWorker(model, policy)
+        self.spec = speculative
+        if self.spec is not None:
+            self.spec.setup(self)
         self.kv_bytes_per_token = sum(
             cfg.n_kv * cfg.head_dim * 2
             * policy.dtype("kv_cache", layer=li).itemsize
@@ -146,18 +163,31 @@ class Engine:
             for si in mask_slots:
                 tables[si] = -1
         # one host -> device copy per push, shared by every layer
-        dev = torch.as_tensor(tables).to(self.device)
+        if self.spec is not None:
+            dtables = self.pool.ns_tables(self.spec.NS).copy()
+            for si in mask_slots:
+                dtables[si] = -1
+            both = torch.as_tensor(np.stack([tables, dtables])).to(
+                self.device)
+            dev = both[0]
+            self.spec.push_tables(both[1])
+        else:
+            dev = torch.as_tensor(tables).to(self.device)
         for li in range(len(self.states)):
             self.states[li] = paged_cache.set_block_tables(self.states[li],
                                                            dev)
 
     def _check_feasible(self, r: Request) -> None:
         worst = self.pool.pages_for(len(r.prompt) + r.max_new)
-        if worst > self.pages_per_seq or worst > self.num_pages:
+        total = worst * (2 if self.spec is not None else 1)
+        if worst > self.pages_per_seq or total > self.num_pages:
             raise ValueError(
-                f"a single request needs {worst} pages (prompt "
+                f"a single request needs {total} pages (prompt "
                 f"{len(r.prompt)} + max-new {r.max_new}, page size "
-                f"{self.page}) but the pool offers min({self.pages_per_seq} "
+                f"{self.page}"
+                + (", x2 for the draft namespace"
+                   if self.spec is not None else "")
+                + f") but the pool offers min({self.pages_per_seq} "
                 f"per-seq, {self.num_pages} total); raise "
                 f"--capacity/--pool-pages")
 
@@ -179,9 +209,11 @@ class Engine:
         return self.summary
 
     def _release_slot_state(self, si: int) -> None:
-        self.pool.free_slot(si)
+        self.pool.free_slot(si)        # every namespace at once
         for li in range(len(self.states)):
             self.states[li] = paged_cache.release_slot(self.states[li], si)
+        if self.spec is not None:
+            self.spec.release_slot(si)
         if self._task is not None and self._task.slot == si:
             self._task = None
         self._slots[si] = None
@@ -226,6 +258,58 @@ class Engine:
         # as in the reference, the slot joins the decode batch even when
         # max_new == 1; completion is checked after each decode token
         self._tokens[si, 0] = int(am)
+        if self.spec is not None:
+            # the target prompt has landed; write the draft's KV for it
+            # (the draft tables were pushed with the prefill chunk's)
+            self.spec.prefill_prompt(si, r.prompt)
+
+    def _round_tokens(self, si: int) -> int:
+        """Tokens slot ``si`` may append this step: 1, or with speculation
+        k clamped to what its request can still emit."""
+        if self.spec is None:
+            return 1
+        r = self._slots[si]
+        return min(self.spec.k, r.max_new - len(r.generated))
+
+    def _grow(self, si: int) -> bool:
+        """Map pages for this step's appends, in both namespaces under
+        speculation."""
+        need = int(self.pool.lens[si]) + self._round_tokens(si)
+        ok = self.pool.ensure_capacity(si, need)
+        if ok and self.spec is not None:
+            ok = self.pool.ensure_capacity(si, need, ns=self.spec.NS)
+        return ok
+
+    def _spec_round(self, decoding: List[int]) -> None:
+        """One speculation round over the decoding slots, in place of the
+        batched decode step."""
+        tgt_d, m_d, acc_d, pending, bad_d, self.states = self.spec.round(
+            self.params, self._tokens, self.states)
+        self.decode_steps += 1
+        self.stats.note_target_step()
+        tgt, m, acc, bad = _host(tgt_d, m_d, acc_d, bad_d)
+        proposed = accepted = 0
+        for si in decoding:
+            if bool(bad[si]):
+                self._fail_slot(si, "verify logits")
+                continue
+            r = self._slots[si]
+            L = int(self.pool.lens[si])
+            gi = self._round_tokens(si)
+            # positions at or past gi had no page mapped for them; the
+            # device rollback kept base + m, so clamp the host view alike
+            mi = min(int(m[si]), gi)
+            r.generated.extend(int(t) for t in tgt[si, :mi])
+            self.stats.note_decode_tokens(mi)
+            self._new_tokens += mi
+            proposed += gi
+            accepted += min(int(acc[si]), gi)
+            self.pool.truncate(si, L + mi)
+            self.pool.truncate(si, L + mi, ns=self.spec.NS)
+            if len(r.generated) >= r.max_new:
+                self._finish_slot(si)
+        self.stats.note_spec_round(proposed=proposed, accepted=accepted)
+        self._tokens = pending
 
     # -------------------------------------------------------------------- step
     def step(self) -> None:
@@ -235,9 +319,15 @@ class Engine:
         if self._queue and self._task is None:
             si = next((i for i in range(n) if self._slots[i] is None), None)
             need = len(self._queue[0].prompt)
-            if si is not None and self.pool.can_admit(need + 1):
+            needs = (need + 1, need) if self.spec is not None \
+                else (need + 1,)
+            if si is not None and self.pool.can_admit(*needs):
                 r = self._queue.pop(0)
-                assert self.pool.allocate(si, need), (si, need)
+                ok = self.pool.allocate(si, need)
+                if self.spec is not None:
+                    ok = ok and self.pool.allocate(si, need,
+                                                   ns=self.spec.NS)
+                assert ok, (si, need)   # can_admit held above
                 self._slots[si] = r
                 self._admissions += 1
                 self._admitted_at[si] = self._admissions
@@ -262,7 +352,7 @@ class Engine:
             if self._slots[si] is None or si in task_slots:
                 continue
             while self._slots[si] is not None:
-                if self.pool.ensure_capacity(si, int(self.pool.lens[si]) + 1):
+                if self._grow(si):
                     break
                 victim = self._newest_active()
                 self._evict(victim)
@@ -275,6 +365,9 @@ class Engine:
                     if self._slots[si] is not None and si not in task_slots]
         if decoding:
             self._push_tables(mask_slots=task_slots)
+        if decoding and self.spec is not None:
+            self._spec_round(decoding)
+        elif decoding:
             nxt, bad_d, self.states = self.decode_worker.step(
                 self.params, self._tokens, self.states)
             self.decode_steps += 1

@@ -1,9 +1,9 @@
 """EngineStats: per-step records and the end-of-run summary.
 
-The port of the core of ``repro.engine.stats`` (the speculative and
-resilience counters wait with their features).  TTFT is measured from
-enqueue on the host clock after the step that produced the first token
-synchronised with the device, so it is end to end.
+The port of the core of ``repro.engine.stats`` and its speculation
+counters (the resilience counters wait with their features).  TTFT is
+measured from enqueue on the host clock after the step that produced the
+first token synchronised with the device, so it is end to end.
 """
 from __future__ import annotations
 
@@ -25,7 +25,12 @@ class EngineStats:
         self.decode_tokens = 0
         self.evictions = 0
         self.prefill_chunks: Dict[int, int] = {}
+        # batched target forwards (decode steps or verify rounds), and the
+        # speculation rounds, draft proposals judged and accepted
         self.target_steps = 0
+        self.spec_rounds = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
         self.peak_prefill_transient_tokens = 0
         self.failures = 0
         self._t0 = time.perf_counter()
@@ -65,6 +70,13 @@ class EngineStats:
     def note_target_step(self) -> None:
         self.target_steps += 1
 
+    def note_spec_round(self, *, proposed: int, accepted: int) -> None:
+        """One speculation round: ``proposed`` draft tokens judged by the
+        verify step across the batch, ``accepted`` of them matched."""
+        self.spec_rounds += 1
+        self.spec_proposed += int(proposed)
+        self.spec_accepted += int(accepted)
+
     def step_record(self, *, step: int, queue_depth: int, prefilling: int,
                     decoding: int, new_tokens: int,
                     pool_stats: dict) -> dict:
@@ -103,7 +115,15 @@ class EngineStats:
             "prefill_chunks_by_worker": {
                 str(w): c for w, c in sorted(self.prefill_chunks.items())},
             "evictions": self.evictions,
+            # steps_per_token < 1 means speculation pays: fewer batched
+            # target forwards than tokens emitted; accept_rate is None
+            # without speculation
             "target_steps": self.target_steps,
+            "steps_per_token": round(self.target_steps / self.decode_tokens,
+                                     4) if self.decode_tokens else None,
+            "spec_rounds": self.spec_rounds,
+            "accept_rate": round(self.spec_accepted / self.spec_proposed, 4)
+            if self.spec_proposed else None,
             "peak_prefill_transient_tokens":
                 self.peak_prefill_transient_tokens,
             "peak_prefill_transient_bytes":

@@ -32,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 P = ctypes.c_void_p
 I32 = ctypes.c_int
+I64 = ctypes.c_int64
 F32 = ctypes.c_float
 
 
@@ -59,13 +60,19 @@ def build_dir() -> Path:
 
 
 class KernelLib:
-    """One ``csrc/<name>.cu`` shared library and its launch count."""
+    """One ``csrc/<name>.cu`` shared library and its launch counts: in
+    all (``launches``) and per C entry point (``by_symbol``)."""
 
     def __init__(self, name: str, signatures: Dict[str, list]):
         self.name = name
         self.signatures = signatures
         self.launches = 0
+        self.by_symbol: Dict[str, int] = {}
         self._lib: Optional[ctypes.CDLL] = None
+
+    def reset_counts(self) -> None:
+        self.launches = 0
+        self.by_symbol = {}
 
     @property
     def so_path(self) -> Path:
@@ -115,6 +122,7 @@ class KernelLib:
                 f"CUDA kernel {self.name}:{symbol} failed to launch "
                 f"(cudaError {rc})")
         self.launches += 1
+        self.by_symbol[symbol] = self.by_symbol.get(symbol, 0) + 1
 
     def ptxas_report(self) -> str:
         """What ``nvcc -Xptxas -v`` said (registers, shared memory,

@@ -13,9 +13,14 @@ decode (``decode_impl``)::
                     ``kernels/paged_attention.paged_decode``, the CUDA
                     kernel ``csrc/paged_decode.cu`` on a CUDA tensor, its
                     plain version on a CPU tensor.
-    "flash_pallas"  legal spelling, but its decode half (``flash_decode``
-                    over a contiguous cache) is not ported yet: resolving
-                    it for decode raises.
+    "flash_pallas"  ``kernels/flash_attention.flash_decode`` over a
+                    contiguous cache: the CUDA kernel
+                    ``csrc/flash_decode.cu`` on a CUDA tensor, its plain
+                    version on a CPU tensor.  A paged cache reaches it
+                    through the gather bridge in ``models/attention.py``
+                    (every slot's pages gathered contiguous, positions at
+                    or past ``seq_lens`` masked).  The serving default on
+                    a card, as the reference's on its accelerator.
 
 prefill::
 
@@ -81,12 +86,13 @@ def validate_impl(spec: Optional[str], *, allow_none: bool = True,
 
 
 def default_serving_impl(device=None) -> Optional[str]:
-    """Serving default when no ``--decode-impl`` is given: the block-table
-    CUDA kernel on a card (``flash_decode`` is not ported, so ``paged`` is
-    the fused path here); ``None`` (the model config's default) on the
-    CPU, where the plain path is the honest baseline."""
+    """Serving default when no ``--decode-impl`` is given:
+    ``flash_pallas`` (the fused packed-KV flash decode kernel) on a card,
+    as the reference returns it on its accelerator; ``None`` (the model
+    config's default) on the CPU, where the plain path is the honest
+    baseline."""
     if device is not None and torch.device(device).type == "cuda":
-        return "paged"
+        return "flash_pallas"
     return None
 
 
@@ -139,13 +145,7 @@ def register_prefill(name: str) -> Callable:
 
 
 def resolve_decode(spec: str) -> Callable:
-    name = validate_impl(spec, allow_none=False)
-    if name not in _DECODE:
-        raise NotImplementedError(
-            f"decode_impl {name!r}: its decode kernel (flash_decode) is not "
-            f"ported to repro_torch yet; use 'paged' (block-table kernel) "
-            f"or 'xla'")
-    return _DECODE[name]
+    return _DECODE[validate_impl(spec, allow_none=False)]
 
 
 def resolve_prefill(spec: str) -> Callable:

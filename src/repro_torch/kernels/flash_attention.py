@@ -1,15 +1,26 @@
-"""Chunked causal GQA prefill attention: the CUDA kernel and its plain
-PyTorch version.
+"""Fused GQA attention over packed K/V: one-token decode and chunked
+causal prefill, the CUDA kernels and their plain PyTorch versions.
 
-The port of the prefill half of ``repro.kernels.flash_attention``
-(``flash_decode`` and ``flash_prefill_diff`` are not ported yet).
+The port of ``repro.kernels.flash_attention`` (``flash_prefill_diff``, the
+training backward, is not ported yet).
+
+``flash_decode(q, k, v, fmt, lengths)`` attends one query token per
+sequence, q (B, H, G, dh), over a contiguous cache K/V (B, S, H, dh) --
+packed (e, m) containers when ``fmt`` is set, else floats -- masking
+positions at or past ``lengths`` (clamped to S).  On a CUDA tensor it
+launches ``csrc/flash_decode.cu``; on a CPU tensor it runs
+``flash_decode_plain`` (the reference's ``flash_decode_reference`` order:
+decode, one masked f32 softmax).
+
 ``flash_prefill(q, k, v, fmt, ...)`` attends q (B, Sq, H, G, dh) causally
 -- key position <= ``q_offset`` + query index, optionally inside a sliding
 ``window`` and with a bidirectional ``prefix_len`` -- over K/V
-(B, Skv, H, dh), packed (e, m) containers when ``fmt`` is set or floats.
-On a CUDA tensor it launches ``csrc/flash_prefill.cu``; on a CPU tensor
-it runs ``flash_prefill_plain`` (the reference's ``_prefill_xla_reference``
-order: one masked softmax in f32 over decoded K/V).
+(B, Skv, H, dh).  On a CUDA tensor it launches ``csrc/flash_prefill.cu``;
+on a CPU tensor it runs ``flash_prefill_plain`` (the reference's
+``_prefill_xla_reference`` order: one masked softmax in f32 over decoded
+K/V).
+
+The two kernels are separate libraries with launch counts of their own.
 """
 from __future__ import annotations
 
@@ -25,6 +36,10 @@ from .codec import decode_tile
 
 NEG_INF = -1e30  # finite sentinel: keeps exp(m_prev - m_new) well-defined
 
+DECODE_LIB = _build.register(_build.KernelLib("flash_decode", {
+    "flash_decode_launch": [_build.P] * 7 + [_build.I32] * 5 + [
+        _build.F32] + [_build.I32] * 3 + [_build.P],
+}))
 LIB = _build.register(_build.KernelLib("flash_prefill", {
     "flash_prefill_launch": [_build.P] * 4 + [_build.I32] * 6 + [
         _build.F32] + [_build.I32] * 6 + [_build.P],
@@ -36,6 +51,102 @@ def payload_to_f32(x: torch.Tensor, fmt: Optional[FpFormat]) -> torch.Tensor:
     if fmt is None:
         return x.to(torch.float32)
     return decode_tile(x, fmt)
+
+
+def flash_decode_plain(q, k_payload, v_payload, fmt, lengths, *,
+                       scale: Optional[float] = None,
+                       return_residuals: bool = False):
+    """The plain version: decode K/V, masked f32 softmax (max -> exp ->
+    PV / sum), in ``flash_decode_reference``'s order."""
+    fmt = get_format(fmt) if fmt is not None else None
+    dh = q.shape[-1]
+    if scale is None:
+        scale = float(1.0 / np.sqrt(dh))
+    k = payload_to_f32(k_payload, fmt)
+    v = payload_to_f32(v_payload, fmt)
+    s = torch.einsum("bhgd,bshd->bhgs", q.to(torch.float32), k) \
+        * np.float32(scale)
+    valid = (torch.arange(s.shape[-1], device=q.device)[None, :]
+             < lengths.to(torch.int64)[:, None])
+    vmask = valid[:, None, None, :]
+    zero = torch.zeros((), device=q.device)
+    s = torch.where(vmask, s, torch.tensor(NEG_INF, dtype=torch.float32,
+                                           device=q.device))
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.where(vmask, torch.exp(s - m), zero)
+    num = torch.einsum("bhgs,bshd->bhgd", p, v)
+    den = torch.sum(p, dim=-1, keepdim=True)
+    out = torch.where(den > 0, num / torch.where(den > 0, den, 1.0), zero)
+    if return_residuals:
+        return out, m[..., 0], den[..., 0]
+    return out
+
+
+def _decode_cuda(q, k, v, fmt, lengths, scale, return_residuals):
+    B, H, G, dh = q.shape
+    S = k.shape[1]
+    _build.check_operands("flash_decode", q.device, q=q, k=k, v=v,
+                          lengths=lengths)
+    want = torch.float32 if fmt is None else fmt.container_dtype
+    if q.dtype != torch.float32 or k.dtype != want or v.dtype != want:
+        raise ValueError(f"flash_decode: q must be float32 and K/V {want}, "
+                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    if lengths.dtype != torch.int32:
+        raise ValueError("flash_decode: lengths must be int32")
+    if G not in (1, 2, 4, 8) or dh > 128:
+        raise ValueError(f"flash_decode: the CUDA kernel takes G in "
+                         f"(1, 2, 4, 8) and head_dim <= 128, got G={G}, "
+                         f"dh={dh}")
+    out = torch.empty((B, H, G, dh), dtype=torch.float32, device=q.device)
+    m = l = None
+    if return_residuals:
+        m = torch.empty((B, H, G), dtype=torch.float32, device=q.device)
+        l = torch.empty((B, H, G), dtype=torch.float32, device=q.device)
+    if B and H:
+        efmt = fmt if fmt is not None else get_format("binary32")
+        p = _build.ptr
+        DECODE_LIB.launch("flash_decode_launch", p(q), p(k), p(v),
+                          p(lengths), p(out), p(m), p(l), B, S, H, G, dh,
+                          float(scale), _build.fmt_code(fmt), efmt.e, efmt.m,
+                          _build.stream_ptr(q.device))
+    return (out, m, l) if return_residuals else out
+
+
+def flash_decode(q, k_payload, v_payload, fmt, lengths, *,
+                 scale: Optional[float] = None,
+                 return_residuals: bool = False):
+    """Single-token GQA attention over a contiguous packed KV cache.
+
+    q: (B, H, G, dh) float; k_payload / v_payload: (B, S, H, dh) packed
+    containers (``fmt`` set) or floats; lengths: (B,) valid slots per
+    sequence, clamped to S.  Returns (B, H, G, dh) float32, plus the flash
+    partials (m, l) of shape (B, H, G) with ``return_residuals``; a
+    zero-length row gives zeros and (m, l) = (NEG_INF, 0)."""
+    fmt = get_format(fmt) if fmt is not None else None
+    B, H, G, dh = q.shape
+    S = k_payload.shape[1]
+    assert k_payload.shape == v_payload.shape == (B, S, H, dh), (
+        q.shape, k_payload.shape, v_payload.shape)
+    if scale is None:
+        scale = float(1.0 / np.sqrt(dh))
+    lengths = torch.clamp(lengths.to(torch.int32), max=S)
+    if q.device.type == "cpu":
+        return flash_decode_plain(q, k_payload, v_payload, fmt, lengths,
+                                  scale=scale,
+                                  return_residuals=return_residuals)
+    return _decode_cuda(q, k_payload, v_payload, fmt, lengths.contiguous(),
+                        scale, return_residuals)
+
+
+def decode_hbm_bytes(lengths, S: int, n_kv: int, head_dim: int, fmt, *,
+                     g: int = 1) -> int:
+    """Bytes one flash decode call must move: the live tokens of K and V
+    (``min(len, S)`` rows per sequence, container width), the lengths,
+    q in and out (f32)."""
+    item = 4 if fmt is None else get_format(fmt).container_bytes
+    live = np.minimum(np.asarray(lengths, np.int64), S)
+    kv = 2 * int(live.sum()) * n_kv * head_dim * item
+    return kv + len(live) * 4 + 2 * len(live) * n_kv * g * head_dim * 4
 
 
 def prefill_mask(Sq: int, Skv: int, q_offset: int, window: Optional[int],

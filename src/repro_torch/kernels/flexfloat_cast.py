@@ -1,0 +1,106 @@
+"""FlexFloat sanitization (f32 -> (e, m)), fused quantize + pack, and
+unpack: the CUDA kernels and their plain PyTorch versions.
+
+The port of ``repro.kernels.flexfloat_cast``.  ``flexfloat_cast``,
+``quantize_encode`` and ``dequantize_decode`` keep the reference's
+signatures without the Pallas ``block`` / ``interpret`` arguments.  On a
+CUDA tensor each launches its kernel in ``csrc/flexfloat_cast.cu`` (one
+flat grid-stride pass over any shape and element count); on a CPU tensor
+it runs the plain version, the port's int64 codec
+(``kernels/codec.py``).  binary32 ``flexfloat_cast`` returns ``x``
+without a launch, as in the reference.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.formats import get_format
+
+from . import _build
+from .codec import decode_tile, encode_tile, quantize_tile
+
+_SIG = [_build.P, _build.P, _build.I64] + [_build.I32] * 5 + [_build.P]
+LIB = _build.register(_build.KernelLib("flexfloat_cast", {
+    "flexfloat_cast_launch": _SIG,
+    "quantize_encode_launch": _SIG,
+    "dequantize_decode_launch": _SIG,
+}))
+
+
+def flexfloat_cast_plain(x, fmt, *, saturate: bool = False) -> torch.Tensor:
+    fmt = get_format(fmt)
+    return quantize_tile(torch.as_tensor(x).to(torch.float32), fmt.e, fmt.m,
+                         saturate)
+
+
+def quantize_encode_plain(x, fmt) -> torch.Tensor:
+    fmt = get_format(fmt)
+    return encode_tile(quantize_tile(torch.as_tensor(x).to(torch.float32),
+                                     fmt.e, fmt.m), fmt)
+
+
+def dequantize_decode_plain(payload, fmt) -> torch.Tensor:
+    return decode_tile(torch.as_tensor(payload), get_format(fmt))
+
+
+def _launch(symbol: str, x, out, fmt, third: int) -> torch.Tensor:
+    """One flat launch over ``x`` into ``out`` (same shape, contiguous)."""
+    n = x.numel()
+    if n == 0:
+        return out
+    vec = int(x.data_ptr() % (4 * x.element_size()) == 0
+              and out.data_ptr() % (4 * out.element_size()) == 0)
+    LIB.launch(symbol, _build.ptr(x), _build.ptr(out), n, fmt.e, fmt.m,
+               third, vec, _build.sm_count(x.device),
+               _build.stream_ptr(x.device))
+    return out
+
+
+def flexfloat_cast(x, fmt, *, saturate: bool = False) -> torch.Tensor:
+    """Sanitize ``x`` to ``fmt``: round to nearest even, gradual
+    underflow, overflow to +/-Inf (or +/-max_normal with ``saturate``),
+    canonical NaN.  Returns float32 of ``x``'s shape."""
+    fmt = get_format(fmt)
+    x = torch.as_tensor(x).to(torch.float32)
+    if fmt.is_binary32:
+        return x
+    if x.device.type == "cpu":
+        return flexfloat_cast_plain(x, fmt, saturate=saturate)
+    x = x.contiguous()
+    return _launch("flexfloat_cast_launch", x, torch.empty_like(x), fmt,
+                   int(saturate))
+
+
+def quantize_encode(x, fmt) -> torch.Tensor:
+    """Fused sanitize + pack: f32 -> the (e, m) field in the format's
+    uint8 / uint16 / uint32 container."""
+    fmt = get_format(fmt)
+    x = torch.as_tensor(x).to(torch.float32)
+    if x.device.type == "cpu":
+        return quantize_encode_plain(x, fmt)
+    x = x.contiguous()
+    out = torch.empty(x.shape, dtype=fmt.container_dtype, device=x.device)
+    return _launch("quantize_encode_launch", x, out, fmt,
+                   fmt.container_bytes)
+
+
+def dequantize_decode(payload, fmt) -> torch.Tensor:
+    """Unpack (e, m) containers to exact f32 values."""
+    fmt = get_format(fmt)
+    payload = torch.as_tensor(payload)
+    if payload.device.type == "cpu":
+        return dequantize_decode_plain(payload, fmt)
+    if payload.dtype != fmt.container_dtype:
+        raise ValueError(f"dequantize_decode: {fmt.name} payloads are "
+                         f"{fmt.container_dtype}, got {payload.dtype}")
+    payload = payload.contiguous()
+    out = torch.empty(payload.shape, dtype=torch.float32,
+                      device=payload.device)
+    return _launch("dequantize_decode_launch", payload, out, fmt,
+                   fmt.container_bytes)
+
+
+def elementwise_hbm_bytes(n: int, in_bytes: int, out_bytes: int) -> int:
+    """Bytes one elementwise pass must move: each input element read once,
+    each output element written once."""
+    return n * (in_bytes + out_bytes)

@@ -14,6 +14,12 @@ The port's copy of ``repro.kernels.paged_cache``.  Two halves:
     The host allocator (free list, per-slot page ownership), copied from
     the reference as it is.
 
+The device functions are the reference's: ``append_decode``,
+``append_block`` (K tokens per slot, the speculative verify write),
+``write_chunk``, ``set_seq_len``, ``truncate_seq_lens`` (the speculative
+rollback), ``release_slot``, ``set_block_tables``, ``gather_pages`` and
+``paged_view_of_contiguous``.
+
 Unmapped block-table entries are ``-1``.  Writes through an unmapped entry
 are dropped: JAX drops them with ``mode="drop"``, torch's ``index_put``
 raises on an out-of-range index, so the port masks the rows explicitly.
@@ -138,6 +144,31 @@ def append_decode(cache: PagedKVCache, k, v) -> PagedKVCache:
         seq_lens=torch.where(mapped, pos + 1, pos).to(torch.int32))
 
 
+def append_block(cache: PagedKVCache, k, v) -> PagedKVCache:
+    """Append ``K`` tokens per slot at positions ``seq_lens[s] + i``.
+
+    k / v: (n_slots, K, n_kv, head_dim), cast to the pool dtype here.
+    Token ``i`` of slot ``s`` lands where ``K`` sequential
+    :func:`append_decode` calls would put it (same cast, same drops), so
+    the speculative verify path stays bit-identical to plain decode.  A
+    slot's length advances by its run of *leading* mapped positions."""
+    K = k.shape[1]
+    base = cache.seq_lens.long()
+    pos = base[:, None] + torch.arange(K, device=base.device)[None, :]
+    lp = torch.clamp(pos // cache.page_size, 0, cache.pages_per_seq - 1)
+    phys = torch.gather(cache.block_tables.long(), 1, lp)
+    mapped = (phys >= 0) & (pos < cache.capacity)
+    phys = torch.where(mapped, phys, -1)
+    off = pos % cache.page_size
+    tail = tuple(k.shape[2:])
+    _scatter_tokens(cache.k_pool, phys.reshape(-1), off.reshape(-1),
+                    k.reshape((-1,) + tail))
+    _scatter_tokens(cache.v_pool, phys.reshape(-1), off.reshape(-1),
+                    v.reshape((-1,) + tail))
+    adv = torch.cumprod(mapped.to(torch.int64), dim=1).sum(dim=1)
+    return cache._replace(seq_lens=(base + adv).to(torch.int32))
+
+
 def write_chunk(cache: PagedKVCache, slot: int, k, v,
                 offset: int) -> PagedKVCache:
     """Scatter one prefill chunk (positions offset..offset+S-1) of one
@@ -158,6 +189,26 @@ def write_chunk(cache: PagedKVCache, slot: int, k, v,
     lens = cache.seq_lens.clone()
     lens[slot] = offset + n_mapped
     return cache._replace(seq_lens=lens)
+
+
+def set_seq_len(cache: PagedKVCache, slot: int, n) -> PagedKVCache:
+    """Host-declared length for ``slot`` (a transport that copies whole
+    pages into the pool sets the device length at handoff)."""
+    lens = cache.seq_lens.clone()
+    lens[slot] = int(n)
+    return cache._replace(seq_lens=lens)
+
+
+def truncate_seq_lens(cache: PagedKVCache, max_lens) -> PagedKVCache:
+    """Device half of the speculative rollback: clamp every slot's length
+    to ``max_lens`` (per slot).  Entries past the clamp stay as stale pool
+    bytes, which every reader masks; :meth:`PagePool.truncate` returns
+    the pages past the truncation point to the free list."""
+    if not isinstance(max_lens, torch.Tensor):
+        max_lens = torch.as_tensor(np.asarray(max_lens, np.int64))
+    return cache._replace(seq_lens=torch.minimum(
+        cache.seq_lens, max_lens.to(cache.seq_lens.device,
+                                    torch.int32)))
 
 
 def release_slot(cache: PagedKVCache, slot: int) -> PagedKVCache:

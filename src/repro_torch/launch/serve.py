@@ -6,8 +6,9 @@
 The port of ``repro.launch.serve`` for this subset of its flags:
 ``--arch --reduced --requests --slots --prompt-len --max-new --capacity
 --policy --decode-impl --matmul-impl --page-size --pool-pages
---prefill-chunk``, plus ``--device`` (default ``cuda``; raises when no
-card is present unless ``--device cpu``), ``--seed`` (weights from a
+--prefill-chunk --speculate-k --draft-config``, plus ``--device``
+(default ``cuda``; raises when no card is present unless ``--device
+cpu``), ``--seed`` (weights from a
 ``torch.Generator``, prompts from numpy) and ``--stats-out``.  It prints
 the same ``[serve] ... tok/s ...`` summary line, and :func:`main`
 returns the ``Request`` list.
@@ -21,14 +22,39 @@ import numpy as np
 import torch
 
 from repro_torch import configs, resolve_device
+from repro_torch.core.formats import BINARY8
 from repro_torch.core.policy import get_policy
-from repro_torch.engine import Engine, EngineStats, Request
+from repro_torch.engine import (Engine, EngineStats, Request,
+                                SpeculativeDecoder)
 from repro_torch.kernels import dispatch
-from repro_torch.launch.cli import add_backend_args
+from repro_torch.launch.cli import add_backend_args, add_speculative_args
 from repro_torch.models import qparams
 from repro_torch.models.registry import build
 
-__all__ = ["Request", "main"]
+__all__ = ["Request", "build_draft", "main"]
+
+
+def build_draft(model, cfg, *, arch=None, reduced=False, k: int,
+                seed: int = 0, device=None, matmul_impl=None):
+    """The binary8 packed draft side for speculative serving, with the
+    reference's draft policy: ``transprecision`` with binary8
+    ``embed_w`` / ``attn_w`` / ``ffn_w``, ``decode_impl="paged"``, weights
+    packed.  By default the draft is the target's arch with weights from
+    the target's seed (the same values, rounded to binary8); ``arch``
+    swaps in another arch, whose vocab must match.  The draft follows the
+    target's ``matmul_impl``, so on a card it streams its packed weights
+    through the qmm kernel."""
+    dmodel, dcfg = model, cfg
+    if arch is not None and arch != cfg.arch:
+        dmodel, dcfg = build(arch, reduced=reduced)
+    dpolicy = get_policy("transprecision", decode_impl="paged",
+                         matmul_impl=matmul_impl).with_overrides(
+        embed_w=BINARY8, attn_w=BINARY8, ffn_w=BINARY8)
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dparams = dmodel.init_params(gen, dpolicy, device=device)
+    dparams = qparams.encode_params(dparams, dpolicy)
+    return SpeculativeDecoder(dmodel, dcfg, dpolicy, dparams, k=k)
 
 
 def parse_args(argv=None):
@@ -41,6 +67,7 @@ def parse_args(argv=None):
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--capacity", type=int, default=128)
     add_backend_args(ap, include_pool=True)
+    add_speculative_args(ap)
     ap.add_argument("--prefill-chunk", type=int, default=None,
                     help="tokens prefilled per engine step (default: one "
                          "page)")
@@ -78,11 +105,21 @@ def main(argv=None, *, params=None):
                     args.max_new)
             for i in range(args.requests)]
 
+    speculative = None
+    if args.speculate_k:
+        speculative = build_draft(model, cfg, arch=args.draft_config,
+                                  reduced=args.reduced, k=args.speculate_k,
+                                  seed=args.seed, device=device,
+                                  matmul_impl=policy.matmul_impl)
+        print(f"[serve] speculative: draft={speculative.cfg.arch} "
+              f"(binary8 packed weights, binary8 KV), k={args.speculate_k}")
+
     engine = Engine(model, cfg, policy, params, slots=args.slots,
                     capacity=args.capacity, page_size=args.page_size,
                     pool_pages=args.pool_pages,
                     prefill_chunk=args.prefill_chunk,
-                    stats=EngineStats(args.stats_out), device=device)
+                    stats=EngineStats(args.stats_out),
+                    speculative=speculative, device=device)
     engine.run(reqs)
 
     s = engine.summary
@@ -103,7 +140,10 @@ def main(argv=None, *, params=None):
           f"{st['num_pages']} pages peak, frag: "
           f"{st['internal_fragmentation']}, "
           f"evictions: {s['evictions']}, "
-          f"transport: {engine.transport.name}, "
+          + (f"accept rate: {s['accept_rate']}, "
+             f"steps/token: {s['steps_per_token']}, "
+             if args.speculate_k else "")
+          + f"transport: {engine.transport.name}, "
           f"device: {device}, "
           f"ttft mean: {s['ttft_mean_s']}s, "
           f"peak prefill staging: {s['peak_prefill_transient_tokens']} "

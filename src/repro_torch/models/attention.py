@@ -8,8 +8,10 @@ Paths: prefill through the prefill registry, decode against a contiguous
 one slot's pages.
 
 Registered backends (``kernels/dispatch.py`` says what each spelling maps
-to): decode ``xla`` / ``paged``; prefill ``xla`` / ``flash_pallas`` /
-``paged``.  The KV write into the pool stays a torch cast
+to): decode ``xla`` / ``flash_pallas`` / ``paged``; prefill ``xla`` /
+``flash_pallas`` / ``paged``.  :func:`verify_paged` is the speculative
+verify step's attention: K positions per slot through the same decode
+backends.  The KV write into the pool stays a torch cast
 (``.to(float8_e5m2)``), as the reference's is an XLA ``astype``.
 """
 from __future__ import annotations
@@ -22,7 +24,8 @@ import torch
 from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.core.qtensor import decode as _qdecode
 from repro_torch.kernels import dispatch, paged_cache
-from repro_torch.kernels.flash_attention import NEG_INF, flash_prefill
+from repro_torch.kernels.flash_attention import (NEG_INF, flash_decode,
+                                                 flash_prefill)
 from repro_torch.kernels.paged_attention import paged_decode
 from repro_torch.kernels.paged_cache import PagedKVCache
 
@@ -132,6 +135,18 @@ def _decode_xla(q, ck, cv, n_valid, *, scale, policy,
     out = peinsum("bhgqk,bkhd->bqhgd", probs, vv, policy, "attn_w",
                   out_act=False)
     return out[:, 0], m[..., 0], l[..., 0]
+
+
+@dispatch.register_decode("flash_pallas")
+def _decode_flash_pallas(q, ck, cv, n_valid, *, scale, policy,
+                         return_residuals: bool = False):
+    """Fused packed-KV flash decode over a contiguous cache:
+    ``kernels/flash_attention.flash_decode`` (the CUDA kernel on a card)
+    reads container-width bytes and decodes them in the kernel."""
+    kp, vp, fmt = _cache_payload(ck, cv, policy)
+    return flash_decode(q.to(F32).contiguous(), kp, vp, fmt,
+                        n_valid.to(torch.int32), scale=scale,
+                        return_residuals=return_residuals)
 
 
 @dispatch.register_decode("paged")
@@ -305,6 +320,61 @@ def mha(p, x, cfg, policy: PrecisionPolicy, *, prefix_len: int = 0,
         new_cache = _build_cache(k, v, cfg, policy, cache_capacity, S)
 
     out = out.reshape(B, S, cfg.q_dim)
+    return pdot(out, p["wo"], policy, "attn_w"), new_cache
+
+
+def verify_paged(p, x, cfg, policy: PrecisionPolicy, cache: PagedKVCache):
+    """Speculative-verify attention: append ``K`` tokens per slot to the
+    paged cache, then attend each position through the registered decode
+    backend -- position by position the computation of ``K`` sequential
+    single-token :func:`mha` decode calls.
+
+    x: (B, K, d).  The projections, rope and output matmul run once over
+    all K positions (one weight pass instead of K); the attention core is
+    a loop over positions through the same decode contract the plain
+    decode step uses: position ``i`` sees ``n_valid = min(seq_lens_before
+    + i + 1, seq_lens_after)``, and entries written for later positions
+    sit at or beyond that bound, where every backend masks them.  For a
+    contiguous backend one gather of the pages serves all K positions.
+    Returns (out (B, K, d), new_cache with K appended per mapped slot)."""
+    B, K, _ = x.shape
+    n_kv, dh = cfg.n_kv, cfg.head_dim
+    G = cfg.n_heads // n_kv
+    if cfg.window is not None and cache.capacity > cfg.window:
+        raise ValueError(
+            f"paged KV cache capacity {cache.capacity} exceeds the sliding "
+            f"window {cfg.window}")
+    q, k, v = _qkv(p, x, cfg, policy)
+    base = cache.seq_lens.to(torch.int64)
+    if cfg.rope_theta > 0:
+        positions = base[:, None] + torch.arange(K, device=x.device)[None, :]
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+
+    new_cache = paged_cache.append_block(cache, k, v)
+
+    scale = np.float32(1.0 / np.sqrt(dh))
+    qg = q.reshape(B, K, n_kv, G, dh)
+    impl = decode_impl(cfg, policy)
+    fn = dispatch.resolve_decode(impl)
+    paged_base = dispatch.canonicalize_impl(impl)[-1] == "paged"
+    if not paged_base:
+        ckg = paged_cache.gather_pages(new_cache.k_pool,
+                                       new_cache.block_tables)
+        cvg = paged_cache.gather_pages(new_cache.v_pool,
+                                       new_cache.block_tables)
+    after = new_cache.seq_lens.to(torch.int64)
+    outs = []
+    for i in range(K):
+        n_valid = torch.minimum(base + (i + 1), after).to(torch.int32)
+        if paged_base:
+            o = fn(qg[:, i], new_cache.k_pool, new_cache.v_pool, n_valid,
+                   scale=scale, policy=policy,
+                   block_tables=new_cache.block_tables)
+        else:
+            o = fn(qg[:, i], ckg, cvg, n_valid, scale=scale, policy=policy)
+        outs.append(act_cast(o, policy))
+    out = torch.stack(outs, dim=1).reshape(B, K, cfg.q_dim)
     return pdot(out, p["wo"], policy, "attn_w"), new_cache
 
 

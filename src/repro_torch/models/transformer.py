@@ -1,6 +1,6 @@
 """The dense decoder-only LM: the port of ``repro.models.transformer``
-for the ``dense`` family (MoE, rwkv, rglru, prefix-LM, enc-dec and
-``verify_step`` wait).  Parameters are plain nested dicts of tensors,
+for the ``dense`` family (MoE, rwkv, rglru, prefix-LM and enc-dec
+wait).  Parameters are plain nested dicts of tensors,
 made on ``cuda`` unless the caller passes ``device="cpu"``; the forward
 entry points run on the device their parameters live on.
 """
@@ -13,6 +13,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.policy import PrecisionPolicy
+from repro_torch.kernels.paged_cache import PagedKVCache
 
 from . import attention as attn
 from .base import ModelConfig
@@ -133,6 +134,43 @@ class Model:
                                          states[li], slot, q_offset,
                                          chunk=chunk))
         return self._logits(params, x[:, -1:, :], policy), new_states
+
+    @torch.no_grad()
+    def verify_step(self, params, tokens, states, policy: PrecisionPolicy):
+        """Speculative-verify forward: K tokens per slot in ONE batched
+        step, logits for every position.
+
+        tokens: (B, K); position ``i`` of row ``b`` is the token the
+        sequence consumes at cache position ``seq_lens[b] + i``.  Returns
+        (logits (B, K, V), new paged states with K entries appended per
+        mapped slot), where ``logits[:, i]`` is what the i-th of K
+        sequential :meth:`decode_step` calls gives: every other layer acts
+        row-wise, and attention goes per position through the same decode
+        backend (``attention.verify_paged``).  On the CPU plain path the
+        two agree bit for bit; the CUDA matmul sums in another order at
+        M = B * K than at M = B, so on the card they agree to rounding.
+
+        Needs an all-attention decoder over paged caches, as in the
+        reference: recurrent layer states cannot roll back rejected
+        positions."""
+        cfg = self.cfg
+        policy = self._policy(policy)
+        if any(kind != "attn" for kind in cfg.attn_pattern):
+            raise ValueError(
+                f"arch {cfg.arch}: verify_step needs an all-attention "
+                f"pattern -- recurrent layer states cannot roll back "
+                f"rejected speculative positions")
+        if not all(isinstance(s, PagedKVCache) for s in states):
+            raise ValueError("verify_step runs over paged KV caches")
+        x = embed_lookup(params["embed"], tokens, policy,
+                         scale=cfg.embed_scale)
+        new_states = list(states)
+        for li, layer in enumerate(params["layers"]):
+            lp = policy.at_layer(li)
+            x, new_states[li] = self._block(
+                layer, x, lp, lambda h, lp=lp, layer=layer, li=li:
+                attn.verify_paged(layer["mix"], h, cfg, lp, states[li]))
+        return self._logits(params, x, policy), new_states
 
     @torch.no_grad()
     def decode_step(self, params, tokens, states, policy: PrecisionPolicy):

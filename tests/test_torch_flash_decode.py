@@ -1,0 +1,116 @@
+"""The port's flash_decode (its plain version on the CPU) against the JAX
+package: the XLA oracle ``flash_decode_reference`` and the Pallas kernel
+in interpret mode, within 1e-6 absolute (the reference's own contract,
+``tests/test_conformance.py``), over packed and float caches, residuals,
+zero-length rows, lengths above S, and an S that is not a multiple of the
+reference's KV tile.  Also the ``flash_pallas`` decode spelling through
+the registry and the paged gather bridge, and the byte model."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import qtensor as jqt  # noqa: E402
+from repro.kernels import flash_attention as jfa  # noqa: E402
+from repro_torch.kernels import dispatch  # noqa: E402
+from repro_torch.kernels import flash_attention as tfa  # noqa: E402
+
+FMTS = ["binary8", "binary16", "binary16alt", "binary32", None]
+
+
+def _case(fmt, B=4, S=40, H=2, G=4, dh=16, seed=0,
+          lengths=(0, 5, 40, 97)):
+    """lengths: a zero-length row, a short one, a full one and one above
+    S (clamped to S)."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, H, G, dh)).astype(np.float32)
+    kf = rng.normal(size=(B, S, H, dh)).astype(np.float32)
+    vf = rng.normal(size=(B, S, H, dh)).astype(np.float32)
+    if fmt is None:
+        kp, vp = kf, vf
+    else:
+        kp = np.asarray(jqt.encode(jnp.asarray(kf), fmt))
+        vp = np.asarray(jqt.encode(jnp.asarray(vf), fmt))
+    return q, kp, vp, np.asarray(lengths, np.int32)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+@pytest.mark.parametrize("fmt", FMTS, ids=lambda f: f or "f32")
+def test_flash_decode_matches_xla_reference(fmt):
+    q, kp, vp, lengths = _case(fmt, seed=1)
+    want, wm, wl = jfa.flash_decode_reference(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), fmt,
+        jnp.asarray(np.minimum(lengths, kp.shape[1])),
+        return_residuals=True)
+    got, gm, gl = tfa.flash_decode(_t(q), _t(kp), _t(vp), fmt, _t(lengths),
+                                   return_residuals=True)
+    assert got.shape == q.shape and gm.shape == q.shape[:3]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-6)
+    np.testing.assert_allclose(gm.numpy(), np.asarray(wm), rtol=1e-6)
+    np.testing.assert_allclose(gl.numpy(), np.asarray(wl), rtol=1e-6)
+    assert (got[0] == 0).all() and (gl[0] == 0).all()
+
+
+@pytest.mark.parametrize("fmt,S", [("binary8", 40), ("binary16alt", 24),
+                                   (None, 33)],
+                         ids=["binary8-S40", "binary16alt-S24", "f32-S33"])
+def test_flash_decode_matches_pallas_interpret(fmt, S):
+    """The Pallas kernel itself, several KV tiles (block_kv 16, so S = 33
+    and 40 leave a ragged last tile) and residuals."""
+    q, kp, vp, lengths = _case(fmt, S=S, seed=2, lengths=(0, 7, S, S + 9))
+    want, wm, wl = jfa.flash_decode(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), fmt,
+        jnp.asarray(lengths), block_kv=16, return_residuals=True,
+        interpret=True)
+    got, gm, gl = tfa.flash_decode(_t(q), _t(kp), _t(vp), fmt, _t(lengths),
+                                   return_residuals=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-6)
+    np.testing.assert_allclose(gm.numpy(), np.asarray(wm), rtol=1e-6)
+    np.testing.assert_allclose(gl.numpy(), np.asarray(wl), rtol=1e-5)
+
+
+def test_flash_pallas_spelling_serves_the_paged_bridge():
+    """``flash_pallas`` resolves for decode, and through the gather bridge
+    it agrees with the block-table ``paged`` backend on one paged state
+    with invalid (unmapped) slots: both mask the same positions."""
+    from repro_torch.core.policy import get_policy
+    from repro_torch.kernels import paged_cache as tpc
+    from repro_torch.models import attention  # noqa: F401 (registers)
+
+    pol = get_policy("transprecision")
+    rng = np.random.default_rng(4)
+    B, H, G, dh, page, pps, num_pages = 3, 2, 4, 16, 8, 4, 12
+    pool_k = torch.tensor(rng.normal(size=(num_pages, page, H, dh)),
+                          dtype=torch.float32).to(torch.float8_e5m2)
+    pool_v = torch.tensor(rng.normal(size=(num_pages, page, H, dh)),
+                          dtype=torch.float32).to(torch.float8_e5m2)
+    tables = torch.tensor([[3, 7, -1, -1], [-1, -1, -1, -1],
+                           [0, 1, 2, 5]], dtype=torch.int32)
+    lens = torch.tensor([13, 0, 29], dtype=torch.int32)
+    q = torch.tensor(rng.normal(size=(B, H, G, dh)), dtype=torch.float32)
+    scale = float(1.0 / np.sqrt(dh))
+    paged = dispatch.resolve_decode("paged")(
+        q, pool_k, pool_v, lens, scale=scale, policy=pol,
+        block_tables=tables)
+    ck = tpc.gather_pages(pool_k, tables)
+    cv = tpc.gather_pages(pool_v, tables)
+    flash = dispatch.resolve_decode("flash_pallas")(
+        q, ck, cv, lens, scale=scale, policy=pol)
+    np.testing.assert_allclose(flash.numpy(), paged.numpy(), rtol=0,
+                               atol=1e-6)
+    assert (flash[1] == 0).all()
+
+
+def test_decode_byte_model():
+    # live tokens only: min(len, S) rows of K and V at container width
+    assert tfa.decode_hbm_bytes([0, 100, 300], 256, 8, 128, "binary8",
+                                g=4) == (2 * (100 + 256) * 8 * 128
+                                         + 3 * 4 + 2 * 3 * 8 * 4 * 128 * 4)
