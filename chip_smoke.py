@@ -1,17 +1,20 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card and check it.
 
     python3 chip_smoke.py [--seed N] [--out DIR] [--phases a,b,...]
+                          [--src DIR]
 
 Run from the root of a checkout.  Phases:
 
 1. build       -- compile every CUDA kernel of ``src/repro_torch/csrc``
                   (one nvcc per source, all started together) into
                   ``build/kernels/``.
-2. kernels     -- qmm, paged_decode, flash_prefill and flash_decode
-                  against their plain PyTorch versions on the card, at
-                  the serving path's shapes and at ragged edge shapes,
-                  with the stated tolerances; times each kernel, its
-                  plain version and a library yardstick.
+2. kernels     -- qmm (its GEMV and its tensor-core kernel),
+                  paged_decode, flash_prefill and flash_decode against
+                  their plain PyTorch versions on the card, at the
+                  serving path's shapes and at ragged edge shapes, with
+                  the stated tolerances; times each kernel, its plain
+                  version and a library yardstick (qmm per decode step,
+                  per prefill chunk and per verify round).
 3. casts       -- torch's CUDA f32 -> float8_e5m2 / bfloat16 casts (the
                   KV write and the activation cast) against the plain
                   codec; the three flexfloat_cast kernels bit-identical to
@@ -25,19 +28,27 @@ Run from the root of a checkout.  Phases:
 5. serve       -- ``repro_torch.launch.serve.main`` on full-width,
                   full-depth llama3-8b (random weights from the seed),
                   ``--decode-impl paged``, asserting the launch counts per
-                  decode step and per prefill chunk.
+                  decode step and per prefill chunk (and per qmm entry
+                  point: 192 tensor-core launches per chunk).
 6. serve_flash -- the same workload under ``--decode-impl flash_pallas``
                   (the serving default on a card): 32 flash_decode and no
                   paged_decode per decode step.
 7. speculative -- ``--speculate-k 4`` with the binary8 draft, asserting
-                  the launch counts per round; accept rate and the tokens
-                  that differ from serve_flash.
+                  the launch counts per round and per verify (193
+                  tensor-core launches at 4 slots x 4 tokens); accept
+                  rate and the tokens that differ from serve_flash.
 8. logits      -- a prefill chunk, a decode step and a speculative verify
                   step of a 2-layer, full-width model: kernel path against
-                  plain path, and verify against sequential decode.
+                  plain path, and verify against sequential decode, under
+                  binary32 and transprecision.
 9. profile     -- short paged and speculative serve runs under
                   torch.profiler: device busy share and the kernels that
                   take the device time; the host syncs of a tiny serve.
+
+``--phases build,timing --src OTHER/src`` times another checkout's
+qmm (prefill chunk, verify round) and flash_prefill with this script's
+timing code, e.g. a parent commit unpacked into a git-ignored directory,
+to set its kernels beside this checkout's in one chip call.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -124,12 +135,47 @@ class Timer:
 
 
 # ---------------------------------------------------------------------------
+# phase 1: the tensor-core kernel is compiled to tensor-core instructions
+# ---------------------------------------------------------------------------
+
+def check_tc_sass(lib, report):
+    """``cuobjdump -sass`` of the built qmm library: every instantiation
+    of the tensor-core kernel ``qmm_tc`` must hold HMMA (or HGMMA)
+    instructions.  Counts per function go to the report."""
+    from repro_torch.kernels import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib.so_path)],
+                          capture_output=True, text=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = 0
+        elif fn is not None and ("HMMA" in line or "HGMMA" in line):
+            counts[fn] = counts.get(fn, 0) + 1
+    tc = {f: n for f, n in counts.items() if "qmm_tc" in f}
+    ok = bool(tc) and all(n > 0 for n in tc.values())
+    report["qmm_tc_sass_hmma"] = tc
+    print(f"[build] cuobjdump -sass libqmm.so: {len(tc)} qmm_tc functions, "
+          f"HMMA/HGMMA counts {sorted(tc.values())} "
+          f"{'ok' if ok else 'FAIL'}")
+    return ok
+
+
+# ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 def check_qmm(torch, np, report, timer):
-    from repro_torch.core.formats import (BINARY8, BINARY16, BINARY16ALT,
-                                          BINARY32)
+    """qmm against qmatmul_plain, within 1e-6 in units of |x| @ |w| (the
+    reference's contract): the serving shapes at M = 1, 4 (GEMV), 16 and
+    64 (tensor cores), every paper format on both paths, the tensor-core
+    path at M in (9, 16, 17, 33, 100), ragged K and N, gated + bias and
+    out_fmt; then the error at K = 14336 with and without the promotion
+    of the tensor core's partial sums."""
+    from repro_torch.core.formats import (BINARY8, BINARY8ALT, BINARY16,
+                                          BINARY16ALT, BINARY32)
     from repro_torch.core.qtensor import decode, encode
     from repro_torch.kernels import qmatmul as Q
 
@@ -145,16 +191,22 @@ def check_qmm(torch, np, report, timer):
         return encode(w.to(fmt.native_dtype), fmt)
 
     worst = 0.0
+    worst_tc = 0.0
+    tc_units = {}          # worst error in acc units on the tensor cores
 
     def case(name, M, K, N, fmt, gated=False, bias=False, act=None,
-             out_fmt=None):
-        nonlocal worst
+             out_fmt=None, promote=True):
+        nonlocal worst, worst_tc
         x = rand(M, K)
         wp = pack(rand(K, N), fmt)
         gp = pack(rand(K, N), fmt) if gated else None
         b = rand(N) if bias else None
-        got = Q.qmatmul(x, wp, None, fmt, out_fmt, gate_payload=gp, bias=b,
-                        act=act)
+        if promote:
+            got = Q.qmatmul(x, wp, None, fmt, out_fmt, gate_payload=gp,
+                            bias=b, act=act)
+        else:
+            got = Q._qmm_cuda(x, wp, fmt, out_fmt, gp, b, act,
+                              tc_promote=False)
         want = Q.qmatmul_plain(x, wp, None, fmt, out_fmt, gate_payload=gp,
                                bias=b, act=act)
         torch.cuda.synchronize()
@@ -174,42 +226,110 @@ def check_qmm(torch, np, report, timer):
             tol = 1e-6 * sh * sg
         norm = float((err / (sh * sg)).max())
         ok = bool((err <= tol).all())
+        tc = M > Q.GEMV_MAX_M and fmt != BINARY32
+        path = "tc" if tc else "gemv" if M <= Q.GEMV_MAX_M else "f32 tiled"
         report["cases"].append(dict(kernel="qmm", case=name, M=M, K=K, N=N,
                                     fmt=fmt.name, gated=gated, act=act,
+                                    path=path, promote=promote,
                                     max_abs_err=float(err.max()),
                                     max_err_in_acc_units=norm, ok=ok))
         print(f"[kernels] qmm {name:<28} M={M:<3} K={K:<5} N={N:<6} "
-              f"{fmt.name:<11} max|err|={float(err.max()):.3e} "
+              f"{fmt.name:<11} {path:<9} max|err|={float(err.max()):.3e} "
               f"({norm:.2e} x |x|@|w|, tol 1e-6) {'ok' if ok else 'FAIL'}")
-        if fmt == BINARY16ALT and out_fmt is None:
-            worst = max(worst, float(err.max()))
+        if fmt == BINARY16ALT and out_fmt is None and promote:
+            if tc:
+                worst_tc = max(worst_tc, float(err.max()))
+            else:
+                worst = max(worst, float(err.max()))
+        if tc and promote and out_fmt is None:
+            tc_units[fmt.name] = max(tc_units.get(fmt.name, 0.0), norm)
         del x, wp, gp, b, got, want, sh, sg, err
-        return ok
+        return ok, norm
+
+    def run(*a, **k):
+        return case(*a, **k)[0]
 
     ok = True
-    # the serving path: binary16alt weights, M = 1 / 4 decode, 64 prefill
-    for M in (1, 4, 64):
-        ok &= case("wq/wo", M, 4096, 4096, BINARY16ALT)
-        ok &= case("wk/wv", M, 4096, 1024, BINARY16ALT)
-        ok &= case("ffn gated silu", M, 4096, 14336, BINARY16ALT, gated=True,
-                   act="silu")
-        ok &= case("w_out", M, 14336, 4096, BINARY16ALT)
-    ok &= case("head", 4, 4096, 128256, BINARY16ALT)
+    # the serving path: binary16alt weights, M = 1 / 4 decode (GEMV), 16
+    # verify and 64 prefill (tensor cores)
+    for M in (1, 4, 16, 64):
+        ok &= run("wq/wo", M, 4096, 4096, BINARY16ALT)
+        ok &= run("wk/wv", M, 4096, 1024, BINARY16ALT)
+        ok &= run("ffn gated silu", M, 4096, 14336, BINARY16ALT, gated=True,
+                  act="silu")
+        ok &= run("w_out", M, 14336, 4096, BINARY16ALT)
+    ok &= run("head", 4, 4096, 128256, BINARY16ALT)
+    ok &= run("head", 16, 4096, 128256, BINARY16ALT)
     # every paper format, plain and gated-silu with bias, edge shapes
-    for fmt in (BINARY8, BINARY16, BINARY16ALT, BINARY32):
+    for fmt in (BINARY8, BINARY8ALT, BINARY16, BINARY16ALT, BINARY32):
         for M in (1, 4, 64):
-            ok &= case("plain", M, 4096, 4096, fmt)
-            ok &= case("gated silu + bias", M, 4096, 1024, fmt, gated=True,
-                       bias=True, act="silu")
-        ok &= case("ragged", 3, 100, 70, fmt)
-        ok &= case("ragged gated silu + bias", 3, 100, 70, fmt, gated=True,
-                   bias=True, act="silu")
-    ok &= case("ragged gelu(tanh)", 5, 130, 77, BINARY8, bias=True,
-               act="gelu")
-    ok &= case("ragged relu2", 33, 100, 70, BINARY16, act="relu2")
-    ok &= case("ragged out_fmt binary16alt", 3, 100, 70, BINARY8,
-               gated=True, act="silu", out_fmt=BINARY16ALT)
+            ok &= run("plain", M, 4096, 4096, fmt)
+            ok &= run("gated silu + bias", M, 4096, 1024, fmt, gated=True,
+                      bias=True, act="silu")
+        ok &= run("ragged", 3, 100, 70, fmt)
+        ok &= run("ragged gated silu + bias", 3, 100, 70, fmt, gated=True,
+                  bias=True, act="silu")
+    # the tensor-core path on each packed format: every tile height, a
+    # second row of tiles, ragged M / K / N (unaligned rows load element
+    # by element), gated + bias, out_fmt
+    for fmt in (BINARY8, BINARY8ALT, BINARY16, BINARY16ALT):
+        for M in (9, 16, 17, 33, 100):
+            ok &= run("tc rows", M, 4096, 1024, fmt)
+        ok &= run("tc gated silu + bias", 33, 4096, 1024, fmt, gated=True,
+                  bias=True, act="silu")
+        ok &= run("tc ragged", 9, 100, 70, fmt)
+        ok &= run("tc ragged split-K", 17, 4100, 1030, fmt, gated=True,
+                  bias=True, act="silu")
+        ok &= run("tc aligned ragged N", 33, 4096, 1040, fmt)
+        ok &= run("tc out_fmt binary16alt", 17, 4100, 1030, fmt, gated=True,
+                  act="silu", out_fmt=BINARY16ALT)
+    ok &= run("ragged gelu(tanh)", 5, 130, 77, BINARY8, bias=True,
+              act="gelu")
+    ok &= run("ragged relu2", 33, 100, 70, BINARY16, act="relu2")
+    ok &= run("ragged out_fmt binary16alt", 3, 100, 70, BINARY8,
+              gated=True, act="silu", out_fmt=BINARY16ALT)
     report["qmm_max_abs_err"] = worst
+    report["qmm_tc_max_abs_err"] = worst_tc
+    report["qmm_tc_units_by_fmt"] = tc_units
+
+    # the promotion of the tensor core's sums into FADD, at the longest K
+    # of the path (w_out, K = 14336, M = 64); without it is measured, not
+    # held to the tolerance
+    promo = {}
+    for fmt in (BINARY8, BINARY8ALT, BINARY16, BINARY16ALT):
+        good, with_p = case("w_out promoted", 64, 14336, 4096, fmt)
+        ok &= good
+        _, without = case("w_out not promoted (measured)", 64, 14336, 4096,
+                          fmt, promote=False)
+        promo[fmt.name] = dict(promoted=with_p, not_promoted=without)
+    report["qmm_tc_promotion"] = promo
+    print(f"[kernels] qmm tensor cores, worst error in units of |x|@|w| "
+          f"by format: {tc_units}; at K = 14336 with / without the "
+          f"promotion: {promo}")
+
+    # a row's result does not depend on M (the K split is a function of
+    # K and N, and each output's sum runs in a fixed order): the first
+    # rows of a 128-row input through M = 9 ... 100 are bit-identical to
+    # its own rows, as the draft's whole-prompt prefill, the target's
+    # 64-token chunks and the 16-row verify need
+    inv = {}
+    for name, K, N, gated in (("wq", 4096, 4096, False),
+                              ("ffn gated silu", 4096, 14336, True),
+                              ("w_out", 14336, 4096, False)):
+        x = rand(128, K)
+        wp = pack(rand(K, N), BINARY16ALT)
+        gp = pack(rand(K, N), BINARY16ALT) if gated else None
+        act = "silu" if gated else None
+        full = Q.qmatmul(x, wp, None, BINARY16ALT, gate_payload=gp, act=act)
+        inv[name] = all(torch.equal(
+            Q.qmatmul(x[:m], wp, None, BINARY16ALT, gate_payload=gp,
+                      act=act), full[:m]) for m in (9, 16, 17, 33, 64, 100))
+        ok &= inv[name]
+        del x, wp, gp, full
+    report["qmm_tc_rows_invariant_in_M"] = inv
+    print(f"[kernels] qmm tensor cores, rows of a 128-row input bit-identical "
+          f"through M = 9, 16, 17, 33, 64, 100: {inv} "
+          f"{'ok' if all(inv.values()) else 'FAIL'}")
 
     # timing at the serving decode step (M = 4 slots): one step is
     # 32 x (wq, wk, wv, wo, gated ffn, w_out) + the head = 193 launches
@@ -256,6 +376,84 @@ def check_qmm(torch, np, report, timer):
     report["qmm_step"] = totals
     torch.cuda.empty_cache()
     return ok
+
+
+LLAMA_PROJ = [("wq", 4096, 4096, False), ("wk", 4096, 1024, False),
+              ("wv", 4096, 1024, False), ("wo", 4096, 4096, False),
+              ("ffn", 4096, 14336, True), ("w_out", 14336, 4096, False)]
+
+
+def time_qmm_tiled(torch, np, report, timer):
+    """qmm at the main path's two tiled shapes, binary16alt weights: per
+    prefill chunk (M = 64, 192 launches = 32 x (wq, wk, wv, wo, gated ffn,
+    w_out)) and per verify round (M = 16, the same 192 + the head at
+    N = 128256).  Each shape: kernel, plain version, and torch.matmul on
+    dequantized f32 weights with TF32 off (timed only, never called by the
+    port); bytes and bound; the f32 CUDA-core floor 2 M sum(KN) / 67
+    TFLOP/s beside it.  Uses only the API every slice of the port has, so
+    ``--src`` can time an earlier checkout's kernel."""
+    from repro_torch.core.formats import BINARY16ALT
+    from repro_torch.core.qtensor import decode, encode
+    from repro_torch.kernels import qmatmul as Q
+
+    gen = torch.Generator(device="cuda").manual_seed(report["seed"] + 8)
+    fmt = BINARY16ALT
+    for key, M, shapes in (
+            ("qmm_chunk", 64, [(n, K, N, g, 32) for n, K, N, g in
+                               LLAMA_PROJ]),
+            ("qmm_verify", 16, [(n, K, N, g, 32) for n, K, N, g in
+                                LLAMA_PROJ] + [("head", 4096, 128256,
+                                                False, 1)])):
+        totals = dict(M=M, launches=0, ms=0.0, plain_ms=0.0,
+                      library_ms=0.0, bytes=0, flops=0)
+        for name, K, N, gated, mult in shapes:
+            x = torch.randn((M, K), generator=gen, device="cuda")
+            wp = encode(torch.randn((K, N), generator=gen, device="cuda").to(
+                fmt.native_dtype), fmt)
+            gp = encode(torch.randn((K, N), generator=gen, device="cuda").to(
+                fmt.native_dtype), fmt) if gated else None
+            act = "silu" if gated else None
+            wf = decode(wp, fmt)
+            gf = decode(gp, fmt) if gated else None
+            t_k = timer(lambda: Q.qmatmul(x, wp, None, fmt, gate_payload=gp,
+                                          act=act))
+            t_p = timer(lambda: Q.qmatmul_plain(x, wp, None, fmt,
+                                                gate_payload=gp, act=act),
+                        iters=5)
+            if gated:
+                t_l = timer(lambda: torch.nn.functional.silu(x @ wf)
+                            * (x @ gf))
+            else:
+                t_l = timer(lambda: torch.matmul(x, wf))
+            nbytes = Q.qmm_hbm_bytes(M, K, N, fmt, gated=gated)
+            flops = 2 * M * K * N * (2 if gated else 1)
+            report["timings"].append(dict(
+                kernel="qmm_tiled", per=key, shape=name, M=M, K=K, N=N,
+                launches_per=mult, ms=t_k, plain_ms=t_p, library_ms=t_l,
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                bytes=nbytes, flops=flops,
+                f32_floor_ms=flops / F32_PEAK_FLOPS * 1e3))
+            print(f"[timing] qmm {key[4:]:<6} {name:<6} M={M:<2} K={K:<5} "
+                  f"N={N:<6} kernel {t_k:.4f} ms  plain {t_p:.4f} ms  "
+                  f"torch.matmul {t_l:.4f} ms  bound "
+                  f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+            for k, v in (("launches", mult), ("ms", mult * t_k),
+                         ("plain_ms", mult * t_p), ("library_ms",
+                                                    mult * t_l),
+                         ("bytes", mult * nbytes), ("flops", mult * flops)):
+                totals[k] += v
+            del x, wp, gp, wf, gf
+        totals["bound_ms"] = totals["bytes"] / HBM_BYTES_PER_S * 1e3
+        totals["bound_by"] = "bytes"
+        totals["f32_floor_ms"] = totals["flops"] / F32_PEAK_FLOPS * 1e3
+        report[key] = totals
+        print(f"[timing] qmm per {key[4:]} (M = {M}, {totals['launches']} "
+              f"launches): kernel {totals['ms']:.3f} ms  plain "
+              f"{totals['plain_ms']:.2f} ms  torch.matmul "
+              f"{totals['library_ms']:.3f} ms  bound {totals['bound_ms']:.3f}"
+              f" ms (bytes)  f32 CUDA-core floor "
+              f"{totals['f32_floor_ms']:.3f} ms")
+        torch.cuda.empty_cache()
 
 
 def _paged_inputs(torch, np, fmt, seed):
@@ -319,10 +517,10 @@ def check_paged(torch, np, report, timer):
     return ok
 
 
-def _prefill_inputs(torch, np, fmt, seed, Skv=256):
+def _prefill_inputs(torch, np, fmt, seed, Skv=256, B=1, Sq=64, H=8, G=4,
+                    dh=128):
     from repro_torch.core.qtensor import encode
     rng = np.random.default_rng(seed + 1)
-    B, Sq, H, G, dh = 1, 64, 8, 4, 128
     q = torch.tensor(rng.normal(size=(B, Sq, H, G, dh)), dtype=torch.float32)
     kf = torch.tensor(rng.normal(size=(B, Skv, H, dh)), dtype=torch.float32)
     vf = torch.tensor(rng.normal(size=(B, Skv, H, dh)), dtype=torch.float32)
@@ -332,16 +530,34 @@ def _prefill_inputs(torch, np, fmt, seed, Skv=256):
 
 
 def check_prefill(torch, np, report, timer):
-    from repro_torch.core.formats import BINARY8
+    """flash_prefill against flash_prefill_plain, 1e-6 absolute (the
+    reference's contract): the serve shape (B 1, Sq 64, H 8, G 4, dh 128,
+    Skv 256) at q offsets 0 / 64 / 100, with a window and a prefix, e5m2
+    and f32; then B = 2, Sq = 1 / 17 / 100 (row tiles that do not
+    divide), q_offset 192, G = 1 / 8 / 32 and dh = 64."""
+    from repro_torch.core.formats import BINARY8, BINARY16ALT
     from repro_torch.kernels import flash_attention as FA
 
     ok, worst = True, 0.0
+    serve = dict(B=1, Sq=64, G=4, dh=128)
     cases = [(BINARY8, 0, None, 0), (BINARY8, 64, None, 0),
              (BINARY8, 100, None, 0), (None, 0, None, 0),
              (None, 64, None, 0), (None, 100, None, 0),
              (BINARY8, 100, 48, 0), (None, 64, None, 16)]
-    for fmt, q_off, window, prefix in cases:
-        q, kp, vp = _prefill_inputs(torch, np, fmt, report["seed"])
+    cases = [(f, q, w, p, serve) for f, q, w, p in cases]
+    cases += [(BINARY8, 64, None, 0, dict(serve, B=2)),
+              (BINARY8, 100, None, 0, dict(serve, Sq=1)),
+              (BINARY8, 0, None, 0, dict(serve, Sq=17)),
+              (None, 30, 40, 0, dict(serve, Sq=17)),
+              (BINARY8, 0, None, 0, dict(serve, Sq=100)),
+              (BINARY8, 192, None, 0, serve),
+              (BINARY8, 64, None, 0, dict(serve, G=1)),
+              (BINARY16ALT, 64, None, 0, dict(serve, G=8)),
+              (BINARY8, 10, None, 8, dict(serve, Sq=17, G=32, dh=64)),
+              (BINARY8, 64, None, 0, dict(serve, dh=64)),
+              (BINARY16ALT, 100, 48, 0, dict(serve, B=2, Sq=17, dh=64))]
+    for fmt, q_off, window, prefix, shp in cases:
+        q, kp, vp = _prefill_inputs(torch, np, fmt, report["seed"], **shp)
         got = FA.flash_prefill(q, kp, vp, fmt, window=window,
                                prefix_len=prefix, q_offset=q_off)
         want = FA.flash_prefill_plain(q, kp, vp, fmt, window=window,
@@ -353,11 +569,12 @@ def check_prefill(torch, np, report, timer):
         name = fmt.name if fmt is not None else "f32"
         report["cases"].append(dict(kernel="flash_prefill", fmt=name,
                                     q_offset=q_off, window=window,
-                                    prefix_len=prefix, max_abs_err=err,
-                                    ok=good))
-        print(f"[kernels] flash_prefill {name:<8} Sq=64 Skv=256 q_offset="
-              f"{q_off:<3} window={window} prefix={prefix} max|err|="
-              f"{err:.3e} (tol 1e-6) {'ok' if good else 'FAIL'}")
+                                    prefix_len=prefix, **shp,
+                                    max_abs_err=err, ok=good))
+        print(f"[kernels] flash_prefill {name:<11} B={shp['B']} "
+              f"Sq={shp['Sq']:<3} G={shp['G']:<2} dh={shp['dh']:<3} Skv=256 "
+              f"q_offset={q_off:<3} window={window} prefix={prefix} "
+              f"max|err|={err:.3e} (tol 1e-6) {'ok' if good else 'FAIL'}")
         if fmt == BINARY8:
             worst = max(worst, err)
     report["prefill_max_abs_err"] = worst
@@ -367,7 +584,7 @@ def check_prefill(torch, np, report, timer):
 def time_attention(torch, np, report, timer, serve_len):
     """Times at the serving shapes: paged decode of 4 slots holding
     ``serve_len`` tokens; prefill of the second 64-token chunk (q_offset
-    64) over a 256-token slot, e5m2 K/V."""
+    64) and of the first (q_offset 0) over a 256-token slot, e5m2 K/V."""
     from repro_torch.core.formats import BINARY8
     from repro_torch.core.qtensor import decode, encode
     from repro_torch.kernels import flash_attention as FA
@@ -402,37 +619,40 @@ def time_attention(torch, np, report, timer, serve_len):
           f"plain {t_p:.4f} ms  bound {max(b_bytes, b_ops):.6f} ms  host "
           f"{host:.1f} us/call")
 
-    Sq, Skv, q_off = 64, 256, 64
+    Sq, Skv = 64, 256
     qq = torch.randn(1, Sq, H, G, dh, device="cuda")
     kc = encode(torch.randn(1, Skv, H, dh, device="cuda"), BINARY8)
     vc = encode(torch.randn(1, Skv, H, dh, device="cuda"), BINARY8)
-    t_fk = timer(lambda: FA.flash_prefill(qq, kc, vc, BINARY8,
-                                          q_offset=q_off))
-    t_fp = timer(lambda: FA.flash_prefill_plain(qq, kc, vc, BINARY8,
-                                                q_offset=q_off), iters=10)
-    # library yardstick: SDPA on dequantized K/V with the same mask
     kd, vd = decode(kc, BINARY8), decode(vc, BINARY8)
-    mask = FA.prefill_mask(Sq, Skv, q_off, None, 0, "cuda")
     qs = qq.reshape(1, Sq, H * G, dh).transpose(1, 2)
     ks = kd.repeat_interleave(G, dim=2).transpose(1, 2)
     vs = vd.repeat_interleave(G, dim=2).transpose(1, 2)
-    t_fl = timer(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qs, ks, vs, attn_mask=mask))
-    host = timer.host_us(lambda: FA.flash_prefill(qq, kc, vc, BINARY8,
-                                                  q_offset=q_off))
-    live = sum(q_off + i + 1 for i in range(Sq))   # keys each query needs
-    flops = 4 * dh * H * G * live
-    nbytes = FA.prefill_hbm_bytes(1, Sq, q_off + Sq, H, G, dh, BINARY8)
-    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    b_ops = flops / F32_PEAK_FLOPS * 1e3
-    report["timings"].append(dict(
-        kernel="flash_prefill", Sq=Sq, Skv=Skv, q_offset=q_off, ms=t_fk,
-        plain_ms=t_fp, library_ms=t_fl, bound_ms=max(b_bytes, b_ops),
-        bound_by="bytes" if b_bytes >= b_ops else "operations",
-        bytes=nbytes, flops=flops, host_us=host))
-    print(f"[timing] flash_prefill Sq=64 Skv=256 q_offset=64 kernel "
-          f"{t_fk:.4f} ms  plain {t_fp:.4f} ms  SDPA {t_fl:.4f} ms  bound "
-          f"{max(b_bytes, b_ops):.5f} ms  host {host:.1f} us/call")
+    for q_off in (64, 0):
+        t_fk = timer(lambda: FA.flash_prefill(qq, kc, vc, BINARY8,
+                                              q_offset=q_off))
+        t_fp = timer(lambda: FA.flash_prefill_plain(qq, kc, vc, BINARY8,
+                                                    q_offset=q_off),
+                     iters=10)
+        # library yardstick: SDPA on dequantized K/V with the same mask
+        mask = FA.prefill_mask(Sq, Skv, q_off, None, 0, "cuda")
+        t_fl = timer(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask))
+        host = timer.host_us(lambda: FA.flash_prefill(qq, kc, vc, BINARY8,
+                                                      q_offset=q_off))
+        live = sum(q_off + i + 1 for i in range(Sq))  # keys each query needs
+        flops = 4 * dh * H * G * live
+        nbytes = FA.prefill_hbm_bytes(1, Sq, q_off + Sq, H, G, dh, BINARY8)
+        b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        b_ops = flops / F32_PEAK_FLOPS * 1e3
+        report["timings"].append(dict(
+            kernel="flash_prefill", Sq=Sq, Skv=Skv, q_offset=q_off, ms=t_fk,
+            plain_ms=t_fp, library_ms=t_fl, bound_ms=max(b_bytes, b_ops),
+            bound_by="bytes" if b_bytes >= b_ops else "operations",
+            bytes=nbytes, flops=flops, host_us=host))
+        print(f"[timing] flash_prefill Sq=64 Skv=256 q_offset={q_off:<2} "
+              f"kernel {t_fk:.4f} ms  plain {t_fp:.4f} ms  SDPA {t_fl:.4f} "
+              f"ms  bound {max(b_bytes, b_ops):.5f} ms  host {host:.1f} "
+              f"us/call")
 
 
 def _decode_inputs(torch, np, fmt, seed, S, lengths):
@@ -770,14 +990,26 @@ def _serve_argv(args, decode_impl, requests, max_new, stats, extra=()):
             os.path.join(args.out, stats), *extra]
 
 
+def _qmm_entries(lib, before=None):
+    """(qmm_launch, qmm_tc_launch) counts of the qmm library, less
+    ``before``."""
+    now = (lib.by_symbol.get("qmm_launch", 0),
+           lib.by_symbol.get("qmm_tc_launch", 0))
+    return now if before is None else tuple(a - b for a, b in
+                                            zip(now, before))
+
+
 def _drive_serve(torch, libs, argv, hooks, params=None):
     """``serve.main(argv)`` with every launch count set to 0 just before
     and read just after, and the launches of each call of each hooked
     method ``hooks[name] = (class, attribute)`` recorded as a tuple in
-    ``libs`` order."""
+    ``libs`` order; ``per[name + "/qmm"]`` holds the same calls' qmm
+    launches by entry point (qmm_launch, qmm_tc_launch)."""
     from repro_torch.launch import serve
 
     per = {name: [] for name in hooks}
+    per.update({name + "/qmm": [] for name in hooks})
+    per.update({name + "/tokens": [] for name in hooks})
     saved = []
     for name, (cls, attr) in hooks.items():
         fn = getattr(cls, attr)
@@ -785,9 +1017,14 @@ def _drive_serve(torch, libs, argv, hooks, params=None):
 
         def wrapped(self, *a, _fn=fn, _name=name, **k):
             before = [lib.launches for lib in libs]
+            sym = _qmm_entries(libs[0])
             out = _fn(self, *a, **k)
             per[_name].append(tuple(lib.launches - b0 for lib, b0
                                     in zip(libs, before)))
+            per[_name + "/qmm"].append(_qmm_entries(libs[0], sym))
+            toks = a[1] if len(a) > 1 else None
+            per[_name + "/tokens"].append(
+                toks.numel() if isinstance(toks, torch.Tensor) else None)
             return out
         setattr(cls, attr, wrapped)
     torch.cuda.reset_peak_memory_stats()
@@ -802,6 +1039,7 @@ def _drive_serve(torch, libs, argv, hooks, params=None):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {lib.name: lib.launches for lib in libs}
+    launches["qmm_by_entry"] = dict(libs[0].by_symbol)
     return reqs, per, launches, wall, torch.cuda.max_memory_allocated()
 
 
@@ -832,11 +1070,18 @@ def run_serve(torch, report, libs, args, decode_impl="paged", key="serve"):
     want_dec = (193, 32, 0, 0, 0) if decode_impl == "paged" \
         else (193, 0, 0, 32, 0)
     want_pre = (193, 0, 32, 0, 0)
+    # by qmm entry point (qmm_launch, qmm_tc_launch): a decode step is 193
+    # GEMVs; a 64-token chunk runs its 192 projections on tensor cores
+    # and the head (last position, M = 1) as a GEMV -- no launch of the
+    # f32 tiled kernel
+    want_dec_q, want_pre_q = (193, 0), (1, 192)
     ok = all(r.done and not r.failed for r in reqs)
     ok &= all(len(r.generated) == SERVE_MAX_NEW for r in reqs)
     ok &= all(0 <= t < 128256 for r in reqs for t in r.generated)
     ok &= _counts_ok(per["decode"], want_dec)
     ok &= _counts_ok(per["prefill"], want_pre)
+    ok &= _counts_ok(per["decode/qmm"], want_dec_q)
+    ok &= _counts_ok(per["prefill/qmm"], want_pre_q)
     summary = _serve_summary(args, stats)
     tokens = sum(len(r.generated) for r in reqs)
     report[key] = dict(
@@ -848,6 +1093,8 @@ def run_serve(torch, report, libs, args, decode_impl="paged", key="serve"):
         launches=launches, peak_mem_bytes=peak,
         per_decode_step=sorted(set(per["decode"])),
         per_prefill_chunk=sorted(set(per["prefill"])),
+        qmm_entries_per_decode_step=sorted(set(per["decode/qmm"])),
+        qmm_entries_per_prefill_chunk=sorted(set(per["prefill/qmm"])),
         generated=[r.generated for r in reqs], ok=ok)
     print(f"[{key}] llama3-8b full (32 layers, d_model 4096), decode "
           f"{decode_impl}: {len(reqs)} requests done, {tokens} tokens in "
@@ -857,7 +1104,11 @@ def run_serve(torch, report, libs, args, decode_impl="paged", key="serve"):
     print(f"[{key}] launches {launches}; per decode step (qmm, paged, "
           f"prefill, flash_decode, cast) {sorted(set(per['decode']))} (want "
           f"{want_dec}); per prefill chunk {sorted(set(per['prefill']))} "
-          f"(want {want_pre}) {'ok' if ok else 'FAIL'}")
+          f"(want {want_pre}); qmm by entry (qmm_launch, qmm_tc_launch) "
+          f"per decode step {sorted(set(per['decode/qmm']))} (want "
+          f"{want_dec_q}), per prefill chunk "
+          f"{sorted(set(per['prefill/qmm']))} (want {want_pre_q}) "
+          f"{'ok' if ok else 'FAIL'}")
     if key == "serve_flash" and "serve" in report:
         base = report["serve"]["generated"]
         diff = sum(a != b for ga, gb in zip(base, report[key]["generated"])
@@ -889,6 +1140,7 @@ def run_speculative(torch, report, libs, args):
                                     SpeculativeDecoder, speculative, worker)
     from repro_torch.models import qparams
     from repro_torch.models.registry import build
+    from repro_torch.models.transformer import Model
 
     k = SPEC_K
     stats = "speculative_stats.jsonl"
@@ -903,17 +1155,29 @@ def run_speculative(torch, report, libs, args):
     reqs, per, launches, wall, peak = _drive_serve(
         torch, libs, argv,
         {"round": (speculative.SpeculativeDecoder, "round"),
+         "verify": (Model, "verify_step"),
          "draft_prefill": (speculative.SpeculativeDecoder, "prefill_prompt"),
          "prefill": (worker.PrefillWorker, "step"),
          "decode": (worker.DecodeWorker, "step")}, params=params)
     want_round = (k * 193 + 193, k * 32, 0, k * 32, 0)
     want_pre = (193, 0, 32, 0, 0)
+    # by qmm entry point (qmm_launch, qmm_tc_launch): a verify of B slots
+    # x k tokens runs its 193 projections (head included) on tensor cores
+    # when B * k > 8 (4 x 4 = 16 with every slot decoding), else as GEMVs;
+    # a prompt prefill 192 on tensor cores + the head's GEMV
+    verify_q = list(zip(per["verify/tokens"], per["verify/qmm"]))
+    want_pre_q = (1, 192)
     ok = all(r.done and not r.failed for r in reqs)
     ok &= all(len(r.generated) == SPEC_MAX_NEW for r in reqs)
     ok &= all(0 <= t < 128256 for r in reqs for t in r.generated)
     ok &= _counts_ok(per["round"], want_round)
     ok &= _counts_ok(per["draft_prefill"], want_pre)
     ok &= _counts_ok(per["prefill"], want_pre)
+    ok &= bool(verify_q) and all(
+        q == ((0, 193) if m > 8 else (193, 0)) for m, q in verify_q)
+    ok &= any(m == SERVE_SLOTS * k for m, _ in verify_q)
+    ok &= _counts_ok(per["draft_prefill/qmm"], want_pre_q)
+    ok &= _counts_ok(per["prefill/qmm"], want_pre_q)
     ok &= not per["decode"]
     summary = _serve_summary(args, stats)
     tokens = sum(len(r.generated) for r in reqs)
@@ -980,6 +1244,9 @@ def run_speculative(torch, report, libs, args):
         per_round=sorted(set(per["round"])),
         per_draft_prefill=sorted(set(per["draft_prefill"])),
         per_prefill_chunk=sorted(set(per["prefill"])),
+        qmm_entries_per_verify=sorted(set(verify_q)),
+        qmm_entries_per_prefill=sorted(set(per["prefill/qmm"]
+                                           + per["draft_prefill/qmm"])),
         tokens_differing_from_serve_flash=n_diff, first_divergences=diverged,
         generated=[r.generated for r in reqs], ok=ok)
     print(f"[speculative] llama3-8b full, k={k}, draft binary8: "
@@ -991,8 +1258,11 @@ def run_speculative(torch, report, libs, args):
     print(f"[speculative] launches {launches}; per round "
           f"{sorted(set(per['round']))} (want {want_round}); per draft "
           f"prompt {sorted(set(per['draft_prefill']))} and per target chunk "
-          f"{sorted(set(per['prefill']))} (want {want_pre}) "
-          f"{'ok' if ok else 'FAIL'}")
+          f"{sorted(set(per['prefill']))} (want {want_pre}); qmm by entry "
+          f"(qmm_launch, qmm_tc_launch) per verify by rows "
+          f"{sorted(set(verify_q))} (want (0, 193) above 8 rows), per "
+          f"prompt {sorted(set(per['prefill/qmm'] + per['draft_prefill/qmm']))}"
+          f" (want {want_pre_q}) {'ok' if ok else 'FAIL'}")
     print(f"[speculative] tokens differing from serve_flash: {n_diff}; "
           f"first divergences (prefill logits of the context) {diverged} "
           f"(not asserted)")
@@ -1186,21 +1456,25 @@ def check_logits(torch, report, args):
                   f"max|kernel - plain| = {err:.3e} (max|logit| {scale:.3f},"
                   f" tol {rel:.2e} x that), argmax equal: {same_argmax} "
                   f"{'ok' if good else 'FAIL'}")
-    return ok and check_verify_logits(torch, report, args, model, cfg)
+    for pol, rel in (("binary32", 1e-4), ("transprecision", 2.0 ** -5)):
+        ok &= check_verify_logits(torch, report, args, model, cfg, pol, rel)
+    return ok
 
 
-def check_verify_logits(torch, report, args, model, cfg, k=SPEC_K):
+def check_verify_logits(torch, report, args, model, cfg, pol, rel,
+                        k=SPEC_K):
     """The speculative verify step on the card: at 2 layers full width,
-    binary32, ``flash_pallas`` + ``qmm_pallas``, 4 slots holding 64-token
-    prompts, ``verify_step`` over k tokens against k sequential
-    ``decode_step`` calls.  Verify runs qmm at M = 4 * k = 16 (the tiled
-    kernel), decode at M = 4 (the GEMV kernel): the f32 sums are taken in
-    different orders, so the tolerance is 1e-4 x max|logit|, as above."""
+    ``flash_pallas`` + ``qmm_pallas``, 4 slots holding 64-token prompts,
+    ``verify_step`` over k tokens against k sequential ``decode_step``
+    calls.  Verify runs qmm at M = 4 * k = 16 (binary32 weights: the f32
+    tiled kernel; transprecision's bf16 weights: the tensor-core kernel),
+    decode at M = 4 (the GEMV kernel): the f32 sums are taken in different
+    orders, so the tolerances are those of the prefill check above."""
     from repro_torch.core.policy import get_policy
     from repro_torch.kernels import paged_cache
     from repro_torch.models import qparams
 
-    policy = get_policy("binary32", decode_impl="flash_pallas",
+    policy = get_policy(pol, decode_impl="flash_pallas",
                         matmul_impl="qmm_pallas")
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     params = qparams.encode_params(
@@ -1236,15 +1510,15 @@ def check_verify_logits(torch, report, args, model, cfg, k=SPEC_K):
     same_argmax = bool((blk.argmax(-1) == seq.argmax(-1)).all())
     lens_ok = all(bool(torch.equal(a.seq_lens, b.seq_lens))
                   for a, b in zip(bst, st))
-    good = err <= 1e-4 * max(scale, 1.0) and lens_ok \
+    good = err <= rel * max(scale, 1.0) and lens_ok \
         and bool(torch.isfinite(blk).all())
-    report["logits"].append(dict(policy="binary32", what=f"verify k={k} vs "
+    report["logits"].append(dict(policy=pol, what=f"verify k={k} vs "
                                  f"{k} decode steps", max_abs_err=err,
-                                 max_abs_logit=scale, tol_rel=1e-4,
+                                 max_abs_logit=scale, tol_rel=rel,
                                  argmax_equal=same_argmax, ok=good))
-    print(f"[logits] binary32 verify_step (k={k}) vs {k} decode steps, "
+    print(f"[logits] {pol} verify_step (k={k}) vs {k} decode steps, "
           f"2-layer full width, flash_pallas: max|diff| = {err:.3e} "
-          f"(max|logit| {scale:.3f}, tol 1e-4 x that), argmax equal: "
+          f"(max|logit| {scale:.3f}, tol {rel:.2e} x that), argmax equal: "
           f"{same_argmax}, lengths equal: {lens_ok} "
           f"{'ok' if good else 'FAIL'}")
     del params
@@ -1264,12 +1538,16 @@ def kernel_rows(report):
     """The ``{"kernels": [...]}`` entries: one per kernel, its launches
     from the main-path run that drives it (the serve phase for qmm,
     paged_decode and flash_prefill, serve_flash for flash_decode, the
-    ops phase for the three cast kernels)."""
+    ops phase for the three cast kernels).  qmm has two rows: ``qmm``
+    (the ``qmm_launch`` GEMV, times per decode step) and ``qmm_tiled``
+    (``qmm_tc_launch``, the tensor-core kernel, times per prefill
+    chunk)."""
     def timing(name, **match):
         return next((t for t in report["timings"] if t["kernel"] == name
                      and all(t.get(k) == v for k, v in match.items())), None)
 
     serve = report.get("serve", {}).get("launches", {})
+    by_entry = serve.get("qmm_by_entry", {})
     flash = report.get("serve_flash", {}).get("launches", {})
     ops_counts = report.get("ops", {}).get("launches", {}).get(
         "flexfloat_cast", {})
@@ -1279,8 +1557,12 @@ def kernel_rows(report):
     ff_src = "src/repro_torch/csrc/flexfloat_cast.cu"
     rows = [
         ("qmm", "src/repro_torch/csrc/qmm.cu",
-         "src/repro/kernels/qmatmul.py:85", serve.get("qmm", 0),
-         report.get("qmm_max_abs_err"), None),
+         "src/repro/kernels/qmatmul.py:85", by_entry.get("qmm_launch", 0),
+         report.get("qmm_max_abs_err"), report.get("qmm_step")),
+        ("qmm_tiled", "src/repro_torch/csrc/qmm.cu",
+         "src/repro/kernels/qmatmul.py:85",
+         by_entry.get("qmm_tc_launch", 0), report.get("qmm_tc_max_abs_err"),
+         report.get("qmm_chunk")),
         ("paged_decode", "src/repro_torch/csrc/paged_decode.cu",
          "src/repro/kernels/paged_attention.py:52",
          serve.get("paged_decode", 0), report.get("paged_max_abs_err"),
@@ -1288,7 +1570,7 @@ def kernel_rows(report):
         ("flash_prefill", "src/repro_torch/csrc/flash_prefill.cu",
          "src/repro/kernels/flash_attention.py:257",
          serve.get("flash_prefill", 0), report.get("prefill_max_abs_err"),
-         timing("flash_prefill")),
+         timing("flash_prefill", q_offset=64)),
         ("flash_decode", "src/repro_torch/csrc/flash_decode.cu",
          "src/repro/kernels/flash_attention.py:112",
          flash.get("flash_decode", 0),
@@ -1308,14 +1590,11 @@ def kernel_rows(report):
     ]
     kernels = []
     for name, source, replaces, launches, err, t in rows:
-        if name == "qmm":
-            t = report.get("qmm_step")
-            if t is None:
-                continue
-            t = dict(t, bound_ms=t["bytes"] / HBM_BYTES_PER_S * 1e3,
-                     bound_by="bytes")
         if t is None:
             continue
+        if name == "qmm":       # per decode step
+            t = dict(t, bound_ms=t["bytes"] / HBM_BYTES_PER_S * 1e3,
+                     bound_by="bytes")
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=launches,
                             max_abs_err=err, ms=t["ms"],
@@ -1330,10 +1609,15 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out"))
     ap.add_argument("--phases", default=",".join(ALL_PHASES))
+    ap.add_argument("--src", default=SRC,
+                    help="the src/ directory whose repro_torch to drive "
+                    "(another checkout's, to time its kernels beside "
+                    "this one's with --phases build,timing)")
     args = ap.parse_args()
     phases = args.phases.split(",")
+    src = os.path.abspath(args.src)
 
-    if not os.path.isdir(os.path.join(SRC, "repro_torch", "csrc")):
+    if not os.path.isdir(os.path.join(src, "repro_torch", "csrc")):
         fail("run from the root of a checkout (src/repro_torch not found)",
              2)
     import numpy as np
@@ -1341,7 +1625,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script measures "
              "the port on a CUDA card", 2)
-    sys.path.insert(0, SRC)
+    sys.path.insert(0, src)
     from repro_torch.kernels import (_build, flash_attention, flexfloat_cast,
                                      paged_attention, qmatmul)
 
@@ -1351,7 +1635,7 @@ def main() -> int:
     torch.set_float32_matmul_precision("highest")
     libs = (qmatmul.LIB, paged_attention.LIB, flash_attention.LIB,
             flash_attention.DECODE_LIB, flexfloat_cast.LIB)
-    report = dict(seed=args.seed, cases=[], timings=[], casts=[],
+    report = dict(seed=args.seed, src=src, cases=[], timings=[], casts=[],
                   cast_kernels=[], logits=[],
                   device=torch.cuda.get_device_name(0))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1375,6 +1659,8 @@ def main() -> int:
                     for lib in libs:
                         f.write(f"== {lib.name}\n{lib.ptxas_report()}\n")
                 ok = True
+                if hasattr(qmatmul, "TC_FMT_CODES"):
+                    ok = check_tc_sass(qmatmul.LIB, report)
             elif phase == "kernels":
                 timer = timer or Timer(torch)
                 ok = check_qmm(torch, np, report, timer)
@@ -1382,8 +1668,16 @@ def main() -> int:
                 ok &= check_prefill(torch, np, report, timer)
                 ok &= check_flash_decode(torch, np, report, timer)
                 serve_len = SERVE_PROMPT + SERVE_MAX_NEW // 2
+                time_qmm_tiled(torch, np, report, timer)
                 time_attention(torch, np, report, timer, serve_len)
                 time_flash_decode(torch, np, report, timer, serve_len)
+            elif phase == "timing":
+                # the two redesigned kernels' times alone (for --src)
+                timer = timer or Timer(torch)
+                time_qmm_tiled(torch, np, report, timer)
+                time_attention(torch, np, report, timer,
+                               SERVE_PROMPT + SERVE_MAX_NEW // 2)
+                ok = True
             elif phase == "casts":
                 timer = timer or Timer(torch)
                 ok = check_casts(torch, np, report)

@@ -8,28 +8,38 @@
 // bidirectional prefix, over K/V (B, Skv, H, dh) given as packed (e, m)
 // containers or as f32.
 //
-// What bounds it on an H100: at the serving shapes (one 64-token chunk
-// against a few hundred cached tokens) the work is tiny -- a few MFLOP and
-// a few hundred KB per layer -- so the launch and the small grid bound it;
-// the f32 x f32 contract keeps the products on CUDA cores (no TF32 or bf16
-// mma), so at long contexts it would be bound by CUDA-core FLOPs.
+// What bounds it on an H100: at the serving shape (one 64-token chunk of
+// 8 KV heads x 4 query heads against a few hundred cached tokens) the work
+// is ~0.1 GFLOP and ~0.3 MB a layer: 1.5 us of f32 operations, less of
+// bytes.  What holds it is latency: too few blocks for 132 SMs, barriers,
+// and serial loops.  Tensor cores would not help: the work is tiny, and
+// the contract (1e-6 absolute, tests/test_conformance.py) keeps the
+// products in f32 on CUDA cores.
 //
-// The simple design, and what it does about that:
-//  * One block per (q tile, KV head, batch row).  A q tile is 64 rows:
-//    64 / G query positions x the G heads of the group, so each K/V tile
-//    is decoded once for the whole group.
-//  * A loop over 32-row KV tiles takes the place of the reference's
-//    "arbitrary" grid axis.  Tiles that are surely fully masked (strictly
-//    future tiles, tiles left of the window, unless inside the prefix) are
-//    skipped by the rule at flash_attention.py:268-279; a skipped tile
-//    would leave (m, l, acc) bit-unchanged, so skipping is exact.
-//  * K/V tiles are decoded through codec.cuh into shared memory as f32
-//    (32 x 128 x 4 B = 16 KB each; the q tile takes 33 KB), all within
-//    one block's dynamic shared memory.
-//  * Masks are generated from indices in registers; scores, the online
-//    softmax (reference sentinel NEG_INF = -1e30, exact-zero masking) and
-//    the accumulator stay in f32.  Each thread owns one head_dim column of
-//    its rows' accumulator in registers.
+// The design, for parallelism and latency:
+//  * One block per 16 (query position, group head) rows -- the rows of
+//    q flattened over (position, G) -- per KV head and batch row: 16 x 8
+//    = 128 blocks at the serve shape (Sq = 64, G = 4, H = 8).  Each K/V
+//    tile is decoded once for all the block's rows; G may be any size
+//    (a position's heads may span two blocks).
+//  * Four warps, each owning 4 rows.  Scores put the 32 lanes across the
+//    32 keys of a tile (q rows read from shared memory as broadcasts, K
+//    rows as conflict-free float4s); the row max and sum are warp
+//    shuffles; for P.V the lanes go across head_dim and each key's
+//    probability comes by shuffle.  The softmax and P.V never leave the
+//    warp, and the accumulator stays in registers.
+//  * K/V tiles of 32 keys come in 16 B a thread by cp.async into a
+//    two-stage ring of packed bytes, so tile t + 1 loads while tile t
+//    computes.  The thread that copied a chunk decodes it through
+//    codec.cuh (hardware conversions for e5m2, bf16 and f16) into one of
+//    two f32 tiles, so one barrier per tile is all the block needs.
+//  * Tiles that are surely fully masked (strictly future tiles, tiles
+//    left of the window, unless inside the prefix) are skipped by the
+//    rule at flash_attention.py:268-279; a skipped tile would leave
+//    (m, l, acc) bit-unchanged, so skipping is exact.
+//  * Masks come from indices in registers; scores, the online softmax
+//    (reference sentinel NEG_INF = -1e30, exact-zero masking) and the
+//    accumulator are f32; a row with l = 0 is written as zeros.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -38,9 +48,11 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 64;     // q rows (position x group head) per block
-constexpr int kBKV = 32;      // KV rows per tile
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRowsPerWarp = 4;
+constexpr int kRows = kWarps * kRowsPerWarp;   // flattened q rows a block
+constexpr int kBKV = 32;                       // keys a tile: one per lane
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ bool allowed(int qi, int ki, int Skv, int window,
@@ -51,141 +63,231 @@ __device__ __forceinline__ bool allowed(int qi, int ki, int Skv, int window,
   return ok && ki < Skv;
 }
 
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool pred) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(pred ? 16 : 0));
+}
+
+template <typename T, int DH>
+constexpr size_t smem_bytes() {
+  return sizeof(float) * (kRows * DH + 2 * kBKV * (DH + 4) + 2 * kBKV * DH) +
+         2 * 2 * kBKV * DH * sizeof(T);
+}
+
 template <typename T, int E, int M, int DH>
 __global__ void __launch_bounds__(kThreads)
 flash_prefill_kernel(const float* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, float* __restrict__ out,
                      int Sq, int Skv, int H, int G, float scale, int window,
-                     int prefix_len, int q_offset, int rt_e, int rt_m) {
-  constexpr int kRowsPerThread = kRows * DH / kThreads;  // acc registers
-  constexpr int kRowGroups = kThreads / DH;
-  extern __shared__ float smem[];
-  float* Qs = smem;                          // [kRows][DH + 1]
-  float* Ks = Qs + kRows * (DH + 1);         // [kBKV][DH + 1]
-  float* Vs = Ks + kBKV * (DH + 1);          // [kBKV][DH]
-  float* Ss = Vs + kBKV * DH;                // [kRows][kBKV + 1]
-  float* m_s = Ss + kRows * (kBKV + 1);      // [kRows]
-  float* l_s = m_s + kRows;                  // [kRows]
-  float* a_s = l_s + kRows;                  // [kRows]
+                     int prefix_len, int q_offset, int rt_e, int rt_m,
+                     int vec) {
+  constexpr int kKS = DH + 4;                  // f32 K row stride
+  constexpr int kCols = DH / 32;               // P.V columns a lane
+  constexpr int kRawRow = DH * sizeof(T);      // bytes of one key's row
+  constexpr int kRawTile = kBKV * kRawRow;     // bytes of a K (or V) tile
+  constexpr int kChunks = kRawTile / 16;
+  constexpr int kPer = 16 / sizeof(T);         // elements a chunk
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem);  // [kRows][DH]
+  float* Ks = Qs + kRows * DH;                 // [2][kBKV][kKS]
+  float* Vs = Ks + 2 * kBKV * kKS;             // [2][kBKV][DH]
+  unsigned char* raw =                         // [2 stages][K, V][kRawTile]
+      reinterpret_cast<unsigned char*>(Vs + 2 * kBKV * DH);
 
-  const int bq = kRows / G;                  // query positions per block
-  const int q0 = blockIdx.x * bq;
+  const int rows = Sq * G;
+  const int r0 = blockIdx.x * kRows;
   const int h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int nq = min(bq, Sq - q0);           // real positions in this tile
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   for (int i = tid; i < kRows * DH; i += kThreads) {
-    const int r = i / DH, d = i % DH;
-    const int qp = q0 + r / G, g = r % G;
-    Qs[r * (DH + 1) + d] =
-        qp < Sq ? q[((((size_t)b * Sq + qp) * H + h) * G + g) * DH + d]
+    const int fr = r0 + i / DH, d = i % DH;
+    const int qp = fr / G, g = fr % G;
+    Qs[i] = fr < rows
+                ? q[((((size_t)b * Sq + qp) * H + h) * G + g) * DH + d]
                 : 0.0f;
   }
-  if (tid < kRows) { m_s[tid] = kNegInf; l_s[tid] = 0.0f; }
 
-  const int dcol = tid % DH;                 // this thread's head_dim column
-  const int rgrp = tid / DH;                 // and its block of rows
-  float acc[kRowsPerThread];
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) acc[i] = 0.0f;
-
-  const int qi_min = q_offset + q0;
-  const int qi_max = q_offset + q0 + nq - 1;
+  const int qi_min = q_offset + r0 / G;
+  const int qi_max = q_offset + (min(r0 + kRows, rows) - 1) / G;
   const int n_tiles = (Skv + kBKV - 1) / kBKV;
-  // score tile: thread (ty, tx) computes rows ty*4..ty*4+3, cols tx, tx+16
-  const int ty = tid / 16, tx = tid % 16;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int ki_min = t * kBKV, ki_max = ki_min + kBKV - 1;
-    bool live = ki_min <= qi_max;
-    if (window > 0) live = live && (ki_max > qi_min - window);
-    if (prefix_len > 0) live = live || (ki_min < prefix_len);
-    if (!live) continue;                     // uniform across the block
-
-    __syncthreads();                         // previous tile fully consumed
-    for (int i = tid; i < kBKV * DH; i += kThreads) {
-      const int c = i / DH, d = i % DH, kp = ki_min + c;
-      float kv = 0.0f, vv = 0.0f;
-      if (kp < Skv) {
-        const size_t off = (((size_t)b * Skv + kp) * H + h) * DH + d;
-        kv = codec::decode_t<E, M>((uint32_t)k[off], rt_e, rt_m);
-        vv = codec::decode_t<E, M>((uint32_t)v[off], rt_e, rt_m);
-      }
-      Ks[c * (DH + 1) + d] = kv;
-      Vs[c * DH + d] = vv;
+  auto next_live = [&](int t) {
+    for (; t < n_tiles; ++t) {
+      const int ki_min = t * kBKV, ki_max = ki_min + kBKV - 1;
+      bool live = ki_min <= qi_max;
+      if (window > 0) live = live && (ki_max > qi_min - window);
+      if (prefix_len > 0) live = live || (ki_min < prefix_len);
+      if (live) break;
     }
-    __syncthreads();
+    return min(t, n_tiles);
+  };
 
-    {
-      float s[4][2];
+  // this thread's chunks of tile t -> ring stage st (zero past Skv)
+  auto load = [&](int t, int st) {
+    if (t >= n_tiles) return;
+    unsigned char* rk = raw + st * 2 * kRawTile;
+    unsigned char* rv = rk + kRawTile;
+    for (int c = tid; c < kChunks; c += kThreads) {
+      const int kp = t * kBKV + c / (kRawRow / 16);
+      const int e0 = (c % (kRawRow / 16)) * kPer;
+      const bool in = kp < Skv;
+      const size_t off = (((size_t)b * Skv + kp) * H + h) * DH + e0;
+      if (vec) {
+        cp_async16(rk + 16 * c, in ? k + off : k, in);
+        cp_async16(rv + 16 * c, in ? v + off : v, in);
+      } else {
+        T* dk = reinterpret_cast<T*>(rk + 16 * c);
+        T* dv = reinterpret_cast<T*>(rv + 16 * c);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) { s[i][0] = 0.0f; s[i][1] = 0.0f; }
-      for (int d = 0; d < DH; ++d) {
-        const float k0 = Ks[tx * (DH + 1) + d];
-        const float k1 = Ks[(tx + 16) * (DH + 1) + d];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float qv = Qs[(ty * 4 + i) * (DH + 1) + d];
-          s[i][0] = fmaf(qv, k0, s[i][0]);
-          s[i][1] = fmaf(qv, k1, s[i][1]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = ty * 4 + i;
-        const int qi = q_offset + q0 + r / G;
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int c = tx + 16 * j;
-          Ss[r * (kBKV + 1) + c] =
-              allowed(qi, ki_min + c, Skv, window, prefix_len)
-                  ? s[i][j] * scale : kNegInf;
+        for (int j = 0; j < kPer; ++j) {
+          dk[j] = in ? k[off + j] : T(0);
+          dv[j] = in ? v[off + j] : T(0);
         }
       }
     }
-    __syncthreads();
+  };
 
-    if (tid < kRows) {
-      const int r = tid;
-      const int qi = q_offset + q0 + r / G;
-      float mx = kNegInf;
-      for (int c = 0; c < kBKV; ++c) mx = fmaxf(mx, Ss[r * (kBKV + 1) + c]);
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.0f;
-      for (int c = 0; c < kBKV; ++c) {
-        const float p = allowed(qi, ki_min + c, Skv, window, prefix_len)
-                            ? expf(Ss[r * (kBKV + 1) + c] - m_new) : 0.0f;
-        Ss[r * (kBKV + 1) + c] = p;
-        sum += p;
-      }
-      const float alpha = expf(m_prev - m_new);
-      a_s[r] = alpha;
-      l_s[r] = alpha * l_s[r] + sum;
-      m_s[r] = m_new;
-    }
-    __syncthreads();
-
+  // the chunks this thread copied into stage st -> f32 tile f
+  auto decode = [&](int st, int f) {
+    const unsigned char* rk = raw + st * 2 * kRawTile;
+    const unsigned char* rv = rk + kRawTile;
+    float* ks = Ks + f * kBKV * kKS;
+    float* vs = Vs + f * kBKV * DH;
+    for (int c = tid; c < kChunks; c += kThreads) {
+      const int key = c / (kRawRow / 16);
+      const int e0 = (c % (kRawRow / 16)) * kPer;
+      const T* sk = reinterpret_cast<const T*>(rk + 16 * c);
+      const T* sv = reinterpret_cast<const T*>(rv + 16 * c);
 #pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) {
-      const int r = rgrp + i * kRowGroups;
-      float pv = 0.0f;
-#pragma unroll 8
-      for (int c = 0; c < kBKV; ++c)
-        pv = fmaf(Ss[r * (kBKV + 1) + c], Vs[c * DH + dcol], pv);
-      acc[i] = acc[i] * a_s[r] + pv;
+      for (int j = 0; j < kPer; j += 4) {
+        float4 kv4, vv4;
+        kv4.x = codec::decode_t<E, M>((uint32_t)sk[j], rt_e, rt_m);
+        kv4.y = codec::decode_t<E, M>((uint32_t)sk[j + 1], rt_e, rt_m);
+        kv4.z = codec::decode_t<E, M>((uint32_t)sk[j + 2], rt_e, rt_m);
+        kv4.w = codec::decode_t<E, M>((uint32_t)sk[j + 3], rt_e, rt_m);
+        vv4.x = codec::decode_t<E, M>((uint32_t)sv[j], rt_e, rt_m);
+        vv4.y = codec::decode_t<E, M>((uint32_t)sv[j + 1], rt_e, rt_m);
+        vv4.z = codec::decode_t<E, M>((uint32_t)sv[j + 2], rt_e, rt_m);
+        vv4.w = codec::decode_t<E, M>((uint32_t)sv[j + 3], rt_e, rt_m);
+        *reinterpret_cast<float4*>(ks + key * kKS + e0 + j) = kv4;
+        *reinterpret_cast<float4*>(vs + key * DH + e0 + j) = vv4;
+      }
     }
+  };
+
+  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kCols];
+  int qi[kRowsPerWarp];
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.0f;
+    qi[i] = q_offset + (r0 + warp * kRowsPerWarp + i) / G;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.0f;
   }
-  __syncthreads();
+
+  int ta = next_live(0);
+  int tb = next_live(ta + 1);
+  load(ta, 0);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  load(tb, 1);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  for (int it = 0; ta < n_tiles; ++it) {
+    const int st = it & 1;
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    decode(st, st);
+    __syncthreads();          // tile ta decoded; the previous one consumed
+    const int tc = next_live(tb + 1);
+    load(tc, st);             // stage st's bytes were this thread's own
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+    const float* ks = Ks + st * kBKV * kKS;
+    const float* vs = Vs + st * kBKV * DH;
+    const int ki = ta * kBKV + lane;
+    float s[kRowsPerWarp];
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) s[i] = 0.0f;
+    const float* krow = ks + lane * kKS;
+#pragma unroll 4
+    for (int d = 0; d < DH; d += 4) {
+      const float4 kv = *reinterpret_cast<const float4*>(krow + d);
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i) {
+        const float4 qv = *reinterpret_cast<const float4*>(
+            Qs + (warp * kRowsPerWarp + i) * DH + d);
+        s[i] = fmaf(qv.x, kv.x, s[i]);
+        s[i] = fmaf(qv.y, kv.y, s[i]);
+        s[i] = fmaf(qv.z, kv.z, s[i]);
+        s[i] = fmaf(qv.w, kv.w, s[i]);
+      }
+    }
+    float p[kRowsPerWarp], alpha[kRowsPerWarp];
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      const bool ok = allowed(qi[i], ki, Skv, window, prefix_len);
+      const float sv = ok ? s[i] * scale : kNegInf;
+      const float m_new = fmaxf(m[i], warp_max(sv));
+      p[i] = ok ? expf(sv - m_new) : 0.0f;
+      alpha[i] = expf(m[i] - m_new);
+      l[i] = alpha[i] * l[i] + warp_sum(p[i]);
+      m[i] = m_new;
+    }
+    float pv[kRowsPerWarp][kCols];
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i)
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) pv[i][j] = 0.0f;
+#pragma unroll 8
+    for (int c = 0; c < kBKV; ++c) {
+      float vv[kCols];
+      if constexpr (kCols == 4) {
+        const float4 t = *reinterpret_cast<const float4*>(vs + c * DH +
+                                                          lane * 4);
+        vv[0] = t.x; vv[1] = t.y; vv[2] = t.z; vv[3] = t.w;
+      } else {
+        const float2 t = *reinterpret_cast<const float2*>(vs + c * DH +
+                                                          lane * 2);
+        vv[0] = t.x; vv[1] = t.y;
+      }
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i) {
+        const float pc = __shfl_sync(0xffffffffu, p[i], c);
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) pv[i][j] = fmaf(pc, vv[j], pv[i][j]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i)
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) acc[i][j] = acc[i][j] * alpha[i] + pv[i][j];
+    ta = tb;
+    tb = tc;
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 
 #pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    const int r = rgrp + i * kRowGroups;
-    const int qp = q0 + r / G, g = r % G;
-    if (qp >= Sq) continue;
-    const float l = l_s[r];
-    out[((((size_t)b * Sq + qp) * H + h) * G + g) * DH + dcol] =
-        l > 0.0f ? acc[i] / l : 0.0f;
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    const int fr = r0 + warp * kRowsPerWarp + i;
+    if (fr >= rows) continue;
+    const int qp = fr / G, g = fr % G;
+    float* o = out + ((((size_t)b * Sq + qp) * H + h) * G + g) * DH +
+               lane * kCols;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) o[j] = l[i] > 0.0f ? acc[i][j] / l[i] : 0.0f;
   }
 }
 
@@ -194,18 +296,16 @@ cudaError_t launch_dh(const float* q, const void* k, const void* v,
                       float* out, int B, int Sq, int Skv, int H, int G,
                       float scale, int window, int prefix_len, int q_offset,
                       int rt_e, int rt_m, cudaStream_t stream) {
-  const size_t smem = sizeof(float) *
-      (kRows * (DH + 1) + kBKV * (DH + 1) + kBKV * DH +
-       kRows * (kBKV + 1) + 3 * kRows);
+  const size_t smem = smem_bytes<T, DH>();
   auto kern = flash_prefill_kernel<T, E, M, DH>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  const int bq = kRows / G;
-  const dim3 grid((Sq + bq - 1) / bq, H, B);
+  const int vec = (((uintptr_t)k | (uintptr_t)v) & 15u) == 0;
+  const dim3 grid((Sq * G + kRows - 1) / kRows, H, B);
   kern<<<grid, kThreads, smem, stream>>>(
       q, static_cast<const T*>(k), static_cast<const T*>(v), out, Sq, Skv, H,
-      G, scale, window, prefix_len, q_offset, rt_e, rt_m);
+      G, scale, window, prefix_len, q_offset, rt_e, rt_m, vec);
   return cudaGetLastError();
 }
 
@@ -233,7 +333,7 @@ extern "C" int flash_prefill_launch(const void* q, const void* k,
   const float* Q = static_cast<const float*>(q);
   float* O = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (G <= 0 || kRows % G != 0) return (int)cudaErrorInvalidValue;
+  if (G <= 0) return (int)cudaErrorInvalidValue;
   cudaError_t err;
   switch (fmt_code) {
     case 0: err = launch_fmt<uint32_t, 8, 23>(dh, Q, k, v, O, B, Sq, Skv, H, G, scale, window, prefix_len, q_offset, rt_e, rt_m, s); break;

@@ -7,44 +7,107 @@
 // (e, m) containers (u8 / u16 / u32, or f32), f32 products and f32
 // accumulation.
 //
-// What bounds it on an H100: in the serving decode step M <= 4, so each
-// weight element is used for at most 4 FMAs -- the kernel is bound by the
+// What bounds it on an H100.  In the serving decode step M <= 4, so each
+// weight element is used for at most 4 FMAs: the kernel is bound by the
 // bytes of the packed weight stream (15.0 GB of bf16 per llama3-8b step,
-// 4.5 ms at 3.35 TB/s).  At prefill (M = 64) each weight is used 64
-// times: about 1 TFLOP per chunk, bound by the f32 CUDA cores (67 TFLOP/s)
-// because the f32 x f32 product contract rules out TF32 and bf16 mma.
+// 4.5 ms at 3.35 TB/s).  A prefill chunk (M = 64) or a speculative verify
+// (M = B * k = 16) reuses each weight M times: 2 * 64 * 6.98 G weights =
+// 0.89 TFLOP a chunk, 13.3 ms on the f32 CUDA cores (67 TFLOP/s) against
+// 4.17 ms of bf16 weight bytes.
 //
-// The simple design, and what it does about that.  Two kernels share the
-// codec and the epilogue:
-//  * qmm_gemv (M <= 8, the decode regime): a block owns a 64-column strip
-//    for BM = 4 or 8 rows; 256 threads = 16 column-threads x 16
-//    K-threads; a column-thread holds 4 adjacent columns, so a half-warp
-//    reads a 64-column weight row as one vector load per thread (4 B for
-//    u8, 8 B for u16, 16 B for u32/f32), coalesced.  Each thread issues 4
-//    weight rows before its first FMA.  The 16 K-threads meet in a
-//    fixed-order shared-memory reduction.  Narrow matrices give fewer
-//    64-column strips than the card has SMs (wk/wv: 16), so the K range
-//    is split across blocks (grid.z) until about two blocks per SM exist;
-//    the partial sums then meet, in split order, in qmm_splitk (sums are
-//    deterministic).
-//  * qmm_tiled (M > 8, prefill; the five compile-time formats -- a
-//    run-time (e, m) stays on qmm_gemv): 64 x 64 output tiles, K in steps of 32
-//    through shared memory (the weight tile decoded once into f32 there),
-//    4 x 4 outputs per thread in registers, so each weight is read once
-//    per 64 rows of activations instead of once per 8.
-//  * Weights are decoded in registers through codec.cuh (hardware
-//    conversions for bf16 / f16 / e5m2, specialised at compile time).  The
-//    gate weight G is streamed in the same K sweep (the gated FFN in one
-//    launch); bias, nonlinearity, gate and output quantization run in the
-//    epilogue.  Ragged M, K and N are masked in the kernel, with no
-//    padding copies.
-// Speed work still open: cp.async/TMA pipelines and a tensor-core path for
-// M > 32 under a wider precision contract.
+// The precision argument for tensor cores.  Every packed weight format is
+// exact in TF32 (e8m10): binary16alt is e8m7, binary8 e5m2, binary8alt
+// e4m3, binary16 e5m10 (its subnormals, down to 2^-24, are normal TF32
+// values).  Only the f32 activation is split: a_hi = cvt.rna.tf32(a),
+// a_lo = cvt.rna.tf32(a - a_hi), both TF32 values, and
+// |a - a_hi - a_lo| <= max(2^-22 |a|, 2^-137) (the second term only where
+// a - a_hi is an f32 subnormal).  Products of TF32 values have at most 22
+// significant bits, so a_hi * b and a_lo * b are exact in f32, and two TF32
+// mma passes give a @ B to within 2^-22 |a| @ |b| plus the accumulation.
+// Hopper's tensor cores do not round their internal f32 additions to
+// nearest, so each 32-deep K step accumulates in the mma accumulator and
+// is then added ("promoted") into a separate f32 register sum with
+// ordinary FADD; this bounds what the tensor core's additions can lose
+// over K = 14336.  The port's contract (1e-6 in units of |a| @ |b|) holds
+// with room.  Two TF32 passes at 495 TFLOP/s cost 3.6 ms a chunk, under
+// the 4.17 ms of weight bytes: on tensor cores the chunk is bound by bytes.
+//
+// The design.  Three kernels share the codec and the epilogue; the choice
+// is fixed by format and M (the wrapper in kernels/qmatmul.py picks the
+// entry point):
+//  * qmm_gemv (M <= 8, the decode regime; also any M for a run-time (e, m)
+//    format): a block owns a 64-column strip for BM = 4 or 8 rows; 256
+//    threads = 16 column-threads x 16 K-threads; a column-thread holds 4
+//    adjacent columns, so a half-warp reads a 64-column weight row as one
+//    vector load per thread (4 B for u8, 8 B for u16, 16 B for u32/f32),
+//    coalesced.  Each thread issues 4 weight rows before its first FMA.
+//    The 16 K-threads meet in a fixed-order shared-memory reduction.
+//    Narrow matrices give fewer 64-column strips than the card has SMs
+//    (wk/wv: 16), so the K range is split across blocks (grid.z) until
+//    about two blocks per SM exist; the partial sums then meet, in split
+//    order, in qmm_splitk (sums are deterministic).
+//  * qmm_tc (M > 8 on binary8, binary8alt, binary16, binary16alt; entry
+//    point qmm_tc_launch): split-TF32 mma.sync.m16n8k8 on tensor cores.
+//    A block owns BM rows x 128 weight columns, BM = 16, 32 or 64 picked
+//    by M (so the verify at M = 16 no longer pays for 64 rows); four
+//    warps across N, each 32 columns, and one or two across M.  For the
+//    gated FFN the 128 columns are 64 of B and the same 64 of G, so a
+//    thread holds both sums of its outputs and a gated block costs the
+//    registers of an ungated one.  A one-pass kernel (qmm_split_a) splits
+//    each activation once per launch into a_hi and a_lo (scratch the
+//    wrapper allocates; a split inside the blocks would be repeated by
+//    every block column).  The packed weight tile (32 x 128 at 1 or 2
+//    bytes) and the two activation tiles go through a ring of 3-4
+//    shared-memory stages by cp.async, 16 B a thread, so the next tiles
+//    load while this one multiplies; one barrier per stage.  Weights are
+//    decoded between shared memory and the fragment registers (a bf16
+//    decode is one shift); no f32 weight tile exists.  A thread reads 4
+//    adjacent weight columns and gives one to each of its 4 n8 tiles, so
+//    its outputs are adjacent columns.  The a_lo pass over all of a
+//    warp's tiles precedes the a_hi pass, so the two mma into one
+//    accumulator do not wait on each other.  Where the tiles give fewer
+//    blocks than the SMs hold at once (wk/wv, and wq/wo/w_out at
+//    N = 4096), K is split across blocks in multiples of 32, as many as
+//    make a 64-row launch one balanced wave (kernels/qmatmul.py,
+//    tiled_splits), and the partials meet in qmm_splitk in split order.
+//    The split depends on K and N only and each output's sum runs in a
+//    fixed order, so a row's result does not depend on M: a prompt gives
+//    the same rows prefilled whole, in chunks, or verified 16 at a time.
+//    Ragged M, K and N are masked
+//    (zero-filled copies); a shape whose rows are not 16-byte aligned
+//    loads element by element into the same stages.
+//  * qmm_tiled (M > 8 on binary32 / f32 weights, which are not exact in
+//    TF32): 64 x 64 f32 FMA tiles on CUDA cores, K in steps of 32 through
+//    shared memory.
+//  * The gate weight G is streamed in the same K sweep (the gated FFN in
+//    one launch); bias, nonlinearity, gate and output quantization run in
+//    the epilogue, in the reference's order.
+// Speed work still open: wgmma with TMA, and a GEMV that reaches the
+// decode step's byte bound.
 
 #include <cuda_runtime.h>
 #include <cstdint>
 
 #include "codec.cuh"
+
+// kernels/qmatmul.py builds this file as five units in parallel: unit 0
+// (GEMV, f32 tiled kernel, both entry points) and one tensor-core unit
+// per packed format (-DQMM_UNIT=1..4, fmt_code 1..4), linked into one
+// library.
+#ifndef QMM_UNIT
+#define QMM_UNIT 0
+#endif
+
+// a tensor-core unit's launcher (qmm_tc_launch dispatches to it)
+#define QMM_TC_PARAMS                                                     \
+  const float *a, float *asplit, const void *b, const void *g,           \
+      const float *bias, float *out, float *ws, int M, int K, int N,       \
+      int splits, int k_chunk, int act, int out_e, int out_m, int promote, \
+      cudaStream_t stream
+extern "C" int qmm_tc_fmt1(QMM_TC_PARAMS);
+extern "C" int qmm_tc_fmt2(QMM_TC_PARAMS);
+extern "C" int qmm_tc_fmt3(QMM_TC_PARAMS);
+extern "C" int qmm_tc_fmt4(QMM_TC_PARAMS);
 
 namespace {
 
@@ -56,6 +119,8 @@ constexpr int kBN = kTN * kVec;  // 64 columns per block
 constexpr int kWarps = kThreads / 32;
 
 enum Act { kNone = 0, kSilu = 1, kGelu = 2, kRelu2 = 3 };
+
+constexpr int kTcBK = 32;   // tensor-core kernel: K per stage and promotion
 
 template <typename TB>
 __device__ __forceinline__ void load4(const TB* __restrict__ row, int n,
@@ -108,6 +173,8 @@ struct Epilogue {
     return r;
   }
 };
+
+#if QMM_UNIT == 0
 
 // ---------------------------------------------------------------------------
 // decode regime: weight-streaming GEMV, optional split-K
@@ -242,6 +309,8 @@ qmm_gemv(const float* __restrict__ a, const TB* __restrict__ b,
   }
 }
 
+#endif  // QMM_UNIT == 0
+
 // Sum the split-K partials in split order, then the epilogue.
 __global__ void qmm_splitk(const float* __restrict__ ws,
                            float* __restrict__ out, Epilogue ep, int Mrows,
@@ -256,6 +325,8 @@ __global__ void qmm_splitk(const float* __restrict__ ws,
     out[idx] = ep(r, gs, (int)(idx % N));
   }
 }
+
+#if QMM_UNIT == 0
 
 // ---------------------------------------------------------------------------
 // prefill regime: shared-memory tiles, each weight read once per 64 rows
@@ -334,6 +405,446 @@ qmm_tiled(const float* __restrict__ a, const TB* __restrict__ b,
     }
 }
 
+#else  // a tensor-core unit
+
+// ---------------------------------------------------------------------------
+// prefill and verify regime: split-TF32 mma.sync on tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kTcBN = 128;            // block columns: 4 warps x 32
+constexpr int kTcAStride = kTcBK + 8; // floats per activation row in smem
+constexpr int kTcBPad = 16;           // bytes after each weight row
+
+template <int BM>
+struct TcShape {
+  static constexpr int kMT = BM >= 32 ? 2 : 1;        // m16 tiles a warp
+  static constexpr int kWarpsM = BM / (16 * kMT);
+  static constexpr int kThreads = 32 * 4 * kWarpsM;   // 4 warps across N
+  static constexpr int kStages = BM == 64 ? 3 : 4;
+  static constexpr int kMinBlocks = 512 / kThreads;   // <= 128 registers
+};
+
+template <typename TB, int BM>
+constexpr size_t tc_smem_bytes() {
+  return TcShape<BM>::kStages *
+         (sizeof(float) * 2 * BM * kTcAStride +
+          kTcBK * (kTcBN * sizeof(TB) + kTcBPad));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool pred) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+// a = hi + lo + r with hi, lo TF32 values and |r| <= max(2^-22 |a|,
+// 2^-137).  Where cvt.rna rounds a finite a past the largest TF32 value,
+// hi is a truncated instead; Inf and NaN stay in hi (lo = 0), so
+// hi * b + lo * b is what a * b is.  (kernels/qmatmul.py, split_tf32, is
+// the same function in PyTorch.)
+__device__ __forceinline__ void split_tf32(float a, float& hi, float& lo) {
+  float h = tf32_rna(a);
+  if (isinf(h) && !isinf(a))
+    h = __uint_as_float(__float_as_uint(a) & 0xffffe000u);
+  hi = h;
+  lo = isfinite(a) ? tf32_rna(a - h) : 0.0f;
+}
+
+// The activation (M x K, f32) -> its TF32 parts a_hi and a_lo (each
+// M x K), once per launch, before the tensor-core kernel reads them.
+__global__ void qmm_split_a(const float* __restrict__ a,
+                            float* __restrict__ hi, float* __restrict__ lo,
+                            size_t n, int vec) {
+  const size_t stride = (size_t)gridDim.x * blockDim.x;
+  size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (vec) {
+    for (; 4 * i < n; i += stride) {
+      const float4 v = reinterpret_cast<const float4*>(a)[i];
+      float4 h, l;
+      split_tf32(v.x, h.x, l.x);
+      split_tf32(v.y, h.y, l.y);
+      split_tf32(v.z, h.z, l.z);
+      split_tf32(v.w, h.w, l.w);
+      reinterpret_cast<float4*>(hi)[i] = h;
+      reinterpret_cast<float4*>(lo)[i] = l;
+    }
+  } else {
+    for (; i < n; i += stride) split_tf32(a[i], hi[i], lo[i]);
+  }
+}
+
+// Packed weight -> f32 bit pattern, exact and TF32-representable for the
+// four packed formats.  NaN stays NaN (payloads need not be canonical: a
+// NaN operand makes the mma's sum NaN whatever its bits).
+template <int E, int M>
+__device__ __forceinline__ uint32_t tc_decode(uint32_t w) {
+  if constexpr (E == 8 && M == 7) {
+    return w << 16;
+  } else if constexpr (E == 5 && M == 10) {
+    return __float_as_uint(__half2float(__ushort_as_half((unsigned short)w)));
+  } else if constexpr (E == 5 && M == 2) {
+    return __float_as_uint(
+        __half2float(__ushort_as_half((unsigned short)(w << 8))));
+  } else {
+    return __float_as_uint(codec::decode_t<E, M>(w, E, M));
+  }
+}
+
+// 4 adjacent weight columns of one smem row (8 B for u16, 4 B for u8).
+template <typename TB>
+__device__ __forceinline__ void load_cols(const unsigned char* p,
+                                          uint32_t w[4]) {
+  if constexpr (sizeof(TB) == 2) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    w[0] = v.x & 0xffffu; w[1] = v.x >> 16;
+    w[2] = v.y & 0xffffu; w[3] = v.y >> 16;
+  } else {
+    const uint32_t v = *reinterpret_cast<const uint32_t*>(p);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) w[j] = (v >> (8 * j)) & 0xffu;
+  }
+}
+
+// 2 adjacent weight columns (4 B for u16, 2 B for u8).
+template <typename TB>
+__device__ __forceinline__ void load_pair(const unsigned char* p,
+                                          uint32_t w[2]) {
+  if constexpr (sizeof(TB) == 2) {
+    const uint32_t v = *reinterpret_cast<const uint32_t*>(p);
+    w[0] = v & 0xffffu; w[1] = v >> 16;
+  } else {
+    const uint32_t v = *reinterpret_cast<const unsigned short*>(p);
+    w[0] = v & 0xffu; w[1] = v >> 8;
+  }
+}
+
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Fragment layout of m16n8k8 (g = lane / 4, t = lane % 4): A a0 (g, t),
+// a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4); B b0 (t, g), b1 (t + 4,
+// g); C c0, c1 (g, 2t, 2t + 1), c2, c3 (g + 8, ...).  The mma's k and n
+// indices are labels: in K step s, mma k t is real k 8s + 2t and mma k
+// t + 4 is 8s + 2t + 1 (so a thread's two A values sit side by side).
+// A warp owns 32 columns of the block's 128-column weight tile and runs
+// four n8 tiles; in tile p, mma column c is
+//  * ungated: warp column 4c + p (a thread reads 4 adjacent weight
+//    columns and owns 8 adjacent outputs);
+//  * gated: the tile holds 64 columns of B and the same 64 of G side by
+//    side, a warp 16 of each; tiles 0, 1 are B's warp column 2c + p and
+//    tiles 2, 3 G's same columns, so a thread holds a(B) and a(G) of the
+//    same 4 adjacent outputs and the gate stays in registers.
+// Either way a thread keeps 16 accumulators per m16 tile, plus their
+// promoted sums.
+template <typename TB, int E, int M, int BM>
+__global__ void __launch_bounds__(TcShape<BM>::kThreads,
+                                  TcShape<BM>::kMinBlocks)
+qmm_tc(const float* __restrict__ a_hi, const float* __restrict__ a_lo,
+       const TB* __restrict__ b, const TB* __restrict__ g,
+       float* __restrict__ out, float* __restrict__ ws, Epilogue ep,
+       int Mrows, int K, int N, int k_chunk, int aligned, int promote) {
+  using S = TcShape<BM>;
+  constexpr int kMT = S::kMT, kThreads = S::kThreads, kStages = S::kStages;
+  constexpr int kItem = sizeof(TB);
+  constexpr int kBRow = kTcBN * kItem + kTcBPad;  // bytes per weight row
+  constexpr int kAStage = BM * kTcAStride;        // floats
+  constexpr int kBStage = kTcBK * kBRow;          // bytes
+  constexpr int kACh = kTcBK / 4;                 // 16 B chunks per A row
+  constexpr int kBCh = kTcBN * kItem / 16;        // per weight row
+  constexpr int kPer = 16 / kItem;                // weights per chunk
+  const bool gated = g != nullptr;
+  const int bn = gated ? kTcBN / 2 : kTcBN;       // output columns a block
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* As = reinterpret_cast<float*>(smem_raw);   // [stage][BM][stride]
+  float* Al = As + kStages * kAStage;               // the same for a_lo
+  unsigned char* Bs =
+      reinterpret_cast<unsigned char*>(Al + kStages * kAStage);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int wm0 = (warp / 4) * 16 * kMT;
+  const int wn0 = (warp % 4) * (gated ? 16 : 32);   // warp's first output
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * bn;
+  const int k_lo = blockIdx.z * k_chunk;
+  const int k_hi = min(K, k_lo + k_chunk);
+  const int n_kt = k_hi > k_lo ? (k_hi - k_lo + kTcBK - 1) / kTcBK : 0;
+  // this thread's weight columns in a smem row, in bytes
+  const int boff = gated ? (wn0 + 2 * gid) * kItem : (wn0 + 4 * gid) * kItem;
+
+  // stage `st` <- K tile `kt`: cp.async 16 B a thread, zero-filled past
+  // the edges; element by element when the rows are not 16 B aligned
+  auto load_tile = [&](int kt, int st) {
+    const int k0 = k_lo + kt * kTcBK;
+    for (int c = tid; c < 2 * BM * kACh; c += kThreads) {
+      const int part = c / (BM * kACh), cc = c % (BM * kACh);
+      const int r = cc / kACh, kc = (cc % kACh) * 4;
+      const int row = m0 + r, k = k0 + kc;
+      const float* src = part ? a_lo : a_hi;
+      float* dst = (part ? Al : As) + st * kAStage + r * kTcAStride + kc;
+      if (aligned) {
+        const bool in = row < Mrows && k < k_hi;
+        cp_async16(dst, in ? src + (size_t)row * K + k : src, in);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          dst[j] = (row < Mrows && k + j < k_hi)
+                       ? src[(size_t)row * K + k + j] : 0.0f;
+      }
+    }
+    for (int c = tid; c < kTcBK * kBCh; c += kThreads) {
+      const int r = c / kBCh, cc = c % kBCh, k = k0 + r;
+      // gated: the row's first half is B's columns, the second G's
+      const bool second = gated && cc >= kBCh / 2;
+      const TB* src = second ? g : b;
+      const int col = n0 + (second ? cc - kBCh / 2 : cc) * kPer;
+      const size_t off = (size_t)k * N + col;
+      unsigned char* dst = Bs + st * kBStage + r * kBRow + cc * 16;
+      if (aligned) {
+        const bool in = k < k_hi && col < N;
+        cp_async16(dst, in ? src + off : src, in);
+      } else {
+        TB* d = reinterpret_cast<TB*>(dst);
+#pragma unroll
+        for (int j = 0; j < kPer; ++j)
+          d[j] = (k < k_hi && col + j < N) ? src[off + j] : TB(0);
+      }
+    }
+  };
+
+  float acc[kMT][4][4], tot[kMT][4][4];
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) { acc[i][p][j] = 0.0f; tot[i][p][j] = 0.0f; }
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_kt) load_tile(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int st = kt % kStages;
+    cp_async_wait<kStages - 2>();      // this thread's copies of tile kt
+    __syncthreads();                   // tile kt visible; kt - 1 consumed
+    {
+      const int nk = kt + kStages - 1;
+      if (nk < n_kt) load_tile(nk, nk % kStages);
+      cp_async_commit();
+    }
+    const float* as = As + st * kAStage;
+    const float* al = Al + st * kAStage;
+    const unsigned char* bs = Bs + st * kBStage + boff;
+#pragma unroll
+    for (int s = 0; s < kTcBK / 8; ++s) {
+      const int kk = 8 * s + 2 * tig;
+      uint32_t ah[kMT][4], alo[kMT][4];
+#pragma unroll
+      for (int i = 0; i < kMT; ++i) {
+        const int r = (wm0 + 16 * i + gid) * kTcAStride + kk;
+        const float2 h0 = *reinterpret_cast<const float2*>(as + r);
+        const float2 h1 =
+            *reinterpret_cast<const float2*>(as + r + 8 * kTcAStride);
+        const float2 l0 = *reinterpret_cast<const float2*>(al + r);
+        const float2 l1 =
+            *reinterpret_cast<const float2*>(al + r + 8 * kTcAStride);
+        ah[i][0] = __float_as_uint(h0.x); ah[i][1] = __float_as_uint(h1.x);
+        ah[i][2] = __float_as_uint(h0.y); ah[i][3] = __float_as_uint(h1.y);
+        alo[i][0] = __float_as_uint(l0.x); alo[i][1] = __float_as_uint(l1.x);
+        alo[i][2] = __float_as_uint(l0.y); alo[i][3] = __float_as_uint(l1.y);
+      }
+      uint32_t w0[4], w1[4];           // weight rows kk and kk + 1
+      const unsigned char* p = bs + kk * kBRow;
+      if (gated) {
+        load_pair<TB>(p, w0);
+        load_pair<TB>(p + kTcBN / 2 * kItem, w0 + 2);
+        load_pair<TB>(p + kBRow, w1);
+        load_pair<TB>(p + kBRow + kTcBN / 2 * kItem, w1 + 2);
+      } else {
+        load_cols<TB>(p, w0);
+        load_cols<TB>(p + kBRow, w1);
+      }
+      uint32_t b0[4], b1[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        b0[q] = tc_decode<E, M>(w0[q]);
+        b1[q] = tc_decode<E, M>(w1[q]);
+      }
+      // the a_lo pass over every tile, then the a_hi pass: the two mma
+      // into one accumulator stand kMT * 4 issues apart
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int i = 0; i < kMT; ++i) mma_tf32(acc[i][q], alo[i], b0[q], b1[q]);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int i = 0; i < kMT; ++i) mma_tf32(acc[i][q], ah[i], b0[q], b1[q]);
+    }
+    if (promote) {   // the tensor core's sum of 32 products -> FADD
+#pragma unroll
+      for (int i = 0; i < kMT; ++i)
+#pragma unroll
+        for (int p = 0; p < 4; ++p)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            tot[i][p][j] += acc[i][p][j];
+            acc[i][p][j] = 0.0f;
+          }
+    }
+  }
+  cp_async_wait<0>();
+
+  // c element j of n8 tile p holds row (j < 2 ? gid : gid + 8); its column
+  // is 8 tig + 4 (j & 1) + p (ungated) or 4 tig + 2 (j & 1) + (p & 1)
+  // (gated, p < 2 for B and p >= 2 for G)
+  const size_t plane = (size_t)Mrows * N;
+  const int splits = gridDim.z;
+  const bool vec_out = (N % 4) == 0;
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int hrow = 0; hrow < 2; ++hrow) {
+      const int row = m0 + wm0 + 16 * i + gid + 8 * hrow;
+      if (row >= Mrows) continue;
+#pragma unroll
+      for (int half = 0; half < (gated ? 1 : 2); ++half) {
+        // 4 adjacent outputs: v (and the gate sums gv when gated)
+        float v[4], gv[4];
+        int col0;
+        if (gated) {
+          col0 = n0 + wn0 + 4 * tig;
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int j = 2 * hrow + (u >> 1), p = u & 1;
+            v[u] = tot[i][p][j] + acc[i][p][j];
+            gv[u] = tot[i][p + 2][j] + acc[i][p + 2][j];
+          }
+        } else {
+          col0 = n0 + wn0 + 8 * tig + 4 * half;
+#pragma unroll
+          for (int p = 0; p < 4; ++p) {
+            const int j = 2 * hrow + half;
+            v[p] = tot[i][p][j] + acc[i][p][j];
+            gv[p] = 0.0f;
+          }
+        }
+        const size_t idx = (size_t)row * N + col0;
+        float* dst = out + idx;
+        float* gdst = nullptr;
+        if (splits == 1) {
+#pragma unroll
+          for (int u = 0; u < 4; ++u) v[u] = ep(v[u], gv[u], col0 + u);
+        } else {   // partials [split][row][col], the gate's after all
+          dst = ws + blockIdx.z * plane + idx;
+          if (gated) gdst = ws + (splits + blockIdx.z) * plane + idx;
+        }
+        if (vec_out && col0 + 3 < N) {
+          *reinterpret_cast<float4*>(dst) =
+              make_float4(v[0], v[1], v[2], v[3]);
+          if (gdst != nullptr)
+            *reinterpret_cast<float4*>(gdst) =
+                make_float4(gv[0], gv[1], gv[2], gv[3]);
+        } else {
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            if (col0 + u >= N) continue;
+            dst[u] = v[u];
+            if (gdst != nullptr) gdst[u] = gv[u];
+          }
+        }
+      }
+    }
+}
+
+template <typename TB, int E, int M, int BM>
+cudaError_t launch_tc_bm(const float* a_hi, const float* a_lo, const TB* b,
+                         const TB* g, float* out, float* ws, Epilogue ep,
+                         int Mrows, int K, int N, int splits, int k_chunk,
+                         int aligned, int promote, cudaStream_t stream) {
+  auto kern = qmm_tc<TB, E, M, BM>;
+  constexpr size_t smem = tc_smem_bytes<TB, BM>();
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const int bn = g != nullptr ? kTcBN / 2 : kTcBN;
+  const dim3 grid((N + bn - 1) / bn, (Mrows + BM - 1) / BM, splits);
+  kern<<<grid, TcShape<BM>::kThreads, smem, stream>>>(
+      a_hi, a_lo, b, g, out, ws, ep, Mrows, K, N, k_chunk, aligned,
+      promote);
+  return cudaGetLastError();
+}
+
+// asplit: 2 * M * K floats for a_hi and a_lo
+template <typename TB, int E, int M>
+cudaError_t launch_tc(const float* a, float* asplit, const void* bv,
+                      const void* gv, float* out, float* ws, Epilogue ep,
+                      int Mrows, int K, int N, int splits, int k_chunk,
+                      int promote, cudaStream_t stream) {
+  const TB* b = static_cast<const TB*>(bv);
+  const TB* g = static_cast<const TB*>(gv);
+  const size_t n = (size_t)Mrows * K;
+  float* a_hi = asplit;
+  float* a_lo = asplit + n;
+  const int vec_a = n % 4 == 0 &&
+      (((uintptr_t)a | (uintptr_t)a_hi | (uintptr_t)a_lo) & 15u) == 0;
+  const size_t work = vec_a ? n / 4 : n;
+  const int sblocks = (int)((work + 255) / 256 < 2048 ? (work + 255) / 256
+                                                       : 2048);
+  if (n > 0) {
+    qmm_split_a<<<sblocks, 256, 0, stream>>>(a, a_hi, a_lo, n, vec_a);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  const int aligned =
+      K % 4 == 0 && (N * (int)sizeof(TB)) % 16 == 0 &&
+      (((uintptr_t)a_hi | (uintptr_t)a_lo | (uintptr_t)b | (uintptr_t)g) &
+       15u) == 0;
+  cudaError_t e;
+  if (Mrows <= 16)
+    e = launch_tc_bm<TB, E, M, 16>(a_hi, a_lo, b, g, out, ws, ep, Mrows, K,
+                                   N, splits, k_chunk, aligned, promote,
+                                   stream);
+  else if (Mrows <= 32)
+    e = launch_tc_bm<TB, E, M, 32>(a_hi, a_lo, b, g, out, ws, ep, Mrows, K,
+                                   N, splits, k_chunk, aligned, promote,
+                                   stream);
+  else
+    e = launch_tc_bm<TB, E, M, 64>(a_hi, a_lo, b, g, out, ws, ep, Mrows, K,
+                                   N, splits, k_chunk, aligned, promote,
+                                   stream);
+  if (e != cudaSuccess || splits == 1) return e;
+  const int plane = Mrows * N;
+  const int blocks = (plane + 255) / 256 < 1024 ? (plane + 255) / 256 : 1024;
+  qmm_splitk<<<blocks, 256, 0, stream>>>(ws, out, ep, Mrows, N, splits);
+  return cudaGetLastError();
+}
+
+#endif  // QMM_UNIT
+
+#if QMM_UNIT == 0
+
 template <typename TB, int E, int M>
 cudaError_t launch_fmt(const float* a, const void* b, const void* g,
                        float* out, float* ws, Epilogue ep, int Mrows, int K,
@@ -342,15 +853,18 @@ cudaError_t launch_fmt(const float* a, const void* b, const void* g,
   const TB* B = static_cast<const TB*>(b);
   const TB* G = static_cast<const TB*>(g);
   const int nb = (N + kBN - 1) / kBN;
-  // the tiled kernel is built for the compile-time formats only (E >= 0);
-  // a run-time (e, m) takes the GEMV kernel at any M
-  if constexpr (E >= 0) {
+  // M > 8: binary32 takes the f32 tiled kernel, the four packed formats
+  // take qmm_tc (through qmm_tc_launch, not here), and a run-time (e, m)
+  // takes the GEMV kernel at any M
+  if constexpr (E == 8 && M == 23) {
     if (Mrows > 8) {
       const dim3 grid((N + kTNT - 1) / kTNT, (Mrows + kTM - 1) / kTM);
       qmm_tiled<TB, E, M><<<grid, kThreads, 0, stream>>>(
           a, B, G, out, ep, Mrows, K, N, rt_e, rt_m);
       return cudaGetLastError();
     }
+  } else if constexpr (E >= 0) {
+    if (Mrows > 8) return cudaErrorInvalidValue;
   }
   const int k_chunk = (K + splits - 1) / splits;
   if (Mrows <= 4) {
@@ -371,13 +885,18 @@ cudaError_t launch_fmt(const float* a, const void* b, const void* g,
   return cudaGetLastError();
 }
 
+#endif  // QMM_UNIT == 0
+
 }  // namespace
+
+#if QMM_UNIT == 0
 
 // fmt_code: 0 f32 / binary32 (u32 bits), 1 binary8 (5,2) u8,
 // 2 binary8alt (4,3) u8, 3 binary16 (5,10) u16, 4 binary16alt (8,7) u16,
 // 5 any other (rt_e, rt_m) in u8, 6 in u16, 7 in u32.
 // out_e == 0: no output quantization.  splits > 1 (M <= 8 only) needs
-// ws: (gated ? 2 : 1) * splits * M * N floats.
+// ws: (gated ? 2 : 1) * splits * M * N floats.  M > 8 is taken here only
+// for fmt_code 0 (f32 tiled kernel) and 5-7 (GEMV).
 extern "C" int qmm_launch(const void* a, const void* b, const void* g,
                           const void* bias, void* out, void* ws, int M,
                           int K, int N, int splits, int fmt_code, int rt_e,
@@ -405,3 +924,57 @@ extern "C" int qmm_launch(const void* a, const void* b, const void* g,
   }
   return (int)err;
 }
+
+// The tensor-core path: M > 8 on fmt_code 1-4.  asplit: 2 * M * K floats
+// of scratch for the split activation.  splits > 1 needs k_chunk a
+// multiple of 32 with (splits - 1) * k_chunk < K, and ws as above.
+// promote = 0 keeps the whole K sweep in the mma accumulator (for
+// measuring what the promotion buys; the serving path passes 1).
+extern "C" int qmm_tc_launch(const void* a, void* asplit, const void* b,
+                             const void* g, const void* bias, void* out,
+                             void* ws, int M, int K, int N, int splits,
+                             int k_chunk, int fmt_code, int act, int out_e,
+                             int out_m, int promote, void* stream) {
+  if (M <= 8 || asplit == nullptr || splits < 1 || k_chunk < 1 ||
+      (splits > 1 && (ws == nullptr || k_chunk % kTcBK != 0 ||
+                      (long long)(splits - 1) * k_chunk >= K)))
+    return (int)cudaErrorInvalidValue;
+  if (splits == 1) k_chunk = K > 0 ? K : 1;
+  const float* A = static_cast<const float*>(a);
+  float* AS = static_cast<float*>(asplit);
+  const float* bs = static_cast<const float*>(bias);
+  float* O = static_cast<float*>(out);
+  float* W = static_cast<float*>(ws);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (fmt_code) {
+    case 1: return qmm_tc_fmt1(A, AS, b, g, bs, O, W, M, K, N, splits, k_chunk, act, out_e, out_m, promote, s);
+    case 2: return qmm_tc_fmt2(A, AS, b, g, bs, O, W, M, K, N, splits, k_chunk, act, out_e, out_m, promote, s);
+    case 3: return qmm_tc_fmt3(A, AS, b, g, bs, O, W, M, K, N, splits, k_chunk, act, out_e, out_m, promote, s);
+    case 4: return qmm_tc_fmt4(A, AS, b, g, bs, O, W, M, K, N, splits, k_chunk, act, out_e, out_m, promote, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+#else  // a tensor-core unit: the launcher of one packed format
+
+#if QMM_UNIT == 1
+#define QMM_TC_FN qmm_tc_fmt1
+#define QMM_TC_FMT uint8_t, 5, 2      // binary8
+#elif QMM_UNIT == 2
+#define QMM_TC_FN qmm_tc_fmt2
+#define QMM_TC_FMT uint8_t, 4, 3      // binary8alt
+#elif QMM_UNIT == 3
+#define QMM_TC_FN qmm_tc_fmt3
+#define QMM_TC_FMT uint16_t, 5, 10    // binary16
+#elif QMM_UNIT == 4
+#define QMM_TC_FN qmm_tc_fmt4
+#define QMM_TC_FMT uint16_t, 8, 7     // binary16alt
+#endif
+
+extern "C" int QMM_TC_FN(QMM_TC_PARAMS) {
+  const Epilogue ep{bias, act, out_e, out_m, g != nullptr};
+  return (int)launch_tc<QMM_TC_FMT>(a, asplit, b, g, out, ws, ep, M, K, N,
+                                    splits, k_chunk, promote, stream);
+}
+
+#endif  // QMM_UNIT

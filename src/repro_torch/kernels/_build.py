@@ -5,8 +5,12 @@ a plain C interface (``-gencode arch=compute_90a,code=sm_90a``), loaded
 with ``ctypes``.  Libraries are built at first use into
 ``<repo>/build/kernels/<hash>/`` where the hash covers every source under
 ``csrc/`` and the compiler flags, so an edited source rebuilds and an
-unchanged one loads the cached library.  :func:`build_all` starts one
-``nvcc`` per source at once and waits for all of them.
+unchanged one loads the cached library.  A library may be built as
+several units of its source (the same ``.cu`` under different ``-D``
+flags, each an object file, linked into the one library), so that a
+source with many kernel instantiations compiles in parallel.
+:func:`build_all` starts one ``nvcc`` per unit of every library at once
+and waits for all of them.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :meth:`KernelLib.launch` raises on a non-zero code and is the one place
@@ -28,7 +32,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_ROOT = REPO_ROOT / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-O3", "-Xcompiler", "-fPIC", "-lineinfo")
 
 P = ctypes.c_void_p
 I32 = ctypes.c_int
@@ -61,11 +65,15 @@ def build_dir() -> Path:
 
 class KernelLib:
     """One ``csrc/<name>.cu`` shared library and its launch counts: in
-    all (``launches``) and per C entry point (``by_symbol``)."""
+    all (``launches``) and per C entry point (``by_symbol``).  ``units``,
+    when given, lists the extra ``nvcc`` flags of each unit the source is
+    compiled as (one object file each, compiled in parallel)."""
 
-    def __init__(self, name: str, signatures: Dict[str, list]):
+    def __init__(self, name: str, signatures: Dict[str, list],
+                 units: Optional[List[tuple]] = None):
         self.name = name
         self.signatures = signatures
+        self.units = units
         self.launches = 0
         self.by_symbol: Dict[str, int] = {}
         self._lib: Optional[ctypes.CDLL] = None
@@ -78,28 +86,57 @@ class KernelLib:
     def so_path(self) -> Path:
         return build_dir() / f"lib{self.name}.so"
 
+    def _logs(self) -> List[Path]:
+        if self.units is None:
+            return [self.so_path.with_suffix(".log")]
+        return [self.so_path.with_suffix(f".{i}.log")
+                for i in range(len(self.units))]
+
     def _start_build(self):
-        """Popen of nvcc for this library (None when already built)."""
+        """The nvcc processes building this library (None when built)."""
         if self.so_path.exists():
             return None
         self.so_path.parent.mkdir(parents=True, exist_ok=True)
         tmp = self.so_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(CSRC),
-               "-o", str(tmp), str(CSRC / f"{self.name}.cu")]
-        log = open(self.so_path.with_suffix(".log"), "w")
-        return subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), \
-            tmp, log
+        src = str(CSRC / f"{self.name}.cu")
+        common = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(CSRC)]
+        if self.units is None:
+            cmds = [common + ["-shared", "-o", str(tmp), src]]
+            objs = []
+        else:
+            objs = [tmp.with_suffix(f".{i}.o") for i in range(len(self.units))]
+            cmds = [common + ["-c", *flags, "-o", str(o), src]
+                    for flags, o in zip(self.units, objs)]
+        procs = []
+        for cmd, log_path in zip(cmds, self._logs()):
+            log = open(log_path, "w")
+            procs.append((subprocess.Popen(cmd, stdout=log,
+                                           stderr=subprocess.STDOUT), log,
+                          log_path))
+        return procs, tmp, objs
 
     def _finish_build(self, job) -> None:
         if job is None:
             return
-        proc, tmp, log = job
-        rc = proc.wait()
-        log.close()
-        if rc != 0:
-            text = self.so_path.with_suffix(".log").read_text()
-            raise RuntimeError(f"nvcc failed for {self.name}.cu "
-                               f"(exit {rc}):\n{text[-4000:]}")
+        procs, tmp, objs = job
+        failed = []
+        for proc, log, log_path in procs:
+            rc = proc.wait()
+            log.close()
+            if rc != 0:
+                failed.append(f"exit {rc}:\n{log_path.read_text()[-4000:]}")
+        if not failed and objs:
+            link = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", "-o",
+                                   str(tmp), *map(str, objs)],
+                                  capture_output=True, text=True)
+            if link.returncode != 0:
+                failed.append(f"link exit {link.returncode}:\n"
+                              f"{(link.stdout + link.stderr)[-4000:]}")
+        for o in objs:
+            o.unlink(missing_ok=True)
+        if failed:
+            raise RuntimeError(f"nvcc failed for {self.name}.cu: "
+                               + "\n".join(failed))
         os.replace(tmp, self.so_path)
 
     def lib(self) -> ctypes.CDLL:
@@ -127,8 +164,8 @@ class KernelLib:
     def ptxas_report(self) -> str:
         """What ``nvcc -Xptxas -v`` said (registers, shared memory,
         spills) when this library was built in this checkout."""
-        log = self.so_path.with_suffix(".log")
-        return log.read_text() if log.exists() else ""
+        return "".join(log.read_text() for log in self._logs()
+                       if log.exists())
 
 
 _LIBS: List[KernelLib] = []
@@ -140,7 +177,7 @@ def register(lib: KernelLib) -> KernelLib:
 
 
 def build_all() -> float:
-    """Build every registered library, one ``nvcc`` per source, all
+    """Build every registered library, one ``nvcc`` per unit, all
     started together.  Returns the wall-clock seconds it took."""
     t0 = time.perf_counter()
     jobs = [(lib, lib._start_build()) for lib in _LIBS]

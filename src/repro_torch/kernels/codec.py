@@ -19,6 +19,8 @@ Tile functions
 ``encode_tile(x, fmt)``       already-quantized f32 -> packed (e, m) field
                               in the narrowest unsigned container.
 ``decode_tile(bits, fmt)``    exact expansion of packed fields to f32.
+``tf32_round(x)``             f32 -> nearest TF32 (``cvt.rna``), the
+                              tensor-core qmm's activation split.
 """
 from __future__ import annotations
 
@@ -40,6 +42,10 @@ INF_F32 = 0x7F80_0000
 QUIET_BIT_F32 = 0x0040_0000
 IMPLICIT_ONE_F32 = 0x0080_0000
 
+# TF32, the tensor cores' operand format (e8m10): an f32 without its
+# low 13 mantissa bits
+TF32_DROPPED = 0x1FFF
+
 _I64 = torch.int64
 _CHUNK = 1 << 24  # elements per slice of the int64 bit math
 
@@ -54,6 +60,22 @@ def float32(u: torch.Tensor) -> torch.Tensor:
     """u32 bit pattern (int64 in 0 .. 2^32 - 1) -> f32."""
     signed = torch.where(u >= (1 << 31), u - (1 << 32), u)
     return signed.to(torch.int32).view(torch.float32)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest TF32 value, ties away from zero, as
+    ``cvt.rna.tf32.f32``: a finite value past the largest TF32 value
+    rounds to Inf; Inf and NaN pass through."""
+    u = bits32(x)
+    mag = u & MAG_F32
+    r = torch.where(mag < INF_F32, (mag + (TF32_DROPPED + 1) // 2)
+                    & ~TF32_DROPPED, mag)
+    return float32((u & SIGN_F32) | r)
+
+
+def tf32_truncate(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> TF32 toward zero (the low 13 mantissa bits dropped)."""
+    return float32(bits32(x) & ~TF32_DROPPED)
 
 
 def _where(c, a, b):

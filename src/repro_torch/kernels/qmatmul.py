@@ -8,10 +8,19 @@ out_fmt, gate_payload=, bias=, act=)`` computes::
 
 with ``B``/``G`` packed (e, m) containers (or floats when ``fmt_b`` is
 None), f32 products and f32 accumulation.  On a CUDA tensor it launches
-``csrc/qmm.cu`` (``_qmm_cuda``); on a CPU tensor it runs the plain
-version (``qmatmul_plain``: dequantize, then ``torch.matmul`` in f32, then
-the same epilogue in the same order), which is also the library yardstick
-on the card.
+``csrc/qmm.cu`` (``_qmm_cuda``) through one of two C entry points:
+
+* ``qmm_tc_launch`` for M > ``GEMV_MAX_M`` rows on binary8, binary8alt,
+  binary16 and binary16alt weights (prefill chunks, the speculative
+  verify): split-TF32 tensor-core products, exact to 2^-22 |a| @ |b|
+  plus the f32 accumulation (``split_tf32`` is its split in PyTorch);
+* ``qmm_launch`` for everything else: the weight-streaming GEMV at
+  M <= ``GEMV_MAX_M`` (and for a run-time (e, m) at any M), the f32
+  tiled kernel for binary32 / float weights at M > ``GEMV_MAX_M``.
+
+On a CPU tensor it runs the plain version (``qmatmul_plain``:
+dequantize, then ``torch.matmul`` in f32, then the same epilogue in the
+same order).
 """
 from __future__ import annotations
 
@@ -22,14 +31,25 @@ import torch
 from repro_torch.core.formats import FpFormat, get_format
 
 from . import _build
-from .codec import decode_tile, quantize_tile
+from .codec import decode_tile, quantize_tile, tf32_round, tf32_truncate
 
 ACTS = {None: 0, "silu": 1, "gelu": 2, "relu2": 3}
 
+# qmm.cu is built as five units in parallel: the GEMV and f32 tiled
+# kernels, and the tensor-core kernel once per packed format
 LIB = _build.register(_build.KernelLib("qmm", {
     "qmm_launch": [_build.P] * 6 + [_build.I32] * 11 + [_build.P],
-}))
-GEMV_MAX_M = 8   # above this the kernel takes its shared-memory tiled path
+    "qmm_tc_launch": [_build.P] * 7 + [_build.I32] * 10 + [_build.P],
+}, units=[(f"-DQMM_UNIT={i}",) for i in range(5)]))
+# above this many rows the packed formats take the tensor-core kernel
+# (qmm_tc_launch) and binary32 the f32 tiled kernel
+GEMV_MAX_M = 8
+TC_FMT_CODES = (1, 2, 3, 4)   # binary8, binary8alt, binary16, binary16alt
+TC_BN, TC_BK = 128, 32        # the tensor-core kernel's block columns, K step
+TC_MIN_CHUNK = 128            # fewest K rows a split of that kernel takes
+# blocks of that kernel's 64-row tile an SM holds at once (256 threads
+# under 128 registers each, 77 KB of shared memory)
+TC_BLOCKS_PER_SM = 2
 
 
 def apply_act(x: torch.Tensor, name: Optional[str]) -> torch.Tensor:
@@ -70,7 +90,8 @@ def qmatmul_plain(a_payload, b_payload, fmt_a, fmt_b,
     return r
 
 
-def _qmm_cuda(a, b, fmt_b, out_fmt, gate, bias, act) -> torch.Tensor:
+def _qmm_cuda(a, b, fmt_b, out_fmt, gate, bias, act, *,
+              tc_promote: bool = True) -> torch.Tensor:
     M, K = a.shape
     N = b.shape[1]
     want = torch.float32 if fmt_b is None else fmt_b.container_dtype
@@ -93,26 +114,89 @@ def _qmm_cuda(a, b, fmt_b, out_fmt, gate, bias, act) -> torch.Tensor:
         return out
     fmt = fmt_b if fmt_b is not None else get_format("binary32")
     oe, om = (out_fmt.e, out_fmt.m) if out_fmt is not None else (0, 0)
-    splits = gemv_splits(M, K, N, _build.sm_count(a.device))
+    code = _build.fmt_code(fmt_b)
+    tc = qmm_entry(M, fmt_b) == "qmm_tc_launch"
+    n_sm = _build.sm_count(a.device)
+    if tc:
+        splits, k_chunk = tiled_splits(K, N, n_sm, gate is not None)
+    else:
+        splits = gemv_splits(M, K, N, n_sm)
     ws = None
     if splits > 1:
         ws = torch.empty(((2 if gate is not None else 1) * splits, M, N),
                          dtype=torch.float32, device=a.device)
     p = _build.ptr
-    LIB.launch("qmm_launch", p(a), p(b), p(gate), p(bias), p(out), p(ws),
-               M, K, N, splits, _build.fmt_code(fmt_b), fmt.e, fmt.m,
-               ACTS[act], oe, om, vec, _build.stream_ptr(a.device))
+    if tc:
+        asplit = torch.empty((2, M, K), dtype=torch.float32, device=a.device)
+        LIB.launch("qmm_tc_launch", p(a), p(asplit), p(b), p(gate), p(bias),
+                   p(out), p(ws), M, K, N, splits, k_chunk, code, ACTS[act],
+                   oe, om, int(tc_promote), _build.stream_ptr(a.device))
+    else:
+        LIB.launch("qmm_launch", p(a), p(b), p(gate), p(bias), p(out),
+                   p(ws), M, K, N, splits, code, fmt.e, fmt.m, ACTS[act],
+                   oe, om, vec, _build.stream_ptr(a.device))
     return out
 
 
 def gemv_splits(M: int, K: int, N: int, n_sm: int) -> int:
     """K splits for the decode-regime kernel: enough blocks for about two
     per SM (a 64-column strip is one block), each split keeping at least
-    256 rows of K; 1 for the tiled regime."""
+    256 rows of K; 1 above ``GEMV_MAX_M`` (see :func:`tiled_splits`)."""
     if M > GEMV_MAX_M:
         return 1
     strips = -(-N // 64)
     return max(1, min(-(-2 * n_sm // strips), K // 256))
+
+
+def qmm_entry(M: int, fmt_b: Optional[FpFormat]) -> str:
+    """The C entry point a CUDA qmatmul of M rows takes: the tensor-core
+    kernel for the four packed formats above ``GEMV_MAX_M`` rows, else
+    ``qmm_launch`` (GEMV, or the f32 tiled kernel for binary32 / float
+    weights).  A fixed choice by format, not a fallback."""
+    tc = M > GEMV_MAX_M and _build.fmt_code(fmt_b) in TC_FMT_CODES
+    return "qmm_tc_launch" if tc else "qmm_launch"
+
+
+def tc_tile_m(M: int) -> int:
+    """Rows of the tensor-core kernel's block tile for M rows."""
+    return 16 if M <= 16 else 32 if M <= 32 else 64
+
+
+def tiled_splits(K: int, N: int, n_sm: int, gated: bool = False) -> tuple:
+    """(splits, k_chunk) of the tensor-core kernel, a function of K and N
+    only: the order in which a row's products are summed then does not
+    depend on M, so a prompt prefilled in one call, in 64-token chunks
+    or verified 16 rows at a time gives the same rows bit for bit.  The
+    N / 128 column tiles (N / 64 when gated: a block's 128 weight columns
+    are 64 of B and the same 64 of G) of one 64-row tile are split along
+    K into as many parts as fit the blocks the SMs hold at once
+    (``TC_BLOCKS_PER_SM``), so a 64-row launch is one balanced wave;
+    chunks are multiples of the kernel's 32-deep K step (and so of the
+    mma's 8) and no shorter than ``TC_MIN_CHUNK``."""
+    tiles = -(-N // (TC_BN // 2 if gated else TC_BN))
+    want = n_sm * TC_BLOCKS_PER_SM // tiles
+    if want <= 1 or K < 2 * TC_MIN_CHUNK:
+        return 1, K
+    per = -(-K // want)                     # rounded up: splits <= want
+    k_chunk = max(TC_MIN_CHUNK, -(-per // TC_BK) * TC_BK)
+    return -(-K // k_chunk), k_chunk
+
+
+def split_tf32(a: torch.Tensor):
+    """The tensor-core kernel's split of an f32 activation, in PyTorch:
+    ``a = hi + lo + r`` with ``hi``, ``lo`` TF32 values and
+    ``|r| <= max(2^-22 |a|, 2^-137)``.  ``hi`` is ``a`` rounded to TF32
+    (truncated where rounding would pass the largest TF32 value), ``lo``
+    the rounded remainder; Inf and NaN stay in ``hi`` with ``lo = 0``.
+    Used by tests and ``chip_smoke.py``; the serving path does not call
+    it."""
+    a = a.to(torch.float32)
+    hi = tf32_round(a)
+    hi = torch.where(torch.isinf(hi) & ~torch.isinf(a), tf32_truncate(a), hi)
+    finite = torch.isfinite(a)
+    lo = torch.where(finite, tf32_round(torch.where(finite, a - hi, 0.0)),
+                     0.0)
+    return hi, lo
 
 
 def qmatmul(a_payload, b_payload, fmt_a, fmt_b,
