@@ -8,13 +8,15 @@ Run from the root of a checkout.  Phases:
 1. build       -- compile every CUDA kernel of ``src/repro_torch/csrc``
                   (one nvcc per source, all started together) into
                   ``build/kernels/``.
-2. kernels     -- qmm (its GEMV and its tensor-core kernel),
-                  paged_decode, flash_prefill and flash_decode against
-                  their plain PyTorch versions on the card, at the
-                  serving path's shapes and at ragged edge shapes, with
-                  the stated tolerances; times each kernel, its plain
-                  version and a library yardstick (qmm per decode step,
-                  per prefill chunk and per verify round).
+2. kernels     -- qmm (its tensor-core kernel for the packed formats and
+                  its GEMV for binary32), paged_decode, flash_prefill and
+                  flash_decode against their plain PyTorch versions on
+                  the card, at the serving path's shapes and at ragged
+                  edge shapes, with the stated tolerances; qmm rows and
+                  flash_decode rows bit-identical whatever rows are
+                  beside them; times each kernel, its plain version and a
+                  library yardstick (qmm per decode step, per prefill
+                  chunk and per verify round).
 3. casts       -- torch's CUDA f32 -> float8_e5m2 / bfloat16 casts (the
                   KV write and the activation cast) against the plain
                   codec; the three flexfloat_cast kernels bit-identical to
@@ -29,24 +31,27 @@ Run from the root of a checkout.  Phases:
                   full-depth llama3-8b (random weights from the seed),
                   ``--decode-impl paged``, asserting the launch counts per
                   decode step and per prefill chunk (and per qmm entry
-                  point: 192 tensor-core launches per chunk).
+                  point: all 193 on tensor cores in both).
 6. serve_flash -- the same workload under ``--decode-impl flash_pallas``
                   (the serving default on a card): 32 flash_decode and no
                   paged_decode per decode step.
 7. speculative -- ``--speculate-k 4`` with the binary8 draft, asserting
-                  the launch counts per round and per verify (193
-                  tensor-core launches at 4 slots x 4 tokens); accept
-                  rate and the tokens that differ from serve_flash.
+                  the launch counts per round and per verify, that no
+                  token differs from serve_flash, and that the target as
+                  its own draft has every proposal accepted.
 8. logits      -- a prefill chunk, a decode step and a speculative verify
                   step of a 2-layer, full-width model: kernel path against
-                  plain path, and verify against sequential decode, under
-                  binary32 and transprecision.
+                  plain path, and verify against sequential decode bit for
+                  bit (logits, K/V pool bits, lengths), under binary32 and
+                  transprecision, with paged and flash_pallas decode;
+                  rmsnorm rows bit-identical at every row count.
 9. profile     -- short paged and speculative serve runs under
                   torch.profiler: device busy share and the kernels that
                   take the device time; the host syncs of a tiny serve.
 
 ``--phases build,timing --src OTHER/src`` times another checkout's
-qmm (prefill chunk, verify round) and flash_prefill with this script's
+qmm (decode step, prefill chunk, verify round; binary32 decode step and
+chunk), flash_prefill, paged_decode and flash_decode with this script's
 timing code, e.g. a parent commit unpacked into a git-ignored directory,
 to set its kernels beside this checkout's in one chip call.
 
@@ -167,16 +172,18 @@ def check_tc_sass(lib, report):
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_qmm(torch, np, report, timer):
+def check_qmm(torch, np, report):
     """qmm against qmatmul_plain, within 1e-6 in units of |x| @ |w| (the
-    reference's contract): the serving shapes at M = 1, 4 (GEMV), 16 and
-    64 (tensor cores), every paper format on both paths, the tensor-core
-    path at M in (9, 16, 17, 33, 100), ragged K and N, gated + bias and
-    out_fmt; then the error at K = 14336 with and without the promotion
-    of the tensor core's partial sums."""
+    reference's contract): the serving shapes at M = 1, 4, 16 and 64 (the
+    tensor-core kernel for the packed formats), every paper format at
+    M = 1, 4 and 64 (binary32 on the GEMV), the tensor-core path at M in
+    (9, 16, 17, 33, 100), the GEMV at M in (9, 16, 17, 100), ragged K and
+    N, gated + bias and out_fmt; then the error at K = 14336 with and
+    without the promotion of the tensor core's partial sums; then rows
+    bit-identical whatever M is, for every packed format and binary32."""
     from repro_torch.core.formats import (BINARY8, BINARY8ALT, BINARY16,
                                           BINARY16ALT, BINARY32)
-    from repro_torch.core.qtensor import decode, encode
+    from repro_torch.core.qtensor import decode
     from repro_torch.kernels import qmatmul as Q
 
     gen = torch.Generator(device="cuda").manual_seed(report["seed"])
@@ -185,10 +192,7 @@ def check_qmm(torch, np, report, timer):
         return torch.randn(shape, generator=gen, device="cuda")
 
     def pack(w, fmt):
-        # round through the native dtype, so packing is a bitcast (the
-        # plain codec's int64 temporaries would not fit beside the
-        # 128256-wide head)
-        return encode(w.to(fmt.native_dtype), fmt)
+        return _pack_weight(w, fmt)
 
     worst = 0.0
     worst_tc = 0.0
@@ -226,8 +230,8 @@ def check_qmm(torch, np, report, timer):
             tol = 1e-6 * sh * sg
         norm = float((err / (sh * sg)).max())
         ok = bool((err <= tol).all())
-        tc = M > Q.GEMV_MAX_M and fmt != BINARY32
-        path = "tc" if tc else "gemv" if M <= Q.GEMV_MAX_M else "f32 tiled"
+        tc = Q.qmm_entry(fmt) == "qmm_tc_launch"
+        path = "tc" if tc else "gemv"
         report["cases"].append(dict(kernel="qmm", case=name, M=M, K=K, N=N,
                                     fmt=fmt.name, gated=gated, act=act,
                                     path=path, promote=promote,
@@ -236,10 +240,10 @@ def check_qmm(torch, np, report, timer):
         print(f"[kernels] qmm {name:<28} M={M:<3} K={K:<5} N={N:<6} "
               f"{fmt.name:<11} {path:<9} max|err|={float(err.max()):.3e} "
               f"({norm:.2e} x |x|@|w|, tol 1e-6) {'ok' if ok else 'FAIL'}")
-        if fmt == BINARY16ALT and out_fmt is None and promote:
-            if tc:
+        if out_fmt is None and promote:
+            if tc and fmt == BINARY16ALT:
                 worst_tc = max(worst_tc, float(err.max()))
-            else:
+            elif not tc:
                 worst = max(worst, float(err.max()))
         if tc and promote and out_fmt is None:
             tc_units[fmt.name] = max(tc_units.get(fmt.name, 0.0), norm)
@@ -250,8 +254,8 @@ def check_qmm(torch, np, report, timer):
         return case(*a, **k)[0]
 
     ok = True
-    # the serving path: binary16alt weights, M = 1 / 4 decode (GEMV), 16
-    # verify and 64 prefill (tensor cores)
+    # the serving path: binary16alt weights on tensor cores, M = 1 (the
+    # prefill's head row) / 4 decode, 16 verify and 64 prefill
     for M in (1, 4, 16, 64):
         ok &= run("wq/wo", M, 4096, 4096, BINARY16ALT)
         ok &= run("wk/wv", M, 4096, 1024, BINARY16ALT)
@@ -283,6 +287,11 @@ def check_qmm(torch, np, report, timer):
         ok &= run("tc aligned ragged N", 33, 4096, 1040, fmt)
         ok &= run("tc out_fmt binary16alt", 17, 4100, 1030, fmt, gated=True,
                   act="silu", out_fmt=BINARY16ALT)
+    # the GEMV (binary32) over several row blocks
+    for M in (9, 16, 17, 100):
+        ok &= run("gemv rows", M, 4096, 1024, BINARY32)
+    ok &= run("gemv gated silu + bias", 33, 4096, 1024, BINARY32,
+              gated=True, bias=True, act="silu")
     ok &= run("ragged gelu(tanh)", 5, 130, 77, BINARY8, bias=True,
               act="gelu")
     ok &= run("ragged relu2", 33, 100, 70, BINARY16, act="relu2")
@@ -307,114 +316,101 @@ def check_qmm(torch, np, report, timer):
           f"by format: {tc_units}; at K = 14336 with / without the "
           f"promotion: {promo}")
 
-    # a row's result does not depend on M (the K split is a function of
-    # K and N, and each output's sum runs in a fixed order): the first
-    # rows of a 128-row input through M = 9 ... 100 are bit-identical to
-    # its own rows, as the draft's whole-prompt prefill, the target's
-    # 64-token chunks and the 16-row verify need
+    # a row's result does not depend on M (the kernel is fixed by the
+    # format and its K split by K and N, and each output's sum runs in a
+    # fixed order): the first rows of a 128-row input through M = 1 ...
+    # 100 are bit-identical to its own rows, as the decode step (4 rows),
+    # the verify (16), the chunks (64) and the draft's prompt (128) need
     inv = {}
-    for name, K, N, gated in (("wq", 4096, 4096, False),
-                              ("ffn gated silu", 4096, 14336, True),
-                              ("w_out", 14336, 4096, False)):
-        x = rand(128, K)
-        wp = pack(rand(K, N), BINARY16ALT)
-        gp = pack(rand(K, N), BINARY16ALT) if gated else None
-        act = "silu" if gated else None
-        full = Q.qmatmul(x, wp, None, BINARY16ALT, gate_payload=gp, act=act)
-        inv[name] = all(torch.equal(
-            Q.qmatmul(x[:m], wp, None, BINARY16ALT, gate_payload=gp,
-                      act=act), full[:m]) for m in (9, 16, 17, 33, 64, 100))
-        ok &= inv[name]
-        del x, wp, gp, full
-    report["qmm_tc_rows_invariant_in_M"] = inv
-    print(f"[kernels] qmm tensor cores, rows of a 128-row input bit-identical "
-          f"through M = 9, 16, 17, 33, 64, 100: {inv} "
+    for fmt in (BINARY8, BINARY8ALT, BINARY16, BINARY16ALT, BINARY32):
+        for name, K, N, gated in (("wq", 4096, 4096, False),
+                                  ("ffn gated silu", 4096, 14336, True),
+                                  ("w_out", 14336, 4096, False),
+                                  ("head", 4096, 128256, False)):
+            x = rand(128, K)
+            wp = pack(rand(K, N), fmt)
+            gp = pack(rand(K, N), fmt) if gated else None
+            act = "silu" if gated else None
+            full = Q.qmatmul(x, wp, None, fmt, gate_payload=gp, act=act)
+            inv[f"{fmt.name} {name}"] = all(torch.equal(
+                Q.qmatmul(x[:m].contiguous(), wp, None, fmt,
+                          gate_payload=gp, act=act), full[:m])
+                for m in ROW_COUNTS)
+            del x, wp, gp, full
+            torch.cuda.empty_cache()
+    ok &= all(inv.values())
+    report["qmm_rows_invariant_in_M"] = inv
+    print(f"[kernels] qmm rows of a 128-row input bit-identical through "
+          f"M = {ROW_COUNTS}: {inv} "
           f"{'ok' if all(inv.values()) else 'FAIL'}")
-
-    # timing at the serving decode step (M = 4 slots): one step is
-    # 32 x (wq, wk, wv, wo, gated ffn, w_out) + the head = 193 launches
-    shapes = [("wq", 4096, 4096, False, 32), ("wk", 4096, 1024, False, 32),
-              ("wv", 4096, 1024, False, 32), ("wo", 4096, 4096, False, 32),
-              ("ffn", 4096, 14336, True, 32), ("w_out", 14336, 4096, False,
-                                                 32),
-              ("head", 4096, 128256, False, 1)]
-    M = 4
-    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0)
-    for name, K, N, gated, mult in shapes:
-        x = rand(M, K)
-        wp = pack(rand(K, N), BINARY16ALT)
-        gp = pack(rand(K, N), BINARY16ALT) if gated else None
-        act = "silu" if gated else None
-        wf = decode(wp, BINARY16ALT)
-        gf = decode(gp, BINARY16ALT) if gated else None
-        t_k = timer(lambda: Q.qmatmul(x, wp, None, BINARY16ALT,
-                                      gate_payload=gp, act=act))
-        t_p = timer(lambda: Q.qmatmul_plain(x, wp, None, BINARY16ALT,
-                                            gate_payload=gp, act=act),
-                    iters=5)
-        if gated:
-            t_l = timer(lambda: torch.nn.functional.silu(x @ wf) * (x @ gf))
-        else:
-            t_l = timer(lambda: torch.matmul(x, wf))
-        host = timer.host_us(lambda: Q.qmatmul(x, wp, None, BINARY16ALT,
-                                               gate_payload=gp, act=act))
-        nbytes = Q.qmm_hbm_bytes(M, K, N, BINARY16ALT, gated=gated)
-        bound = nbytes / HBM_BYTES_PER_S * 1e3
-        report["timings"].append(dict(kernel="qmm", shape=name, M=M, K=K,
-                                      N=N, launches_per_step=mult, ms=t_k,
-                                      plain_ms=t_p, library_ms=t_l,
-                                      bound_ms=bound, bytes=nbytes,
-                                      host_us=host))
-        print(f"[timing] qmm {name:<6} M={M} K={K:<5} N={N:<6} kernel "
-              f"{t_k:.4f} ms  plain {t_p:.4f} ms  torch.matmul {t_l:.4f} ms"
-              f"  bound {bound:.4f} ms  host {host:.1f} us/call")
-        totals["ms"] += mult * t_k
-        totals["plain_ms"] += mult * t_p
-        totals["library_ms"] += mult * t_l
-        totals["bytes"] += mult * nbytes
-        del x, wp, gp, wf, gf
-    report["qmm_step"] = totals
     torch.cuda.empty_cache()
     return ok
 
+
+# the row counts a row's result must not depend on: decode steps (1-8
+# slots), a verify (B * k), prefill chunks and the draft's prompt
+ROW_COUNTS = (1, 2, 4, 8, 9, 16, 17, 33, 64, 100)
 
 LLAMA_PROJ = [("wq", 4096, 4096, False), ("wk", 4096, 1024, False),
               ("wv", 4096, 1024, False), ("wo", 4096, 4096, False),
               ("ffn", 4096, 14336, True), ("w_out", 14336, 4096, False)]
 
 
-def time_qmm_tiled(torch, np, report, timer):
-    """qmm at the main path's two tiled shapes, binary16alt weights: per
-    prefill chunk (M = 64, 192 launches = 32 x (wq, wk, wv, wo, gated ffn,
-    w_out)) and per verify round (M = 16, the same 192 + the head at
-    N = 128256).  Each shape: kernel, plain version, and torch.matmul on
-    dequantized f32 weights with TF32 off (timed only, never called by the
-    port); bytes and bound; the f32 CUDA-core floor 2 M sum(KN) / 67
-    TFLOP/s beside it.  Uses only the API every slice of the port has, so
-    ``--src`` can time an earlier checkout's kernel."""
-    from repro_torch.core.formats import BINARY16ALT
-    from repro_torch.core.qtensor import decode, encode
+def _pack_weight(w, fmt):
+    """f32 weights -> ``fmt``'s container: a bitcast through the native
+    dtype (binary32 is its own), so no int64 temporaries of the codec
+    stand beside a 128256-wide head."""
+    from repro_torch.core.qtensor import encode
+    if fmt.is_binary32:
+        return w.contiguous().view(fmt.container_dtype)
+    return encode(w.to(fmt.native_dtype), fmt)
+
+
+def _unpack_weight(wp, fmt):
+    """``_pack_weight``'s inverse: a bitcast for binary32, else the
+    codec's exact decode."""
+    from repro_torch.core.qtensor import decode
+    import torch
+    if fmt.is_binary32:
+        return wp.view(torch.float32)
+    return decode(wp, fmt)
+
+
+def time_qmm(torch, np, report, timer):
+    """qmm at the main path's shapes, binary16alt weights: per decode step
+    (M = 4 slots, 193 launches = 32 x (wq, wk, wv, wo, gated ffn, w_out) +
+    the head at N = 128256), per prefill chunk (M = 64, the 192 without
+    the head) and per verify round (M = 16, the 193); and binary32 weights
+    (the GEMV) per decode step and per chunk.  Each shape: kernel, plain
+    version, and torch.matmul on dequantized f32 weights with TF32 off
+    (timed only, never called by the port); bytes and bound; the f32
+    CUDA-core floor 2 M sum(KN) / 67 TFLOP/s beside it.  Uses only the
+    API every slice of the port has, so ``--src`` can time an earlier
+    checkout's kernels at the same shapes."""
+    from repro_torch.core.formats import BINARY16ALT, BINARY32
     from repro_torch.kernels import qmatmul as Q
 
     gen = torch.Generator(device="cuda").manual_seed(report["seed"] + 8)
-    fmt = BINARY16ALT
-    for key, M, shapes in (
-            ("qmm_chunk", 64, [(n, K, N, g, 32) for n, K, N, g in
-                               LLAMA_PROJ]),
-            ("qmm_verify", 16, [(n, K, N, g, 32) for n, K, N, g in
-                                LLAMA_PROJ] + [("head", 4096, 128256,
-                                                False, 1)])):
-        totals = dict(M=M, launches=0, ms=0.0, plain_ms=0.0,
+    layers = [(n, K, N, g, 32) for n, K, N, g in LLAMA_PROJ]
+    head = [("head", 4096, 128256, False, 1)]
+    for key, M, fmt, shapes in (
+            ("qmm_step", 4, BINARY16ALT, layers + head),
+            ("qmm_chunk", 64, BINARY16ALT, layers),
+            ("qmm_verify", 16, BINARY16ALT, layers + head),
+            ("qmm_step_f32", 4, BINARY32, layers + head),
+            ("qmm_chunk_f32", 64, BINARY32, layers)):
+        totals = dict(M=M, fmt=fmt.name, launches=0, ms=0.0, plain_ms=0.0,
                       library_ms=0.0, bytes=0, flops=0)
         for name, K, N, gated, mult in shapes:
             x = torch.randn((M, K), generator=gen, device="cuda")
-            wp = encode(torch.randn((K, N), generator=gen, device="cuda").to(
-                fmt.native_dtype), fmt)
-            gp = encode(torch.randn((K, N), generator=gen, device="cuda").to(
-                fmt.native_dtype), fmt) if gated else None
+            wp = _pack_weight(torch.randn((K, N), generator=gen,
+                                          device="cuda"), fmt)
+            gp = _pack_weight(torch.randn((K, N), generator=gen,
+                                          device="cuda"), fmt) \
+                if gated else None
             act = "silu" if gated else None
-            wf = decode(wp, fmt)
-            gf = decode(gp, fmt) if gated else None
+            wf = _unpack_weight(wp, fmt)
+            gf = _unpack_weight(gp, fmt) if gated else None
             t_k = timer(lambda: Q.qmatmul(x, wp, None, fmt, gate_payload=gp,
                                           act=act))
             t_p = timer(lambda: Q.qmatmul_plain(x, wp, None, fmt,
@@ -428,14 +424,14 @@ def time_qmm_tiled(torch, np, report, timer):
             nbytes = Q.qmm_hbm_bytes(M, K, N, fmt, gated=gated)
             flops = 2 * M * K * N * (2 if gated else 1)
             report["timings"].append(dict(
-                kernel="qmm_tiled", per=key, shape=name, M=M, K=K, N=N,
-                launches_per=mult, ms=t_k, plain_ms=t_p, library_ms=t_l,
-                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-                bytes=nbytes, flops=flops,
+                kernel="qmm", per=key, fmt=fmt.name, shape=name, M=M, K=K,
+                N=N, launches_per=mult, ms=t_k, plain_ms=t_p,
+                library_ms=t_l, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                bound_by="bytes", bytes=nbytes, flops=flops,
                 f32_floor_ms=flops / F32_PEAK_FLOPS * 1e3))
-            print(f"[timing] qmm {key[4:]:<6} {name:<6} M={M:<2} K={K:<5} "
-                  f"N={N:<6} kernel {t_k:.4f} ms  plain {t_p:.4f} ms  "
-                  f"torch.matmul {t_l:.4f} ms  bound "
+            print(f"[timing] qmm {key[4:]:<9} {name:<6} M={M:<2} K={K:<5} "
+                  f"N={N:<6} {fmt.name:<11} kernel {t_k:.4f} ms  plain "
+                  f"{t_p:.4f} ms  torch.matmul {t_l:.4f} ms  bound "
                   f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
             for k, v in (("launches", mult), ("ms", mult * t_k),
                          ("plain_ms", mult * t_p), ("library_ms",
@@ -443,17 +439,17 @@ def time_qmm_tiled(torch, np, report, timer):
                          ("bytes", mult * nbytes), ("flops", mult * flops)):
                 totals[k] += v
             del x, wp, gp, wf, gf
+            torch.cuda.empty_cache()
         totals["bound_ms"] = totals["bytes"] / HBM_BYTES_PER_S * 1e3
         totals["bound_by"] = "bytes"
         totals["f32_floor_ms"] = totals["flops"] / F32_PEAK_FLOPS * 1e3
         report[key] = totals
-        print(f"[timing] qmm per {key[4:]} (M = {M}, {totals['launches']} "
-              f"launches): kernel {totals['ms']:.3f} ms  plain "
-              f"{totals['plain_ms']:.2f} ms  torch.matmul "
+        print(f"[timing] qmm per {key[4:]} (M = {M}, {fmt.name}, "
+              f"{totals['launches']} launches): kernel {totals['ms']:.3f} ms"
+              f"  plain {totals['plain_ms']:.2f} ms  torch.matmul "
               f"{totals['library_ms']:.3f} ms  bound {totals['bound_ms']:.3f}"
               f" ms (bytes)  f32 CUDA-core floor "
               f"{totals['f32_floor_ms']:.3f} ms")
-        torch.cuda.empty_cache()
 
 
 def _paged_inputs(torch, np, fmt, seed):
@@ -670,19 +666,26 @@ def _decode_inputs(torch, np, fmt, seed, S, lengths):
             torch.tensor(lengths, dtype=torch.int32, device="cuda"))
 
 
-def check_flash_decode(torch, np, report, timer):
+def check_flash_decode(torch, np, report):
     """flash_decode against flash_decode_plain at the serve shape (S =
     256: 4 pages of 64 gathered, lengths around 144) for e5m2, bf16 and
-    f32, and at the edges: a zero length, a length above S, S = 200 (not
-    a multiple of the kernel's 64-row tile); residuals (m, l) on every
-    case.  Tolerance 1e-6 absolute on the output, the reference's
-    contract; 1e-5 on m and relative 1e-5 on l."""
+    f32, at ragged lengths (0, 1, each edge of the kernel's 64-position
+    pieces -1 / +0 / +1, S), and at the edges: a length above S, S = 200
+    (not a multiple of a piece); residuals (m, l) on every case, and the
+    kernel's walk in PyTorch (``flash_decode_split_plain``) beside it.
+    Tolerance 1e-6 absolute on the output, the reference's contract; 1e-5
+    on m and relative 1e-5 on l.  Then a row's bits do not depend on the
+    rows beside it: each row of the serve shape alone, and beside rows of
+    other lengths, equals its row in the batch."""
     from repro_torch.core.formats import BINARY8, BINARY16ALT
     from repro_torch.kernels import flash_attention as FA
 
     ok, worst = True, 0.0
     cases = [(fmt, 256, [141, 144, 147, 150]) for fmt in
              (BINARY8, BINARY16ALT, None)]
+    cases += [(fmt, 256, lengths) for fmt in (BINARY8, None)
+              for lengths in ([0, 1, 63, 64], [65, 127, 128, 129],
+                              [191, 192, 193, 256])]
     cases += [(BINARY8, 256, [0, 144, 256, 999]),
               (BINARY8, 200, [0, 1, 199, 300]),
               (None, 200, [64, 65, 128, 200])]
@@ -693,23 +696,45 @@ def check_flash_decode(torch, np, report, timer):
                                       return_residuals=True)
         want, wm, wl = FA.flash_decode_plain(
             q, kp, vp, fmt, torch.clamp(lens, max=S), return_residuals=True)
+        twin = FA.flash_decode_split_plain(q, kp, vp, fmt, lens)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
+        terr = float((got - twin).abs().max())
         rerr = max(float((gm - wm).abs().max()),
                    float(((gl - wl).abs() / wl.clamp(min=1.0)).max()))
         zero_ok = all(bool((got[b] == 0).all()) for b in range(4)
                       if lengths[b] == 0)
-        good = err <= 1e-6 and rerr <= 1e-5 and zero_ok
+        good = err <= 1e-6 and terr <= 1e-6 and rerr <= 1e-5 and zero_ok
         ok &= good
         name = fmt.name if fmt is not None else "f32"
         report["cases"].append(dict(kernel="flash_decode", fmt=name, S=S,
                                     lengths=lengths, max_abs_err=err,
-                                    residual_err=rerr, ok=good))
+                                    twin_err=terr, residual_err=rerr,
+                                    ok=good))
         print(f"[kernels] flash_decode {name:<11} B=4 H=8 G=4 dh=128 S={S} "
-              f"lengths={lengths} max|err|={err:.3e} (tol 1e-6) residuals "
-              f"{rerr:.1e} (tol 1e-5) {'ok' if good else 'FAIL'}")
+              f"lengths={lengths} max|err|={err:.3e} (tol 1e-6; against "
+              f"the split twin {terr:.1e}) residuals {rerr:.1e} (tol 1e-5) "
+              f"{'ok' if good else 'FAIL'}")
         worst = max(worst, err)
     report["flash_decode_max_abs_err"] = worst
+
+    q, kp, vp, lens = _decode_inputs(torch, np, BINARY8, report["seed"] + 3,
+                                     256, [1, 64, 144, 256])
+    full = FA.flash_decode(q, kp, vp, BINARY8, lens)
+    indep = True
+    for b in range(4):
+        alone = FA.flash_decode(q[b:b + 1], kp[b:b + 1], vp[b:b + 1],
+                                BINARY8, lens[b:b + 1])
+        other = lens.clone()
+        other[torch.arange(4, device="cuda") != b] = torch.tensor(
+            [0, 256, 65], dtype=torch.int32, device="cuda")
+        beside = FA.flash_decode(q, kp, vp, BINARY8, other)
+        indep &= torch.equal(alone[0], full[b]) and torch.equal(beside[b],
+                                                                full[b])
+    ok &= indep
+    report["flash_decode_rows_independent"] = indep
+    print(f"[kernels] flash_decode rows bit-identical alone and beside rows "
+          f"of other lengths: {indep} {'ok' if indep else 'FAIL'}")
     return ok
 
 
@@ -749,6 +774,15 @@ def time_flash_decode(torch, np, report, timer, serve_len):
     print(f"[timing] flash_decode B=4 S=256 len={serve_len} kernel "
           f"{t_k:.4f} ms  plain {t_p:.4f} ms  SDPA {t_l:.4f} ms  bound "
           f"{max(b_bytes, b_ops):.6f} ms  host {host:.1f} us/call")
+
+
+def time_kernels(torch, np, report, timer):
+    """qmm, paged_decode, flash_prefill and flash_decode at the serving
+    shapes (the kernels phase, and alone for ``--src``)."""
+    serve_len = SERVE_PROMPT + SERVE_MAX_NEW // 2
+    time_qmm(torch, np, report, timer)
+    time_attention(torch, np, report, timer, serve_len)
+    time_flash_decode(torch, np, report, timer, serve_len)
 
 
 # ---------------------------------------------------------------------------
@@ -964,7 +998,8 @@ def run_ops(torch, np, report, libs):
     launched = (ff.get("flexfloat_cast_launch", 0) == 1
                 and ff.get("quantize_encode_launch", 0) == 1
                 and ff.get("dequantize_decode_launch", 0) == 1
-                and counts["qmm"].get("qmm_launch", 0) == 1)
+                and counts["qmm"].get("qmm_tc_launch", 0) == 1
+                and counts["qmm"].get("qmm_launch", 0) == 0)
     ok = not any(res.values()) and mm_err <= 1e-6 and launched
     report["ops"] = dict(launches=counts, mismatches=res,
                          matmul_err_in_acc_units=mm_err, ok=ok)
@@ -1056,8 +1091,9 @@ def run_serve(torch, report, libs, args, decode_impl="paged", key="serve"):
     """The serving path on full-width, full-depth llama3-8b: every decode
     step must launch 193 qmm and 32 of the decode backend's kernel
     (``paged_decode`` for ``paged``, ``flash_decode`` for
-    ``flash_pallas``), every prefill chunk 193 qmm and 32 flash_prefill.
-    Launch tuples are (qmm, paged_decode, flash_prefill, flash_decode,
+    ``flash_pallas``), every prefill chunk 193 qmm and 32 flash_prefill;
+    every qmm on bf16 weights takes the tensor-core entry point.  Launch
+    tuples are (qmm, paged_decode, flash_prefill, flash_decode,
     flexfloat_cast)."""
     from repro_torch.engine import worker
 
@@ -1070,11 +1106,11 @@ def run_serve(torch, report, libs, args, decode_impl="paged", key="serve"):
     want_dec = (193, 32, 0, 0, 0) if decode_impl == "paged" \
         else (193, 0, 0, 32, 0)
     want_pre = (193, 0, 32, 0, 0)
-    # by qmm entry point (qmm_launch, qmm_tc_launch): a decode step is 193
-    # GEMVs; a 64-token chunk runs its 192 projections on tensor cores
-    # and the head (last position, M = 1) as a GEMV -- no launch of the
-    # f32 tiled kernel
-    want_dec_q, want_pre_q = (193, 0), (1, 192)
+    # by qmm entry point (qmm_launch, qmm_tc_launch): the packed weights
+    # take the tensor-core kernel at every M, so a decode step (M = 4), a
+    # 64-token chunk and its head (the last position, M = 1) all run
+    # there, and the GEMV runs nowhere
+    want_dec_q = want_pre_q = (0, 193)
     ok = all(r.done and not r.failed for r in reqs)
     ok &= all(len(r.generated) == SERVE_MAX_NEW for r in reqs)
     ok &= all(0 <= t < 128256 for r in reqs for t in r.generated)
@@ -1095,6 +1131,8 @@ def run_serve(torch, report, libs, args, decode_impl="paged", key="serve"):
         per_prefill_chunk=sorted(set(per["prefill"])),
         qmm_entries_per_decode_step=sorted(set(per["decode/qmm"])),
         qmm_entries_per_prefill_chunk=sorted(set(per["prefill/qmm"])),
+        qmm_tc_decode_launches=sum(t for _, t in per["decode/qmm"]),
+        qmm_tc_prefill_launches=sum(t for _, t in per["prefill/qmm"]),
         generated=[r.generated for r in reqs], ok=ok)
     print(f"[{key}] llama3-8b full (32 layers, d_model 4096), decode "
           f"{decode_impl}: {len(reqs)} requests done, {tokens} tokens in "
@@ -1130,11 +1168,12 @@ def run_speculative(torch, report, libs, args):
     k = 4, and a pool of 32 pages (4 pages per slot in each of the two
     namespaces).  Per round the launches must be k draft decode steps of
     (193 qmm + 32 paged_decode) plus one verify of 193 qmm + 32 * k
-    flash_decode; per draft prompt prefill 193 qmm + 32 flash_prefill.
-    Tokens that differ from the ``serve_flash`` run are counted and, at
-    each request's first divergence, the target's top-2 logit gap is
-    reported (verify runs qmm at M = 16, decode at M = 4: the sums are
-    taken in different orders on the card)."""
+    flash_decode; per draft prompt prefill 193 qmm + 32 flash_prefill;
+    every qmm on the tensor cores.  Speculation is exact: no token may
+    differ from the ``serve_flash`` run (verify runs qmm at M = 16,
+    decode at M = 4, and a row sums in one order at every M); at a
+    request's first divergence the target's top-2 logit gap is reported.
+    The target as its own draft must have every proposal accepted."""
     from repro_torch.core.policy import get_policy
     from repro_torch.engine import (Engine, EngineStats, Request,
                                     SpeculativeDecoder, speculative, worker)
@@ -1163,18 +1202,16 @@ def run_speculative(torch, report, libs, args):
     want_pre = (193, 0, 32, 0, 0)
     # by qmm entry point (qmm_launch, qmm_tc_launch): a verify of B slots
     # x k tokens runs its 193 projections (head included) on tensor cores
-    # when B * k > 8 (4 x 4 = 16 with every slot decoding), else as GEMVs;
-    # a prompt prefill 192 on tensor cores + the head's GEMV
+    # at every B * k (16 with every slot decoding), a prompt prefill too
     verify_q = list(zip(per["verify/tokens"], per["verify/qmm"]))
-    want_pre_q = (1, 192)
+    want_pre_q = (0, 193)
     ok = all(r.done and not r.failed for r in reqs)
     ok &= all(len(r.generated) == SPEC_MAX_NEW for r in reqs)
     ok &= all(0 <= t < 128256 for r in reqs for t in r.generated)
     ok &= _counts_ok(per["round"], want_round)
     ok &= _counts_ok(per["draft_prefill"], want_pre)
     ok &= _counts_ok(per["prefill"], want_pre)
-    ok &= bool(verify_q) and all(
-        q == ((0, 193) if m > 8 else (193, 0)) for m, q in verify_q)
+    ok &= bool(verify_q) and all(q == (0, 193) for _, q in verify_q)
     ok &= any(m == SERVE_SLOTS * k for m, _ in verify_q)
     ok &= _counts_ok(per["draft_prefill/qmm"], want_pre_q)
     ok &= _counts_ok(per["prefill/qmm"], want_pre_q)
@@ -1183,8 +1220,9 @@ def run_speculative(torch, report, libs, args):
     tokens = sum(len(r.generated) for r in reqs)
 
     # tokens against the non-speculative flash_pallas run (same prompts:
-    # the first requests of serve_flash), and the target's top-2 logit
-    # gap at each request's first divergence
+    # the first requests of serve_flash): none may differ; the target's
+    # top-2 logit gap at a request's first divergence says how near a tie
+    # a fault showed
     diverged = []
     ref = report.get("serve_flash", {}).get("generated")
     n_diff = None
@@ -1207,12 +1245,11 @@ def run_speculative(torch, report, libs, args):
                 plain=want[j], top2_gap=float(top[0] - top[1]),
                 logit_speculative=float(row[r.generated[j]]),
                 logit_plain=float(row[want[j]])))
+    ok &= n_diff == 0
 
-    # the target as its own draft proposes the target's own greedy tokens:
-    # every proposal is accepted except where verify and decode round
-    # differently (1 token in 64 in the binary8-draft run above), so a
-    # rate below 0.75 here is a fault of the round, not of the binary8
-    # approximation
+    # the target as its own draft proposes the target's own greedy tokens,
+    # and verify gives decode's logits bit for bit: every proposal is
+    # accepted, a rate of exactly 1.0
     self_reqs = [Request(r.rid, list(r.prompt), SPEC_MAX_NEW) for r in reqs]
     eng = Engine(model, cfg, policy, packed, slots=SERVE_SLOTS,
                  capacity=SERVE_CAPACITY, page_size=SERVE_PAGE,
@@ -1222,14 +1259,14 @@ def run_speculative(torch, report, libs, args):
     eng.run(self_reqs)
     self_rate = eng.summary["accept_rate"]
     self_ok = all(r.done and not r.failed for r in self_reqs) \
-        and self_rate is not None and self_rate >= 0.75
+        and self_rate == 1.0
     ok &= self_ok
     report["speculative_self_draft"] = dict(
         accept_rate=self_rate, tok_per_s=eng.summary["tokens_per_s"],
         steps_per_token=eng.summary["steps_per_token"],
         generated=[r.generated for r in self_reqs], ok=self_ok)
     print(f"[speculative] self-draft (the target proposes for itself): "
-          f"accept rate {self_rate} (want >= 0.75), "
+          f"accept rate {self_rate} (want 1.0), "
           f"{eng.summary['tokens_per_s']} tok/s "
           f"{'ok' if self_ok else 'FAIL'}")
     del packed, params, eng
@@ -1260,12 +1297,12 @@ def run_speculative(torch, report, libs, args):
           f"prompt {sorted(set(per['draft_prefill']))} and per target chunk "
           f"{sorted(set(per['prefill']))} (want {want_pre}); qmm by entry "
           f"(qmm_launch, qmm_tc_launch) per verify by rows "
-          f"{sorted(set(verify_q))} (want (0, 193) above 8 rows), per "
+          f"{sorted(set(verify_q))} (want (0, 193)), per "
           f"prompt {sorted(set(per['prefill/qmm'] + per['draft_prefill/qmm']))}"
           f" (want {want_pre_q}) {'ok' if ok else 'FAIL'}")
-    print(f"[speculative] tokens differing from serve_flash: {n_diff}; "
-          f"first divergences (prefill logits of the context) {diverged} "
-          f"(not asserted)")
+    print(f"[speculative] tokens differing from serve_flash: {n_diff} "
+          f"(want 0); first divergences (prefill logits of the context) "
+          f"{diverged} {'ok' if n_diff == 0 else 'FAIL'}")
     return ok
 
 
@@ -1401,7 +1438,12 @@ def run_profile(torch, report, args):
 # phase 8: logits, kernel path against plain path
 # ---------------------------------------------------------------------------
 
-def check_logits(torch, report, args):
+def check_logits(torch, report, args, qmm_lib):
+    """Logits of a 2-layer, full-width model: kernel path against plain
+    path (prefill chunk, decode step), then verify against sequential
+    decode bit for bit (:func:`check_verify_logits`), then rmsnorm's rows
+    at every row count.  The binary32 kernel-path runs are where the
+    GEMV still serves (``qmm_launch``): their launches are counted."""
     from repro_torch.core.policy import get_policy
     from repro_torch.kernels import paged_cache
     from repro_torch.models import qparams
@@ -1412,6 +1454,11 @@ def check_logits(torch, report, args):
     cfg = dataclasses.replace(full, n_layers=2)
     model = Model(cfg)
     ok = True
+    gemv = 0
+
+    def gemv_launches():
+        return qmm_lib.by_symbol.get("qmm_launch", 0)
+
     # binary32: both paths compute f32 products with f32 sums; only the
     # summation order differs (K up to 14336), so 1e-4 x max|logit|.
     # transprecision: the plain path rounds attention probabilities to
@@ -1433,10 +1480,13 @@ def check_logits(torch, report, args):
                 [[0, 1, 2, 3]]) for _ in range(cfg.n_layers)]
             g = torch.Generator().manual_seed(args.seed)
             toks = torch.randint(0, cfg.vocab, (1, 64), generator=g)
+            before = gemv_launches()
             lp, states = model.prefill_chunk(params, toks.cuda(), states,
                                              policy, slot=0, q_offset=0)
             ld, _ = model.decode_step(
                 params, toks[:, -1:].cuda(), states, policy)
+            if pol == "binary32" and path == "kernel":
+                gemv += gemv_launches() - before
             res[path] = (lp.float(), ld.float())
             del params, states
             torch.cuda.empty_cache()
@@ -1456,26 +1506,42 @@ def check_logits(torch, report, args):
                   f"max|kernel - plain| = {err:.3e} (max|logit| {scale:.3f},"
                   f" tol {rel:.2e} x that), argmax equal: {same_argmax} "
                   f"{'ok' if good else 'FAIL'}")
-    for pol, rel in (("binary32", 1e-4), ("transprecision", 2.0 ** -5)):
-        ok &= check_verify_logits(torch, report, args, model, cfg, pol, rel)
+    for pol in ("binary32", "transprecision"):
+        for dec in ("paged", "flash_pallas"):
+            before = gemv_launches()
+            ok &= check_verify_logits(torch, report, args, model, cfg, pol,
+                                      dec)
+            if pol == "binary32":
+                gemv += gemv_launches() - before
+    report["logits_gemv_launches"] = gemv
+    ok &= gemv > 0
+    ok &= check_rmsnorm_rows(torch, report, args)
     return ok
 
 
-def check_verify_logits(torch, report, args, model, cfg, pol, rel,
+def _bits(t):
+    """A tensor's raw bytes, for comparing payloads bit for bit."""
+    import torch
+    return t.contiguous().view(-1).view(torch.uint8)
+
+
+def check_verify_logits(torch, report, args, model, cfg, pol, dec,
                         k=SPEC_K):
-    """The speculative verify step on the card: at 2 layers full width,
-    ``flash_pallas`` + ``qmm_pallas``, 4 slots holding 64-token prompts,
-    ``verify_step`` over k tokens against k sequential ``decode_step``
-    calls.  Verify runs qmm at M = 4 * k = 16 (binary32 weights: the f32
-    tiled kernel; transprecision's bf16 weights: the tensor-core kernel),
-    decode at M = 4 (the GEMV kernel): the f32 sums are taken in different
-    orders, so the tolerances are those of the prefill check above."""
+    """The speculative verify step on the card, bit for bit: at 2 layers
+    full width, ``qmm_pallas`` with ``dec`` decode (``paged`` or
+    ``flash_pallas``), 4 slots holding 64-token prompts, ``verify_step``
+    over k tokens against k sequential ``decode_step`` calls.  Verify runs
+    every projection at M = 4 * k = 16, decode at M = 4; each kernel sums
+    a row in one order at every M, attention goes per position through
+    the decode kernel, and rmsnorm sums in an order free of the row count,
+    so the logits, every layer's K/V pool bits and the lengths are equal
+    (``torch.equal``), as ``tests/test_speculative.py`` holds the
+    reference."""
     from repro_torch.core.policy import get_policy
     from repro_torch.kernels import paged_cache
     from repro_torch.models import qparams
 
-    policy = get_policy(pol, decode_impl="flash_pallas",
-                        matmul_impl="qmm_pallas")
+    policy = get_policy(pol, decode_impl=dec, matmul_impl="qmm_pallas")
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     params = qparams.encode_params(
         model.init_params(gen, policy, device="cuda"), policy)
@@ -1506,23 +1572,57 @@ def check_verify_logits(torch, report, args, model, cfg, pol, rel,
     blk, bst = model.verify_step(params, v, fresh(), policy)
     blk = blk.float()
     err = float((blk - seq).abs().max())
-    scale = float(seq.abs().max())
-    same_argmax = bool((blk.argmax(-1) == seq.argmax(-1)).all())
+    same_logits = torch.equal(blk, seq)
+    pools_equal = all(torch.equal(_bits(a.k_pool), _bits(b.k_pool))
+                      and torch.equal(_bits(a.v_pool), _bits(b.v_pool))
+                      for a, b in zip(bst, st))
     lens_ok = all(bool(torch.equal(a.seq_lens, b.seq_lens))
                   for a, b in zip(bst, st))
-    good = err <= rel * max(scale, 1.0) and lens_ok \
+    good = same_logits and pools_equal and lens_ok \
         and bool(torch.isfinite(blk).all())
-    report["logits"].append(dict(policy=pol, what=f"verify k={k} vs "
-                                 f"{k} decode steps", max_abs_err=err,
-                                 max_abs_logit=scale, tol_rel=rel,
-                                 argmax_equal=same_argmax, ok=good))
-    print(f"[logits] {pol} verify_step (k={k}) vs {k} decode steps, "
-          f"2-layer full width, flash_pallas: max|diff| = {err:.3e} "
-          f"(max|logit| {scale:.3f}, tol {rel:.2e} x that), argmax equal: "
-          f"{same_argmax}, lengths equal: {lens_ok} "
-          f"{'ok' if good else 'FAIL'}")
+    report["logits"].append(dict(policy=pol, decode_impl=dec,
+                                 what=f"verify k={k} vs {k} decode steps",
+                                 max_abs_err=err, logits_equal=same_logits,
+                                 kv_pools_equal=pools_equal,
+                                 seq_lens_equal=lens_ok, ok=good))
+    print(f"[logits] {pol} verify_step (k={k}) vs {k} decode steps, 2-layer "
+          f"full width, {dec}: logits equal: {same_logits} (max|diff| "
+          f"{err:.3e}), K/V pool bits equal: {pools_equal}, lengths equal: "
+          f"{lens_ok} {'ok' if good else 'FAIL'}")
     del params
     torch.cuda.empty_cache()
+    return good
+
+
+def check_rmsnorm_rows(torch, report, args):
+    """rmsnorm (``models/layers.py``) on the card gives a row the same
+    bits whatever the number of rows beside it (ROW_COUNTS), at d_model
+    4096, under binary32 and transprecision; beside it, whether a single
+    ``torch.mean`` over the rows would."""
+    from repro_torch.core.policy import get_policy
+    from repro_torch.models.layers import rmsnorm
+
+    g = torch.Generator(device="cuda").manual_seed(args.seed + 9)
+    x = torch.randn((128, 4096), generator=g, device="cuda") * 3.0
+    gamma = torch.randn((4096,), generator=g, device="cuda") * 0.1
+    res = {}
+    for pol in ("binary32", "transprecision"):
+        policy = get_policy(pol)
+        full = rmsnorm(x, gamma, policy)
+        res[pol] = all(torch.equal(rmsnorm(x[:m], gamma, policy), full[:m])
+                       for m in ROW_COUNTS)
+    good = all(res.values())
+    # what the two-level sum avoids: one torch.mean over the rows
+    # (measured, not asserted)
+    sq = x * x
+    whole = torch.mean(sq, dim=-1)
+    mean_rows = {m: torch.equal(torch.mean(sq[:m], dim=-1), whole[:m])
+                 for m in ROW_COUNTS}
+    report["rmsnorm_rows_invariant"] = res
+    report["torch_mean_rows_invariant"] = mean_rows
+    print(f"[logits] rmsnorm rows bit-identical through {ROW_COUNTS} rows: "
+          f"{res} {'ok' if good else 'FAIL'}; one torch.mean over m rows "
+          f"equal to its rows of 128 (measured): {mean_rows}")
     return good
 
 
@@ -1536,18 +1636,19 @@ ALL_PHASES = ("build", "kernels", "casts", "ops", "serve", "serve_flash",
 
 def kernel_rows(report):
     """The ``{"kernels": [...]}`` entries: one per kernel, its launches
-    from the main-path run that drives it (the serve phase for qmm,
-    paged_decode and flash_prefill, serve_flash for flash_decode, the
-    ops phase for the three cast kernels).  qmm has two rows: ``qmm``
-    (the ``qmm_launch`` GEMV, times per decode step) and ``qmm_tiled``
-    (``qmm_tc_launch``, the tensor-core kernel, times per prefill
-    chunk)."""
+    from the main-path run that drives it (the serve phase for qmm's
+    tensor-core kernel, paged_decode and flash_prefill, serve_flash for
+    flash_decode, the ops phase for the three cast kernels, the binary32
+    runs of the logits phase for qmm's GEMV).  qmm has three rows:
+    ``qmm_gemv`` (``qmm_launch``, binary32 weights, times per decode
+    step), ``qmm_tc`` (``qmm_tc_launch``, times and launches per prefill
+    chunk) and ``qmm_tc_decode_step`` (the same kernel, times and
+    launches per decode step)."""
     def timing(name, **match):
         return next((t for t in report["timings"] if t["kernel"] == name
                      and all(t.get(k) == v for k, v in match.items())), None)
 
     serve = report.get("serve", {}).get("launches", {})
-    by_entry = serve.get("qmm_by_entry", {})
     flash = report.get("serve_flash", {}).get("launches", {})
     ops_counts = report.get("ops", {}).get("launches", {}).get(
         "flexfloat_cast", {})
@@ -1555,14 +1656,17 @@ def kernel_rows(report):
         c["ok"] for c in report["cast_kernels"])
     cast_err = 0.0 if casts_ok else None
     ff_src = "src/repro_torch/csrc/flexfloat_cast.cu"
+    qmm_src, qmm_tpu = ("src/repro_torch/csrc/qmm.cu",
+                        "src/repro/kernels/qmatmul.py:85")
     rows = [
-        ("qmm", "src/repro_torch/csrc/qmm.cu",
-         "src/repro/kernels/qmatmul.py:85", by_entry.get("qmm_launch", 0),
-         report.get("qmm_max_abs_err"), report.get("qmm_step")),
-        ("qmm_tiled", "src/repro_torch/csrc/qmm.cu",
-         "src/repro/kernels/qmatmul.py:85",
-         by_entry.get("qmm_tc_launch", 0), report.get("qmm_tc_max_abs_err"),
-         report.get("qmm_chunk")),
+        ("qmm_gemv", qmm_src, qmm_tpu, report.get("logits_gemv_launches", 0),
+         report.get("qmm_max_abs_err"), report.get("qmm_step_f32")),
+        ("qmm_tc", qmm_src, qmm_tpu,
+         report.get("serve", {}).get("qmm_tc_prefill_launches", 0),
+         report.get("qmm_tc_max_abs_err"), report.get("qmm_chunk")),
+        ("qmm_tc_decode_step", qmm_src, qmm_tpu,
+         report.get("serve", {}).get("qmm_tc_decode_launches", 0),
+         report.get("qmm_tc_max_abs_err"), report.get("qmm_step")),
         ("paged_decode", "src/repro_torch/csrc/paged_decode.cu",
          "src/repro/kernels/paged_attention.py:52",
          serve.get("paged_decode", 0), report.get("paged_max_abs_err"),
@@ -1592,9 +1696,6 @@ def kernel_rows(report):
     for name, source, replaces, launches, err, t in rows:
         if t is None:
             continue
-        if name == "qmm":       # per decode step
-            t = dict(t, bound_ms=t["bytes"] / HBM_BYTES_PER_S * 1e3,
-                     bound_by="bytes")
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=launches,
                             max_abs_err=err, ms=t["ms"],
@@ -1663,20 +1764,15 @@ def main() -> int:
                     ok = check_tc_sass(qmatmul.LIB, report)
             elif phase == "kernels":
                 timer = timer or Timer(torch)
-                ok = check_qmm(torch, np, report, timer)
+                ok = check_qmm(torch, np, report)
                 ok &= check_paged(torch, np, report, timer)
                 ok &= check_prefill(torch, np, report, timer)
-                ok &= check_flash_decode(torch, np, report, timer)
-                serve_len = SERVE_PROMPT + SERVE_MAX_NEW // 2
-                time_qmm_tiled(torch, np, report, timer)
-                time_attention(torch, np, report, timer, serve_len)
-                time_flash_decode(torch, np, report, timer, serve_len)
+                ok &= check_flash_decode(torch, np, report)
+                time_kernels(torch, np, report, timer)
             elif phase == "timing":
-                # the two redesigned kernels' times alone (for --src)
+                # the kernels' times alone (for --src)
                 timer = timer or Timer(torch)
-                time_qmm_tiled(torch, np, report, timer)
-                time_attention(torch, np, report, timer,
-                               SERVE_PROMPT + SERVE_MAX_NEW // 2)
+                time_kernels(torch, np, report, timer)
                 ok = True
             elif phase == "casts":
                 timer = timer or Timer(torch)
@@ -1693,7 +1789,7 @@ def main() -> int:
             elif phase == "speculative":
                 ok = run_speculative(torch, report, libs, args)
             elif phase == "logits":
-                ok = check_logits(torch, report, args)
+                ok = check_logits(torch, report, args, qmatmul.LIB)
             elif phase == "profile":
                 ok = run_profile(torch, report, args)
             else:

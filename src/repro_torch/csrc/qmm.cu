@@ -7,7 +7,7 @@
 // (e, m) containers (u8 / u16 / u32, or f32), f32 products and f32
 // accumulation.
 //
-// What bounds it on an H100.  In the serving decode step M <= 4, so each
+// What bounds it on an H100.  In the serving decode step M = 4, so each
 // weight element is used for at most 4 FMAs: the kernel is bound by the
 // bytes of the packed weight stream (15.0 GB of bf16 per llama3-8b step,
 // 4.5 ms at 3.35 TB/s).  A prefill chunk (M = 64) or a speculative verify
@@ -32,26 +32,19 @@
 // with room.  Two TF32 passes at 495 TFLOP/s cost 3.6 ms a chunk, under
 // the 4.17 ms of weight bytes: on tensor cores the chunk is bound by bytes.
 //
-// The design.  Three kernels share the codec and the epilogue; the choice
-// is fixed by format and M (the wrapper in kernels/qmatmul.py picks the
-// entry point):
-//  * qmm_gemv (M <= 8, the decode regime; also any M for a run-time (e, m)
-//    format): a block owns a 64-column strip for BM = 4 or 8 rows; 256
-//    threads = 16 column-threads x 16 K-threads; a column-thread holds 4
-//    adjacent columns, so a half-warp reads a 64-column weight row as one
-//    vector load per thread (4 B for u8, 8 B for u16, 16 B for u32/f32),
-//    coalesced.  Each thread issues 4 weight rows before its first FMA.
-//    The 16 K-threads meet in a fixed-order shared-memory reduction.
-//    Narrow matrices give fewer 64-column strips than the card has SMs
-//    (wk/wv: 16), so the K range is split across blocks (grid.z) until
-//    about two blocks per SM exist; the partial sums then meet, in split
-//    order, in qmm_splitk (sums are deterministic).
-//  * qmm_tc (M > 8 on binary8, binary8alt, binary16, binary16alt; entry
+// One summation order per format.  The kernel is fixed by the weight
+// format alone, never by M, and each kernel's K split is a function of K
+// and N only, so a row's sum runs in the same order whatever rows are
+// beside it: a decode step over B rows, the speculative verify over B * k
+// rows and a 64-row prefill chunk give the same row bit for bit (the
+// speculative decoder's exactness rests on it).
+//  * qmm_tc (binary8, binary8alt, binary16, binary16alt at every M; entry
 //    point qmm_tc_launch): split-TF32 mma.sync.m16n8k8 on tensor cores.
 //    A block owns BM rows x 128 weight columns, BM = 16, 32 or 64 picked
-//    by M (so the verify at M = 16 no longer pays for 64 rows); four
-//    warps across N, each 32 columns, and one or two across M.  For the
-//    gated FFN the 128 columns are 64 of B and the same 64 of G, so a
+//    by M (a decode step of 4 rows and the verify's 16 take the 16-row
+//    tile; its masked rows are zero-filled on load and never stored);
+//    four warps across N, each 32 columns, and one or two across M.  For
+//    the gated FFN the 128 columns are 64 of B and the same 64 of G, so a
 //    thread holds both sums of its outputs and a gated block costs the
 //    registers of an ungated one.  A one-pass kernel (qmm_split_a) splits
 //    each activation once per launch into a_hi and a_lo (scratch the
@@ -70,15 +63,27 @@
 //    N = 4096), K is split across blocks in multiples of 32, as many as
 //    make a 64-row launch one balanced wave (kernels/qmatmul.py,
 //    tiled_splits), and the partials meet in qmm_splitk in split order.
-//    The split depends on K and N only and each output's sum runs in a
-//    fixed order, so a row's result does not depend on M: a prompt gives
-//    the same rows prefilled whole, in chunks, or verified 16 at a time.
-//    Ragged M, K and N are masked
-//    (zero-filled copies); a shape whose rows are not 16-byte aligned
-//    loads element by element into the same stages.
-//  * qmm_tiled (M > 8 on binary32 / f32 weights, which are not exact in
-//    TF32): 64 x 64 f32 FMA tiles on CUDA cores, K in steps of 32 through
-//    shared memory.
+//    An mma's rows are independent, so a row's sum does not depend on
+//    the tile height either.  Ragged M, K and N are masked (zero-filled
+//    copies); a shape whose rows are not 16-byte aligned loads element by
+//    element into the same stages.
+//  * qmm_gemv (binary32 / f32 weights, which are not exact in TF32, and
+//    run-time (e, m) formats, at every M; entry point qmm_launch): a block
+//    owns a 64-column strip for BM = 4 or 8 rows (more rows take more row
+//    blocks); 256 threads = 16 column-threads x 16 K-threads; a
+//    column-thread holds 4 adjacent columns, so a half-warp reads a
+//    64-column weight row as one vector load per thread (4 B for u8, 8 B
+//    for u16, 16 B for u32/f32), coalesced.  Each thread issues 4 weight
+//    rows before its first FMA, strides K by 16 and keeps one FMA chain
+//    per row; the 16 K-threads meet in a fixed-order shuffle and
+//    shared-memory reduction, so a row's sum depends neither on BM nor on
+//    its row block.  Narrow matrices give fewer 64-column strips than the
+//    card has SMs (wk/wv: 16), so the K range is split across blocks
+//    (grid.z, kernels/qmatmul.py gemv_splits, a function of K and N) until
+//    about two blocks of a row block per SM exist; the partial sums then
+//    meet, in split order, in qmm_splitk.  Above 8 rows every row block
+//    streams the weights again: binary32 is not the serving default, and
+//    the one order per format is worth that.
 //  * The gate weight G is streamed in the same K sweep (the gated FFN in
 //    one launch); bias, nonlinearity, gate and output quantization run in
 //    the epilogue, in the reference's order.
@@ -91,7 +96,7 @@
 #include "codec.cuh"
 
 // kernels/qmatmul.py builds this file as five units in parallel: unit 0
-// (GEMV, f32 tiled kernel, both entry points) and one tensor-core unit
+// (GEMV, both entry points) and one tensor-core unit
 // per packed format (-DQMM_UNIT=1..4, fmt_code 1..4), linked into one
 // library.
 #ifndef QMM_UNIT
@@ -189,8 +194,10 @@ qmm_gemv(const float* __restrict__ a, const TB* __restrict__ b,
   __shared__ float red[kWarps][BM][kBN];
   const int tid = threadIdx.x;
   const int tn = tid % kTN, tk = tid / kTN;
-  const int n = blockIdx.x * kBN + tn * kVec;
-  const int m0 = blockIdx.y * BM;
+  // grid (row blocks, strips, splits): the row blocks of one strip run
+  // side by side, so all but the first find the strip's weights in L2
+  const int n = blockIdx.y * kBN + tn * kVec;
+  const int m0 = blockIdx.x * BM;
   const int k_lo = blockIdx.z * k_chunk;
   const int k_hi = min(K, k_lo + k_chunk);
   const bool gated = g != nullptr;
@@ -297,7 +304,7 @@ qmm_gemv(const float* __restrict__ a, const TB* __restrict__ b,
 #pragma unroll
   for (int s = 0; s < kSlots; ++s) {
     const int o = tid + s * kThreads;
-    const int row = m0 + o / kBN, col = blockIdx.x * kBN + o % kBN;
+    const int row = m0 + o / kBN, col = blockIdx.y * kBN + o % kBN;
     if (o >= BM * kBN || row >= Mrows || col >= N) continue;
     const size_t idx = (size_t)row * N + col;
     if (gridDim.z == 1) {
@@ -326,89 +333,10 @@ __global__ void qmm_splitk(const float* __restrict__ ws,
   }
 }
 
-#if QMM_UNIT == 0
+#if QMM_UNIT != 0
 
 // ---------------------------------------------------------------------------
-// prefill regime: shared-memory tiles, each weight read once per 64 rows
-// ---------------------------------------------------------------------------
-
-constexpr int kTM = 64, kTNT = 64, kTKT = 32;   // tile M, N, K
-
-template <typename TB, int E, int M>
-__global__ void __launch_bounds__(kThreads)
-qmm_tiled(const float* __restrict__ a, const TB* __restrict__ b,
-          const TB* __restrict__ g, float* __restrict__ out, Epilogue ep,
-          int Mrows, int K, int N, int rt_e, int rt_m) {
-  __shared__ float As[kTKT][kTM + 4];     // A tile, transposed: [k][m]
-  __shared__ float Bs[kTKT][kTNT];        // decoded weight tile
-  __shared__ float Gs[kTKT][kTNT];        // decoded gate tile
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;   // 4 x 4 outputs per thread
-  const int m0 = blockIdx.y * kTM, n0 = blockIdx.x * kTNT;
-  const bool gated = g != nullptr;
-
-  float acc[4][4], gac[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) { acc[i][j] = 0.0f; gac[i][j] = 0.0f; }
-
-  for (int k0 = 0; k0 < K; k0 += kTKT) {
-    for (int e = tid; e < kTM * kTKT; e += kThreads) {
-      const int r = e / kTKT, c = e % kTKT;
-      const int row = m0 + r, kk = k0 + c;
-      As[c][r] = (row < Mrows && kk < K) ? a[(size_t)row * K + kk] : 0.0f;
-    }
-    for (int e = tid; e < kTKT * kTNT; e += kThreads) {
-      const int r = e / kTNT, c = e % kTNT;
-      const int kk = k0 + r, col = n0 + c;
-      const bool in = kk < K && col < N;
-      const size_t off = (size_t)kk * N + col;
-      Bs[r][c] = in ? codec::decode_t<E, M>((uint32_t)b[off], rt_e, rt_m)
-                    : 0.0f;
-      if (gated)
-        Gs[r][c] = in ? codec::decode_t<E, M>((uint32_t)g[off], rt_e, rt_m)
-                      : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < kTKT; ++kk) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = As[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = Bs[kk][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      if (gated) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bv[j] = Gs[kk][tx * 4 + j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            gac[i][j] = fmaf(av[i], bv[j], gac[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int row = m0 + ty * 4 + i, col = n0 + tx * 4 + j;
-      if (row < Mrows && col < N)
-        out[(size_t)row * N + col] = ep(acc[i][j], gac[i][j], col);
-    }
-}
-
-#else  // a tensor-core unit
-
-// ---------------------------------------------------------------------------
-// prefill and verify regime: split-TF32 mma.sync on tensor cores
+// the packed formats at every M: split-TF32 mma.sync on tensor cores
 // ---------------------------------------------------------------------------
 
 constexpr int kTcBN = 128;            // block columns: 4 warps x 32
@@ -853,25 +781,12 @@ cudaError_t launch_fmt(const float* a, const void* b, const void* g,
   const TB* B = static_cast<const TB*>(b);
   const TB* G = static_cast<const TB*>(g);
   const int nb = (N + kBN - 1) / kBN;
-  // M > 8: binary32 takes the f32 tiled kernel, the four packed formats
-  // take qmm_tc (through qmm_tc_launch, not here), and a run-time (e, m)
-  // takes the GEMV kernel at any M
-  if constexpr (E == 8 && M == 23) {
-    if (Mrows > 8) {
-      const dim3 grid((N + kTNT - 1) / kTNT, (Mrows + kTM - 1) / kTM);
-      qmm_tiled<TB, E, M><<<grid, kThreads, 0, stream>>>(
-          a, B, G, out, ep, Mrows, K, N, rt_e, rt_m);
-      return cudaGetLastError();
-    }
-  } else if constexpr (E >= 0) {
-    if (Mrows > 8) return cudaErrorInvalidValue;
-  }
   const int k_chunk = (K + splits - 1) / splits;
   if (Mrows <= 4) {
-    qmm_gemv<TB, E, M, 4><<<dim3(nb, 1, splits), kThreads, 0, stream>>>(
+    qmm_gemv<TB, E, M, 4><<<dim3(1, nb, splits), kThreads, 0, stream>>>(
         a, B, G, out, ws, ep, Mrows, K, N, k_chunk, rt_e, rt_m, vec);
   } else {
-    qmm_gemv<TB, E, M, 8><<<dim3(nb, (Mrows + 7) / 8, splits), kThreads, 0,
+    qmm_gemv<TB, E, M, 8><<<dim3((Mrows + 7) / 8, nb, splits), kThreads, 0,
                             stream>>>(a, B, G, out, ws, ep, Mrows, K, N,
                                       k_chunk, rt_e, rt_m, vec);
   }
@@ -894,9 +809,9 @@ cudaError_t launch_fmt(const float* a, const void* b, const void* g,
 // fmt_code: 0 f32 / binary32 (u32 bits), 1 binary8 (5,2) u8,
 // 2 binary8alt (4,3) u8, 3 binary16 (5,10) u16, 4 binary16alt (8,7) u16,
 // 5 any other (rt_e, rt_m) in u8, 6 in u16, 7 in u32.
-// out_e == 0: no output quantization.  splits > 1 (M <= 8 only) needs
-// ws: (gated ? 2 : 1) * splits * M * N floats.  M > 8 is taken here only
-// for fmt_code 0 (f32 tiled kernel) and 5-7 (GEMV).
+// out_e == 0: no output quantization.  splits > 1 needs ws:
+// (gated ? 2 : 1) * splits * M * N floats.  The GEMV takes fmt_code 0 and
+// 5-7 at every M; 1-4 go to qmm_tc_launch.
 extern "C" int qmm_launch(const void* a, const void* b, const void* g,
                           const void* bias, void* out, void* ws, int M,
                           int K, int N, int splits, int fmt_code, int rt_e,
@@ -908,15 +823,11 @@ extern "C" int qmm_launch(const void* a, const void* b, const void* g,
   const Epilogue ep{static_cast<const float*>(bias), act, out_e, out_m,
                     g != nullptr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (splits < 1 || (splits > 1 && (M > 8 || ws == nullptr)))
+  if (M < 1 || splits < 1 || (splits > 1 && ws == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaError_t err;
   switch (fmt_code) {
     case 0: err = launch_fmt<uint32_t, 8, 23>(A, b, g, O, W, ep, M, K, N, splits, rt_e, rt_m, vec, s); break;
-    case 1: err = launch_fmt<uint8_t, 5, 2>(A, b, g, O, W, ep, M, K, N, splits, rt_e, rt_m, vec, s); break;
-    case 2: err = launch_fmt<uint8_t, 4, 3>(A, b, g, O, W, ep, M, K, N, splits, rt_e, rt_m, vec, s); break;
-    case 3: err = launch_fmt<uint16_t, 5, 10>(A, b, g, O, W, ep, M, K, N, splits, rt_e, rt_m, vec, s); break;
-    case 4: err = launch_fmt<uint16_t, 8, 7>(A, b, g, O, W, ep, M, K, N, splits, rt_e, rt_m, vec, s); break;
     case 5: err = launch_fmt<uint8_t, -1, -1>(A, b, g, O, W, ep, M, K, N, splits, rt_e, rt_m, vec, s); break;
     case 6: err = launch_fmt<uint16_t, -1, -1>(A, b, g, O, W, ep, M, K, N, splits, rt_e, rt_m, vec, s); break;
     case 7: err = launch_fmt<uint32_t, -1, -1>(A, b, g, O, W, ep, M, K, N, splits, rt_e, rt_m, vec, s); break;
@@ -925,8 +836,8 @@ extern "C" int qmm_launch(const void* a, const void* b, const void* g,
   return (int)err;
 }
 
-// The tensor-core path: M > 8 on fmt_code 1-4.  asplit: 2 * M * K floats
-// of scratch for the split activation.  splits > 1 needs k_chunk a
+// The tensor-core path: fmt_code 1-4 at any M >= 1.  asplit: 2 * M * K
+// floats of scratch for the split activation.  splits > 1 needs k_chunk a
 // multiple of 32 with (splits - 1) * k_chunk < K, and ws as above.
 // promote = 0 keeps the whole K sweep in the mma accumulator (for
 // measuring what the promotion buys; the serving path passes 1).
@@ -935,7 +846,7 @@ extern "C" int qmm_tc_launch(const void* a, void* asplit, const void* b,
                              void* ws, int M, int K, int N, int splits,
                              int k_chunk, int fmt_code, int act, int out_e,
                              int out_m, int promote, void* stream) {
-  if (M <= 8 || asplit == nullptr || splits < 1 || k_chunk < 1 ||
+  if (M < 1 || asplit == nullptr || splits < 1 || k_chunk < 1 ||
       (splits > 1 && (ws == nullptr || k_chunk % kTcBK != 0 ||
                       (long long)(splits - 1) * k_chunk >= K)))
     return (int)cudaErrorInvalidValue;

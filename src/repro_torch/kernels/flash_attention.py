@@ -35,9 +35,12 @@ from . import _build
 from .codec import decode_tile
 
 NEG_INF = -1e30  # finite sentinel: keeps exp(m_prev - m_new) well-defined
+# KV positions one block of the decode kernel walks (kPiece in
+# csrc/flash_decode.cu)
+DECODE_PIECE = 64
 
 DECODE_LIB = _build.register(_build.KernelLib("flash_decode", {
-    "flash_decode_launch": [_build.P] * 7 + [_build.I32] * 5 + [
+    "flash_decode_launch": [_build.P] * 9 + [_build.I32] * 5 + [
         _build.F32] + [_build.I32] * 3 + [_build.P],
 }))
 LIB = _build.register(_build.KernelLib("flash_prefill", {
@@ -82,6 +85,65 @@ def flash_decode_plain(q, k_payload, v_payload, fmt, lengths, *,
     return out
 
 
+def decode_pieces(lengths, S: int, piece: int = DECODE_PIECE):
+    """Pieces of the decode kernel's walk per row: ceil(min(len, S) /
+    piece), a function of the row's own length."""
+    live = torch.clamp(torch.as_tensor(lengths).to(torch.int64), 0, S)
+    return -(-live // piece)
+
+
+def flash_decode_split_plain(q, k_payload, v_payload, fmt, lengths, *,
+                             scale: Optional[float] = None,
+                             piece: int = DECODE_PIECE,
+                             return_residuals: bool = False):
+    """The CUDA kernel's walk in PyTorch, for tests and ``chip_smoke.py``
+    (the serving path does not call it): each row's first min(len, S)
+    positions in pieces of ``piece``, a normalized partial (o, m, l) per
+    piece, merged in piece order by the reference's ``_merge_partials``
+    formula, w_i = exp(m_i - max m) * l_i, out = sum w_i o_i / sum w_i.
+    The residuals are the unsplit (m, l)."""
+    fmt = get_format(fmt) if fmt is not None else None
+    B, H, G, dh = q.shape
+    S = k_payload.shape[1]
+    if scale is None:
+        scale = float(1.0 / np.sqrt(dh))
+    P = -(-S // piece)
+    k = payload_to_f32(k_payload, fmt)
+    v = payload_to_f32(v_payload, fmt)
+    pad = P * piece - S
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    s = torch.einsum("bhgd,bshd->bhgs", q.to(torch.float32), k) \
+        * np.float32(scale)
+    live = torch.clamp(lengths.to(torch.int64), 0, S)
+    valid = torch.arange(P * piece, device=q.device)[None, :] < live[:, None]
+    vmask = valid[:, None, None, :].reshape(B, 1, 1, P, piece)
+    s = s.reshape(B, H, G, P, piece)
+    zero = torch.zeros((), device=q.device)
+    s = torch.where(vmask, s, torch.tensor(NEG_INF, dtype=torch.float32,
+                                           device=q.device))
+    m = torch.amax(s, dim=-1)                                # (B, H, G, P)
+    p = torch.where(vmask, torch.exp(s - m[..., None]), zero)
+    l = torch.sum(p, dim=-1)
+    o = torch.einsum("bhgps,bpshd->bhgpd", p,
+                     v.reshape(B, P, piece, H, dh))
+    o = torch.where(l[..., None] > 0,
+                    o / torch.where(l > 0, l, 1.0)[..., None], zero)
+    gm = torch.amax(m, dim=-1, keepdim=True)
+    w = torch.exp(m - gm) * l
+    num = torch.zeros((B, H, G, dh), device=q.device)
+    den = torch.zeros((B, H, G), device=q.device)
+    for i in range(P):                                       # piece order
+        num = num + w[..., i, None] * o[..., i, :]
+        den = den + w[..., i]
+    out = torch.where(den[..., None] > 0,
+                      num / torch.where(den > 0, den, 1.0)[..., None], zero)
+    if return_residuals:
+        return out, gm[..., 0], den
+    return out
+
+
 def _decode_cuda(q, k, v, fmt, lengths, scale, return_residuals):
     B, H, G, dh = q.shape
     S = k.shape[1]
@@ -93,21 +155,29 @@ def _decode_cuda(q, k, v, fmt, lengths, scale, return_residuals):
                          f"got {q.dtype}, {k.dtype}, {v.dtype}")
     if lengths.dtype != torch.int32:
         raise ValueError("flash_decode: lengths must be int32")
-    if G not in (1, 2, 4, 8) or dh > 128:
+    if G not in (1, 2, 4, 8) or dh not in (16, 32, 64, 128) \
+            or dh * k.element_size() < 16:
         raise ValueError(f"flash_decode: the CUDA kernel takes G in "
-                         f"(1, 2, 4, 8) and head_dim <= 128, got G={G}, "
-                         f"dh={dh}")
+                         f"(1, 2, 4, 8) and head_dim in (16, 32, 64, 128) "
+                         f"spanning at least 16 bytes of K, got G={G}, "
+                         f"dh={dh}, {k.dtype}")
     out = torch.empty((B, H, G, dh), dtype=torch.float32, device=q.device)
     m = l = None
     if return_residuals:
         m = torch.empty((B, H, G), dtype=torch.float32, device=q.device)
         l = torch.empty((B, H, G), dtype=torch.float32, device=q.device)
     if B and H:
+        P = -(-S // DECODE_PIECE)
+        part_o = torch.empty((B, H, max(P, 1), G, dh), dtype=torch.float32,
+                             device=q.device)
+        part_ml = torch.empty((B, H, max(P, 1), 2, G), dtype=torch.float32,
+                              device=q.device)
         efmt = fmt if fmt is not None else get_format("binary32")
         p = _build.ptr
         DECODE_LIB.launch("flash_decode_launch", p(q), p(k), p(v),
-                          p(lengths), p(out), p(m), p(l), B, S, H, G, dh,
-                          float(scale), _build.fmt_code(fmt), efmt.e, efmt.m,
+                          p(lengths), p(out), p(m), p(l), p(part_o),
+                          p(part_ml), B, S, H, G, dh, float(scale),
+                          _build.fmt_code(fmt), efmt.e, efmt.m,
                           _build.stream_ptr(q.device))
     return (out, m, l) if return_residuals else out
 

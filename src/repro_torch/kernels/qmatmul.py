@@ -8,15 +8,20 @@ out_fmt, gate_payload=, bias=, act=)`` computes::
 
 with ``B``/``G`` packed (e, m) containers (or floats when ``fmt_b`` is
 None), f32 products and f32 accumulation.  On a CUDA tensor it launches
-``csrc/qmm.cu`` (``_qmm_cuda``) through one of two C entry points:
+``csrc/qmm.cu`` (``_qmm_cuda``) through one of two C entry points, chosen
+by the weight format alone (``qmm_entry``):
 
-* ``qmm_tc_launch`` for M > ``GEMV_MAX_M`` rows on binary8, binary8alt,
-  binary16 and binary16alt weights (prefill chunks, the speculative
+* ``qmm_tc_launch`` for binary8, binary8alt, binary16 and binary16alt
+  weights at every M (decode steps, prefill chunks, the speculative
   verify): split-TF32 tensor-core products, exact to 2^-22 |a| @ |b|
   plus the f32 accumulation (``split_tf32`` is its split in PyTorch);
-* ``qmm_launch`` for everything else: the weight-streaming GEMV at
-  M <= ``GEMV_MAX_M`` (and for a run-time (e, m) at any M), the f32
-  tiled kernel for binary32 / float weights at M > ``GEMV_MAX_M``.
+* ``qmm_launch`` for binary32 / float weights and run-time (e, m)
+  formats at every M: the weight-streaming GEMV.
+
+Each route sums a row's products in one order whatever M is (its K
+split is a function of K and N only), so a row's result does not depend
+on the rows beside it: a speculative verify over B * k rows gives the
+logits of k decode steps over B rows bit for bit.
 
 On a CPU tensor it runs the plain version (``qmatmul_plain``:
 dequantize, then ``torch.matmul`` in f32, then the same epilogue in the
@@ -35,15 +40,12 @@ from .codec import decode_tile, quantize_tile, tf32_round, tf32_truncate
 
 ACTS = {None: 0, "silu": 1, "gelu": 2, "relu2": 3}
 
-# qmm.cu is built as five units in parallel: the GEMV and f32 tiled
-# kernels, and the tensor-core kernel once per packed format
+# qmm.cu is built as five units in parallel: the GEMV, and the
+# tensor-core kernel once per packed format
 LIB = _build.register(_build.KernelLib("qmm", {
     "qmm_launch": [_build.P] * 6 + [_build.I32] * 11 + [_build.P],
     "qmm_tc_launch": [_build.P] * 7 + [_build.I32] * 10 + [_build.P],
 }, units=[(f"-DQMM_UNIT={i}",) for i in range(5)]))
-# above this many rows the packed formats take the tensor-core kernel
-# (qmm_tc_launch) and binary32 the f32 tiled kernel
-GEMV_MAX_M = 8
 TC_FMT_CODES = (1, 2, 3, 4)   # binary8, binary8alt, binary16, binary16alt
 TC_BN, TC_BK = 128, 32        # the tensor-core kernel's block columns, K step
 TC_MIN_CHUNK = 128            # fewest K rows a split of that kernel takes
@@ -115,12 +117,9 @@ def _qmm_cuda(a, b, fmt_b, out_fmt, gate, bias, act, *,
     fmt = fmt_b if fmt_b is not None else get_format("binary32")
     oe, om = (out_fmt.e, out_fmt.m) if out_fmt is not None else (0, 0)
     code = _build.fmt_code(fmt_b)
-    tc = qmm_entry(M, fmt_b) == "qmm_tc_launch"
-    n_sm = _build.sm_count(a.device)
-    if tc:
-        splits, k_chunk = tiled_splits(K, N, n_sm, gate is not None)
-    else:
-        splits = gemv_splits(M, K, N, n_sm)
+    entry, splits, k_chunk = qmm_plan(K, N, fmt_b, gate is not None,
+                                      _build.sm_count(a.device))
+    tc = entry == "qmm_tc_launch"
     ws = None
     if splits > 1:
         ws = torch.empty(((2 if gate is not None else 1) * splits, M, N),
@@ -138,23 +137,35 @@ def _qmm_cuda(a, b, fmt_b, out_fmt, gate, bias, act, *,
     return out
 
 
-def gemv_splits(M: int, K: int, N: int, n_sm: int) -> int:
-    """K splits for the decode-regime kernel: enough blocks for about two
+def gemv_splits(K: int, N: int, n_sm: int) -> int:
+    """K splits of the GEMV, a function of K and N only (so a row sums in
+    one order at every M): enough blocks of one row block for about two
     per SM (a 64-column strip is one block), each split keeping at least
-    256 rows of K; 1 above ``GEMV_MAX_M`` (see :func:`tiled_splits`)."""
-    if M > GEMV_MAX_M:
-        return 1
+    256 rows of K."""
     strips = -(-N // 64)
     return max(1, min(-(-2 * n_sm // strips), K // 256))
 
 
-def qmm_entry(M: int, fmt_b: Optional[FpFormat]) -> str:
-    """The C entry point a CUDA qmatmul of M rows takes: the tensor-core
-    kernel for the four packed formats above ``GEMV_MAX_M`` rows, else
-    ``qmm_launch`` (GEMV, or the f32 tiled kernel for binary32 / float
-    weights).  A fixed choice by format, not a fallback."""
-    tc = M > GEMV_MAX_M and _build.fmt_code(fmt_b) in TC_FMT_CODES
+def qmm_entry(fmt_b: Optional[FpFormat]) -> str:
+    """The C entry point a CUDA qmatmul takes: the tensor-core kernel for
+    the four packed formats, ``qmm_launch`` (the GEMV) for binary32 /
+    float weights and run-time (e, m) formats.  It depends on the format
+    alone, not on M, so every row of a format sums in one order; a fixed
+    choice, not a fallback."""
+    tc = _build.fmt_code(fmt_b) in TC_FMT_CODES
     return "qmm_tc_launch" if tc else "qmm_launch"
+
+
+def qmm_plan(K: int, N: int, fmt_b: Optional[FpFormat], gated: bool,
+             n_sm: int) -> tuple:
+    """(entry point, K splits, K rows a split) of a CUDA qmatmul of any
+    number of rows: a row of a given format and shape is summed in one
+    order whether it is decoded with 3 others, verified with 15 or
+    prefilled in a 64-row chunk."""
+    if qmm_entry(fmt_b) == "qmm_tc_launch":
+        return ("qmm_tc_launch",) + tiled_splits(K, N, n_sm, gated)
+    splits = gemv_splits(K, N, n_sm)
+    return "qmm_launch", splits, -(-K // splits)
 
 
 def tc_tile_m(M: int) -> int:

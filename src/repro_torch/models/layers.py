@@ -137,9 +137,25 @@ def act_cast(x, policy: PrecisionPolicy, role: str = "act"):
     return quantize(x, policy.fmt(role))
 
 
+def _mean_square(xf):
+    """Mean of squares over the last axis, summed in an order that does
+    not depend on the number of rows: 128-wide partial sums, then one sum
+    of the d / 128 partials.  A single ``torch.mean`` over (rows, 4096)
+    on CUDA shapes its thread blocks by the row count (4 rows of a decode
+    step, 16 of a speculative verify), and so its summation order; a row
+    of 128, or of at most 32 partials (d a multiple of 128 up to 4096),
+    is summed by one warp whatever the number of rows, so a verify row
+    normalizes as the decode row does (``chip_smoke.py`` checks it)."""
+    d = xf.shape[-1]
+    c = 128 if d > 128 and d % 128 == 0 else d
+    part = torch.sum((xf * xf).reshape(-1, c), dim=-1)
+    return torch.sum(part.reshape(*xf.shape[:-1], d // c), dim=-1,
+                     keepdim=True) / d
+
+
 def rmsnorm(x, gamma, policy, eps=1e-6):
     xf = x.to(F32)
-    y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    y = xf * torch.rsqrt(_mean_square(xf) + eps)
     y = y * (1.0 + gamma.to(F32))
     return act_cast(y, policy)
 

@@ -146,9 +146,10 @@ class Model:
         mapped slot), where ``logits[:, i]`` is what the i-th of K
         sequential :meth:`decode_step` calls gives: every other layer acts
         row-wise, and attention goes per position through the same decode
-        backend (``attention.verify_paged``).  On the CPU plain path the
-        two agree bit for bit; the CUDA matmul sums in another order at
-        M = B * K than at M = B, so on the card they agree to rounding.
+        backend (``attention.verify_paged``).  The two agree bit for bit
+        on the CPU plain path and on the card, where qmm sums a row in one
+        order at every M and rmsnorm's sum does not depend on the row
+        count.
 
         Needs an all-attention decoder over paged caches, as in the
         reference: recurrent layer states cannot roll back rejected

@@ -114,3 +114,95 @@ def test_decode_byte_model():
     assert tfa.decode_hbm_bytes([0, 100, 300], 256, 8, 128, "binary8",
                                 g=4) == (2 * (100 + 256) * 8 * 128
                                          + 3 * 4 + 2 * 3 * 8 * 4 * 128 * 4)
+
+
+# The CUDA kernel's split walk: pieces of ``DECODE_PIECE`` positions merged
+# in piece order.  Its PyTorch twin is held here, at small widths and with
+# small pieces (several per row), to the plain version, to the JAX oracle
+# and to the JAX package's own merge of host-split partials.
+
+def _edge_lengths(piece, S):
+    """0, 1, each piece edge -1 / +0 / +1 below S, and S."""
+    edges = [e + d for e in range(piece, S, piece) for d in (-1, 0, 1)]
+    return sorted({0, 1, S, *[e for e in edges if 0 < e < S]})
+
+
+@pytest.mark.parametrize("fmt", FMTS, ids=lambda f: f or "f32")
+@pytest.mark.parametrize("piece", [8, 16, 64])
+def test_split_twin_matches_plain_and_xla_reference(fmt, piece):
+    S = 40
+    lengths = _edge_lengths(piece, S)
+    q, kp, vp, lens = _case(fmt, B=len(lengths), S=S, seed=5,
+                            lengths=lengths)
+    got, gm, gl = tfa.flash_decode_split_plain(
+        _t(q), _t(kp), _t(vp), fmt, _t(lens), piece=piece,
+        return_residuals=True)
+    plain, pm, pl = tfa.flash_decode_plain(_t(q), _t(kp), _t(vp), fmt,
+                                           _t(lens), return_residuals=True)
+    want, wm, wl = jfa.flash_decode_reference(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), fmt,
+        jnp.asarray(lens), return_residuals=True)
+    for ref, rm, rl in ((plain.numpy(), pm.numpy(), pl.numpy()),
+                        (np.asarray(want), np.asarray(wm), np.asarray(wl))):
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-6)
+        np.testing.assert_allclose(gm.numpy(), rm, rtol=1e-6)
+        np.testing.assert_allclose(gl.numpy(), rl, rtol=1e-6)
+    assert (got[0] == 0).all() and (gl[0] == 0).all()
+    assert (gm[0] == tfa.NEG_INF).all()
+
+
+@pytest.mark.parametrize("fmt", ["binary8", "binary16alt", None],
+                         ids=lambda f: f or "f32")
+def test_split_twin_matches_jax_merge_of_host_split_pieces(fmt):
+    """Each piece through the JAX oracle at its local length (as the
+    reference's sharded wrapper splits the cache), the partials merged by
+    ``dispatch._merge_partials`` under ``jax.vmap`` over the piece axis
+    named ``model``: within 1e-6 of the twin."""
+    from repro.kernels import dispatch as jdispatch
+
+    piece, S = 8, 40
+    lengths = _edge_lengths(piece, S)
+    q, kp, vp, lens = _case(fmt, B=len(lengths), S=S, seed=6,
+                            lengths=lengths)
+    P = -(-S // piece)
+    parts = []
+    for i in range(P):
+        local = np.clip(lens - i * piece, 0, piece).astype(np.int32)
+        sl = slice(i * piece, (i + 1) * piece)
+        parts.append(jfa.flash_decode_reference(
+            jnp.asarray(q), jnp.asarray(kp[:, sl]), jnp.asarray(vp[:, sl]),
+            fmt, jnp.asarray(local), return_residuals=True))
+    o, m, l = (jnp.stack([p[j] for p in parts]) for j in range(3))
+    merged = jax.vmap(jdispatch._merge_partials, axis_name="model")(o, m, l)
+    got = tfa.flash_decode_split_plain(_t(q), _t(kp), _t(vp), fmt,
+                                       _t(lens), piece=piece)
+    for i in range(P):   # every member of the axis holds the merge
+        np.testing.assert_allclose(got.numpy(), np.asarray(merged[i]),
+                                   rtol=0, atol=1e-6)
+
+
+def test_piece_count_is_a_function_of_the_row_length():
+    """ceil(min(len, S) / piece) per row at lengths 0, 1, the piece edges
+    and S (and above S), whatever the other rows hold; the twin's row is
+    the same computed alone or beside rows of other lengths."""
+    piece, S = tfa.DECODE_PIECE, 256
+    lengths = _edge_lengths(piece, S) + [S + 7]
+    want = [-(-min(n, S) // piece) for n in lengths]
+    assert tfa.decode_pieces(torch.tensor(lengths), S).tolist() == want
+    for i, n in enumerate(lengths):
+        assert tfa.decode_pieces(torch.tensor([n]), S).item() == want[i]
+    q, kp, vp, lens = _case("binary8", B=4, S=S, H=2, dh=16, seed=7,
+                            lengths=(1, 64, 129, 256))
+    full = tfa.flash_decode_split_plain(_t(q), _t(kp), _t(vp), "binary8",
+                                        _t(lens))
+    for b in range(4):
+        other = lens.copy()
+        other[[i for i in range(4) if i != b]] = [0, S, 65][:3]
+        got = tfa.flash_decode_split_plain(_t(q), _t(kp), _t(vp), "binary8",
+                                           _t(other))
+        assert torch.equal(got[b], full[b])
+        alone = tfa.flash_decode_split_plain(
+            _t(q[b:b + 1]), _t(kp[b:b + 1]), _t(vp[b:b + 1]), "binary8",
+            _t(lens[b:b + 1]))
+        np.testing.assert_allclose(alone[0].numpy(), full[b].numpy(),
+                                   rtol=0, atol=1e-6)

@@ -9,7 +9,11 @@ max(2^-22 |a|, 2^-137).  Both facts are checked here on every container
 pattern and on seeded and boundary activations, and the two-pass product
 (taken in f64) is held to the JAX package's qmatmul (Pallas, interpret
 mode) within the port's 1e-6 in units of |a| @ |b|.  The split-K
-arithmetic of the kernel's grid is checked at the serving shapes."""
+arithmetic of the kernels' grids is checked at the serving shapes, and
+the launch plan (entry point and K split) is checked to depend on the
+format and the shape only, never on M."""
+import inspect
+
 import numpy as np
 import pytest
 
@@ -144,18 +148,20 @@ def test_two_pass_product_matches_pallas_interpret(fmt, K):
     assert err.max() <= 1e-6, err.max()
 
 
-SERVING = [(M, K, N, gated) for M in (16, 64) for K, N, gated in
+SERVING = [(M, K, N, gated) for M in (4, 16, 64) for K, N, gated in
            ((4096, 4096, False), (4096, 1024, False), (4096, 14336, True),
             (14336, 4096, False))] + [
+               (4, 4096, 128256, False),
                (16, 4096, 128256, False), (128, 4096, 4096, False),
                (128, 4096, 1024, False), (128, 4096, 14336, True)]
 
 
 @pytest.mark.parametrize("M,K,N,gated", SERVING)
 def test_tiled_splits_fill_the_card(M, K, N, gated):
-    """Every serving shape of the tensor-core kernel (prefill chunks at
-    M = 64, the draft's 128-token prompt, the verify at M = 16 with its
-    head; the gated FFN covers 64 outputs a block) puts at least one block
+    """Every serving shape of the tensor-core kernel (decode steps at
+    M = 4 with the head, prefill chunks at M = 64, the draft's 128-token
+    prompt, the verify at M = 16 with its head; the gated FFN covers 64
+    outputs a block) puts at least one block
     on each of an H100's 132 SMs, and one 64-row tile of a split launch
     no more than the SMs hold at once; K chunks are multiples of the
     kernel's 32-deep step (so of the mma's 8), cover K, and leave no split
@@ -173,12 +179,39 @@ def test_tiled_splits_fill_the_card(M, K, N, gated):
 
 
 @pytest.mark.parametrize("M,fmt,entry", [
-    (1, "binary16alt", "qmm_launch"), (8, "binary8", "qmm_launch"),
+    (1, "binary16alt", "qmm_tc_launch"), (8, "binary8", "qmm_tc_launch"),
     (9, "binary8", "qmm_tc_launch"), (16, "binary8alt", "qmm_tc_launch"),
     (64, "binary16", "qmm_tc_launch"), (64, "binary16alt", "qmm_tc_launch"),
+    (1, "binary32", "qmm_launch"), (4, None, "qmm_launch"),
     (64, "binary32", "qmm_launch"), (64, None, "qmm_launch"),
     (64, "flexfloat<6,9>", "qmm_launch")])
 def test_entry_point_is_fixed_by_format_and_rows(M, fmt, entry):
+    """The packed formats take the tensor-core kernel and binary32 /
+    float weights and run-time formats the GEMV, at every M."""
     f = get_format(fmt) if fmt is not None else None
-    assert tq.qmm_entry(M, f) == entry
+    assert tq.qmm_entry(f) == entry
+    assert tq.qmm_plan(4096, 4096, f, False, 132)[0] == entry
     assert tq.tc_tile_m(M) in (16, 32, 64)
+
+
+GEMV_SHAPES = [(4096, 4096, False), (4096, 1024, False),
+               (4096, 14336, True), (14336, 4096, False),
+               (4096, 128256, False), (100, 70, False), (255, 1030, True)]
+
+
+@pytest.mark.parametrize("K,N,gated", GEMV_SHAPES)
+@pytest.mark.parametrize("fmt", ["binary32", None, "flexfloat<6,9>"])
+def test_gemv_split_is_the_same_for_every_m_and_covers_k(K, N, gated, fmt):
+    """The GEMV's plan (binary32 / float weights, run-time formats) takes
+    no row count, so M = 1 ... 128 share it: the K split, a function of K
+    and N, whose chunks (``ceil(K / splits)`` rows, as ``qmm.cu``
+    computes them) cover K with no empty split and keep at least 256 rows
+    each."""
+    f = get_format(fmt) if fmt is not None else None
+    assert "M" not in inspect.signature(tq.qmm_plan).parameters
+    entry, splits, k_chunk = tq.qmm_plan(K, N, f, gated, 132)
+    assert entry == "qmm_launch"
+    assert splits == tq.gemv_splits(K, N, 132)
+    assert k_chunk == -(-K // splits)
+    assert (splits - 1) * k_chunk < K <= splits * k_chunk
+    assert splits == 1 or k_chunk >= 256
