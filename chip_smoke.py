@@ -8,30 +8,33 @@ Run from the root of a checkout.  Phases:
 1. build       -- compile every CUDA kernel of ``src/repro_torch/csrc``
                   (one nvcc per source, all started together) into
                   ``build/kernels/``.
-2. kernels     -- qmm (its tensor-core kernel for the packed formats and
-                  its GEMV for binary32), paged_decode, flash_prefill and
-                  flash_decode against their plain PyTorch versions on
-                  the card, at the serving path's shapes and at ragged
-                  edge shapes, with the stated tolerances; qmm rows and
-                  flash_decode rows bit-identical whatever rows are
-                  beside them; times each kernel, its plain version and a
-                  library yardstick (qmm per decode step, per prefill
-                  chunk and per verify round).
+2. kernels     -- qmm (its tensor-core kernel for the packed formats,
+                  its GEMV and qmm_tile for binary32), paged_decode,
+                  flash_prefill and flash_decode against their plain
+                  PyTorch versions on the card, at the serving path's
+                  shapes and at ragged edge shapes, with the stated
+                  tolerances; qmm rows and flash_decode rows
+                  bit-identical whatever rows are beside them, qmm_tile
+                  bit-identical to the GEMV; times each kernel, its plain
+                  version and a library yardstick (qmm per decode step,
+                  per prefill chunk and per verify round, packed and
+                  binary32).
 3. casts       -- torch's CUDA f32 -> float8_e5m2 / bfloat16 casts (the
                   KV write and the activation cast) against the plain
                   codec; the three flexfloat_cast kernels bit-identical to
-                  the plain codec (every 2^8 / 2^16 pattern, 2^24 seeded
-                  f32 patterns plus every boundary, five formats, 0-d /
-                  odd / 3-d / misaligned inputs); their times on one
-                  llama3-8b FFN weight.
+                  the plain codec (every container pattern, 2^24 seeded
+                  f32 patterns plus every boundary, the four specialised
+                  pack formats and a run-time format of each container,
+                  0-d / odd / 3-d / misaligned inputs); their times on
+                  one llama3-8b FFN weight.
 4. ops         -- the ops API (``kernels/ops.py``: pack, unpack, cast,
                   matmul) on a 4096 x 14336 weight, the cast kernels'
                   main path, against its oracle path.
 5. serve       -- ``repro_torch.launch.serve.main`` on full-width,
                   full-depth llama3-8b (random weights from the seed),
                   ``--decode-impl paged``, asserting the launch counts per
-                  decode step and per prefill chunk (and per qmm entry
-                  point: all 193 on tensor cores in both).
+                  decode step and per prefill chunk (and per qmm kernel:
+                  all 193 on tensor cores in both).
 6. serve_flash -- the same workload under ``--decode-impl flash_pallas``
                   (the serving default on a card): 32 flash_decode and no
                   paged_decode per decode step.
@@ -39,21 +42,25 @@ Run from the root of a checkout.  Phases:
                   the launch counts per round and per verify, that no
                   token differs from serve_flash, and that the target as
                   its own draft has every proposal accepted.
-8. logits      -- a prefill chunk, a decode step and a speculative verify
+8. serve_f32   -- ``--policy binary32``, ``paged``, 2 requests x (128 +
+                  8): 193 qmm per decode step on the GEMV, per prefill
+                  chunk 192 on qmm_tile and the head on the GEMV.
+9. logits      -- a prefill chunk, a decode step and a speculative verify
                   step of a 2-layer, full-width model: kernel path against
                   plain path, and verify against sequential decode bit for
                   bit (logits, K/V pool bits, lengths), under binary32 and
                   transprecision, with paged and flash_pallas decode;
                   rmsnorm rows bit-identical at every row count.
-9. profile     -- short paged and speculative serve runs under
+10. profile    -- short paged and speculative serve runs under
                   torch.profiler: device busy share and the kernels that
                   take the device time; the host syncs of a tiny serve.
 
 ``--phases build,timing --src OTHER/src`` times another checkout's
-qmm (decode step, prefill chunk, verify round; binary32 decode step and
-chunk), flash_prefill, paged_decode and flash_decode with this script's
-timing code, e.g. a parent commit unpacked into a git-ignored directory,
-to set its kernels beside this checkout's in one chip call.
+qmm (decode step, prefill chunk, verify round, packed and binary32),
+flash_prefill, paged_decode, flash_decode and the three cast kernels
+with this script's timing code, e.g. a parent commit unpacked into a
+git-ignored directory, to set its kernels beside this checkout's in one
+chip call.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -176,16 +183,19 @@ def check_qmm(torch, np, report):
     """qmm against qmatmul_plain, within 1e-6 in units of |x| @ |w| (the
     reference's contract): the serving shapes at M = 1, 4, 16 and 64 (the
     tensor-core kernel for the packed formats), every paper format at
-    M = 1, 4 and 64 (binary32 on the GEMV), the tensor-core path at M in
-    (9, 16, 17, 33, 100), the GEMV at M in (9, 16, 17, 100), ragged K and
-    N, gated + bias and out_fmt; then the error at K = 14336 with and
+    M = 1, 4 and 64 (binary32 on the GEMV, and on qmm_tile at 64), the
+    tensor-core path at M in (9, 16, 17, 33, 100), qmm_tile at M in (9,
+    16, 17, 33, 64, 100, 128), ragged K and N with split-K, gated + bias,
+    a run-time format and out_fmt; then the error at K = 14336 with and
     without the promotion of the tensor core's partial sums; then rows
-    bit-identical whatever M is, for every packed format and binary32."""
+    bit-identical whatever M is, for every packed format and binary32,
+    and qmm_tile bit-identical to the GEMV over the same rows."""
     from repro_torch.core.formats import (BINARY8, BINARY8ALT, BINARY16,
-                                          BINARY16ALT, BINARY32)
+                                          BINARY16ALT, BINARY32, get_format)
     from repro_torch.core.qtensor import decode
     from repro_torch.kernels import qmatmul as Q
 
+    FLEX69 = get_format("flexfloat<6,9>")
     gen = torch.Generator(device="cuda").manual_seed(report["seed"])
 
     def rand(*shape):
@@ -196,11 +206,12 @@ def check_qmm(torch, np, report):
 
     worst = 0.0
     worst_tc = 0.0
+    worst_tile = 0.0
     tc_units = {}          # worst error in acc units on the tensor cores
 
     def case(name, M, K, N, fmt, gated=False, bias=False, act=None,
              out_fmt=None, promote=True):
-        nonlocal worst, worst_tc
+        nonlocal worst, worst_tc, worst_tile
         x = rand(M, K)
         wp = pack(rand(K, N), fmt)
         gp = pack(rand(K, N), fmt) if gated else None
@@ -231,7 +242,7 @@ def check_qmm(torch, np, report):
         norm = float((err / (sh * sg)).max())
         ok = bool((err <= tol).all())
         tc = Q.qmm_entry(fmt) == "qmm_tc_launch"
-        path = "tc" if tc else "gemv"
+        path = Q.qmm_kernel(fmt, M)[4:]
         report["cases"].append(dict(kernel="qmm", case=name, M=M, K=K, N=N,
                                     fmt=fmt.name, gated=gated, act=act,
                                     path=path, promote=promote,
@@ -243,6 +254,8 @@ def check_qmm(torch, np, report):
         if out_fmt is None and promote:
             if tc and fmt == BINARY16ALT:
                 worst_tc = max(worst_tc, float(err.max()))
+            elif path == "tile":
+                worst_tile = max(worst_tile, float(err.max()))
             elif not tc:
                 worst = max(worst, float(err.max()))
         if tc and promote and out_fmt is None:
@@ -287,17 +300,25 @@ def check_qmm(torch, np, report):
         ok &= run("tc aligned ragged N", 33, 4096, 1040, fmt)
         ok &= run("tc out_fmt binary16alt", 17, 4100, 1030, fmt, gated=True,
                   act="silu", out_fmt=BINARY16ALT)
-    # the GEMV (binary32) over several row blocks
-    for M in (9, 16, 17, 100):
-        ok &= run("gemv rows", M, 4096, 1024, BINARY32)
-    ok &= run("gemv gated silu + bias", 33, 4096, 1024, BINARY32,
-              gated=True, bias=True, act="silu")
+    # binary32 above 8 rows: qmm_tile at every tile height, a second row
+    # of tiles, gated + bias, ragged M / K / N with split-K (unaligned
+    # rows load element by element), and a run-time format (fmt_code 6)
+    for M in (9, 16, 17, 33, 64, 100, 128):
+        ok &= run("tile rows", M, 4096, 1024, BINARY32)
+    for M in (33, 64):
+        ok &= run("tile gated silu + bias", M, 4096, 1024, BINARY32,
+                  gated=True, bias=True, act="silu")
+    ok &= run("tile ragged split-K", 17, 4100, 1030, BINARY32, gated=True,
+              bias=True, act="silu")
+    ok &= run("tile run-time format", 64, 4096, 1024, FLEX69, gated=True,
+              bias=True, act="silu")
     ok &= run("ragged gelu(tanh)", 5, 130, 77, BINARY8, bias=True,
               act="gelu")
     ok &= run("ragged relu2", 33, 100, 70, BINARY16, act="relu2")
     ok &= run("ragged out_fmt binary16alt", 3, 100, 70, BINARY8,
               gated=True, act="silu", out_fmt=BINARY16ALT)
     report["qmm_max_abs_err"] = worst
+    report["qmm_tile_max_abs_err"] = worst_tile
     report["qmm_tc_max_abs_err"] = worst_tc
     report["qmm_tc_units_by_fmt"] = tc_units
 
@@ -343,13 +364,38 @@ def check_qmm(torch, np, report):
     print(f"[kernels] qmm rows of a 128-row input bit-identical through "
           f"M = {ROW_COUNTS}: {inv} "
           f"{'ok' if all(inv.values()) else 'FAIL'}")
+
+    # the CUDA-core route's two kernels sum in one order: qmm_tile at its
+    # row tile against the GEMV's 8-row blocks over the same rows, bit for
+    # bit (ragged and split-K shapes, gated, a run-time format)
+    same = {}
+    for fmt, M, K, N, gated in ((BINARY32, 64, 4096, 4096, False),
+                                (BINARY32, 100, 14336, 4096, False),
+                                (BINARY32, 33, 4096, 14336, True),
+                                (BINARY32, 17, 4100, 1030, True),
+                                (FLEX69, 64, 4096, 1024, True)):
+        x = rand(M, K)
+        wp = pack(rand(K, N), fmt)
+        gp = pack(rand(K, N), fmt) if gated else None
+        b = rand(N) if gated else None
+        act = "silu" if gated else None
+        tile = Q._qmm_cuda(x, wp, fmt, None, gp, b, act)
+        gemv = Q._qmm_cuda(x, wp, fmt, None, gp, b, act, tile_m=8)
+        same[f"{fmt.name} M={M} K={K} N={N} gated={gated}"] = \
+            torch.equal(tile, gemv)
+        del x, wp, gp, b, tile, gemv
+    ok &= all(same.values())
+    report["qmm_tile_equals_gemv"] = same
+    print(f"[kernels] qmm_tile bit-identical to the GEMV's 8-row blocks: "
+          f"{same} {'ok' if all(same.values()) else 'FAIL'}")
     torch.cuda.empty_cache()
     return ok
 
 
 # the row counts a row's result must not depend on: decode steps (1-8
-# slots), a verify (B * k), prefill chunks and the draft's prompt
-ROW_COUNTS = (1, 2, 4, 8, 9, 16, 17, 33, 64, 100)
+# slots), a verify (B * k), prefill chunks and the draft's prompt (128:
+# the whole input, the run every other row count is held to)
+ROW_COUNTS = (1, 2, 4, 8, 9, 16, 17, 33, 64, 100, 128)
 
 LLAMA_PROJ = [("wq", 4096, 4096, False), ("wk", 4096, 1024, False),
               ("wv", 4096, 1024, False), ("wo", 4096, 4096, False),
@@ -376,15 +422,33 @@ def _unpack_weight(wp, fmt):
     return decode(wp, fmt)
 
 
+TF32_PEAK_FLOPS = 495e12    # H100 SXM, TF32 on the tensor cores, dense
+
+
+def qmm_bound(Q, fmt, nbytes, flops):
+    """(bound ms, "bytes" or "operations") of one qmm: the larger of its
+    bytes over the HBM rate and its operations over the rate of the
+    units that keep its precision: binary32 and run-time formats are f32
+    products on the CUDA cores (67 TFLOP/s); the packed formats are
+    exact in TF32, and the f32 activation takes two TF32 passes on the
+    tensor cores (split-TF32, 2 x flops at 495 TFLOP/s)."""
+    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    if Q.qmm_entry(fmt) == "qmm_tc_launch":
+        b_ops = 2 * flops / TF32_PEAK_FLOPS * 1e3
+    else:
+        b_ops = flops / F32_PEAK_FLOPS * 1e3
+    return (b_bytes, "bytes") if b_bytes >= b_ops else (b_ops, "operations")
+
+
 def time_qmm(torch, np, report, timer):
     """qmm at the main path's shapes, binary16alt weights: per decode step
     (M = 4 slots, 193 launches = 32 x (wq, wk, wv, wo, gated ffn, w_out) +
     the head at N = 128256), per prefill chunk (M = 64, the 192 without
     the head) and per verify round (M = 16, the 193); and binary32 weights
-    (the GEMV) per decode step and per chunk.  Each shape: kernel, plain
-    version, and torch.matmul on dequantized f32 weights with TF32 off
-    (timed only, never called by the port); bytes and bound; the f32
-    CUDA-core floor 2 M sum(KN) / 67 TFLOP/s beside it.  Uses only the
+    (the GEMV per decode step, qmm_tile per chunk and per verify).  Each
+    shape: kernel, plain version, and torch.matmul on dequantized f32
+    weights with TF32 off (timed only, never called by the port); bytes,
+    operations and the bound (``qmm_bound``, the larger).  Uses only the
     API every slice of the port has, so ``--src`` can time an earlier
     checkout's kernels at the same shapes."""
     from repro_torch.core.formats import BINARY16ALT, BINARY32
@@ -398,7 +462,8 @@ def time_qmm(torch, np, report, timer):
             ("qmm_chunk", 64, BINARY16ALT, layers),
             ("qmm_verify", 16, BINARY16ALT, layers + head),
             ("qmm_step_f32", 4, BINARY32, layers + head),
-            ("qmm_chunk_f32", 64, BINARY32, layers)):
+            ("qmm_chunk_f32", 64, BINARY32, layers),
+            ("qmm_verify_f32", 16, BINARY32, layers + head)):
         totals = dict(M=M, fmt=fmt.name, launches=0, ms=0.0, plain_ms=0.0,
                       library_ms=0.0, bytes=0, flops=0)
         for name, K, N, gated, mult in shapes:
@@ -423,16 +488,16 @@ def time_qmm(torch, np, report, timer):
                 t_l = timer(lambda: torch.matmul(x, wf))
             nbytes = Q.qmm_hbm_bytes(M, K, N, fmt, gated=gated)
             flops = 2 * M * K * N * (2 if gated else 1)
+            bound, by = qmm_bound(Q, fmt, nbytes, flops)
             report["timings"].append(dict(
                 kernel="qmm", per=key, fmt=fmt.name, shape=name, M=M, K=K,
                 N=N, launches_per=mult, ms=t_k, plain_ms=t_p,
-                library_ms=t_l, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-                bound_by="bytes", bytes=nbytes, flops=flops,
-                f32_floor_ms=flops / F32_PEAK_FLOPS * 1e3))
-            print(f"[timing] qmm {key[4:]:<9} {name:<6} M={M:<2} K={K:<5} "
+                library_ms=t_l, bound_ms=bound, bound_by=by, bytes=nbytes,
+                flops=flops, f32_floor_ms=flops / F32_PEAK_FLOPS * 1e3))
+            print(f"[timing] qmm {key[4:]:<10} {name:<6} M={M:<2} K={K:<5} "
                   f"N={N:<6} {fmt.name:<11} kernel {t_k:.4f} ms  plain "
                   f"{t_p:.4f} ms  torch.matmul {t_l:.4f} ms  bound "
-                  f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+                  f"{bound:.4f} ms ({by})")
             for k, v in (("launches", mult), ("ms", mult * t_k),
                          ("plain_ms", mult * t_p), ("library_ms",
                                                     mult * t_l),
@@ -440,15 +505,15 @@ def time_qmm(torch, np, report, timer):
                 totals[k] += v
             del x, wp, gp, wf, gf
             torch.cuda.empty_cache()
-        totals["bound_ms"] = totals["bytes"] / HBM_BYTES_PER_S * 1e3
-        totals["bound_by"] = "bytes"
+        totals["bound_ms"], totals["bound_by"] = qmm_bound(
+            Q, fmt, totals["bytes"], totals["flops"])
         totals["f32_floor_ms"] = totals["flops"] / F32_PEAK_FLOPS * 1e3
         report[key] = totals
         print(f"[timing] qmm per {key[4:]} (M = {M}, {fmt.name}, "
               f"{totals['launches']} launches): kernel {totals['ms']:.3f} ms"
               f"  plain {totals['plain_ms']:.2f} ms  torch.matmul "
               f"{totals['library_ms']:.3f} ms  bound {totals['bound_ms']:.3f}"
-              f" ms (bytes)  f32 CUDA-core floor "
+              f" ms ({totals['bound_by']})  f32 CUDA-core floor "
               f"{totals['f32_floor_ms']:.3f} ms")
 
 
@@ -790,7 +855,7 @@ def time_kernels(torch, np, report, timer):
 # ---------------------------------------------------------------------------
 
 def _boundaries(torch, fmt):
-    """Every pattern of a <= 16-bit format as f32, the midpoints between
+    """Every pattern of a <= 17-bit format as f32, the midpoints between
     neighbours (round-to-even ties) and one f32 ulp either side of each."""
     from repro_torch.core.qtensor import decode
     n = 1 << fmt.bits
@@ -844,8 +909,10 @@ def check_casts(torch, np, report):
     return ok
 
 
+# the four pack kernels of their own, and a run-time format of each
+# container (u8, u16, u32)
 CAST_FORMATS = ("binary8", "binary8alt", "binary16", "binary16alt",
-                "flexfloat<6,9>")
+                "flexfloat<3,4>", "flexfloat<6,9>", "flexfloat<5,11>")
 
 
 def _seeded_f32(torch, np, seed, n):
@@ -867,11 +934,12 @@ def _mismatches(a, b) -> int:
 
 def check_cast_kernels(torch, np, report):
     """The three flexfloat_cast kernels bit-identical to the plain codec:
-    every 2^8 / 2^16 container pattern through unpack and pack(unpack);
-    2^24 seeded f32 patterns plus every boundary of the format through
-    cast (with and without saturate) and pack; for binary8, binary8alt,
-    binary16, binary16alt and flexfloat<6,9>; on the flat array, a 0-d,
-    an odd 1-d, a 3-d input and a misaligned view (the scalar path)."""
+    every container pattern (2^8, 2^16, 2^17) through unpack and
+    pack(unpack); 2^24 seeded f32 patterns plus every boundary of the
+    format through cast (with and without saturate) and pack; for the
+    four formats with a pack kernel of their own and a run-time format
+    of each container (``CAST_FORMATS``); on the flat array, a 0-d, an
+    odd 1-d, a 3-d input and a misaligned view (the scalar path)."""
     from repro_torch.core.formats import get_format
     from repro_torch.kernels import flexfloat_cast as FF
 
@@ -906,10 +974,13 @@ def check_cast_kernels(torch, np, report):
         bad = {k: v for k, v in res.items() if v}
         good = not bad
         ok &= good
+        kern = FF.encode_kernel(fmt) if hasattr(FF, "encode_kernel") \
+            else None
         report["cast_kernels"].append(dict(
             fmt=name, f32_inputs=int(x.numel()), patterns=1 << fmt.bits,
-            mismatches=res, ok=good))
+            encode_kernel=kern, mismatches=res, ok=good))
         print(f"[casts] flexfloat_cast/encode/decode kernels {name:<15} "
+              f"(pack kernel: {kern}) "
               f"{x.numel()} f32 inputs + {1 << fmt.bits} patterns, "
               f"{len(res)} checks: "
               + ("0 mismatches ok" if good else f"mismatches {bad} FAIL"))
@@ -1015,8 +1086,9 @@ def run_ops(torch, np, report, libs):
 # phases 5-7: serve, serve_flash, speculative
 # ---------------------------------------------------------------------------
 
-def _serve_argv(args, decode_impl, requests, max_new, stats, extra=()):
-    return ["--arch", "llama3-8b", "--policy", "transprecision",
+def _serve_argv(args, decode_impl, requests, max_new, stats, extra=(),
+                policy="transprecision"):
+    return ["--arch", "llama3-8b", "--policy", policy,
             "--decode-impl", decode_impl, "--matmul-impl", "qmm_pallas",
             "--page-size", str(SERVE_PAGE), "--requests", str(requests),
             "--slots", str(SERVE_SLOTS), "--prompt-len", str(SERVE_PROMPT),
@@ -1025,11 +1097,12 @@ def _serve_argv(args, decode_impl, requests, max_new, stats, extra=()):
             os.path.join(args.out, stats), *extra]
 
 
-def _qmm_entries(lib, before=None):
-    """(qmm_launch, qmm_tc_launch) counts of the qmm library, less
-    ``before``."""
-    now = (lib.by_symbol.get("qmm_launch", 0),
-           lib.by_symbol.get("qmm_tc_launch", 0))
+QMM_KERNELS = ("qmm_gemv", "qmm_tile", "qmm_tc")
+
+
+def _qmm_kernels(lib, before=None):
+    """qmm launches by kernel (``QMM_KERNELS`` order), less ``before``."""
+    now = tuple(lib.by_kernel.get(k, 0) for k in QMM_KERNELS)
     return now if before is None else tuple(a - b for a, b in
                                             zip(now, before))
 
@@ -1038,12 +1111,12 @@ def _drive_serve(torch, libs, argv, hooks, params=None):
     """``serve.main(argv)`` with every launch count set to 0 just before
     and read just after, and the launches of each call of each hooked
     method ``hooks[name] = (class, attribute)`` recorded as a tuple in
-    ``libs`` order; ``per[name + "/qmm"]`` holds the same calls' qmm
-    launches by entry point (qmm_launch, qmm_tc_launch)."""
+    ``libs`` order; ``per[name + "/kern"]`` holds the same calls' qmm
+    launches by kernel (qmm_gemv, qmm_tile, qmm_tc)."""
     from repro_torch.launch import serve
 
     per = {name: [] for name in hooks}
-    per.update({name + "/qmm": [] for name in hooks})
+    per.update({name + "/kern": [] for name in hooks})
     per.update({name + "/tokens": [] for name in hooks})
     saved = []
     for name, (cls, attr) in hooks.items():
@@ -1052,11 +1125,11 @@ def _drive_serve(torch, libs, argv, hooks, params=None):
 
         def wrapped(self, *a, _fn=fn, _name=name, **k):
             before = [lib.launches for lib in libs]
-            sym = _qmm_entries(libs[0])
+            kern = _qmm_kernels(libs[0])
             out = _fn(self, *a, **k)
             per[_name].append(tuple(lib.launches - b0 for lib, b0
                                     in zip(libs, before)))
-            per[_name + "/qmm"].append(_qmm_entries(libs[0], sym))
+            per[_name + "/kern"].append(_qmm_kernels(libs[0], kern))
             toks = a[1] if len(a) > 1 else None
             per[_name + "/tokens"].append(
                 toks.numel() if isinstance(toks, torch.Tensor) else None)
@@ -1075,6 +1148,7 @@ def _drive_serve(torch, libs, argv, hooks, params=None):
     wall = time.perf_counter() - t0
     launches = {lib.name: lib.launches for lib in libs}
     launches["qmm_by_entry"] = dict(libs[0].by_symbol)
+    launches["qmm_by_kernel"] = dict(libs[0].by_kernel)
     return reqs, per, launches, wall, torch.cuda.max_memory_allocated()
 
 
@@ -1087,65 +1161,78 @@ def _counts_ok(seen, want) -> bool:
     return bool(seen) and all(c == want for c in seen)
 
 
-def run_serve(torch, report, libs, args, decode_impl="paged", key="serve"):
+# the binary32 serve: 2 requests x (128 prompt + 8 new tokens)
+F32_REQUESTS, F32_MAX_NEW = 2, 8
+
+
+def run_serve(torch, report, libs, args, decode_impl="paged", key="serve",
+              policy="transprecision"):
     """The serving path on full-width, full-depth llama3-8b: every decode
     step must launch 193 qmm and 32 of the decode backend's kernel
     (``paged_decode`` for ``paged``, ``flash_decode`` for
-    ``flash_pallas``), every prefill chunk 193 qmm and 32 flash_prefill;
-    every qmm on bf16 weights takes the tensor-core entry point.  Launch
-    tuples are (qmm, paged_decode, flash_prefill, flash_decode,
-    flexfloat_cast)."""
+    ``flash_pallas``), every prefill chunk 193 qmm and 32 flash_prefill.
+    Under ``transprecision`` (8 requests x (128 + 32)) every qmm on bf16
+    weights takes the tensor-core kernel; under ``binary32`` (2 requests
+    x (128 + 8), f32 weights in u32 containers, an f32 KV cache) every qmm
+    runs on the CUDA cores: a decode step's 193 and a chunk's head (its
+    last position, M = 1) on the GEMV, a chunk's 192 at M = 64 on
+    qmm_tile.  Launch tuples are (qmm, paged_decode, flash_prefill,
+    flash_decode, flexfloat_cast); qmm by kernel (qmm_gemv, qmm_tile,
+    qmm_tc)."""
     from repro_torch.engine import worker
 
+    f32 = policy == "binary32"
+    requests, max_new = (F32_REQUESTS, F32_MAX_NEW) if f32 \
+        else (SERVE_REQUESTS, SERVE_MAX_NEW)
     stats = f"{key}_stats.jsonl"
-    argv = _serve_argv(args, decode_impl, SERVE_REQUESTS, SERVE_MAX_NEW,
-                       stats)
+    argv = _serve_argv(args, decode_impl, requests, max_new, stats,
+                       policy=policy)
     reqs, per, launches, wall, peak = _drive_serve(
         torch, libs, argv, {"decode": (worker.DecodeWorker, "step"),
                             "prefill": (worker.PrefillWorker, "step")})
     want_dec = (193, 32, 0, 0, 0) if decode_impl == "paged" \
         else (193, 0, 0, 32, 0)
     want_pre = (193, 0, 32, 0, 0)
-    # by qmm entry point (qmm_launch, qmm_tc_launch): the packed weights
-    # take the tensor-core kernel at every M, so a decode step (M = 4), a
-    # 64-token chunk and its head (the last position, M = 1) all run
-    # there, and the GEMV runs nowhere
-    want_dec_q = want_pre_q = (0, 193)
+    # the packed weights take the tensor-core kernel at every M (a decode
+    # step, a 64-token chunk and its head); binary32 the CUDA cores
+    want_dec_k, want_pre_k = ((193, 0, 0), (1, 192, 0)) if f32 \
+        else ((0, 0, 193), (0, 0, 193))
     ok = all(r.done and not r.failed for r in reqs)
-    ok &= all(len(r.generated) == SERVE_MAX_NEW for r in reqs)
+    ok &= all(len(r.generated) == max_new for r in reqs)
     ok &= all(0 <= t < 128256 for r in reqs for t in r.generated)
     ok &= _counts_ok(per["decode"], want_dec)
     ok &= _counts_ok(per["prefill"], want_pre)
-    ok &= _counts_ok(per["decode/qmm"], want_dec_q)
-    ok &= _counts_ok(per["prefill/qmm"], want_pre_q)
+    ok &= _counts_ok(per["decode/kern"], want_dec_k)
+    ok &= _counts_ok(per["prefill/kern"], want_pre_k)
     summary = _serve_summary(args, stats)
     tokens = sum(len(r.generated) for r in reqs)
     report[key] = dict(
-        decode_impl=decode_impl, requests=len(reqs), tokens=tokens,
-        wall_s=wall, tok_per_s=summary["tokens_per_s"],
+        policy=policy, decode_impl=decode_impl, requests=len(reqs),
+        tokens=tokens, wall_s=wall, tok_per_s=summary["tokens_per_s"],
         ttft_mean_s=summary["ttft_mean_s"], ttft_max_s=summary["ttft_max_s"],
         decode_steps=len(per["decode"]),
         prefill_chunks=len(per["prefill"]),
         launches=launches, peak_mem_bytes=peak,
         per_decode_step=sorted(set(per["decode"])),
         per_prefill_chunk=sorted(set(per["prefill"])),
-        qmm_entries_per_decode_step=sorted(set(per["decode/qmm"])),
-        qmm_entries_per_prefill_chunk=sorted(set(per["prefill/qmm"])),
-        qmm_tc_decode_launches=sum(t for _, t in per["decode/qmm"]),
-        qmm_tc_prefill_launches=sum(t for _, t in per["prefill/qmm"]),
+        qmm_kernels_per_decode_step=sorted(set(per["decode/kern"])),
+        qmm_kernels_per_prefill_chunk=sorted(set(per["prefill/kern"])),
+        decode_launches_by_kernel=[sum(c) for c in zip(*per["decode/kern"])],
+        prefill_launches_by_kernel=[sum(c)
+                                    for c in zip(*per["prefill/kern"])],
         generated=[r.generated for r in reqs], ok=ok)
-    print(f"[{key}] llama3-8b full (32 layers, d_model 4096), decode "
-          f"{decode_impl}: {len(reqs)} requests done, {tokens} tokens in "
-          f"{wall:.2f} s, {summary['tokens_per_s']} tok/s, TTFT mean "
-          f"{summary['ttft_mean_s']} s (max {summary['ttft_max_s']} s), "
-          f"peak memory {peak / 1e9:.2f} GB")
+    print(f"[{key}] llama3-8b full (32 layers, d_model 4096), {policy}, "
+          f"decode {decode_impl}: {len(reqs)} requests done, {tokens} "
+          f"tokens in {wall:.2f} s, {summary['tokens_per_s']} tok/s, TTFT "
+          f"mean {summary['ttft_mean_s']} s (max {summary['ttft_max_s']} "
+          f"s), peak memory {peak / 1e9:.2f} GB")
     print(f"[{key}] launches {launches}; per decode step (qmm, paged, "
           f"prefill, flash_decode, cast) {sorted(set(per['decode']))} (want "
           f"{want_dec}); per prefill chunk {sorted(set(per['prefill']))} "
-          f"(want {want_pre}); qmm by entry (qmm_launch, qmm_tc_launch) "
-          f"per decode step {sorted(set(per['decode/qmm']))} (want "
-          f"{want_dec_q}), per prefill chunk "
-          f"{sorted(set(per['prefill/qmm']))} (want {want_pre_q}) "
+          f"(want {want_pre}); qmm by kernel (qmm_gemv, qmm_tile, qmm_tc) "
+          f"per decode step {sorted(set(per['decode/kern']))} (want "
+          f"{want_dec_k}), per prefill chunk "
+          f"{sorted(set(per['prefill/kern']))} (want {want_pre_k}) "
           f"{'ok' if ok else 'FAIL'}")
     if key == "serve_flash" and "serve" in report:
         base = report["serve"]["generated"]
@@ -1200,21 +1287,21 @@ def run_speculative(torch, report, libs, args):
          "decode": (worker.DecodeWorker, "step")}, params=params)
     want_round = (k * 193 + 193, k * 32, 0, k * 32, 0)
     want_pre = (193, 0, 32, 0, 0)
-    # by qmm entry point (qmm_launch, qmm_tc_launch): a verify of B slots
+    # by qmm kernel (qmm_gemv, qmm_tile, qmm_tc): a verify of B slots
     # x k tokens runs its 193 projections (head included) on tensor cores
     # at every B * k (16 with every slot decoding), a prompt prefill too
-    verify_q = list(zip(per["verify/tokens"], per["verify/qmm"]))
-    want_pre_q = (0, 193)
+    verify_q = list(zip(per["verify/tokens"], per["verify/kern"]))
+    want_pre_q = (0, 0, 193)
     ok = all(r.done and not r.failed for r in reqs)
     ok &= all(len(r.generated) == SPEC_MAX_NEW for r in reqs)
     ok &= all(0 <= t < 128256 for r in reqs for t in r.generated)
     ok &= _counts_ok(per["round"], want_round)
     ok &= _counts_ok(per["draft_prefill"], want_pre)
     ok &= _counts_ok(per["prefill"], want_pre)
-    ok &= bool(verify_q) and all(q == (0, 193) for _, q in verify_q)
+    ok &= bool(verify_q) and all(q == (0, 0, 193) for _, q in verify_q)
     ok &= any(m == SERVE_SLOTS * k for m, _ in verify_q)
-    ok &= _counts_ok(per["draft_prefill/qmm"], want_pre_q)
-    ok &= _counts_ok(per["prefill/qmm"], want_pre_q)
+    ok &= _counts_ok(per["draft_prefill/kern"], want_pre_q)
+    ok &= _counts_ok(per["prefill/kern"], want_pre_q)
     ok &= not per["decode"]
     summary = _serve_summary(args, stats)
     tokens = sum(len(r.generated) for r in reqs)
@@ -1281,9 +1368,9 @@ def run_speculative(torch, report, libs, args):
         per_round=sorted(set(per["round"])),
         per_draft_prefill=sorted(set(per["draft_prefill"])),
         per_prefill_chunk=sorted(set(per["prefill"])),
-        qmm_entries_per_verify=sorted(set(verify_q)),
-        qmm_entries_per_prefill=sorted(set(per["prefill/qmm"]
-                                           + per["draft_prefill/qmm"])),
+        qmm_kernels_per_verify=sorted(set(verify_q)),
+        qmm_kernels_per_prefill=sorted(set(per["prefill/kern"]
+                                           + per["draft_prefill/kern"])),
         tokens_differing_from_serve_flash=n_diff, first_divergences=diverged,
         generated=[r.generated for r in reqs], ok=ok)
     print(f"[speculative] llama3-8b full, k={k}, draft binary8: "
@@ -1295,10 +1382,10 @@ def run_speculative(torch, report, libs, args):
     print(f"[speculative] launches {launches}; per round "
           f"{sorted(set(per['round']))} (want {want_round}); per draft "
           f"prompt {sorted(set(per['draft_prefill']))} and per target chunk "
-          f"{sorted(set(per['prefill']))} (want {want_pre}); qmm by entry "
-          f"(qmm_launch, qmm_tc_launch) per verify by rows "
-          f"{sorted(set(verify_q))} (want (0, 193)), per "
-          f"prompt {sorted(set(per['prefill/qmm'] + per['draft_prefill/qmm']))}"
+          f"{sorted(set(per['prefill']))} (want {want_pre}); qmm by kernel "
+          f"(qmm_gemv, qmm_tile, qmm_tc) per verify by rows "
+          f"{sorted(set(verify_q))} (want (0, 0, 193)), per prompt "
+          f"{sorted(set(per['prefill/kern'] + per['draft_prefill/kern']))}"
           f" (want {want_pre_q}) {'ok' if ok else 'FAIL'}")
     print(f"[speculative] tokens differing from serve_flash: {n_diff} "
           f"(want 0); first divergences (prefill logits of the context) "
@@ -1442,8 +1529,9 @@ def check_logits(torch, report, args, qmm_lib):
     """Logits of a 2-layer, full-width model: kernel path against plain
     path (prefill chunk, decode step), then verify against sequential
     decode bit for bit (:func:`check_verify_logits`), then rmsnorm's rows
-    at every row count.  The binary32 kernel-path runs are where the
-    GEMV still serves (``qmm_launch``): their launches are counted."""
+    at every row count.  The binary32 kernel-path runs take the CUDA-core
+    route (``qmm_launch``: the GEMV and qmm_tile): their launches are
+    counted."""
     from repro_torch.core.policy import get_policy
     from repro_torch.kernels import paged_cache
     from repro_torch.models import qparams
@@ -1454,9 +1542,9 @@ def check_logits(torch, report, args, qmm_lib):
     cfg = dataclasses.replace(full, n_layers=2)
     model = Model(cfg)
     ok = True
-    gemv = 0
+    f32 = 0
 
-    def gemv_launches():
+    def f32_launches():
         return qmm_lib.by_symbol.get("qmm_launch", 0)
 
     # binary32: both paths compute f32 products with f32 sums; only the
@@ -1480,13 +1568,13 @@ def check_logits(torch, report, args, qmm_lib):
                 [[0, 1, 2, 3]]) for _ in range(cfg.n_layers)]
             g = torch.Generator().manual_seed(args.seed)
             toks = torch.randint(0, cfg.vocab, (1, 64), generator=g)
-            before = gemv_launches()
+            before = f32_launches()
             lp, states = model.prefill_chunk(params, toks.cuda(), states,
                                              policy, slot=0, q_offset=0)
             ld, _ = model.decode_step(
                 params, toks[:, -1:].cuda(), states, policy)
             if pol == "binary32" and path == "kernel":
-                gemv += gemv_launches() - before
+                f32 += f32_launches() - before
             res[path] = (lp.float(), ld.float())
             del params, states
             torch.cuda.empty_cache()
@@ -1508,13 +1596,13 @@ def check_logits(torch, report, args, qmm_lib):
                   f"{'ok' if good else 'FAIL'}")
     for pol in ("binary32", "transprecision"):
         for dec in ("paged", "flash_pallas"):
-            before = gemv_launches()
+            before = f32_launches()
             ok &= check_verify_logits(torch, report, args, model, cfg, pol,
                                       dec)
             if pol == "binary32":
-                gemv += gemv_launches() - before
-    report["logits_gemv_launches"] = gemv
-    ok &= gemv > 0
+                f32 += f32_launches() - before
+    report["logits_f32_launches"] = f32
+    ok &= f32 > 0
     ok &= check_rmsnorm_rows(torch, report, args)
     return ok
 
@@ -1631,17 +1719,19 @@ def check_rmsnorm_rows(torch, report, args):
 # ---------------------------------------------------------------------------
 
 ALL_PHASES = ("build", "kernels", "casts", "ops", "serve", "serve_flash",
-              "speculative", "logits", "profile")
+              "speculative", "serve_f32", "logits", "profile")
 
 
 def kernel_rows(report):
     """The ``{"kernels": [...]}`` entries: one per kernel, its launches
     from the main-path run that drives it (the serve phase for qmm's
     tensor-core kernel, paged_decode and flash_prefill, serve_flash for
-    flash_decode, the ops phase for the three cast kernels, the binary32
-    runs of the logits phase for qmm's GEMV).  qmm has three rows:
-    ``qmm_gemv`` (``qmm_launch``, binary32 weights, times per decode
-    step), ``qmm_tc`` (``qmm_tc_launch``, times and launches per prefill
+    flash_decode, the ops phase for the three cast kernels, serve_f32 for
+    qmm's CUDA-core kernels).  qmm has four rows: ``qmm_gemv``
+    (``qmm_launch`` at M <= 8, binary32 weights, times per decode step,
+    launches of serve_f32's decode steps and heads), ``qmm_tile``
+    (``qmm_launch`` at M > 8, binary32, times and launches per prefill
+    chunk), ``qmm_tc`` (``qmm_tc_launch``, times and launches per prefill
     chunk) and ``qmm_tc_decode_step`` (the same kernel, times and
     launches per decode step)."""
     def timing(name, **match):
@@ -1658,14 +1748,21 @@ def kernel_rows(report):
     ff_src = "src/repro_torch/csrc/flexfloat_cast.cu"
     qmm_src, qmm_tpu = ("src/repro_torch/csrc/qmm.cu",
                         "src/repro/kernels/qmatmul.py:85")
+    def by_kernel(key, what, kernel):
+        counts = report.get(key, {}).get(f"{what}_launches_by_kernel")
+        return counts[QMM_KERNELS.index(kernel)] if counts else 0
+
+    f32_all = report.get("serve_f32", {}).get("launches", {}).get(
+        "qmm_by_kernel", {})
     rows = [
-        ("qmm_gemv", qmm_src, qmm_tpu, report.get("logits_gemv_launches", 0),
+        ("qmm_gemv", qmm_src, qmm_tpu, f32_all.get("qmm_gemv", 0),
          report.get("qmm_max_abs_err"), report.get("qmm_step_f32")),
-        ("qmm_tc", qmm_src, qmm_tpu,
-         report.get("serve", {}).get("qmm_tc_prefill_launches", 0),
+        ("qmm_tile", qmm_src, qmm_tpu, f32_all.get("qmm_tile", 0),
+         report.get("qmm_tile_max_abs_err"), report.get("qmm_chunk_f32")),
+        ("qmm_tc", qmm_src, qmm_tpu, by_kernel("serve", "prefill", "qmm_tc"),
          report.get("qmm_tc_max_abs_err"), report.get("qmm_chunk")),
         ("qmm_tc_decode_step", qmm_src, qmm_tpu,
-         report.get("serve", {}).get("qmm_tc_decode_launches", 0),
+         by_kernel("serve", "decode", "qmm_tc"),
          report.get("qmm_tc_max_abs_err"), report.get("qmm_step")),
         ("paged_decode", "src/repro_torch/csrc/paged_decode.cu",
          "src/repro/kernels/paged_attention.py:52",
@@ -1773,6 +1870,7 @@ def main() -> int:
                 # the kernels' times alone (for --src)
                 timer = timer or Timer(torch)
                 time_kernels(torch, np, report, timer)
+                time_cast_kernels(torch, np, report, timer)
                 ok = True
             elif phase == "casts":
                 timer = timer or Timer(torch)
@@ -1788,6 +1886,9 @@ def main() -> int:
                                "serve_flash")
             elif phase == "speculative":
                 ok = run_speculative(torch, report, libs, args)
+            elif phase == "serve_f32":
+                ok = run_serve(torch, report, libs, args, "paged",
+                               "serve_f32", policy="binary32")
             elif phase == "logits":
                 ok = check_logits(torch, report, args, qmatmul.LIB)
             elif phase == "profile":

@@ -32,12 +32,14 @@
 // with room.  Two TF32 passes at 495 TFLOP/s cost 3.6 ms a chunk, under
 // the 4.17 ms of weight bytes: on tensor cores the chunk is bound by bytes.
 //
-// One summation order per format.  The kernel is fixed by the weight
-// format alone, never by M, and each kernel's K split is a function of K
-// and N only, so a row's sum runs in the same order whatever rows are
-// beside it: a decode step over B rows, the speculative verify over B * k
-// rows and a 64-row prefill chunk give the same row bit for bit (the
-// speculative decoder's exactness rests on it).
+// One summation order per format.  The route is fixed by the weight
+// format (tensor cores for the packed formats, CUDA cores for binary32 and
+// run-time formats), and each route's K split is a function of K and N
+// only.  Within a route the row tile changes with M, but every row tile
+// sums an output's products in the same order, so a row's bits do not
+// depend on the rows beside it: a decode step over B rows, the speculative
+// verify over B * k rows and a 64-row prefill chunk give the same row bit
+// for bit (the speculative decoder's exactness rests on it).
 //  * qmm_tc (binary8, binary8alt, binary16, binary16alt at every M; entry
 //    point qmm_tc_launch): split-TF32 mma.sync.m16n8k8 on tensor cores.
 //    A block owns BM rows x 128 weight columns, BM = 16, 32 or 64 picked
@@ -67,41 +69,64 @@
 //    the tile height either.  Ragged M, K and N are masked (zero-filled
 //    copies); a shape whose rows are not 16-byte aligned loads element by
 //    element into the same stages.
-//  * qmm_gemv (binary32 / f32 weights, which are not exact in TF32, and
-//    run-time (e, m) formats, at every M; entry point qmm_launch): a block
-//    owns a 64-column strip for BM = 4 or 8 rows (more rows take more row
-//    blocks); 256 threads = 16 column-threads x 16 K-threads; a
-//    column-thread holds 4 adjacent columns, so a half-warp reads a
-//    64-column weight row as one vector load per thread (4 B for u8, 8 B
-//    for u16, 16 B for u32/f32), coalesced.  Each thread issues 4 weight
-//    rows before its first FMA, strides K by 16 and keeps one FMA chain
-//    per row; the 16 K-threads meet in a fixed-order shuffle and
-//    shared-memory reduction, so a row's sum depends neither on BM nor on
-//    its row block.  Narrow matrices give fewer 64-column strips than the
-//    card has SMs (wk/wv: 16), so the K range is split across blocks
-//    (grid.z, kernels/qmatmul.py gemv_splits, a function of K and N) until
-//    about two blocks of a row block per SM exist; the partial sums then
-//    meet, in split order, in qmm_splitk.  Above 8 rows every row block
-//    streams the weights again: binary32 is not the serving default, and
-//    the one order per format is worth that.
+//  * binary32 / f32 weights (not exact in TF32) and run-time (e, m)
+//    formats, at every M; entry point qmm_launch, row tile picked by M
+//    (kernels/qmatmul.py, f32_tile_m).  The order of an output's sum: the
+//    split's K range is cut into 16 residue classes k = k_lo + r (mod 16);
+//    each class is one fmaf chain in k order from 0.0f; classes 2w and
+//    2w + 1 are added; the eight pair sums are added in order w = 0..7
+//    from 0.0f; the K splits (gemv_splits, a function of K and N) meet in
+//    qmm_splitk in split order.  Two kernels keep that order:
+//    - qmm_gemv (M <= 8, BM = 4 or 8 rows a row block) streams the
+//      weights for the decode step: a block owns a 64-column strip; 256
+//      threads = 16 column-threads x 16 K-threads (the K-thread is the
+//      residue class); a column-thread holds 4 adjacent columns, so a
+//      half-warp reads a 64-column weight row as one vector load per
+//      thread (4 B for u8, 8 B for u16, 16 B for u32/f32), coalesced.
+//      Each thread issues 4 weight rows before its first FMA.  Narrow
+//      matrices give fewer strips than the card has SMs (wk/wv: 16), so
+//      the K range is split across blocks (grid.z) until about two blocks
+//      of a row block per SM exist.
+//    - qmm_tile (M > 8; BM = 16, 32 or 64 rows a block, picked by M)
+//      serves the verify and the prefill chunk (0.89 TFLOP, 13.3 ms at
+//      67 TFLOP/s), reusing each weight for every row from registers: a
+//      block owns BM rows x 32 weight columns of one K split (16 columns
+//      of B and the same 16 of G when gated); its threads are the 16
+//      residue classes, and a thread keeps one class's chains of BM / 4
+//      or BM / 8 rows x 8 columns in registers (64 rows: 512 threads, a
+//      warp a class, 16 warps an SM; 16 and 32 rows: 256 threads, two or
+//      three blocks an SM).  Activation (BM x 128) and weight (128 x 32)
+//      tiles come into shared memory by a 3-stage cp.async ring, 16 B a
+//      thread; per k a thread reads its activations and 8 weights from
+//      shared memory, the next k's while this k's FMAs issue.  Weights
+//      are decoded between shared memory and registers (a bit cast for
+//      binary32).  At the end every class's sums go through shared
+//      memory (the stage buffers reused) and meet in the order above, so
+//      qmm_tile's rows equal qmm_gemv's bit for bit.  The order keeps
+//      sixteen chains of every output live, which caps a block at 2048
+//      outputs and its copies at 3 N K floats a 64-row launch; those
+//      copies cost about as much as the FMAs and do not overlap with
+//      them (PERF.md section 6, tools/bench_qmm_tile.py).
 //  * The gate weight G is streamed in the same K sweep (the gated FFN in
 //    one launch); bias, nonlinearity, gate and output quantization run in
 //    the epilogue, in the reference's order.
-// Speed work still open: wgmma with TMA, and a GEMV that reaches the
-// decode step's byte bound.
+// Speed work still open: wgmma with TMA for qmm_tc, and a GEMV that
+// reaches the decode step's byte bound.
 
 #include <cuda_runtime.h>
 #include <cstdint>
 
 #include "codec.cuh"
 
-// kernels/qmatmul.py builds this file as five units in parallel: unit 0
-// (GEMV, both entry points) and one tensor-core unit
-// per packed format (-DQMM_UNIT=1..4, fmt_code 1..4), linked into one
-// library.
+// kernels/qmatmul.py builds this file as seven units in parallel: unit 0
+// (GEMV, both entry points), one tensor-core unit per packed format
+// (-DQMM_UNIT=1..4, fmt_code 1..4) and two qmm_tile units (5: binary32,
+// 6: the run-time formats), linked into one library.
 #ifndef QMM_UNIT
 #define QMM_UNIT 0
 #endif
+#define QMM_TC_UNIT (QMM_UNIT >= 1 && QMM_UNIT <= 4)
+#define QMM_TILE_UNIT (QMM_UNIT >= 5)
 
 // a tensor-core unit's launcher (qmm_tc_launch dispatches to it)
 #define QMM_TC_PARAMS                                                     \
@@ -113,6 +138,15 @@ extern "C" int qmm_tc_fmt1(QMM_TC_PARAMS);
 extern "C" int qmm_tc_fmt2(QMM_TC_PARAMS);
 extern "C" int qmm_tc_fmt3(QMM_TC_PARAMS);
 extern "C" int qmm_tc_fmt4(QMM_TC_PARAMS);
+
+// a qmm_tile unit's launcher (qmm_launch calls it for tile_m > 8)
+#define QMM_TILE_PARAMS                                                    \
+  const float *a, const void *b, const void *g, const float *bias,        \
+      float *out, float *ws, int M, int K, int N, int splits, int tile_m, \
+      int fmt_code, int rt_e, int rt_m, int act, int out_e, int out_m,    \
+      cudaStream_t stream
+extern "C" int qmm_tile_f32(QMM_TILE_PARAMS);
+extern "C" int qmm_tile_rt(QMM_TILE_PARAMS);
 
 namespace {
 
@@ -178,6 +212,21 @@ struct Epilogue {
     return r;
   }
 };
+
+// 16 B global -> shared copies, zero-filled where pred is false
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool pred) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 #if QMM_UNIT == 0
 
@@ -333,7 +382,7 @@ __global__ void qmm_splitk(const float* __restrict__ ws,
   }
 }
 
-#if QMM_UNIT != 0
+#if QMM_TC_UNIT
 
 // ---------------------------------------------------------------------------
 // the packed formats at every M: split-TF32 mma.sync on tensor cores
@@ -357,20 +406,6 @@ constexpr size_t tc_smem_bytes() {
   return TcShape<BM>::kStages *
          (sizeof(float) * 2 * BM * kTcAStride +
           kTcBK * (kTcBN * sizeof(TB) + kTcBPad));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(pred ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ float tf32_rna(float x) {
@@ -769,22 +804,354 @@ cudaError_t launch_tc(const float* a, float* asplit, const void* bv,
   return cudaGetLastError();
 }
 
-#endif  // QMM_UNIT
+#endif  // QMM_TC_UNIT
+
+#if QMM_TILE_UNIT
+
+// ---------------------------------------------------------------------------
+// binary32 and run-time formats at M > 8: register-tiled CUDA-core kernel
+// in the GEMV's summation order
+// ---------------------------------------------------------------------------
+
+constexpr int kTlBN = 32;              // weight columns a block
+constexpr int kTlBK = 128;             // K per stage: 8 k of each class
+constexpr int kTlStages = 3;
+constexpr int kTlAP = kTlBK + 4;       // floats per activation row in smem
+constexpr int kTlRedP = kTlBN + 1;     // floats per row of the class sums
+
+template <typename TB>
+__host__ __device__ constexpr int tl_wrow() {  // bytes per weight row in smem
+  return kTlBN * (int)sizeof(TB) + 16;
+}
+
+// A qmm_tile block: 16 residue classes x kPer threads; a class's threads
+// are kRG row groups x kCG column groups, a thread kRM rows (rg + kRG i)
+// x kCN weight columns.  64 rows take 512 threads (a warp per class, 64
+// chains a thread: 16 warps an SM); 16 and 32 rows 256 (two classes a
+// warp), at two or three blocks an SM.
+template <int BM>
+struct TlShape {
+  static constexpr int kThreads = BM == 64 ? 512 : 256;
+  static constexpr int kPer = kThreads / 16;            // threads a class
+  static constexpr int kRG = BM == 64 ? 8 : 4;
+  static constexpr int kCG = kPer / kRG;
+  static constexpr int kRM = BM / kRG;
+  static constexpr int kCN = kTlBN / kCG;
+  static constexpr int kMinBlocks = BM == 64 ? 1 : BM == 32 ? 2 : 3;
+};
+
+template <typename TB, int BM>
+constexpr size_t tl_smem_bytes() {
+  constexpr size_t stages =
+      kTlStages * (sizeof(float) * BM * kTlAP + kTlBK * tl_wrow<TB>());
+  constexpr size_t red = sizeof(float) * 16 * BM * kTlRedP;
+  return stages > red ? stages : red;
+}
+
+// N adjacent containers from shared memory (aligned to the run's size
+// up to 16 B) -> their bits, one per word.
+template <typename TB, int N>
+__device__ __forceinline__ void smem_run(const unsigned char* p,
+                                         uint32_t* w) {
+  constexpr int kWords = N * (int)sizeof(TB) / 4;
+  uint32_t word[kWords];
+  if constexpr (kWords % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < kWords / 4; ++q) {
+      const uint4 v = reinterpret_cast<const uint4*>(p)[q];
+      word[4 * q] = v.x; word[4 * q + 1] = v.y;
+      word[4 * q + 2] = v.z; word[4 * q + 3] = v.w;
+    }
+  } else if constexpr (kWords == 2) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    word[0] = v.x; word[1] = v.y;
+  } else {
+    static_assert(kWords == 1, "runs of 4, 8 or 16k bytes");
+    word[0] = *reinterpret_cast<const uint32_t*>(p);
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    if constexpr (sizeof(TB) == 4) {
+      w[j] = word[j];
+    } else if constexpr (sizeof(TB) == 2) {
+      w[j] = (word[j / 2] >> (16 * (j % 2))) & 0xffffu;
+    } else {
+      w[j] = (word[j / 4] >> (8 * (j % 4))) & 0xffu;
+    }
+  }
+}
+
+// Thread tid is residue class cls = tid / kPer, rows rg + kRG i (rg =
+// tid % kRG) and column group cg = (tid / kRG) % kCG: columns kCN cg ...
+// kCN (cg + 1) - 1 ungated, or B's and G's columns kCN / 2 cg ... gated.  In a stage, class cls takes
+// the k = cls, cls + 16, cls + 32, cls + 48 of the 64; a k past the split
+// is skipped, not multiplied by a zero-filled weight, so every chain is
+// the GEMV's chain bit for bit (signed zeros and NaN included).  In a
+// full stage the fragment of the next k (BM / 8 activations, 16 decoded
+// weights) is read from shared memory while this k's FMAs issue.
+template <typename TB, int E, int M, int BM, bool kGated>
+__global__ void __launch_bounds__(TlShape<BM>::kThreads,
+                                  TlShape<BM>::kMinBlocks)
+qmm_tile(const float* __restrict__ a, const TB* __restrict__ b,
+         const TB* __restrict__ g, float* __restrict__ out,
+         float* __restrict__ ws, Epilogue ep, int Mrows, int K, int N,
+         int k_chunk, int rt_e, int rt_m, int aligned) {
+  using S = TlShape<BM>;
+  constexpr int kThreads = S::kThreads, kRG = S::kRG, kCG = S::kCG;
+  constexpr int kRM = S::kRM, kCN = S::kCN;
+  constexpr int kItem = sizeof(TB);
+  constexpr int kWRow = tl_wrow<TB>();
+  constexpr int kAStage = BM * kTlAP;              // floats
+  constexpr int kWStage = kTlBK * kWRow;           // bytes
+  constexpr int kACh = kTlBK / 4;                  // 16 B chunks per A row
+  constexpr int kWCh = kTlBN * kItem / 16;         // per weight row
+  constexpr int kPer = 16 / kItem;                 // weights per chunk
+  constexpr int kU = kTlBK / 16;                   // k of a class a stage
+  constexpr int bn = kGated ? kTlBN / 2 : kTlBN;   // output columns a block
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* As = reinterpret_cast<float*>(smem_raw);  // [stage][BM][kTlAP]
+  unsigned char* Ws = smem_raw + sizeof(float) * kTlStages * kAStage;
+
+  const int tid = threadIdx.x;
+  const int cls = tid / S::kPer, rg = tid % kRG, cg = (tid / kRG) % kCG;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * bn;
+  const int k_lo = blockIdx.z * k_chunk;
+  const int k_hi = min(K, k_lo + k_chunk);
+  const int n_kt = k_hi > k_lo ? (k_hi - k_lo + kTlBK - 1) / kTlBK : 0;
+  const int n_full = k_hi > k_lo ? (k_hi - k_lo) / kTlBK : 0;
+
+  // stage `st` <- K tile `kt`: cp.async 16 B a thread, zero-filled past
+  // the edges; element by element when rows are not 16 B aligned
+  auto load_tile = [&](int kt, int st) {
+    const int k0 = k_lo + kt * kTlBK;
+    float* as = As + st * kAStage;
+    for (int c = tid; c < BM * kACh; c += kThreads) {
+      const int r = c / kACh, kc = (c % kACh) * 4;
+      const int row = m0 + r, k = k0 + kc;
+      float* dst = as + r * kTlAP + kc;
+      if (aligned) {
+        const bool in = row < Mrows && k < k_hi;
+        cp_async16(dst, in ? a + (size_t)row * K + k : a, in);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          dst[j] = (row < Mrows && k + j < k_hi)
+                       ? a[(size_t)row * K + k + j] : 0.0f;
+      }
+    }
+    unsigned char* wsm = Ws + st * kWStage;
+    for (int c = tid; c < kTlBK * kWCh; c += kThreads) {
+      const int r = c / kWCh, cc = c % kWCh, k = k0 + r;
+      // gated: the row's first half is B's columns, the second G's
+      const bool second = kGated && cc >= kWCh / 2;
+      const TB* src = second ? g : b;
+      const int col = n0 + (second ? cc - kWCh / 2 : cc) * kPer;
+      const size_t off = (size_t)k * N + col;
+      unsigned char* dst = wsm + r * kWRow + cc * 16;
+      if (aligned) {
+        const bool in = k < k_hi && col < N;
+        cp_async16(dst, in ? src + off : src, in);
+      } else {
+        TB* d = reinterpret_cast<TB*>(dst);
+#pragma unroll
+        for (int j = 0; j < kPer; ++j)
+          d[j] = (k < k_hi && col + j < N) ? src[off + j] : TB(0);
+      }
+    }
+  };
+
+  // this thread's weight columns in a smem row, in bytes
+  const int boff = (kGated ? kCN / 2 : kCN) * cg * kItem;
+  const int goff = (kTlBN / 2 + kCN / 2 * cg) * kItem;
+
+  // one k's fragment: activations of rows rg + kRG i and decoded weights
+  auto fragment = [&](const float* as, const unsigned char* wp, float* av,
+                      float* wv) {
+#pragma unroll
+    for (int i = 0; i < kRM; ++i) av[i] = as[kRG * i * kTlAP];
+    uint32_t wb[kCN];
+    if constexpr (kGated) {
+      smem_run<TB, kCN / 2>(wp + boff, wb);
+      smem_run<TB, kCN / 2>(wp + goff, wb + kCN / 2);
+    } else {
+      smem_run<TB, kCN>(wp + boff, wb);
+    }
+#pragma unroll
+    for (int j = 0; j < kCN; ++j)
+      wv[j] = codec::decode_t<E, M>(wb[j], rt_e, rt_m);
+  };
+
+  float acc[kRM][kCN];
+#pragma unroll
+  for (int i = 0; i < kRM; ++i)
+#pragma unroll
+    for (int j = 0; j < kCN; ++j) acc[i][j] = 0.0f;
+  auto fma_fragment = [&](const float* av, const float* wv) {
+#pragma unroll
+    for (int j = 0; j < kCN; ++j)
+#pragma unroll
+      for (int i = 0; i < kRM; ++i) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
+  };
+
+#pragma unroll
+  for (int s = 0; s < kTlStages - 1; ++s) {
+    if (s < n_kt) load_tile(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int st = kt % kTlStages;
+    cp_async_wait<kTlStages - 2>();    // this thread's copies of tile kt
+    __syncthreads();                   // tile kt visible; kt - 1 consumed
+    {
+      const int nk = kt + kTlStages - 1;
+      if (nk < n_kt) load_tile(nk, nk % kTlStages);
+      cp_async_commit();
+    }
+    const float* as = As + st * kAStage + rg * kTlAP + cls;
+    const unsigned char* wrow = Ws + st * kWStage + cls * kWRow;
+    if (kt < n_full) {                 // every class has its kU k here
+      float av[2][kRM], wv[2][kCN];
+      fragment(as, wrow, av[0], wv[0]);
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        if (u + 1 < kU)
+          fragment(as + 16 * (u + 1), wrow + 16 * (u + 1) * kWRow,
+                   av[(u + 1) & 1], wv[(u + 1) & 1]);
+        fma_fragment(av[u & 1], wv[u & 1]);
+      }
+    } else {                           // the split's last, partial stage
+      const int kc = k_lo + kt * kTlBK + cls;    // this class's first k
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        if (kc + 16 * u < k_hi) {
+          float av[kRM], wv[kCN];
+          fragment(as + 16 * u, wrow + 16 * u * kWRow, av, wv);
+          fma_fragment(av, wv);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();                     // the stages are free for the sums
+
+  // every class's sums into shared memory, laid out [class][row][slot]
+  // (slot c is output column c, and gated, slot 16 + c its gate sum);
+  // then per output classes 2w and 2w + 1 are added and the eight pair
+  // sums added in order w = 0..7 from 0.0f, qmm_gemv's order
+  float* red = reinterpret_cast<float*>(smem_raw);
+#pragma unroll
+  for (int i = 0; i < kRM; ++i)
+#pragma unroll
+    for (int j = 0; j < kCN; ++j) {
+      const int slot =
+          kGated ? (j < kCN / 2 ? kCN / 2 * cg + j
+                                : kTlBN / 2 + kCN / 2 * cg + j - kCN / 2)
+                 : kCN * cg + j;
+      red[(cls * BM + rg + kRG * i) * kTlRedP + slot] = acc[i][j];
+    }
+  __syncthreads();
+  const size_t plane = (size_t)Mrows * N;
+  for (int o = tid; o < BM * bn; o += kThreads) {
+    const int r = o / bn, c = o % bn;
+    const int row = m0 + r, col = n0 + c;
+    if (row >= Mrows || col >= N) continue;
+    float sum = 0.0f, gsum = 0.0f;
+#pragma unroll
+    for (int w = 0; w < 8; ++w)
+      sum += red[(2 * w * BM + r) * kTlRedP + c] +
+             red[((2 * w + 1) * BM + r) * kTlRedP + c];
+    if constexpr (kGated) {
+#pragma unroll
+      for (int w = 0; w < 8; ++w)
+        gsum += red[(2 * w * BM + r) * kTlRedP + 16 + c] +
+                red[((2 * w + 1) * BM + r) * kTlRedP + 16 + c];
+    }
+    const size_t idx = (size_t)row * N + col;
+    if (gridDim.z == 1) {
+      out[idx] = ep(sum, gsum, col);
+    } else {  // split-K partials: [split][row][col], gate after all splits
+      ws[blockIdx.z * plane + idx] = sum;
+      if (kGated) ws[(gridDim.z + blockIdx.z) * plane + idx] = gsum;
+    }
+  }
+}
+
+template <typename TB, int E, int M, int BM, bool kGated>
+cudaError_t launch_tile_bm(const float* a, const TB* b, const TB* g,
+                           float* out, float* ws, Epilogue ep, int Mrows,
+                           int K, int N, int splits, int k_chunk, int rt_e,
+                           int rt_m, int aligned, cudaStream_t stream) {
+  auto kern = qmm_tile<TB, E, M, BM, kGated>;
+  constexpr size_t smem = tl_smem_bytes<TB, BM>();
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  constexpr int bn = kGated ? kTlBN / 2 : kTlBN;
+  // row blocks on grid x: the row blocks of one column tile run side by
+  // side and share its weights through L2
+  const dim3 grid((Mrows + BM - 1) / BM, (N + bn - 1) / bn, splits);
+  kern<<<grid, TlShape<BM>::kThreads, smem, stream>>>(
+      a, b, g, out, ws, ep, Mrows, K, N, k_chunk, rt_e, rt_m, aligned);
+  return cudaGetLastError();
+}
+
+template <typename TB, int E, int M, int BM>
+cudaError_t launch_tile_g(const float* a, const TB* b, const TB* g,
+                          float* out, float* ws, Epilogue ep, int Mrows,
+                          int K, int N, int splits, int k_chunk, int rt_e,
+                          int rt_m, int aligned, cudaStream_t stream) {
+  if (g != nullptr)
+    return launch_tile_bm<TB, E, M, BM, true>(a, b, g, out, ws, ep, Mrows, K,
+                                              N, splits, k_chunk, rt_e, rt_m,
+                                              aligned, stream);
+  return launch_tile_bm<TB, E, M, BM, false>(a, b, g, out, ws, ep, Mrows, K,
+                                             N, splits, k_chunk, rt_e, rt_m,
+                                             aligned, stream);
+}
+
+template <typename TB, int E, int M>
+cudaError_t launch_tile(const float* a, const void* bv, const void* gv,
+                        float* out, float* ws, Epilogue ep, int Mrows, int K,
+                        int N, int splits, int tile_m, int rt_e, int rt_m,
+                        cudaStream_t stream) {
+  const TB* b = static_cast<const TB*>(bv);
+  const TB* g = static_cast<const TB*>(gv);
+  const int k_chunk = (K + splits - 1) / splits;   // as qmm_gemv's
+  const int aligned =
+      K % 4 == 0 && k_chunk % 4 == 0 && (N * (int)sizeof(TB)) % 16 == 0 &&
+      (((uintptr_t)a | (uintptr_t)b | (uintptr_t)g) & 15u) == 0;
+  cudaError_t e;
+  switch (tile_m) {
+    case 16: e = launch_tile_g<TB, E, M, 16>(a, b, g, out, ws, ep, Mrows, K, N, splits, k_chunk, rt_e, rt_m, aligned, stream); break;
+    case 32: e = launch_tile_g<TB, E, M, 32>(a, b, g, out, ws, ep, Mrows, K, N, splits, k_chunk, rt_e, rt_m, aligned, stream); break;
+    case 64: e = launch_tile_g<TB, E, M, 64>(a, b, g, out, ws, ep, Mrows, K, N, splits, k_chunk, rt_e, rt_m, aligned, stream); break;
+    default: return cudaErrorInvalidValue;
+  }
+  if (e != cudaSuccess || splits == 1) return e;
+  const int plane = Mrows * N;
+  const int blocks = (plane + 255) / 256 < 1024 ? (plane + 255) / 256 : 1024;
+  qmm_splitk<<<blocks, 256, 0, stream>>>(ws, out, ep, Mrows, N, splits);
+  return cudaGetLastError();
+}
+
+#endif  // QMM_TILE_UNIT
 
 #if QMM_UNIT == 0
 
 template <typename TB, int E, int M>
 cudaError_t launch_fmt(const float* a, const void* b, const void* g,
                        float* out, float* ws, Epilogue ep, int Mrows, int K,
-                       int N, int splits, int rt_e, int rt_m, int vec,
-                       cudaStream_t stream) {
+                       int N, int splits, int tile_m, int rt_e, int rt_m,
+                       int vec, cudaStream_t stream) {
   const TB* B = static_cast<const TB*>(b);
   const TB* G = static_cast<const TB*>(g);
   const int nb = (N + kBN - 1) / kBN;
   const int k_chunk = (K + splits - 1) / splits;
-  if (Mrows <= 4) {
-    qmm_gemv<TB, E, M, 4><<<dim3(1, nb, splits), kThreads, 0, stream>>>(
-        a, B, G, out, ws, ep, Mrows, K, N, k_chunk, rt_e, rt_m, vec);
+  if (tile_m == 4) {
+    qmm_gemv<TB, E, M, 4><<<dim3((Mrows + 3) / 4, nb, splits), kThreads, 0,
+                            stream>>>(a, B, G, out, ws, ep, Mrows, K, N,
+                                      k_chunk, rt_e, rt_m, vec);
   } else {
     qmm_gemv<TB, E, M, 8><<<dim3((Mrows + 7) / 8, nb, splits), kThreads, 0,
                             stream>>>(a, B, G, out, ws, ep, Mrows, K, N,
@@ -810,27 +1177,39 @@ cudaError_t launch_fmt(const float* a, const void* b, const void* g,
 // 2 binary8alt (4,3) u8, 3 binary16 (5,10) u16, 4 binary16alt (8,7) u16,
 // 5 any other (rt_e, rt_m) in u8, 6 in u16, 7 in u32.
 // out_e == 0: no output quantization.  splits > 1 needs ws:
-// (gated ? 2 : 1) * splits * M * N floats.  The GEMV takes fmt_code 0 and
-// 5-7 at every M; 1-4 go to qmm_tc_launch.
+// (gated ? 2 : 1) * splits * M * N floats.  This entry takes fmt_code 0
+// and 5-7 at every M (1-4 go to qmm_tc_launch); tile_m picks the kernel
+// and its rows a block (kernels/qmatmul.py, f32_tile_m): 4 or 8 the GEMV,
+// 16, 32 or 64 qmm_tile.  Both sum an output in one order.
 extern "C" int qmm_launch(const void* a, const void* b, const void* g,
                           const void* bias, void* out, void* ws, int M,
                           int K, int N, int splits, int fmt_code, int rt_e,
                           int rt_m, int act, int out_e, int out_m, int vec,
-                          void* stream) {
+                          int tile_m, void* stream) {
   const float* A = static_cast<const float*>(a);
   float* O = static_cast<float*>(out);
   float* W = static_cast<float*>(ws);
-  const Epilogue ep{static_cast<const float*>(bias), act, out_e, out_m,
-                    g != nullptr};
+  const float* bs = static_cast<const float*>(bias);
+  const Epilogue ep{bs, act, out_e, out_m, g != nullptr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M < 1 || splits < 1 || (splits > 1 && ws == nullptr))
     return (int)cudaErrorInvalidValue;
+  if (tile_m == 16 || tile_m == 32 || tile_m == 64) {
+    if (fmt_code == 0)
+      return qmm_tile_f32(A, b, g, bs, O, W, M, K, N, splits, tile_m,
+                          fmt_code, rt_e, rt_m, act, out_e, out_m, s);
+    if (fmt_code >= 5 && fmt_code <= 7)
+      return qmm_tile_rt(A, b, g, bs, O, W, M, K, N, splits, tile_m,
+                         fmt_code, rt_e, rt_m, act, out_e, out_m, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (tile_m != 4 && tile_m != 8) return (int)cudaErrorInvalidValue;
   cudaError_t err;
   switch (fmt_code) {
-    case 0: err = launch_fmt<uint32_t, 8, 23>(A, b, g, O, W, ep, M, K, N, splits, rt_e, rt_m, vec, s); break;
-    case 5: err = launch_fmt<uint8_t, -1, -1>(A, b, g, O, W, ep, M, K, N, splits, rt_e, rt_m, vec, s); break;
-    case 6: err = launch_fmt<uint16_t, -1, -1>(A, b, g, O, W, ep, M, K, N, splits, rt_e, rt_m, vec, s); break;
-    case 7: err = launch_fmt<uint32_t, -1, -1>(A, b, g, O, W, ep, M, K, N, splits, rt_e, rt_m, vec, s); break;
+    case 0: err = launch_fmt<uint32_t, 8, 23>(A, b, g, O, W, ep, M, K, N, splits, tile_m, rt_e, rt_m, vec, s); break;
+    case 5: err = launch_fmt<uint8_t, -1, -1>(A, b, g, O, W, ep, M, K, N, splits, tile_m, rt_e, rt_m, vec, s); break;
+    case 6: err = launch_fmt<uint16_t, -1, -1>(A, b, g, O, W, ep, M, K, N, splits, tile_m, rt_e, rt_m, vec, s); break;
+    case 7: err = launch_fmt<uint32_t, -1, -1>(A, b, g, O, W, ep, M, K, N, splits, tile_m, rt_e, rt_m, vec, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)err;
@@ -866,7 +1245,7 @@ extern "C" int qmm_tc_launch(const void* a, void* asplit, const void* b,
   }
 }
 
-#else  // a tensor-core unit: the launcher of one packed format
+#elif QMM_TC_UNIT  // the launcher of one packed format
 
 #if QMM_UNIT == 1
 #define QMM_TC_FN qmm_tc_fmt1
@@ -886,6 +1265,28 @@ extern "C" int QMM_TC_FN(QMM_TC_PARAMS) {
   const Epilogue ep{bias, act, out_e, out_m, g != nullptr};
   return (int)launch_tc<QMM_TC_FMT>(a, asplit, b, g, out, ws, ep, M, K, N,
                                     splits, k_chunk, promote, stream);
+}
+
+#elif QMM_UNIT == 5  // qmm_tile for binary32 / f32 weights
+
+extern "C" int qmm_tile_f32(QMM_TILE_PARAMS) {
+  const Epilogue ep{bias, act, out_e, out_m, g != nullptr};
+  if (fmt_code != 0) return (int)cudaErrorInvalidValue;
+  return (int)launch_tile<uint32_t, 8, 23>(a, b, g, out, ws, ep, M, K, N,
+                                           splits, tile_m, rt_e, rt_m,
+                                           stream);
+}
+
+#elif QMM_UNIT == 6  // qmm_tile for the run-time (e, m) formats
+
+extern "C" int qmm_tile_rt(QMM_TILE_PARAMS) {
+  const Epilogue ep{bias, act, out_e, out_m, g != nullptr};
+  switch (fmt_code) {
+    case 5: return (int)launch_tile<uint8_t, -1, -1>(a, b, g, out, ws, ep, M, K, N, splits, tile_m, rt_e, rt_m, stream);
+    case 6: return (int)launch_tile<uint16_t, -1, -1>(a, b, g, out, ws, ep, M, K, N, splits, tile_m, rt_e, rt_m, stream);
+    case 7: return (int)launch_tile<uint32_t, -1, -1>(a, b, g, out, ws, ep, M, K, N, splits, tile_m, rt_e, rt_m, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 #endif  // QMM_UNIT

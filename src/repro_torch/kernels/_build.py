@@ -65,7 +65,9 @@ def build_dir() -> Path:
 
 class KernelLib:
     """One ``csrc/<name>.cu`` shared library and its launch counts: in
-    all (``launches``) and per C entry point (``by_symbol``).  ``units``,
+    all (``launches``), per C entry point (``by_symbol``) and per kernel
+    (``by_kernel``: the name the caller gives the kernel its arguments
+    select behind an entry point, else the entry point's).  ``units``,
     when given, lists the extra ``nvcc`` flags of each unit the source is
     compiled as (one object file each, compiled in parallel)."""
 
@@ -76,11 +78,13 @@ class KernelLib:
         self.units = units
         self.launches = 0
         self.by_symbol: Dict[str, int] = {}
+        self.by_kernel: Dict[str, int] = {}
         self._lib: Optional[ctypes.CDLL] = None
 
     def reset_counts(self) -> None:
         self.launches = 0
         self.by_symbol = {}
+        self.by_kernel = {}
 
     @property
     def so_path(self) -> Path:
@@ -150,9 +154,10 @@ class KernelLib:
             self._lib = lib
         return self._lib
 
-    def launch(self, symbol: str, *args) -> None:
+    def launch(self, symbol: str, *args, kernel: Optional[str] = None
+               ) -> None:
         """Call the C entry point ``symbol``; raise on a CUDA error code;
-        count the launch."""
+        count the launch, under ``kernel`` (default ``symbol``) too."""
         rc = getattr(self.lib(), symbol)(*args)
         if rc != 0:
             raise RuntimeError(
@@ -160,6 +165,8 @@ class KernelLib:
                 f"(cudaError {rc})")
         self.launches += 1
         self.by_symbol[symbol] = self.by_symbol.get(symbol, 0) + 1
+        kernel = kernel or symbol
+        self.by_kernel[kernel] = self.by_kernel.get(kernel, 0) + 1
 
     def ptxas_report(self) -> str:
         """What ``nvcc -Xptxas -v`` said (registers, shared memory,

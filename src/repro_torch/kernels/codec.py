@@ -19,6 +19,10 @@ Tile functions
 ``encode_tile(x, fmt)``       already-quantized f32 -> packed (e, m) field
                               in the narrowest unsigned container.
 ``decode_tile(bits, fmt)``    exact expansion of packed fields to f32.
+``encode_fused(x, fmt)``      f32 -> packed field, quantize and encode in
+                              one pass: the specialised pack kernel's
+                              arithmetic (``csrc/flexfloat_cast.cu``,
+                              ``encode_fused``), for the tests.
 ``tf32_round(x)``             f32 -> nearest TF32 (``cvt.rna``), the
                               tensor-core qmm's activation split.
 """
@@ -188,6 +192,55 @@ def encode_tile(x, fmt) -> torch.Tensor:
     if fmt.is_binary32:
         return bits32(x).to(torch.uint32)
     return _by_chunks(lambda xs: _encode(xs, fmt), x)
+
+
+def encode_fused(x, fmt) -> torch.Tensor:
+    """``encode_tile(quantize_tile(x))`` in one pass on the f32 bits, as
+    the pack kernel of a specialised format computes it
+    (``csrc/flexfloat_cast.cu``, ``encode_fused``): with e = 8 the
+    round to nearest even at bit 23 - m and the NaN field (overflow
+    carries into Inf by itself); below 8, NaN, the subnormal branch (an
+    integer RNE whose result is the field) and the normal branch with
+    its overflow to Inf.  The serving path does not call it; the tests
+    hold it bit-identical to the codec."""
+    fmt = get_format(fmt)
+    x = torch.as_tensor(x).to(torch.float32)
+    if fmt.is_binary32:
+        return bits32(x).to(torch.uint32)
+    return _by_chunks(lambda xs: _encode_fused(xs, fmt), x)
+
+
+def _encode_fused(x, fmt):
+    e, m = fmt.e, fmt.m
+    bias = (1 << (e - 1)) - 1
+    emin = 1 - bias
+    shift = 23 - m
+    exp_all = (1 << e) - 1
+    nan = (exp_all << m) | (1 << (m - 1))
+    u = bits32(x)
+    sign_t = (u >> 31) << (e + m)
+    mag = u & MAG_F32
+    is_nan = mag > INF_F32
+    rnd = ((1 << (shift - 1)) - 1) + ((mag >> shift) & 1)
+    if e == 8:
+        field = torch.where(is_nan, nan, (mag + rnd) >> shift)
+    else:
+        ef = mag >> 23
+        sig = torch.where(ef > 0, (mag & MANT_F32) | IMPLICIT_ONE_F32, mag)
+        s_amt = torch.clamp((emin - m) - (torch.clamp(ef, min=1) - 150),
+                            1, 25)
+        one = torch.ones_like(s_amt)
+        half = torch.bitwise_left_shift(one, s_amt - 1)
+        rem = sig & (torch.bitwise_left_shift(one, s_amt) - 1)
+        out_i = torch.bitwise_right_shift(sig, s_amt)
+        out_i = out_i + ((rem > half) | ((rem == half) & ((out_i & 1) == 1))
+                         ).to(_I64)
+        mag_r = (mag + rnd) & ~((1 << shift) - 1)
+        normal = torch.where((mag_r >> 23) > bias + 127, exp_all << m,
+                             (mag_r >> shift) - ((127 - bias) << m))
+        field = torch.where(is_nan, nan,
+                            torch.where(ef < emin + 127, out_i, normal))
+    return (sign_t | field).to(fmt.container_dtype)
 
 
 def _encode(x, fmt):

@@ -8,7 +8,10 @@ CUDA tensor each launches its kernel in ``csrc/flexfloat_cast.cu`` (one
 flat grid-stride pass over any shape and element count); on a CPU tensor
 it runs the plain version, the port's int64 codec
 (``kernels/codec.py``).  binary32 ``flexfloat_cast`` returns ``x``
-without a launch, as in the reference.
+without a launch, as in the reference.  ``quantize_encode`` launches a
+kernel specialised for each of the paper's four formats (the run-time
+codec for any other (e, m)), with the vector width and grid of
+``encode_plan``.
 """
 from __future__ import annotations
 
@@ -80,8 +83,16 @@ def quantize_encode(x, fmt) -> torch.Tensor:
         return quantize_encode_plain(x, fmt)
     x = x.contiguous()
     out = torch.empty(x.shape, dtype=fmt.container_dtype, device=x.device)
-    return _launch("quantize_encode_launch", x, out, fmt,
-                   fmt.container_bytes)
+    n = x.numel()
+    if n == 0:
+        return out
+    vec, blocks = encode_plan(
+        n, fmt.container_bytes,
+        x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+    LIB.launch("quantize_encode_launch", _build.ptr(x), _build.ptr(out), n,
+               fmt.e, fmt.m, _build.fmt_code(fmt), vec, blocks,
+               _build.stream_ptr(x.device))
+    return out
 
 
 def dequantize_decode(payload, fmt) -> torch.Tensor:
@@ -98,6 +109,30 @@ def dequantize_decode(payload, fmt) -> torch.Tensor:
                       device=payload.device)
     return _launch("dequantize_decode_launch", payload, out, fmt,
                    fmt.container_bytes)
+
+
+# the encode kernel's threads a block (csrc/flexfloat_cast.cu, kThreads)
+ENCODE_THREADS = 256
+# the formats with a kernel of their own (fmt_code 1-4, the paper's)
+ENCODE_SPECIALISED = ("binary8", "binary8alt", "binary16", "binary16alt")
+
+
+def encode_kernel(fmt) -> str:
+    """The encode kernel a format takes: its own for the paper's four
+    formats, the run-time codec of its container for any other; picked
+    by the format alone (``_build.fmt_code``), a fixed choice."""
+    code = _build.fmt_code(get_format(fmt))
+    return ENCODE_SPECIALISED[code - 1] if 1 <= code <= 4 else "run-time"
+
+
+def encode_plan(n: int, container_bytes: int, aligned: bool) -> tuple:
+    """(vec, blocks) of an encode launch over n elements: vec containers a
+    thread with one 16-byte store (0: one element a thread, for a pointer
+    that is not 16-byte aligned), and a grid with one thread per vector
+    trip or per tail element, whichever are more."""
+    vec = 16 // container_bytes if aligned else 0
+    items = max(n // vec, n % vec) if vec else n
+    return vec, max(1, -(-items // ENCODE_THREADS))
 
 
 def elementwise_hbm_bytes(n: int, in_bytes: int, out_bytes: int) -> int:

@@ -16,10 +16,13 @@ by the weight format alone (``qmm_entry``):
   verify): split-TF32 tensor-core products, exact to 2^-22 |a| @ |b|
   plus the f32 accumulation (``split_tf32`` is its split in PyTorch);
 * ``qmm_launch`` for binary32 / float weights and run-time (e, m)
-  formats at every M: the weight-streaming GEMV.
+  formats at every M, on the CUDA cores: the weight-streaming GEMV
+  (``qmm_gemv``) for M <= 8 and the register-tiled ``qmm_tile`` above,
+  with the row tile picked by M (``f32_tile_m``).
 
-Each route sums a row's products in one order whatever M is (its K
-split is a function of K and N only), so a row's result does not depend
+One summation order per format: each route sums a row's products in one
+order whatever M is (its K split is a function of K and N only, and the
+GEMV and ``qmm_tile`` share theirs), so a row's result does not depend
 on the rows beside it: a speculative verify over B * k rows gives the
 logits of k decode steps over B rows bit for bit.
 
@@ -40,12 +43,13 @@ from .codec import decode_tile, quantize_tile, tf32_round, tf32_truncate
 
 ACTS = {None: 0, "silu": 1, "gelu": 2, "relu2": 3}
 
-# qmm.cu is built as five units in parallel: the GEMV, and the
-# tensor-core kernel once per packed format
+# qmm.cu is built as seven units in parallel: the GEMV, the tensor-core
+# kernel once per packed format, and qmm_tile for binary32 and for the
+# run-time formats
 LIB = _build.register(_build.KernelLib("qmm", {
-    "qmm_launch": [_build.P] * 6 + [_build.I32] * 11 + [_build.P],
+    "qmm_launch": [_build.P] * 6 + [_build.I32] * 12 + [_build.P],
     "qmm_tc_launch": [_build.P] * 7 + [_build.I32] * 10 + [_build.P],
-}, units=[(f"-DQMM_UNIT={i}",) for i in range(5)]))
+}, units=[(f"-DQMM_UNIT={i}",) for i in range(7)]))
 TC_FMT_CODES = (1, 2, 3, 4)   # binary8, binary8alt, binary16, binary16alt
 TC_BN, TC_BK = 128, 32        # the tensor-core kernel's block columns, K step
 TC_MIN_CHUNK = 128            # fewest K rows a split of that kernel takes
@@ -93,7 +97,12 @@ def qmatmul_plain(a_payload, b_payload, fmt_a, fmt_b,
 
 
 def _qmm_cuda(a, b, fmt_b, out_fmt, gate, bias, act, *,
-              tc_promote: bool = True) -> torch.Tensor:
+              tc_promote: bool = True,
+              tile_m: Optional[int] = None) -> torch.Tensor:
+    """The launch.  ``tc_promote=False`` and a ``tile_m`` other than
+    ``f32_tile_m(M)`` (a GEMV row block of 4 or 8, or a ``qmm_tile`` of
+    16, 32 or 64 rows, at any M) exist for ``chip_smoke.py``'s checks;
+    the serving path passes neither."""
     M, K = a.shape
     N = b.shape[1]
     want = torch.float32 if fmt_b is None else fmt_b.container_dtype
@@ -129,29 +138,60 @@ def _qmm_cuda(a, b, fmt_b, out_fmt, gate, bias, act, *,
         asplit = torch.empty((2, M, K), dtype=torch.float32, device=a.device)
         LIB.launch("qmm_tc_launch", p(a), p(asplit), p(b), p(gate), p(bias),
                    p(out), p(ws), M, K, N, splits, k_chunk, code, ACTS[act],
-                   oe, om, int(tc_promote), _build.stream_ptr(a.device))
+                   oe, om, int(tc_promote), _build.stream_ptr(a.device),
+                   kernel="qmm_tc")
     else:
+        tile_m = tile_m or f32_tile_m(M)
         LIB.launch("qmm_launch", p(a), p(b), p(gate), p(bias), p(out),
                    p(ws), M, K, N, splits, code, fmt.e, fmt.m, ACTS[act],
-                   oe, om, vec, _build.stream_ptr(a.device))
+                   oe, om, vec, tile_m, _build.stream_ptr(a.device),
+                   kernel="qmm_gemv" if tile_m in GEMV_TILES
+                   else "qmm_tile")
     return out
 
 
+GEMV_TILES = (4, 8)           # rows a block of the GEMV (qmm_gemv)
+F32_TILES = (16, 32, 64)      # rows a block of qmm_tile
+
+
+def f32_tile_m(M: int) -> int:
+    """Rows a block for M rows on the CUDA-core route (binary32 / float
+    weights, run-time formats): the GEMV's 4 or 8 up to 8 rows (the
+    decode step streams the weights), ``qmm_tile``'s 16, 32 or 64 above
+    (a verify or a prefill chunk reuses each weight for every row).
+    Both kernels sum an output in the same order, so the tile changes
+    with M and a row's bits do not."""
+    for t in GEMV_TILES + F32_TILES:
+        if M <= t:
+            return t
+    return F32_TILES[-1]
+
+
+def qmm_kernel(fmt_b: Optional[FpFormat], M: int) -> str:
+    """The kernel a CUDA qmatmul of M rows launches: ``qmm_tc`` (the
+    packed formats, every M), ``qmm_gemv`` or ``qmm_tile`` (the rest,
+    by M); the name its launches are counted under."""
+    if qmm_entry(fmt_b) == "qmm_tc_launch":
+        return "qmm_tc"
+    return "qmm_gemv" if f32_tile_m(M) in GEMV_TILES else "qmm_tile"
+
+
 def gemv_splits(K: int, N: int, n_sm: int) -> int:
-    """K splits of the GEMV, a function of K and N only (so a row sums in
-    one order at every M): enough blocks of one row block for about two
-    per SM (a 64-column strip is one block), each split keeping at least
-    256 rows of K."""
+    """K splits of the CUDA-core route (the GEMV and ``qmm_tile``), a
+    function of K and N only (so a row sums in one order at every M):
+    enough blocks of one GEMV row block for about two per SM (a 64-column
+    strip is one block), each split keeping at least 256 rows of K."""
     strips = -(-N // 64)
     return max(1, min(-(-2 * n_sm // strips), K // 256))
 
 
 def qmm_entry(fmt_b: Optional[FpFormat]) -> str:
     """The C entry point a CUDA qmatmul takes: the tensor-core kernel for
-    the four packed formats, ``qmm_launch`` (the GEMV) for binary32 /
-    float weights and run-time (e, m) formats.  It depends on the format
-    alone, not on M, so every row of a format sums in one order; a fixed
-    choice, not a fallback."""
+    the four packed formats, ``qmm_launch`` (the CUDA-core route: the
+    GEMV or ``qmm_tile`` by M, see ``f32_tile_m``) for binary32 / float
+    weights and run-time (e, m) formats.  It depends on the format alone,
+    not on M, and each route sums a row in one order; a fixed choice, not
+    a fallback."""
     tc = _build.fmt_code(fmt_b) in TC_FMT_CODES
     return "qmm_tc_launch" if tc else "qmm_launch"
 
@@ -159,9 +199,10 @@ def qmm_entry(fmt_b: Optional[FpFormat]) -> str:
 def qmm_plan(K: int, N: int, fmt_b: Optional[FpFormat], gated: bool,
              n_sm: int) -> tuple:
     """(entry point, K splits, K rows a split) of a CUDA qmatmul of any
-    number of rows: a row of a given format and shape is summed in one
-    order whether it is decoded with 3 others, verified with 15 or
-    prefilled in a 64-row chunk."""
+    number of rows: one summation order per format, so a row of a given
+    format and shape is summed in one order whether it is decoded with 3
+    others, verified with 15 or prefilled in a 64-row chunk (only the
+    row tile, ``f32_tile_m`` or ``tc_tile_m``, follows M)."""
     if qmm_entry(fmt_b) == "qmm_tc_launch":
         return ("qmm_tc_launch",) + tiled_splits(K, N, n_sm, gated)
     splits = gemv_splits(K, N, n_sm)

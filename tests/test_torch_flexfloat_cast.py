@@ -139,3 +139,102 @@ def test_ref_is_the_plain_path():
         torch.int32))
     assert torch.equal(tref.quantize_encode_ref(x, "binary16"),
                        tff.quantize_encode_plain(x, "binary16"))
+
+
+# --- the pack kernel's plan: the kernel a format takes, the vector width
+# and grid, and the fused arithmetic of the specialised kernels ---------
+
+SPECIALISED = ["binary8", "binary8alt", "binary16", "binary16alt"]
+RUN_TIME = ["flexfloat<6,9>", "flexfloat<3,4>", "binary32",
+            "flexfloat<8,15>", "flexfloat<5,11>", "flexfloat<8,23>"]
+
+
+@pytest.mark.parametrize("fmt", SPECIALISED + RUN_TIME)
+def test_encode_kernel_is_picked_by_the_format(fmt):
+    """Exactly the paper's four formats have a pack kernel of their own;
+    any other (e, m), every u32 format among them, takes the run-time
+    codec of its container."""
+    want = fmt if fmt in SPECIALISED else "run-time"
+    assert tff.encode_kernel(fmt) == want
+    assert tff.encode_kernel(get_format(fmt)) == want
+    if get_format(fmt).container_bytes == 4:
+        assert want == "run-time"
+
+
+# n of a 0-d input (1), 1-d ragged lengths around the vector widths, a
+# 3-d and a llama3-8b FFN weight's element count
+COVER_N = [1, 3, 4, 7, 8, 9, 15, 16, 17, 31, 33, 100_003, 3 * 1021 * 7]
+
+
+def _encode_cover(n: int, vec: int, blocks: int) -> np.ndarray:
+    """How many times the encode kernel writes each of n elements under
+    ``tff.encode_plan``'s (vec, blocks): thread i of the grid writes
+    elements [i * vec, (i + 1) * vec) when i < n // vec, and element
+    n // vec * vec + i when that is below n (vec = 0: element i).  The
+    plan is right when every count is 1."""
+    i = np.arange(blocks * tff.ENCODE_THREADS)
+    nv = n // vec if vec else 0
+    hits = np.zeros(n, np.int64)
+    trips = i[i < nv]
+    np.add.at(hits, (trips[:, None] * vec + np.arange(vec)).ravel(), 1)
+    tail = nv * vec + i
+    np.add.at(hits, tail[tail < n], 1)
+    return hits
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["16B", "scalar"])
+@pytest.mark.parametrize("container_bytes", [1, 2, 4])
+@pytest.mark.parametrize("n", COVER_N)
+def test_encode_plan_writes_every_element_once(n, container_bytes,
+                                               aligned):
+    vec, blocks = tff.encode_plan(n, container_bytes, aligned)
+    assert vec == (16 // container_bytes if aligned else 0)
+    hits = _encode_cover(n, vec, blocks)
+    assert hits.shape == (n,) and bool((hits == 1).all())
+    # no thread without work beyond the last block
+    assert (blocks - 1) * tff.ENCODE_THREADS < max(n // vec, n % vec, 1) \
+        if vec else (blocks - 1) * tff.ENCODE_THREADS < n
+
+
+def test_encode_plan_at_the_weight_shape():
+    """A 4096 x 14336 weight: one 16-byte store a thread, 8 bf16 or 16
+    binary8 containers, a thread per store."""
+    n = 4096 * 14336
+    assert tff.encode_plan(n, 2, True) == (8, n // 8 // 256)
+    assert tff.encode_plan(n, 1, True) == (16, n // 16 // 256)
+    assert tff.encode_plan(n, 2, False) == (0, n // 256)
+    assert tff.encode_plan(5, 2, True) == (8, 1)
+
+
+def _pack_inputs(fmt, seed):
+    """Every container pattern's value, the midpoints of neighbours (the
+    ties), one f32 ulp either side of each, just past the largest value,
+    seeded f32 bit patterns and the specials."""
+    from repro_torch.kernels import codec as tcodec
+    f = get_format(fmt)
+    pats = torch.arange(1 << f.bits, dtype=torch.int64).to(f.container_dtype)
+    vals = tcodec.decode_tile(pats, f)
+    fin = vals[torch.isfinite(vals)].double().unique()
+    mids = ((fin[1:] + fin[:-1]) / 2).float()
+    top = torch.tensor([f.max_normal * (1 + 2.0 ** -(f.m + 1))]).float()
+    base = torch.cat([vals, mids, top, -top])
+    near = [torch.nextafter(base, torch.full_like(base, s))
+            for s in (float("inf"), float("-inf"))]
+    rand = torch.from_numpy(_rand((200_000,), seed))
+    return torch.cat([base, *near, rand])
+
+
+@pytest.mark.parametrize("fmt", SPECIALISED + ["flexfloat<8,9>",
+                                               "flexfloat<3,4>"])
+def test_fused_encode_is_bit_identical_to_jax(fmt):
+    """``codec.encode_fused``, the specialised pack kernels' arithmetic
+    in PyTorch, against the JAX codec's quantize then encode on every
+    pattern, tie and boundary of the format and seeded f32 bits."""
+    from repro.kernels import codec as jcodec
+    from repro_torch.kernels import codec as tcodec
+    f = get_format(fmt)
+    x = _pack_inputs(fmt, seed=f.m)
+    want = jcodec.encode_tile(
+        jcodec.quantize_tile(jnp.asarray(x.numpy()), f.e, f.m), _jfmt(fmt))
+    _same_bits(tcodec.encode_fused(x, f), want)
+    _same_bits(tff.quantize_encode_plain(x, f), want)

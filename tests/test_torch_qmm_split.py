@@ -215,3 +215,68 @@ def test_gemv_split_is_the_same_for_every_m_and_covers_k(K, N, gated, fmt):
     assert k_chunk == -(-K // splits)
     assert (splits - 1) * k_chunk < K <= splits * k_chunk
     assert splits == 1 or k_chunk >= 256
+
+
+# --- the CUDA-core route (binary32 / float weights, run-time formats):
+# the GEMV up to 8 rows, qmm_tile above, one summation order ---------------
+
+@pytest.mark.parametrize("M,tile,kernel", [
+    (1, 4, "qmm_gemv"), (2, 4, "qmm_gemv"), (4, 4, "qmm_gemv"),
+    (5, 8, "qmm_gemv"), (8, 8, "qmm_gemv"), (9, 16, "qmm_tile"),
+    (16, 16, "qmm_tile"), (17, 32, "qmm_tile"), (32, 32, "qmm_tile"),
+    (33, 64, "qmm_tile"), (64, 64, "qmm_tile"), (100, 64, "qmm_tile"),
+    (128, 64, "qmm_tile")])
+@pytest.mark.parametrize("fmt", ["binary32", None, "flexfloat<6,9>",
+                                 "flexfloat<3,4>", "flexfloat<8,15>"])
+def test_f32_row_tile_is_picked_by_m(M, tile, kernel, fmt):
+    """The row tile follows M (the decode step's 1-8 rows stream the
+    weights through the GEMV, a verify or a chunk reuses them in
+    qmm_tile), while the entry point stays fixed by the format."""
+    f = get_format(fmt) if fmt is not None else None
+    assert tq.f32_tile_m(M) == tile
+    assert tq.qmm_kernel(f, M) == kernel
+    assert tq.qmm_entry(f) == "qmm_launch"
+    assert (tile in tq.GEMV_TILES) == (kernel == "qmm_gemv")
+
+
+@pytest.mark.parametrize("fmt", PACKED)
+def test_packed_formats_take_the_tensor_cores_at_every_m(fmt):
+    f = get_format(fmt)
+    assert {tq.qmm_kernel(f, M) for M in range(1, 129)} == {"qmm_tc"}
+    assert {tq.qmm_entry(f) for _ in range(3)} == {"qmm_tc_launch"}
+
+
+LLAMA = [(4096, 4096, False), (4096, 1024, False), (4096, 14336, True),
+         (14336, 4096, False), (4096, 128256, False)]
+RAGGED = [(4100, 1030, True), (100, 70, False), (255, 1030, True),
+          (130, 77, False)]
+
+
+@pytest.mark.parametrize("K,N,gated", LLAMA + RAGGED)
+@pytest.mark.parametrize("fmt", ["binary32", "flexfloat<6,9>"])
+def test_f32_plan_is_the_same_at_every_m(K, N, gated, fmt):
+    """Every M from 1 to 128, the GEMV's and qmm_tile's alike, takes one
+    (entry, splits, k_chunk): the K split and its residue classes, and
+    so the order of a row's sum, do not follow the row tile."""
+    f = get_format(fmt)
+    plans = {(tq.qmm_kernel(f, M) in ("qmm_gemv", "qmm_tile"),
+              tq.qmm_plan(K, N, f, gated, 132)) for M in range(1, 129)}
+    assert len(plans) == 1
+    plans = {p for _, p in plans}
+    entry, splits, k_chunk = plans.pop()
+    assert entry == "qmm_launch" and splits == tq.gemv_splits(K, N, 132)
+    assert k_chunk == -(-K // splits)
+
+
+@pytest.mark.parametrize("K,N,gated", LLAMA)
+def test_tile_at_the_chunk_fills_the_card_on_aligned_copies(K, N, gated):
+    """A 64-row chunk's qmm_tile launch over every llama3-8b projection:
+    at least one block per SM of an H100 (132), and the K chunk a
+    multiple of 4 with N a multiple of 4 (so the activation and weight
+    tiles load by 16 B cp.async, not element by element)."""
+    splits = tq.gemv_splits(K, N, 132)
+    k_chunk = -(-K // splits)
+    bn = 16 if gated else 32
+    blocks = -(-64 // tq.f32_tile_m(64)) * -(-N // bn) * splits
+    assert blocks >= 132
+    assert K % 4 == 0 and k_chunk % 4 == 0 and N % 4 == 0
