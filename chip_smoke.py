@@ -12,13 +12,15 @@ Run from the root of a checkout.  Phases:
                   its GEMV and qmm_tile for binary32), paged_decode,
                   flash_prefill and flash_decode against their plain
                   PyTorch versions on the card, at the serving path's
-                  shapes and at ragged edge shapes, with the stated
-                  tolerances; qmm rows and flash_decode rows
-                  bit-identical whatever rows are beside them, qmm_tile
-                  bit-identical to the GEMV; times each kernel, its plain
-                  version and a library yardstick (qmm per decode step,
-                  per prefill chunk and per verify round, packed and
-                  binary32).
+                  shapes, at ragged edge shapes and at the widened
+                  attention shapes (head_dim 8-256, G 1-16), with the
+                  stated tolerances; qmm on packed activations
+                  bit-identical to qmm on the decoded ones; qmm,
+                  flash_decode and paged_decode rows bit-identical
+                  whatever rows are beside them, qmm_tile bit-identical
+                  to the GEMV; times each kernel, its plain version and
+                  a library yardstick (qmm per decode step, per prefill
+                  chunk and per verify round, packed and binary32).
 3. casts       -- torch's CUDA f32 -> float8_e5m2 / bfloat16 casts (the
                   KV write and the activation cast) against the plain
                   codec; the three flexfloat_cast kernels bit-identical to
@@ -29,7 +31,9 @@ Run from the root of a checkout.  Phases:
                   one llama3-8b FFN weight.
 4. ops         -- the ops API (``kernels/ops.py``: pack, unpack, cast,
                   matmul) on a 4096 x 14336 weight, the cast kernels'
-                  main path, against its oracle path.
+                  main path, against its oracle path; the matmul on
+                  packed activations of the four paper formats at M = 4
+                  and 64, one qmm_tc launch each, timed.
 5. serve       -- ``repro_torch.launch.serve.main`` on full-width,
                   full-depth llama3-8b (random weights from the seed),
                   ``--decode-impl paged``, asserting the launch counts per
@@ -45,6 +49,11 @@ Run from the root of a checkout.  Phases:
 8. serve_f32   -- ``--policy binary32``, ``paged``, 2 requests x (128 +
                   8): 193 qmm per decode step on the GEMV, per prefill
                   chunk 192 on qmm_tile and the head on the GEMV.
+   serve_reduced -- ``--arch llama3-8b --reduced`` (head_dim 16, G 2)
+                  under ``paged`` and ``flash_pallas``: every request gets
+                  its tokens, the attention launches go to the CUDA
+                  kernels, the first-step logits agree with the plain
+                  path.
 9. logits      -- a prefill chunk, a decode step and a speculative verify
                   step of a 2-layer, full-width model: kernel path against
                   plain path, and verify against sequential decode bit for
@@ -392,6 +401,68 @@ def check_qmm(torch, np, report):
     return ok
 
 
+A_FORMATS = ("binary8", "binary8alt", "binary16", "binary16alt")
+
+
+def check_qmm_packed_a(torch, np, report):
+    """qmm on packed activations (``fmt_a``, decoded inside qmm.cu): for
+    each of the four paper formats of A, every weight format (the four
+    packed ones on the tensor cores, binary32 on the GEMV at M = 4 and on
+    qmm_tile at M = 64) and the gated form with bias, the product equals
+    the product on the decoded activations bit for bit, and is within
+    1e-6 in units of |a| @ |w| of the plain version."""
+    from repro_torch.core.formats import get_format
+    from repro_torch.core.qtensor import decode, encode
+    from repro_torch.kernels import qmatmul as Q
+
+    gen = torch.Generator(device="cuda").manual_seed(report["seed"] + 9)
+    ok, res = True, {}
+    K, N = 4096, 1024
+    for wname in A_FORMATS + ("binary32",):
+        wf = get_format(wname)
+        w = _pack_weight(torch.randn((K, N), generator=gen, device="cuda"),
+                         wf)
+        g = _pack_weight(torch.randn((K, N), generator=gen, device="cuda"),
+                         wf)
+        wd, gd = _unpack_weight(w, wf).abs(), _unpack_weight(g, wf).abs()
+        bias = torch.randn((N,), generator=gen, device="cuda")
+        for aname in A_FORMATS:
+            af = get_format(aname)
+            for M in (4, 64):
+                a = encode(torch.randn((M, K), generator=gen, device="cuda"),
+                           af)
+                ad = decode(a, af)
+                for gated in (False, True):
+                    kw = dict(gate_payload=g, bias=bias, act="silu") \
+                        if gated else {}
+                    got = Q.qmatmul(a, w, af, wf, **kw)
+                    same = torch.equal(got, Q.qmatmul(ad, w, None, wf, **kw))
+                    want = Q.qmatmul_plain(a, w, af, wf, **kw)
+                    unit = ad.abs() @ wd + 1.0
+                    if gated:
+                        unit = (unit + bias.abs()) * (ad.abs() @ gd + 1.0)
+                    err = float(((got - want).abs() / unit).max())
+                    good = same and err <= 1e-6
+                    ok &= good
+                    res[f"{aname} x {wname} M={M}"
+                        f"{' gated' if gated else ''}"] = dict(
+                            bit_identical=same, err_in_acc_units=err,
+                            kernel=Q.qmm_kernel(wf, M), ok=good)
+                del a, ad
+        del w, g, wd, gd
+        torch.cuda.empty_cache()
+    report["qmm_packed_a"] = res
+    bad = {k: v for k, v in res.items() if not v["ok"]}
+    worst = max(v["err_in_acc_units"] for v in res.values())
+    print(f"[kernels] qmm packed activations ({', '.join(A_FORMATS)}) x "
+          f"every weight format at M = 4 and 64, plain and gated: "
+          f"{len(res) - len(bad)} of {len(res)} bit-identical to the "
+          f"product on the decoded A and within 1e-6 of the plain version "
+          f"(worst {worst:.2e} x |a|@|w|); failing {bad} "
+          f"{'ok' if ok else 'FAIL'}")
+    return ok
+
+
 # the row counts a row's result must not depend on: decode steps (1-8
 # slots), a verify (B * k), prefill chunks and the draft's prompt (128:
 # the whole input, the run every other row count is held to)
@@ -517,26 +588,35 @@ def time_qmm(torch, np, report, timer):
               f"{totals['f32_floor_ms']:.3f} ms")
 
 
-def _paged_inputs(torch, np, fmt, seed):
-    """B = 4 ragged sequences over a 64-page pool: lengths 0, 37, 300 and
-    one beyond the 512-token capacity; scattered pages; -1 table tails."""
+def _paged_inputs(torch, np, fmt, seed, B=4, H=8, G=4, dh=128, page=64,
+                  pps=8, lengths=(0, 37, 300, 700)):
+    """B ragged sequences over a pool of 64 pages: (at the defaults)
+    lengths 0, 37, 300 and one beyond the pps * page capacity; scattered
+    pages; -1 table tails; a zero-length row unmapped and a hole inside
+    a length."""
     from repro_torch.core.qtensor import encode
     rng = np.random.default_rng(seed)
-    B, H, G, dh, page, num_pages, pps = 4, 8, 4, 128, 64, 64, 8
+    num_pages = 64
     q = torch.tensor(rng.normal(size=(B, H, G, dh)), dtype=torch.float32)
     kf = torch.tensor(rng.normal(size=(num_pages, page, H, dh)),
                       dtype=torch.float32)
     vf = torch.tensor(rng.normal(size=(num_pages, page, H, dh)),
                       dtype=torch.float32)
-    lengths = torch.tensor([0, 37, 300, 700], dtype=torch.int32)
+    lengths = torch.tensor(lengths, dtype=torch.int32)
     perm = rng.permutation(num_pages)
     tables = np.full((B, pps), -1, np.int32)
     used = 0
-    for b, n in enumerate([1, 1, 5, 8]):
+    for b in range(B):
+        n = min(-(-int(lengths[b]) // page), pps)
+        if used + n > num_pages:
+            perm, used = rng.permutation(num_pages), 0
         tables[b, :n] = perm[used:used + n]
         used += n
-    tables[0, 0] = -1          # zero length and unmapped
-    tables[2, 3] = -1          # a hole inside the length: masked
+    if int(lengths[0]) == 0:
+        tables[0, 0] = -1      # zero length and unmapped
+    holes = [b for b in range(B) if -(-int(lengths[b]) // page) > 3]
+    if holes:
+        tables[holes[0], 2] = -1   # a hole inside the length: masked
     kp = encode(kf, fmt) if fmt is not None else kf
     vp = encode(vf, fmt) if fmt is not None else vf
     dev = lambda t: t.to("cuda").contiguous()  # noqa: E731
@@ -544,37 +624,96 @@ def _paged_inputs(torch, np, fmt, seed):
             dev(torch.tensor(tables)), page)
 
 
+# paged_decode cases: (fmt name, shape overrides, lengths); None = f32
+PAGED_SERVE = dict(B=4, H=8, G=4, dh=128, page=64, pps=8)
+PAGED_CASES = (
+    [(f, {}, (0, 37, 300, 700)) for f in ("binary8", "binary16alt",
+                                          "binary32", None)]
+    + [(f, dict(page=16, pps=32), (0, 1, 63, 64, 65, 129, 300, 511))
+       for f in ("binary8", "binary16alt", None)]
+    + [(f, dict(G=G, dh=dh, page=page, pps=512 // page), lens)
+       for f in ("binary8", "binary16alt", None)
+       for G, dh in ((2, 16), (10, 256), (2, 256), (10, 16), (4, 8),
+                     (1, 24))
+       for page, lens in ((16, (0, 17, 200, 511)), (64, (0, 64, 129, 600)))])
+
+
 def check_paged(torch, np, report, timer):
-    from repro_torch.core.formats import BINARY8, BINARY16ALT, BINARY32
+    """paged_decode against its walk in PyTorch
+    (``paged_decode_split_plain``), within 1e-6 on the output and 1e-5 on
+    the residuals (m absolute, l relative), and at the serve shape also
+    against ``paged_decode_plain`` within 1e-6 (elsewhere that difference,
+    the sum of two f32 errors, is measured): the serve shape (H 8, G 4,
+    dh 128, page 64) in e5m2, bf16, binary32 and f32; page 16 at ragged
+    lengths around the 64-position pieces; head_dim 16 and 256 and G 2
+    and 10 (and dh 8 and 24, rows narrower than or not a multiple of 16
+    bytes in e5m2) at pages 16 and 64; every case with a zero-length
+    unmapped row, a hole inside a length and a length above the
+    capacity.  Then a row's bits do not depend on B or on the table's
+    width: each row alone, and beside other rows in a wider table, equals
+    its row in the batch."""
+    from repro_torch.core.formats import get_format
     from repro_torch.kernels import paged_attention as PA
 
     ok, worst = True, 0.0
-    for fmt in (BINARY8, BINARY16ALT, BINARY32, None):
-        q, kp, vp, lens, tbl, page = _paged_inputs(torch, np, fmt,
-                                                   report["seed"])
+    for fname, shp, lengths in PAGED_CASES:
+        fmt = get_format(fname) if fname is not None else None
+        kw = dict(PAGED_SERVE, **shp)
+        q, kp, vp, lens, tbl, page = _paged_inputs(
+            torch, np, fmt, report["seed"], lengths=lengths, B=len(lengths),
+            **{k: v for k, v in kw.items() if k != "B"})
         got, gm, gl = PA.paged_decode(q, kp, vp, fmt, lens, tbl,
                                       return_residuals=True)
-        want, wm, wl = PA.paged_decode_plain(
-            q, kp, vp, fmt, torch.clamp(lens, max=tbl.shape[1] * page), tbl,
-            return_residuals=True)
+        twin, tm, tl = PA.paged_decode_split_plain(q, kp, vp, fmt, lens, tbl,
+                                                   return_residuals=True)
+        want = PA.paged_decode_plain(
+            q, kp, vp, fmt, torch.clamp(lens, max=tbl.shape[1] * page), tbl)
         torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        rerr = max(float((gm - wm).abs().max()),
-                   float(((gl - wl).abs() / wl.clamp(min=1.0)).max()))
-        zero_ok = bool((got[0] == 0).all())
+        err = float((got - twin).abs().max())
+        perr = float((got - want).abs().max())
+        rerr = max(float((gm - tm).abs().max()),
+                   float(((gl - tl).abs() / tl.clamp(min=1.0)).max()))
+        zero_ok = all(bool((got[b] == 0).all()) for b in range(len(lengths))
+                      if lengths[b] == 0)
         good = err <= 1e-6 and rerr <= 1e-5 and zero_ok
+        if not shp:                 # the serve shape: the plain version too
+            good &= perr <= 1e-6
         ok &= good
-        name = fmt.name if fmt is not None else "f32"
+        name = fname or "f32"
         report["cases"].append(dict(kernel="paged_decode", fmt=name,
-                                    max_abs_err=err, residual_err=rerr,
-                                    ok=good))
-        print(f"[kernels] paged_decode {name:<11} B=4 H=8 G=4 dh=128 "
-              f"page=64 max|err|={err:.3e} (tol 1e-6) residuals "
-              f"{rerr:.1e} (tol 1e-5) zero-length row zero: {zero_ok} "
+                                    lengths=list(lengths), **kw,
+                                    max_abs_err=err, plain_err=perr,
+                                    residual_err=rerr, ok=good))
+        print(f"[kernels] paged_decode {name:<11} H={kw['H']} "
+              f"G={kw['G']:<2} dh={kw['dh']:<3} page={page:<2} "
+              f"lengths={list(lengths)} max|err|={err:.3e} against the "
+              f"split twin (tol 1e-6; plain {perr:.1e}"
+              f"{', tol 1e-6' if not shp else ', measured'}) residuals "
+              f"{rerr:.1e} (tol 1e-5) zero-length rows zero: {zero_ok} "
               f"{'ok' if good else 'FAIL'}")
-        if fmt == BINARY8:
-            worst = err
+        worst = max(worst, err)
     report["paged_max_abs_err"] = worst
+
+    from repro_torch.core.formats import BINARY8
+    q, kp, vp, lens, tbl, page = _paged_inputs(
+        torch, np, BINARY8, report["seed"] + 1, lengths=(1, 64, 144, 300))
+    full = PA.paged_decode(q, kp, vp, BINARY8, lens, tbl)
+    indep = True
+    for b in range(4):
+        alone = PA.paged_decode(q[b:b + 1], kp, vp, BINARY8, lens[b:b + 1],
+                                tbl[b:b + 1])
+        wide = torch.cat([tbl, torch.full_like(tbl, -1)], dim=1)
+        other = lens.clone()
+        other[torch.arange(4, device="cuda") != b] = torch.tensor(
+            [0, 512, 65], dtype=torch.int32, device="cuda")
+        beside = PA.paged_decode(q, kp, vp, BINARY8, other, wide)
+        indep &= torch.equal(alone[0], full[b]) and torch.equal(beside[b],
+                                                                full[b])
+    ok &= indep
+    report["paged_rows_independent"] = indep
+    print(f"[kernels] paged_decode rows bit-identical alone and beside rows "
+          f"of other lengths in a wider table: {indep} "
+          f"{'ok' if indep else 'FAIL'}")
     return ok
 
 
@@ -595,7 +734,10 @@ def check_prefill(torch, np, report, timer):
     reference's contract): the serve shape (B 1, Sq 64, H 8, G 4, dh 128,
     Skv 256) at q offsets 0 / 64 / 100, with a window and a prefix, e5m2
     and f32; then B = 2, Sq = 1 / 17 / 100 (row tiles that do not
-    divide), q_offset 192, G = 1 / 8 / 32 and dh = 64."""
+    divide), q_offset 192, G = 1 / 8 / 32 and dh = 64; then the widened
+    shapes: head_dim 16 and 256 at G 2 and 10 in e5m2, bf16 and f32,
+    head_dim 8 and 24 in e5m2 (rows narrower than, or not a multiple of,
+    16 bytes) and head_dim 40, 72 and 200 (padded widths)."""
     from repro_torch.core.formats import BINARY8, BINARY16ALT
     from repro_torch.kernels import flash_attention as FA
 
@@ -617,6 +759,16 @@ def check_prefill(torch, np, report, timer):
               (BINARY8, 10, None, 8, dict(serve, Sq=17, G=32, dh=64)),
               (BINARY8, 64, None, 0, dict(serve, dh=64)),
               (BINARY16ALT, 100, 48, 0, dict(serve, B=2, Sq=17, dh=64))]
+    cases += [(fmt, 64, None, 0, dict(serve, G=G, dh=dh))
+              for fmt in (BINARY8, BINARY16ALT, None)
+              for G, dh in ((2, 16), (10, 256), (2, 256), (10, 16))]
+    cases += [(BINARY8, 100, 48, 0, dict(serve, Sq=17, G=10, dh=256)),
+              (None, 30, None, 8, dict(serve, B=2, Sq=17, G=10, dh=16)),
+              (BINARY8, 64, None, 0, dict(serve, G=2, dh=8)),
+              (BINARY8, 0, None, 0, dict(serve, Sq=17, G=1, dh=24)),
+              (BINARY16ALT, 64, None, 0, dict(serve, G=3, dh=40)),
+              (None, 64, None, 0, dict(serve, G=5, dh=72)),
+              (BINARY8, 64, None, 0, dict(serve, G=16, dh=200))]
     for fmt, q_off, window, prefix, shp in cases:
         q, kp, vp = _prefill_inputs(torch, np, fmt, report["seed"], **shp)
         got = FA.flash_prefill(q, kp, vp, fmt, window=window,
@@ -716,12 +868,13 @@ def time_attention(torch, np, report, timer, serve_len):
               f"us/call")
 
 
-def _decode_inputs(torch, np, fmt, seed, S, lengths):
+def _decode_inputs(torch, np, fmt, seed, S, lengths, G=4, dh=128):
     """The serve shape's gathered cache: B = 4 sequences, H = 8 KV heads,
-    G = 4, dh = 128, K/V (4, S, 8, 128) packed or f32."""
+    G = 4, dh = 128, K/V (4, S, 8, 128) packed or f32 (or another G and
+    dh)."""
     from repro_torch.core.qtensor import encode
     rng = np.random.default_rng(seed)
-    B, H, G, dh = 4, 8, 4, 128
+    B, H = len(lengths), 8
     q = torch.tensor(rng.normal(size=(B, H, G, dh)), dtype=torch.float32)
     kf = torch.tensor(rng.normal(size=(B, S, H, dh)), dtype=torch.float32)
     vf = torch.tensor(rng.normal(size=(B, S, H, dh)), dtype=torch.float32)
@@ -736,8 +889,13 @@ def check_flash_decode(torch, np, report):
     256: 4 pages of 64 gathered, lengths around 144) for e5m2, bf16 and
     f32, at ragged lengths (0, 1, each edge of the kernel's 64-position
     pieces -1 / +0 / +1, S), and at the edges: a length above S, S = 200
-    (not a multiple of a piece); residuals (m, l) on every case, and the
-    kernel's walk in PyTorch (``flash_decode_split_plain``) beside it.
+    (not a multiple of a piece), and at the widened shapes (head_dim 16
+    and 256 at G 2 and 10, head_dim 8 and 24 in e5m2); residuals (m, l)
+    on every case, and the kernel's walk in PyTorch
+    (``flash_decode_split_plain``) beside it.  At the widened shapes the
+    kernel is held to the split twin (whose scores are summed in f64) and
+    its difference from the plain version, the sum of two f32 errors, is
+    measured.
     Tolerance 1e-6 absolute on the output, the reference's contract; 1e-5
     on m and relative 1e-5 on l.  Then a row's bits do not depend on the
     rows beside it: each row of the serve shape alone, and beside rows of
@@ -746,17 +904,24 @@ def check_flash_decode(torch, np, report):
     from repro_torch.kernels import flash_attention as FA
 
     ok, worst = True, 0.0
-    cases = [(fmt, 256, [141, 144, 147, 150]) for fmt in
+    serve = dict(G=4, dh=128)
+    cases = [(fmt, 256, [141, 144, 147, 150], serve) for fmt in
              (BINARY8, BINARY16ALT, None)]
-    cases += [(fmt, 256, lengths) for fmt in (BINARY8, None)
+    cases += [(fmt, 256, lengths, serve) for fmt in (BINARY8, None)
               for lengths in ([0, 1, 63, 64], [65, 127, 128, 129],
                               [191, 192, 193, 256])]
-    cases += [(BINARY8, 256, [0, 144, 256, 999]),
-              (BINARY8, 200, [0, 1, 199, 300]),
-              (None, 200, [64, 65, 128, 200])]
-    for fmt, S, lengths in cases:
+    cases += [(BINARY8, 256, [0, 144, 256, 999], serve),
+              (BINARY8, 200, [0, 1, 199, 300], serve),
+              (None, 200, [64, 65, 128, 200], serve)]
+    cases += [(fmt, 256, [0, 17, 144, 300], dict(G=G, dh=dh))
+              for fmt in (BINARY8, BINARY16ALT, None)
+              for G, dh in ((2, 16), (10, 256), (2, 256), (10, 16))]
+    cases += [(BINARY8, 200, [0, 1, 65, 199], dict(G=4, dh=8)),
+              (BINARY8, 256, [0, 64, 129, 256], dict(G=1, dh=24)),
+              (BINARY16ALT, 256, [5, 63, 128, 256], dict(G=16, dh=200))]
+    for fmt, S, lengths, shp in cases:
         q, kp, vp, lens = _decode_inputs(torch, np, fmt, report["seed"] + 3,
-                                         S, lengths)
+                                         S, lengths, **shp)
         got, gm, gl = FA.flash_decode(q, kp, vp, fmt, lens,
                                       return_residuals=True)
         want, wm, wl = FA.flash_decode_plain(
@@ -769,18 +934,22 @@ def check_flash_decode(torch, np, report):
                    float(((gl - wl).abs() / wl.clamp(min=1.0)).max()))
         zero_ok = all(bool((got[b] == 0).all()) for b in range(4)
                       if lengths[b] == 0)
-        good = err <= 1e-6 and terr <= 1e-6 and rerr <= 1e-5 and zero_ok
+        good = terr <= 1e-6 and rerr <= 1e-5 and zero_ok
+        if shp == serve:            # the serve shape: the plain version too
+            good &= err <= 1e-6
         ok &= good
         name = fmt.name if fmt is not None else "f32"
         report["cases"].append(dict(kernel="flash_decode", fmt=name, S=S,
-                                    lengths=lengths, max_abs_err=err,
+                                    lengths=lengths, **shp, max_abs_err=err,
                                     twin_err=terr, residual_err=rerr,
                                     ok=good))
-        print(f"[kernels] flash_decode {name:<11} B=4 H=8 G=4 dh=128 S={S} "
-              f"lengths={lengths} max|err|={err:.3e} (tol 1e-6; against "
-              f"the split twin {terr:.1e}) residuals {rerr:.1e} (tol 1e-5) "
-              f"{'ok' if good else 'FAIL'}")
-        worst = max(worst, err)
+        print(f"[kernels] flash_decode {name:<11} B=4 H=8 G={shp['G']:<2} "
+              f"dh={shp['dh']:<3} S={S} "
+              f"lengths={lengths} max|err|={err:.3e} "
+              f"({'tol 1e-6' if shp == serve else 'measured'}; against "
+              f"the split twin {terr:.1e}, tol 1e-6) residuals {rerr:.1e} "
+              f"(tol 1e-5) {'ok' if good else 'FAIL'}")
+        worst = max(worst, terr)
     report["flash_decode_max_abs_err"] = worst
 
     q, kp, vp, lens = _decode_inputs(torch, np, BINARY8, report["seed"] + 3,
@@ -1077,8 +1246,74 @@ def run_ops(torch, np, report, libs):
     print(f"[ops] pack/unpack/cast/matmul on a 4096x14336 weight: "
           f"mismatches {res}, matmul {mm_err:.2e} x |a|@|w| (tol 1e-6), "
           f"launches {counts} {'ok' if ok else 'FAIL'}")
+    ok &= run_ops_packed_a(torch, report, libs, gen, wp, wd)
     del w, a, wp, wd, y, want, unit
     torch.cuda.empty_cache()
+    return ok
+
+
+def run_ops_packed_a(torch, report, libs, gen, wp, wd):
+    """The ops path's matmul on packed activations (the reference's
+    ``fmt_a``): for each paper format of A at M = 4 and 64 against the
+    binary16alt 4096 x 14336 weight, the product is bit-identical to the
+    product on the decoded A and within 1e-6 in units of |a| @ |w| of the
+    oracle path; each call is one launch of qmm_tc (counted by kernel,
+    the pack and unpack around it not counted); then the packed-A calls
+    are timed beside the f32-A call at the same shape."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import qmatmul as Q
+
+    timer = Timer(torch)
+    ok, rows = True, {}
+    for aname in A_FORMATS:
+        for M in (4, 64):
+            ap = ops.pack(torch.randn((M, 4096), generator=gen,
+                                      device="cuda"), aname)
+            torch.cuda.synchronize()
+            for lib in libs:
+                lib.reset_counts()
+            y = ops.matmul(ap, wp, aname, "binary16alt")
+            torch.cuda.synchronize()
+            launches = dict(libs[0].by_kernel)
+            total = sum(lib.launches for lib in libs)
+            ad = ops.unpack(ap, aname)
+            same = torch.equal(y, ops.matmul(ad, wp, None, "binary16alt"))
+            want = ops.matmul(ap, wp, aname, "binary16alt", use_pallas=False)
+            err = float(((y - want).abs() / (ad.abs() @ wd.abs()
+                                               + 1.0)).max())
+            abs_err = float((y - want).abs().max())
+            good = same and err <= 1e-6 and launches == {"qmm_tc": 1} \
+                and total == 1
+            ok &= good
+            t = timer(lambda: ops.matmul(ap, wp, aname, "binary16alt"))
+            t_f32 = timer(lambda: ops.matmul(ad, wp, None, "binary16alt"))
+            t_plain = timer(lambda: ops.matmul(ap, wp, aname, "binary16alt",
+                                               use_pallas=False), iters=5)
+            nbytes = 4096 * 14336 * 2 + ap.numel() * ap.element_size() \
+                + M * 14336 * 4
+            bound, by = qmm_bound(Q, Q.get_format("binary16alt"), nbytes,
+                                  2 * M * 4096 * 14336)
+            rows[f"{aname} M={M}"] = dict(
+                bit_identical=same, err_in_acc_units=err, max_abs_err=abs_err,
+                launches=launches,
+                ms=t, f32_a_ms=t_f32, plain_ms=t_plain, bound_ms=bound,
+                bound_by=by, ok=good)
+            print(f"[ops] matmul packed A {aname:<11} M={M:<2} x binary16alt "
+                  f"4096x14336: bit-identical to the decoded A {same}, "
+                  f"{err:.2e} x |a|@|w| (tol 1e-6), launches {launches}; "
+                  f"{t:.4f} ms (f32 A {t_f32:.4f} ms, plain {t_plain:.3f} "
+                  f"ms, bound {bound:.4f} ms) {'ok' if good else 'FAIL'}")
+            if aname == "binary8" and M == 64:
+                report["timings"].append(dict(
+                    kernel="qmm_packed_a", fmt_a=aname, M=M, ms=t,
+                    plain_ms=t_plain, library_ms=None, bound_ms=bound,
+                    bound_by=by, bytes=nbytes, f32_a_ms=t_f32))
+            del ap, ad, y, want
+    report["ops_packed_a"] = rows
+    report["ops_packed_a_launches"] = sum(
+        r["launches"].get("qmm_tc", 0) for r in rows.values())
+    report["qmm_packed_a_max_abs_err"] = max(r["max_abs_err"]
+                                            for r in rows.values())
     return ok
 
 
@@ -1241,6 +1476,104 @@ def run_serve(torch, report, libs, args, decode_impl="paged", key="serve",
         report[key]["tokens_differing_from_paged"] = diff
         print(f"[{key}] tokens differing from the paged run: {diff} of "
               f"{tokens} (both exact to rounding; not asserted)")
+    return ok
+
+
+# the reduced serve: llama3-8b --reduced (2 layers, head_dim 16, G 2),
+# 4 requests x (40 prompt + 8 new) over 2 slots, page 16
+RED_REQUESTS, RED_SLOTS, RED_PROMPT, RED_MAX_NEW, RED_PAGE = 4, 2, 40, 8, 16
+
+
+def run_serve_reduced(torch, report, libs, args):
+    """``serve --arch llama3-8b --reduced`` (head_dim 16, G 2: shapes the
+    attention kernels took only once widened) under ``paged`` and
+    ``flash_pallas``: every request gets all its tokens; every decode
+    step launches 13 qmm and 2 of the decode backend's kernel, every
+    prefill chunk 13 qmm and 2 flash_prefill (launch tuples as in
+    :func:`run_serve`); then the first-step logits of the reduced model
+    (a 40-token prefill chunk and a decode step) on the kernel path
+    against the plain path, at the logits phase's tolerance for
+    transprecision (2^-5 x max|logit|), with the kernel path's attention
+    launches counted."""
+    from repro_torch.engine import worker
+    from repro_torch.models.registry import build
+
+    ok = True
+    model, cfg = build("llama3-8b", reduced=True)
+    layers = cfg.n_layers
+    qmm_n = 6 * layers + 1
+    for dec in ("paged", "flash_pallas"):
+        key = f"serve_reduced_{dec}"
+        stats = f"{key}_stats.jsonl"
+        argv = ["--arch", "llama3-8b", "--reduced", "--policy",
+                "transprecision", "--decode-impl", dec, "--matmul-impl",
+                "qmm_pallas", "--page-size", str(RED_PAGE), "--requests",
+                str(RED_REQUESTS), "--slots", str(RED_SLOTS), "--prompt-len",
+                str(RED_PROMPT), "--max-new", str(RED_MAX_NEW),
+                "--capacity", str(4 * RED_PAGE), "--seed", str(args.seed),
+                "--stats-out", os.path.join(args.out, stats)]
+        reqs, per, launches, wall, _ = _drive_serve(
+            torch, libs, argv, {"decode": (worker.DecodeWorker, "step"),
+                                "prefill": (worker.PrefillWorker, "step")})
+        want_dec = (qmm_n, layers, 0, 0, 0) if dec == "paged" \
+            else (qmm_n, 0, 0, layers, 0)
+        want_pre = (qmm_n, 0, layers, 0, 0)
+        good = len(reqs) == RED_REQUESTS
+        good &= all(r.done and not r.failed for r in reqs)
+        good &= all(len(r.generated) == RED_MAX_NEW for r in reqs)
+        good &= all(0 <= t < cfg.vocab for r in reqs for t in r.generated)
+        good &= _counts_ok(per["decode"], want_dec)
+        good &= _counts_ok(per["prefill"], want_pre)
+        summary = _serve_summary(args, stats)
+        report[key] = dict(
+            decode_impl=dec, requests=len(reqs), wall_s=wall,
+            tok_per_s=summary["tokens_per_s"], launches=launches,
+            decode_steps=len(per["decode"]),
+            prefill_chunks=len(per["prefill"]),
+            per_decode_step=sorted(set(per["decode"])),
+            per_prefill_chunk=sorted(set(per["prefill"])),
+            generated=[r.generated for r in reqs], ok=good)
+        print(f"[serve_reduced] llama3-8b --reduced (2 layers, head_dim "
+              f"{cfg.head_dim}, G {cfg.n_heads // cfg.n_kv}), decode {dec}: "
+              f"{len(reqs)} requests, {sum(len(r.generated) for r in reqs)} "
+              f"tokens in {wall:.2f} s; per decode step "
+              f"{sorted(set(per['decode']))} (want {want_dec}), per prefill "
+              f"chunk {sorted(set(per['prefill']))} (want {want_pre}) "
+              f"{'ok' if good else 'FAIL'}")
+        ok &= good
+
+        res = {}
+        for path, pair in (("kernel", (dec, "qmm_pallas")),
+                           ("plain", ("xla", "xla"))):
+            for lib in libs:
+                lib.reset_counts()
+            res[path] = _first_step_logits(torch, model, cfg,
+                                           "transprecision", *pair,
+                                           args.seed, prompt=RED_PROMPT,
+                                           page=RED_PAGE)
+            if path == "kernel":
+                attn = (libs[2].launches,
+                        libs[1].launches if dec == "paged"
+                        else libs[3].launches)
+        rel = 2.0 ** -5
+        for i, what in enumerate(("prefill chunk", "decode step")):
+            a, b = res["kernel"][i], res["plain"][i]
+            err = float((a - b).abs().max())
+            scale = float(b.abs().max())
+            good = err <= rel * max(scale, 1.0) and bool(
+                torch.isfinite(a).all()) and attn == (layers, layers)
+            ok &= good
+            report["logits"].append(dict(policy="transprecision",
+                                         config="llama3-8b reduced",
+                                         decode_impl=dec, what=what,
+                                         max_abs_err=err, max_abs_logit=scale,
+                                         tol_rel=rel,
+                                         attention_launches=attn, ok=good))
+            print(f"[serve_reduced] logits {dec:<12} {what:<13} reduced: "
+                  f"max|kernel - plain| = {err:.3e} (max|logit| "
+                  f"{scale:.3f}, tol {rel:.2e} x that), attention launches "
+                  f"(flash_prefill, decode) {attn} (want ({layers}, "
+                  f"{layers})) {'ok' if good else 'FAIL'}")
     return ok
 
 
@@ -1532,9 +1865,6 @@ def check_logits(torch, report, args, qmm_lib):
     at every row count.  The binary32 kernel-path runs take the CUDA-core
     route (``qmm_launch``: the GEMV and qmm_tile): their launches are
     counted."""
-    from repro_torch.core.policy import get_policy
-    from repro_torch.kernels import paged_cache
-    from repro_torch.models import qparams
     from repro_torch.models.registry import build
     from repro_torch.models.transformer import Model
 
@@ -1556,28 +1886,11 @@ def check_logits(torch, report, args, qmm_lib):
         res = {}
         for path, (dec, mm) in (("kernel", ("paged", "qmm_pallas")),
                                 ("plain", ("xla", "xla"))):
-            policy = get_policy(pol, decode_impl=dec, matmul_impl=mm)
-            gen = torch.Generator(device="cuda").manual_seed(args.seed)
-            params = model.init_params(gen, policy, device="cuda")
-            if mm == "qmm_pallas":
-                params = qparams.encode_params(params, policy)
-            states = [paged_cache.set_block_tables(
-                paged_cache.init_paged_cache(
-                    1, 4, 64, 4, cfg.n_kv, cfg.head_dim,
-                    policy.dtype("kv_cache"), device="cuda"),
-                [[0, 1, 2, 3]]) for _ in range(cfg.n_layers)]
-            g = torch.Generator().manual_seed(args.seed)
-            toks = torch.randint(0, cfg.vocab, (1, 64), generator=g)
             before = f32_launches()
-            lp, states = model.prefill_chunk(params, toks.cuda(), states,
-                                             policy, slot=0, q_offset=0)
-            ld, _ = model.decode_step(
-                params, toks[:, -1:].cuda(), states, policy)
+            res[path] = _first_step_logits(torch, model, cfg, pol, dec, mm,
+                                           args.seed, prompt=64, page=64)
             if pol == "binary32" and path == "kernel":
                 f32 += f32_launches() - before
-            res[path] = (lp.float(), ld.float())
-            del params, states
-            torch.cuda.empty_cache()
         for i, what in enumerate(("prefill chunk", "decode step")):
             a, b = res["kernel"][i], res["plain"][i]
             err = float((a - b).abs().max())
@@ -1605,6 +1918,38 @@ def check_logits(torch, report, args, qmm_lib):
     ok &= f32 > 0
     ok &= check_rmsnorm_rows(torch, report, args)
     return ok
+
+
+def _first_step_logits(torch, model, cfg, pol, dec, mm, seed, *, prompt,
+                       page):
+    """Logits of one prefill chunk of ``prompt`` random tokens (seeded)
+    into a one-slot paged cache of 4 pages of ``page``, then of one
+    decode step, under ``pol`` with decode backend ``dec`` and matmul
+    ``mm`` (``qmm_pallas`` packs the weights): the kernel path
+    (paged / flash_pallas, qmm_pallas) or the plain one (xla, xla)."""
+    from repro_torch.core.policy import get_policy
+    from repro_torch.kernels import paged_cache
+    from repro_torch.models import qparams
+
+    policy = get_policy(pol, decode_impl=dec, matmul_impl=mm)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = model.init_params(gen, policy, device="cuda")
+    if mm == "qmm_pallas":
+        params = qparams.encode_params(params, policy)
+    states = [paged_cache.set_block_tables(
+        paged_cache.init_paged_cache(
+            1, 4, page, 4, cfg.n_kv, cfg.head_dim,
+            policy.dtype("kv_cache"), device="cuda"),
+        [[0, 1, 2, 3]]) for _ in range(cfg.n_layers)]
+    g = torch.Generator().manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab, (1, prompt), generator=g)
+    lp, states = model.prefill_chunk(params, toks.cuda(), states, policy,
+                                     slot=0, q_offset=0)
+    ld, _ = model.decode_step(params, toks[:, -1:].cuda(), states, policy)
+    out = (lp.float(), ld.float())
+    del params, states
+    torch.cuda.empty_cache()
+    return out
 
 
 def _bits(t):
@@ -1719,21 +2064,23 @@ def check_rmsnorm_rows(torch, report, args):
 # ---------------------------------------------------------------------------
 
 ALL_PHASES = ("build", "kernels", "casts", "ops", "serve", "serve_flash",
-              "speculative", "serve_f32", "logits", "profile")
+              "speculative", "serve_f32", "serve_reduced", "logits",
+              "profile")
 
 
 def kernel_rows(report):
     """The ``{"kernels": [...]}`` entries: one per kernel, its launches
     from the main-path run that drives it (the serve phase for qmm's
     tensor-core kernel, paged_decode and flash_prefill, serve_flash for
-    flash_decode, the ops phase for the three cast kernels, serve_f32 for
-    qmm's CUDA-core kernels).  qmm has four rows: ``qmm_gemv``
-    (``qmm_launch`` at M <= 8, binary32 weights, times per decode step,
-    launches of serve_f32's decode steps and heads), ``qmm_tile``
-    (``qmm_launch`` at M > 8, binary32, times and launches per prefill
-    chunk), ``qmm_tc`` (``qmm_tc_launch``, times and launches per prefill
-    chunk) and ``qmm_tc_decode_step`` (the same kernel, times and
-    launches per decode step)."""
+    flash_decode, the ops phase for the three cast kernels and for qmm on
+    packed activations, serve_f32 for qmm's CUDA-core kernels).  qmm has
+    five rows: ``qmm_gemv`` (``qmm_launch`` at M <= 8, binary32 weights,
+    times per decode step, launches of serve_f32's decode steps and
+    heads), ``qmm_tile`` (``qmm_launch`` at M > 8, binary32, times and
+    launches per prefill chunk), ``qmm_tc`` (``qmm_tc_launch``, times and
+    launches per prefill chunk), ``qmm_tc_decode_step`` (the same kernel,
+    times and launches per decode step) and ``qmm_packed_a`` (the same
+    kernel on binary8 activations, M = 64, the ops phase's launches)."""
     def timing(name, **match):
         return next((t for t in report["timings"] if t["kernel"] == name
                      and all(t.get(k) == v for k, v in match.items())), None)
@@ -1764,6 +2111,9 @@ def kernel_rows(report):
         ("qmm_tc_decode_step", qmm_src, qmm_tpu,
          by_kernel("serve", "decode", "qmm_tc"),
          report.get("qmm_tc_max_abs_err"), report.get("qmm_step")),
+        ("qmm_packed_a", qmm_src, qmm_tpu,
+         report.get("ops_packed_a_launches", 0),
+         report.get("qmm_packed_a_max_abs_err"), timing("qmm_packed_a")),
         ("paged_decode", "src/repro_torch/csrc/paged_decode.cu",
          "src/repro/kernels/paged_attention.py:52",
          serve.get("paged_decode", 0), report.get("paged_max_abs_err"),
@@ -1862,6 +2212,7 @@ def main() -> int:
             elif phase == "kernels":
                 timer = timer or Timer(torch)
                 ok = check_qmm(torch, np, report)
+                ok &= check_qmm_packed_a(torch, np, report)
                 ok &= check_paged(torch, np, report, timer)
                 ok &= check_prefill(torch, np, report, timer)
                 ok &= check_flash_decode(torch, np, report)
@@ -1889,6 +2240,8 @@ def main() -> int:
             elif phase == "serve_f32":
                 ok = run_serve(torch, report, libs, args, "paged",
                                "serve_f32", policy="binary32")
+            elif phase == "serve_reduced":
+                ok = run_serve_reduced(torch, report, libs, args)
             elif phase == "logits":
                 ok = check_logits(torch, report, args, qmatmul.LIB)
             elif phase == "profile":

@@ -40,6 +40,16 @@
 //  * Masks come from indices in registers; scores, the online softmax
 //    (reference sentinel NEG_INF = -1e30, exact-zero masking) and the
 //    accumulator are f32; a row with l = 0 is written as zeros.
+//  * Every G from 1 up (the rows are flattened over (position, G)) and
+//    every head_dim dh that is a multiple of 8 up to 256: the kernel is
+//    instantiated for a padded width DH of 32, 64, 128 or 256 and zero-
+//    fills q, K and V past dh in shared memory (zeros add nothing to a
+//    score, and the padded columns are not written).  head_dim 64 and 128
+//    (kExact) run with dh fixed at compile time, as before the widening.  A row of dh packed
+//    containers that is not a multiple of 16 bytes (u8 with dh = 8, 24,
+//    ...) comes in as 8 B copies.  At DH = 256 an f32 ring of two stages
+//    does not fit beside the decoded tiles, so f32 containers take one
+//    stage there (tile t + 1 still loads while tile t computes).
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -83,30 +93,64 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                "l"(gmem), "r"(pred ? 16 : 0));
 }
 
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem,
+                                          bool pred) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(pred ? 8 : 0));
+}
+
+// stages of the packed ring (one where two would not fit)
+template <typename T, int DH>
+__host__ __device__ constexpr int raw_stages() {
+  return sizeof(T) == 4 && DH == 256 ? 1 : 2;
+}
+
 template <typename T, int DH>
 constexpr size_t smem_bytes() {
   return sizeof(float) * (kRows * DH + 2 * kBKV * (DH + 4) + 2 * kBKV * DH) +
-         2 * 2 * kBKV * DH * sizeof(T);
+         raw_stages<T, DH>() * 2 * kBKV * DH * sizeof(T);
 }
 
-template <typename T, int E, int M, int DH>
+// kCols consecutive floats of shared memory
+template <int kCols>
+__device__ __forceinline__ void load_cols(const float* p, float v[kCols]) {
+  if constexpr (kCols == 1) {
+    v[0] = p[0];
+  } else if constexpr (kCols == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x; v[1] = t.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < kCols; i += 4) {
+      const float4 t = *reinterpret_cast<const float4*>(p + i);
+      v[i] = t.x; v[i + 1] = t.y; v[i + 2] = t.z; v[i + 3] = t.w;
+    }
+  }
+}
+
+template <typename T, int E, int M, int DH, bool kExact>
 __global__ void __launch_bounds__(kThreads)
 flash_prefill_kernel(const float* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, float* __restrict__ out,
-                     int Sq, int Skv, int H, int G, float scale, int window,
-                     int prefix_len, int q_offset, int rt_e, int rt_m,
-                     int vec) {
+                     int Sq, int Skv, int H, int G, int dh, float scale,
+                     int window, int prefix_len, int q_offset, int rt_e,
+                     int rt_m, int vec) {
   constexpr int kKS = DH + 4;                  // f32 K row stride
   constexpr int kCols = DH / 32;               // P.V columns a lane
-  constexpr int kRawRow = DH * sizeof(T);      // bytes of one key's row
+  constexpr int kRawRow = DH * sizeof(T);      // bytes of one key's padded row
   constexpr int kRawTile = kBKV * kRawRow;     // bytes of a K (or V) tile
   constexpr int kChunks = kRawTile / 16;
   constexpr int kPer = 16 / sizeof(T);         // elements a chunk
+  constexpr int kRS = raw_stages<T, DH>();
+  if (kExact) dh = DH;
+  const int row_bytes = dh * (int)sizeof(T);   // bytes of one key's row
+  const bool half = row_bytes % 16 != 0;       // copied as 8 B halves
   extern __shared__ __align__(16) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);  // [kRows][DH]
   float* Ks = Qs + kRows * DH;                 // [2][kBKV][kKS]
   float* Vs = Ks + 2 * kBKV * kKS;             // [2][kBKV][DH]
-  unsigned char* raw =                         // [2 stages][K, V][kRawTile]
+  unsigned char* raw =                         // [kRS stages][K, V][kRawTile]
       reinterpret_cast<unsigned char*>(Vs + 2 * kBKV * DH);
 
   const int rows = Sq * G;
@@ -117,8 +161,8 @@ flash_prefill_kernel(const float* __restrict__ q, const T* __restrict__ k,
   for (int i = tid; i < kRows * DH; i += kThreads) {
     const int fr = r0 + i / DH, d = i % DH;
     const int qp = fr / G, g = fr % G;
-    Qs[i] = fr < rows
-                ? q[((((size_t)b * Sq + qp) * H + h) * G + g) * DH + d]
+    Qs[i] = fr < rows && d < dh
+                ? q[((((size_t)b * Sq + qp) * H + h) * G + g) * dh + d]
                 : 0.0f;
   }
 
@@ -136,7 +180,8 @@ flash_prefill_kernel(const float* __restrict__ q, const T* __restrict__ k,
     return min(t, n_tiles);
   };
 
-  // this thread's chunks of tile t -> ring stage st (zero past Skv)
+  // this thread's chunks of tile t -> ring stage st (zero past Skv and
+  // past dh)
   auto load = [&](int t, int st) {
     if (t >= n_tiles) return;
     unsigned char* rk = raw + st * 2 * kRawTile;
@@ -144,18 +189,25 @@ flash_prefill_kernel(const float* __restrict__ q, const T* __restrict__ k,
     for (int c = tid; c < kChunks; c += kThreads) {
       const int kp = t * kBKV + c / (kRawRow / 16);
       const int e0 = (c % (kRawRow / 16)) * kPer;
-      const bool in = kp < Skv;
-      const size_t off = (((size_t)b * Skv + kp) * H + h) * DH + e0;
-      if (vec) {
+      const bool in = kp < Skv && e0 < dh;
+      const size_t off = (((size_t)b * Skv + kp) * H + h) * dh + e0;
+      if (vec && !half) {
         cp_async16(rk + 16 * c, in ? k + off : k, in);
         cp_async16(rv + 16 * c, in ? v + off : v, in);
+      } else if (vec) {
+        const bool hi = in && e0 + kPer / 2 < dh;
+        cp_async8(rk + 16 * c, in ? k + off : k, in);
+        cp_async8(rv + 16 * c, in ? v + off : v, in);
+        cp_async8(rk + 16 * c + 8, hi ? k + off + kPer / 2 : k, hi);
+        cp_async8(rv + 16 * c + 8, hi ? v + off + kPer / 2 : v, hi);
       } else {
         T* dk = reinterpret_cast<T*>(rk + 16 * c);
         T* dv = reinterpret_cast<T*>(rv + 16 * c);
 #pragma unroll
         for (int j = 0; j < kPer; ++j) {
-          dk[j] = in ? k[off + j] : T(0);
-          dv[j] = in ? v[off + j] : T(0);
+          const bool ej = kp < Skv && e0 + j < dh;
+          dk[j] = ej ? k[off + j] : T(0);
+          dv[j] = ej ? v[off + j] : T(0);
         }
       }
     }
@@ -200,23 +252,37 @@ flash_prefill_kernel(const float* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < kCols; ++j) acc[i][j] = 0.0f;
   }
 
+  // raw stage st holds tile ta (and with two stages stage st ^ 1 tile tb);
+  // f32 tile f = it & 1 holds the tile being computed
   int ta = next_live(0);
   int tb = next_live(ta + 1);
   load(ta, 0);
   asm volatile("cp.async.commit_group;\n" ::: "memory");
-  load(tb, 1);
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  if constexpr (kRS == 2) {
+    load(tb, 1);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
   for (int it = 0; ta < n_tiles; ++it) {
-    const int st = it & 1;
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-    decode(st, st);
+    const int f = it & 1;
+    const int st = kRS == 2 ? f : 0;
+    if constexpr (kRS == 2) {
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    decode(st, f);
     __syncthreads();          // tile ta decoded; the previous one consumed
     const int tc = next_live(tb + 1);
-    load(tc, st);             // stage st's bytes were this thread's own
+    // stage st's bytes were this thread's own
+    if constexpr (kRS == 2) {
+      load(tc, st);
+    } else {
+      load(tb, st);
+    }
     asm volatile("cp.async.commit_group;\n" ::: "memory");
 
-    const float* ks = Ks + st * kBKV * kKS;
-    const float* vs = Vs + st * kBKV * DH;
+    const float* ks = Ks + f * kBKV * kKS;
+    const float* vs = Vs + f * kBKV * DH;
     const int ki = ta * kBKV + lane;
     float s[kRowsPerWarp];
 #pragma unroll
@@ -254,15 +320,7 @@ flash_prefill_kernel(const float* __restrict__ q, const T* __restrict__ k,
 #pragma unroll 8
     for (int c = 0; c < kBKV; ++c) {
       float vv[kCols];
-      if constexpr (kCols == 4) {
-        const float4 t = *reinterpret_cast<const float4*>(vs + c * DH +
-                                                          lane * 4);
-        vv[0] = t.x; vv[1] = t.y; vv[2] = t.z; vv[3] = t.w;
-      } else {
-        const float2 t = *reinterpret_cast<const float2*>(vs + c * DH +
-                                                          lane * 2);
-        vv[0] = t.x; vv[1] = t.y;
-      }
+      load_cols<kCols>(vs + c * DH + lane * kCols, vv);
 #pragma unroll
       for (int i = 0; i < kRowsPerWarp; ++i) {
         const float pc = __shfl_sync(0xffffffffu, p[i], c);
@@ -284,28 +342,30 @@ flash_prefill_kernel(const float* __restrict__ q, const T* __restrict__ k,
     const int fr = r0 + warp * kRowsPerWarp + i;
     if (fr >= rows) continue;
     const int qp = fr / G, g = fr % G;
-    float* o = out + ((((size_t)b * Sq + qp) * H + h) * G + g) * DH +
+    float* o = out + ((((size_t)b * Sq + qp) * H + h) * G + g) * dh +
                lane * kCols;
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) o[j] = l[i] > 0.0f ? acc[i][j] / l[i] : 0.0f;
+    for (int j = 0; j < kCols; ++j)
+      if (lane * kCols + j < dh) o[j] = l[i] > 0.0f ? acc[i][j] / l[i] : 0.0f;
   }
 }
 
-template <typename T, int E, int M, int DH>
+template <typename T, int E, int M, int DH, bool kExact>
 cudaError_t launch_dh(const float* q, const void* k, const void* v,
                       float* out, int B, int Sq, int Skv, int H, int G,
-                      float scale, int window, int prefix_len, int q_offset,
-                      int rt_e, int rt_m, cudaStream_t stream) {
+                      int dh, float scale, int window, int prefix_len,
+                      int q_offset, int rt_e, int rt_m, cudaStream_t stream) {
   const size_t smem = smem_bytes<T, DH>();
-  auto kern = flash_prefill_kernel<T, E, M, DH>;
+  auto kern = flash_prefill_kernel<T, E, M, DH, kExact>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  const int vec = (((uintptr_t)k | (uintptr_t)v) & 15u) == 0;
+  const uintptr_t mask = (dh * sizeof(T)) % 16 ? 7u : 15u;
+  const int vec = (((uintptr_t)k | (uintptr_t)v) & mask) == 0;
   const dim3 grid((Sq * G + kRows - 1) / kRows, H, B);
   kern<<<grid, kThreads, smem, stream>>>(
       q, static_cast<const T*>(k), static_cast<const T*>(v), out, Sq, Skv, H,
-      G, scale, window, prefix_len, q_offset, rt_e, rt_m, vec);
+      G, dh, scale, window, prefix_len, q_offset, rt_e, rt_m, vec);
   return cudaGetLastError();
 }
 
@@ -314,16 +374,21 @@ cudaError_t launch_fmt(int dh, const float* q, const void* k, const void* v,
                        float* out, int B, int Sq, int Skv, int H, int G,
                        float scale, int window, int prefix_len, int q_offset,
                        int rt_e, int rt_m, cudaStream_t s) {
-  switch (dh) {
-    case 64: return launch_dh<T, E, M, 64>(q, k, v, out, B, Sq, Skv, H, G, scale, window, prefix_len, q_offset, rt_e, rt_m, s);
-    case 128: return launch_dh<T, E, M, 128>(q, k, v, out, B, Sq, Skv, H, G, scale, window, prefix_len, q_offset, rt_e, rt_m, s);
-    default: return cudaErrorInvalidValue;
+  if (dh < 8 || dh > 256 || dh % 8 != 0) return cudaErrorInvalidValue;
+  if constexpr (E >= 0) {
+    if (dh == 128) return launch_dh<T, E, M, 128, true>(q, k, v, out, B, Sq, Skv, H, G, dh, scale, window, prefix_len, q_offset, rt_e, rt_m, s);
+    if (dh == 64) return launch_dh<T, E, M, 64, true>(q, k, v, out, B, Sq, Skv, H, G, dh, scale, window, prefix_len, q_offset, rt_e, rt_m, s);
   }
+  if (dh <= 32) return launch_dh<T, E, M, 32, false>(q, k, v, out, B, Sq, Skv, H, G, dh, scale, window, prefix_len, q_offset, rt_e, rt_m, s);
+  if (dh <= 64) return launch_dh<T, E, M, 64, false>(q, k, v, out, B, Sq, Skv, H, G, dh, scale, window, prefix_len, q_offset, rt_e, rt_m, s);
+  if (dh <= 128) return launch_dh<T, E, M, 128, false>(q, k, v, out, B, Sq, Skv, H, G, dh, scale, window, prefix_len, q_offset, rt_e, rt_m, s);
+  return launch_dh<T, E, M, 256, false>(q, k, v, out, B, Sq, Skv, H, G, dh, scale, window, prefix_len, q_offset, rt_e, rt_m, s);
 }
 
 }  // namespace
 
-// fmt_code as in qmm.cu.  window <= 0: no sliding window.
+// fmt_code as in qmm.cu.  window <= 0: no sliding window.  G >= 1; dh a
+// multiple of 8 in 8..256.
 extern "C" int flash_prefill_launch(const void* q, const void* k,
                                     const void* v, void* out, int B, int Sq,
                                     int Skv, int H, int G, int dh,

@@ -110,6 +110,14 @@
 //  * The gate weight G is streamed in the same K sweep (the gated FFN in
 //    one launch); bias, nonlinearity, gate and output quantization run in
 //    the epilogue, in the reference's order.
+//  * Packed activations (the reference's fmt_a, the ops API's matmul):
+//    a_code names A's format as fmt_code names the weights' (0: f32).
+//    Decoding is exact, so A is decoded once per launch through codec.cuh
+//    before the product and the summation order stays the one above: on
+//    the tensor cores inside qmm_split_a, which makes its one pass over A
+//    anyway; on the CUDA cores by qmm_decode_a into f32 scratch that the
+//    GEMV and qmm_tile then read as their activation.  A product on
+//    packed A equals the product on its decoded f32 values bit for bit.
 // Speed work still open: wgmma with TMA for qmm_tc, and a GEMV that
 // reaches the decode step's byte bound.
 
@@ -130,10 +138,10 @@
 
 // a tensor-core unit's launcher (qmm_tc_launch dispatches to it)
 #define QMM_TC_PARAMS                                                     \
-  const float *a, float *asplit, const void *b, const void *g,           \
+  const void *a, float *asplit, const void *b, const void *g,            \
       const float *bias, float *out, float *ws, int M, int K, int N,       \
       int splits, int k_chunk, int act, int out_e, int out_m, int promote, \
-      cudaStream_t stream
+      int a_code, int a_e, int a_m, cudaStream_t stream
 extern "C" int qmm_tc_fmt1(QMM_TC_PARAMS);
 extern "C" int qmm_tc_fmt2(QMM_TC_PARAMS);
 extern "C" int qmm_tc_fmt3(QMM_TC_PARAMS);
@@ -427,14 +435,21 @@ __device__ __forceinline__ void split_tf32(float a, float& hi, float& lo) {
   lo = isfinite(a) ? tf32_rna(a - h) : 0.0f;
 }
 
-// The activation (M x K, f32) -> its TF32 parts a_hi and a_lo (each
-// M x K), once per launch, before the tensor-core kernel reads them.
-__global__ void qmm_split_a(const float* __restrict__ a,
+// The activation (M x K) -> its TF32 parts a_hi and a_lo (each M x K),
+// once per launch, before the tensor-core kernel reads them.  TA = float:
+// f32 activations; else containers of (EA, MA) (EA < 0: (rt_e, rt_m) at
+// run time), each decoded exactly through codec.cuh before its split.
+template <typename TA, int EA, int MA>
+__global__ void qmm_split_a(const TA* __restrict__ a,
                             float* __restrict__ hi, float* __restrict__ lo,
-                            size_t n, int vec) {
+                            size_t n, int vec, int rt_e, int rt_m) {
   const size_t stride = (size_t)gridDim.x * blockDim.x;
   size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (vec) {
+  if constexpr (sizeof(TA) < 4 || EA != 8 || MA != 23) {
+    for (; i < n; i += stride)
+      split_tf32(codec::decode_t<EA, MA>((uint32_t)a[i], rt_e, rt_m), hi[i],
+                 lo[i]);
+  } else if (vec) {
     for (; 4 * i < n; i += stride) {
       const float4 v = reinterpret_cast<const float4*>(a)[i];
       float4 h, l;
@@ -448,6 +463,29 @@ __global__ void qmm_split_a(const float* __restrict__ a,
   } else {
     for (; i < n; i += stride) split_tf32(a[i], hi[i], lo[i]);
   }
+}
+
+// qmm_split_a for the activation format a_code (fmt_code numbering)
+inline cudaError_t split_a(const void* a, float* a_hi, float* a_lo, size_t n,
+                           int a_code, int a_e, int a_m,
+                           cudaStream_t stream) {
+  const int vec_a = a_code == 0 && n % 4 == 0 &&
+      (((uintptr_t)a | (uintptr_t)a_hi | (uintptr_t)a_lo) & 15u) == 0;
+  const size_t work = vec_a ? n / 4 : n;
+  const int blocks = (int)((work + 255) / 256 < 2048 ? (work + 255) / 256
+                                                      : 2048);
+  switch (a_code) {
+    case 0: qmm_split_a<float, 8, 23><<<blocks, 256, 0, stream>>>(static_cast<const float*>(a), a_hi, a_lo, n, vec_a, a_e, a_m); break;
+    case 1: qmm_split_a<uint8_t, 5, 2><<<blocks, 256, 0, stream>>>(static_cast<const uint8_t*>(a), a_hi, a_lo, n, 0, a_e, a_m); break;
+    case 2: qmm_split_a<uint8_t, 4, 3><<<blocks, 256, 0, stream>>>(static_cast<const uint8_t*>(a), a_hi, a_lo, n, 0, a_e, a_m); break;
+    case 3: qmm_split_a<uint16_t, 5, 10><<<blocks, 256, 0, stream>>>(static_cast<const uint16_t*>(a), a_hi, a_lo, n, 0, a_e, a_m); break;
+    case 4: qmm_split_a<uint16_t, 8, 7><<<blocks, 256, 0, stream>>>(static_cast<const uint16_t*>(a), a_hi, a_lo, n, 0, a_e, a_m); break;
+    case 5: qmm_split_a<uint8_t, -1, -1><<<blocks, 256, 0, stream>>>(static_cast<const uint8_t*>(a), a_hi, a_lo, n, 0, a_e, a_m); break;
+    case 6: qmm_split_a<uint16_t, -1, -1><<<blocks, 256, 0, stream>>>(static_cast<const uint16_t*>(a), a_hi, a_lo, n, 0, a_e, a_m); break;
+    case 7: qmm_split_a<uint32_t, -1, -1><<<blocks, 256, 0, stream>>>(static_cast<const uint32_t*>(a), a_hi, a_lo, n, 0, a_e, a_m); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
 }
 
 // Packed weight -> f32 bit pattern, exact and TF32-representable for the
@@ -761,23 +799,19 @@ cudaError_t launch_tc_bm(const float* a_hi, const float* a_lo, const TB* b,
 
 // asplit: 2 * M * K floats for a_hi and a_lo
 template <typename TB, int E, int M>
-cudaError_t launch_tc(const float* a, float* asplit, const void* bv,
+cudaError_t launch_tc(const void* a, float* asplit, const void* bv,
                       const void* gv, float* out, float* ws, Epilogue ep,
                       int Mrows, int K, int N, int splits, int k_chunk,
-                      int promote, cudaStream_t stream) {
+                      int promote, int a_code, int a_e, int a_m,
+                      cudaStream_t stream) {
   const TB* b = static_cast<const TB*>(bv);
   const TB* g = static_cast<const TB*>(gv);
   const size_t n = (size_t)Mrows * K;
   float* a_hi = asplit;
   float* a_lo = asplit + n;
-  const int vec_a = n % 4 == 0 &&
-      (((uintptr_t)a | (uintptr_t)a_hi | (uintptr_t)a_lo) & 15u) == 0;
-  const size_t work = vec_a ? n / 4 : n;
-  const int sblocks = (int)((work + 255) / 256 < 2048 ? (work + 255) / 256
-                                                       : 2048);
   if (n > 0) {
-    qmm_split_a<<<sblocks, 256, 0, stream>>>(a, a_hi, a_lo, n, vec_a);
-    const cudaError_t e = cudaGetLastError();
+    const cudaError_t e = split_a(a, a_hi, a_lo, n, a_code, a_e, a_m,
+                                  stream);
     if (e != cudaSuccess) return e;
   }
   const int aligned =
@@ -1139,6 +1173,35 @@ cudaError_t launch_tile(const float* a, const void* bv, const void* gv,
 
 #if QMM_UNIT == 0
 
+// A packed activation (M x K containers of (EA, MA); EA < 0: (rt_e, rt_m)
+// at run time) -> exact f32, once per launch, for the CUDA-core route.
+template <typename TA, int EA, int MA>
+__global__ void qmm_decode_a(const TA* __restrict__ a,
+                             float* __restrict__ out, size_t n, int rt_e,
+                             int rt_m) {
+  const size_t stride = (size_t)gridDim.x * blockDim.x;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride)
+    out[i] = codec::decode_t<EA, MA>((uint32_t)a[i], rt_e, rt_m);
+}
+
+// qmm_decode_a for the activation format a_code 1..7 (fmt_code numbering)
+cudaError_t decode_a(const void* a, float* out, size_t n, int a_code,
+                     int a_e, int a_m, cudaStream_t stream) {
+  const int blocks = (int)((n + 255) / 256 < 2048 ? (n + 255) / 256 : 2048);
+  switch (a_code) {
+    case 1: qmm_decode_a<uint8_t, 5, 2><<<blocks, 256, 0, stream>>>(static_cast<const uint8_t*>(a), out, n, a_e, a_m); break;
+    case 2: qmm_decode_a<uint8_t, 4, 3><<<blocks, 256, 0, stream>>>(static_cast<const uint8_t*>(a), out, n, a_e, a_m); break;
+    case 3: qmm_decode_a<uint16_t, 5, 10><<<blocks, 256, 0, stream>>>(static_cast<const uint16_t*>(a), out, n, a_e, a_m); break;
+    case 4: qmm_decode_a<uint16_t, 8, 7><<<blocks, 256, 0, stream>>>(static_cast<const uint16_t*>(a), out, n, a_e, a_m); break;
+    case 5: qmm_decode_a<uint8_t, -1, -1><<<blocks, 256, 0, stream>>>(static_cast<const uint8_t*>(a), out, n, a_e, a_m); break;
+    case 6: qmm_decode_a<uint16_t, -1, -1><<<blocks, 256, 0, stream>>>(static_cast<const uint16_t*>(a), out, n, a_e, a_m); break;
+    case 7: qmm_decode_a<uint32_t, -1, -1><<<blocks, 256, 0, stream>>>(static_cast<const uint32_t*>(a), out, n, a_e, a_m); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
 template <typename TB, int E, int M>
 cudaError_t launch_fmt(const float* a, const void* b, const void* g,
                        float* out, float* ws, Epilogue ep, int Mrows, int K,
@@ -1180,20 +1243,31 @@ cudaError_t launch_fmt(const float* a, const void* b, const void* g,
 // (gated ? 2 : 1) * splits * M * N floats.  This entry takes fmt_code 0
 // and 5-7 at every M (1-4 go to qmm_tc_launch); tile_m picks the kernel
 // and its rows a block (kernels/qmatmul.py, f32_tile_m): 4 or 8 the GEMV,
-// 16, 32 or 64 qmm_tile.  Both sum an output in one order.
-extern "C" int qmm_launch(const void* a, const void* b, const void* g,
-                          const void* bias, void* out, void* ws, int M,
-                          int K, int N, int splits, int fmt_code, int rt_e,
-                          int rt_m, int act, int out_e, int out_m, int vec,
-                          int tile_m, void* stream) {
+// 16, 32 or 64 qmm_tile.  Both sum an output in one order.  a_code: the
+// activation's format (0: f32; 1-7 packed, (a_e, a_m) for 5-7), decoded
+// into adec (M * K floats of scratch) before the product.
+extern "C" int qmm_launch(const void* a, void* adec, const void* b,
+                          const void* g, const void* bias, void* out,
+                          void* ws, int M, int K, int N, int splits,
+                          int fmt_code, int rt_e, int rt_m, int act,
+                          int out_e, int out_m, int vec, int tile_m,
+                          int a_code, int a_e, int a_m, void* stream) {
   const float* A = static_cast<const float*>(a);
   float* O = static_cast<float*>(out);
   float* W = static_cast<float*>(ws);
   const float* bs = static_cast<const float*>(bias);
   const Epilogue ep{bs, act, out_e, out_m, g != nullptr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (M < 1 || splits < 1 || (splits > 1 && ws == nullptr))
+  if (M < 1 || splits < 1 || (splits > 1 && ws == nullptr) ||
+      (a_code != 0 && adec == nullptr))
     return (int)cudaErrorInvalidValue;
+  if (a_code != 0) {
+    float* AD = static_cast<float*>(adec);
+    const cudaError_t e = decode_a(a, AD, (size_t)M * K, a_code, a_e, a_m,
+                                   s);
+    if (e != cudaSuccess) return (int)e;
+    A = AD;
+  }
   if (tile_m == 16 || tile_m == 32 || tile_m == 64) {
     if (fmt_code == 0)
       return qmm_tile_f32(A, b, g, bs, O, W, M, K, N, splits, tile_m,
@@ -1219,28 +1293,29 @@ extern "C" int qmm_launch(const void* a, const void* b, const void* g,
 // floats of scratch for the split activation.  splits > 1 needs k_chunk a
 // multiple of 32 with (splits - 1) * k_chunk < K, and ws as above.
 // promote = 0 keeps the whole K sweep in the mma accumulator (for
-// measuring what the promotion buys; the serving path passes 1).
+// measuring what the promotion buys; the serving path passes 1).  a_code:
+// the activation's format as in qmm_launch, decoded in qmm_split_a.
 extern "C" int qmm_tc_launch(const void* a, void* asplit, const void* b,
                              const void* g, const void* bias, void* out,
                              void* ws, int M, int K, int N, int splits,
                              int k_chunk, int fmt_code, int act, int out_e,
-                             int out_m, int promote, void* stream) {
+                             int out_m, int promote, int a_code, int a_e,
+                             int a_m, void* stream) {
   if (M < 1 || asplit == nullptr || splits < 1 || k_chunk < 1 ||
       (splits > 1 && (ws == nullptr || k_chunk % kTcBK != 0 ||
                       (long long)(splits - 1) * k_chunk >= K)))
     return (int)cudaErrorInvalidValue;
   if (splits == 1) k_chunk = K > 0 ? K : 1;
-  const float* A = static_cast<const float*>(a);
   float* AS = static_cast<float*>(asplit);
   const float* bs = static_cast<const float*>(bias);
   float* O = static_cast<float*>(out);
   float* W = static_cast<float*>(ws);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (fmt_code) {
-    case 1: return qmm_tc_fmt1(A, AS, b, g, bs, O, W, M, K, N, splits, k_chunk, act, out_e, out_m, promote, s);
-    case 2: return qmm_tc_fmt2(A, AS, b, g, bs, O, W, M, K, N, splits, k_chunk, act, out_e, out_m, promote, s);
-    case 3: return qmm_tc_fmt3(A, AS, b, g, bs, O, W, M, K, N, splits, k_chunk, act, out_e, out_m, promote, s);
-    case 4: return qmm_tc_fmt4(A, AS, b, g, bs, O, W, M, K, N, splits, k_chunk, act, out_e, out_m, promote, s);
+    case 1: return qmm_tc_fmt1(a, AS, b, g, bs, O, W, M, K, N, splits, k_chunk, act, out_e, out_m, promote, a_code, a_e, a_m, s);
+    case 2: return qmm_tc_fmt2(a, AS, b, g, bs, O, W, M, K, N, splits, k_chunk, act, out_e, out_m, promote, a_code, a_e, a_m, s);
+    case 3: return qmm_tc_fmt3(a, AS, b, g, bs, O, W, M, K, N, splits, k_chunk, act, out_e, out_m, promote, a_code, a_e, a_m, s);
+    case 4: return qmm_tc_fmt4(a, AS, b, g, bs, O, W, M, K, N, splits, k_chunk, act, out_e, out_m, promote, a_code, a_e, a_m, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1264,7 +1339,8 @@ extern "C" int qmm_tc_launch(const void* a, void* asplit, const void* b,
 extern "C" int QMM_TC_FN(QMM_TC_PARAMS) {
   const Epilogue ep{bias, act, out_e, out_m, g != nullptr};
   return (int)launch_tc<QMM_TC_FMT>(a, asplit, b, g, out, ws, ep, M, K, N,
-                                    splits, k_chunk, promote, stream);
+                                    splits, k_chunk, promote, a_code, a_e,
+                                    a_m, stream);
 }
 
 #elif QMM_UNIT == 5  // qmm_tile for binary32 / f32 weights

@@ -21,6 +21,9 @@ on a CPU tensor it runs ``flash_prefill_plain`` (the reference's
 K/V).
 
 The two kernels are separate libraries with launch counts of their own.
+Both, and ``paged_attention.paged_decode``, take every head_dim that is a
+multiple of 8 up to ``MAX_HEAD_DIM`` and every group size G from 1 to
+``MAX_GROUP`` (prefill: any G), in every KV format (``check_kernel_shape``).
 """
 from __future__ import annotations
 
@@ -35,9 +38,32 @@ from . import _build
 from .codec import decode_tile
 
 NEG_INF = -1e30  # finite sentinel: keeps exp(m_prev - m_new) well-defined
+F64 = torch.float64  # the precision of the split twins' walk
 # KV positions one block of the decode kernel walks (kPiece in
 # csrc/flash_decode.cu)
 DECODE_PIECE = 64
+# the shapes the CUDA attention kernels take (csrc/decode_piece.cuh,
+# csrc/flash_prefill.cu): query heads per KV head up to MAX_GROUP for the
+# decode kernels (any for prefill, whose rows are flattened over G), and
+# head_dim in steps of HEAD_DIM_STEP up to MAX_HEAD_DIM
+MAX_GROUP = 16
+MAX_HEAD_DIM = 256
+HEAD_DIM_STEP = 8
+
+
+def check_kernel_shape(kernel: str, G: int, dh: int, *,
+                       max_group: Optional[int] = MAX_GROUP) -> None:
+    """Raise ``ValueError`` naming what the CUDA attention kernels take
+    unless 1 <= G <= ``max_group`` (None: no upper limit) and ``dh`` is a
+    multiple of ``HEAD_DIM_STEP`` from 8 to ``MAX_HEAD_DIM``."""
+    g_ok = G >= 1 and (max_group is None or G <= max_group)
+    if not (g_ok and HEAD_DIM_STEP <= dh <= MAX_HEAD_DIM
+            and dh % HEAD_DIM_STEP == 0):
+        groups = "from 1" if max_group is None else f"from 1 to {max_group}"
+        raise ValueError(
+            f"{kernel}: the CUDA kernel takes a group size G {groups} and "
+            f"a head_dim that is a multiple of {HEAD_DIM_STEP} from "
+            f"{HEAD_DIM_STEP} to {MAX_HEAD_DIM}, got G={G}, head_dim={dh}")
 
 DECODE_LIB = _build.register(_build.KernelLib("flash_decode", {
     "flash_decode_launch": [_build.P] * 9 + [_build.I32] * 5 + [
@@ -101,27 +127,31 @@ def flash_decode_split_plain(q, k_payload, v_payload, fmt, lengths, *,
     positions in pieces of ``piece``, a normalized partial (o, m, l) per
     piece, merged in piece order by the reference's ``_merge_partials``
     formula, w_i = exp(m_i - max m) * l_i, out = sum w_i o_i / sum w_i.
-    The residuals are the unsplit (m, l)."""
+    The residuals are the unsplit (m, l).  The walk is computed in f64
+    on the decoded f32 operands and rounded to f32 once at the end
+    (``F64``), so the twin stands within the kernel's own f32 error of it
+    at any head_dim and length, not within the sum of two f32 errors
+    (which exceeds 1e-6 at head_dim 256)."""
     fmt = get_format(fmt) if fmt is not None else None
     B, H, G, dh = q.shape
     S = k_payload.shape[1]
     if scale is None:
         scale = float(1.0 / np.sqrt(dh))
     P = -(-S // piece)
-    k = payload_to_f32(k_payload, fmt)
-    v = payload_to_f32(v_payload, fmt)
+    k = payload_to_f32(k_payload, fmt).to(F64)
+    v = payload_to_f32(v_payload, fmt).to(F64)
     pad = P * piece - S
     if pad:
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
-    s = torch.einsum("bhgd,bshd->bhgs", q.to(torch.float32), k) \
-        * np.float32(scale)
+    s = torch.einsum("bhgd,bshd->bhgs", q.to(F64), k) \
+        * float(np.float32(scale))
     live = torch.clamp(lengths.to(torch.int64), 0, S)
     valid = torch.arange(P * piece, device=q.device)[None, :] < live[:, None]
     vmask = valid[:, None, None, :].reshape(B, 1, 1, P, piece)
     s = s.reshape(B, H, G, P, piece)
     zero = torch.zeros((), device=q.device)
-    s = torch.where(vmask, s, torch.tensor(NEG_INF, dtype=torch.float32,
+    s = torch.where(vmask, s, torch.tensor(NEG_INF, dtype=F64,
                                            device=q.device))
     m = torch.amax(s, dim=-1)                                # (B, H, G, P)
     p = torch.where(vmask, torch.exp(s - m[..., None]), zero)
@@ -132,16 +162,16 @@ def flash_decode_split_plain(q, k_payload, v_payload, fmt, lengths, *,
                     o / torch.where(l > 0, l, 1.0)[..., None], zero)
     gm = torch.amax(m, dim=-1, keepdim=True)
     w = torch.exp(m - gm) * l
-    num = torch.zeros((B, H, G, dh), device=q.device)
-    den = torch.zeros((B, H, G), device=q.device)
+    num = torch.zeros((B, H, G, dh), dtype=F64, device=q.device)
+    den = torch.zeros((B, H, G), dtype=F64, device=q.device)
     for i in range(P):                                       # piece order
         num = num + w[..., i, None] * o[..., i, :]
         den = den + w[..., i]
     out = torch.where(den[..., None] > 0,
                       num / torch.where(den > 0, den, 1.0)[..., None], zero)
     if return_residuals:
-        return out, gm[..., 0], den
-    return out
+        return out.float(), gm[..., 0].float(), den.float()
+    return out.float()
 
 
 def _decode_cuda(q, k, v, fmt, lengths, scale, return_residuals):
@@ -155,12 +185,7 @@ def _decode_cuda(q, k, v, fmt, lengths, scale, return_residuals):
                          f"got {q.dtype}, {k.dtype}, {v.dtype}")
     if lengths.dtype != torch.int32:
         raise ValueError("flash_decode: lengths must be int32")
-    if G not in (1, 2, 4, 8) or dh not in (16, 32, 64, 128) \
-            or dh * k.element_size() < 16:
-        raise ValueError(f"flash_decode: the CUDA kernel takes G in "
-                         f"(1, 2, 4, 8) and head_dim in (16, 32, 64, 128) "
-                         f"spanning at least 16 bytes of K, got G={G}, "
-                         f"dh={dh}, {k.dtype}")
+    check_kernel_shape("flash_decode", G, dh)
     out = torch.empty((B, H, G, dh), dtype=torch.float32, device=q.device)
     m = l = None
     if return_residuals:
@@ -261,10 +286,7 @@ def _prefill_cuda(q, k, v, fmt, scale, window, prefix_len, q_offset):
     if q.dtype != torch.float32 or k.dtype != want or v.dtype != want:
         raise ValueError(f"flash_prefill: q must be float32 and K/V {want}, "
                          f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    if dh not in (64, 128) or 64 % G:
-        raise ValueError(f"flash_prefill: the CUDA kernel takes head_dim 64 "
-                         f"or 128 and a group size dividing 64, got dh={dh}, "
-                         f"G={G}")
+    check_kernel_shape("flash_prefill", G, dh, max_group=None)
     if window is not None and window <= 0:
         raise ValueError(f"flash_prefill: window must be positive, got "
                          f"{window}")

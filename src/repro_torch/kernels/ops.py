@@ -44,7 +44,8 @@ def unpack(payload, fmt, *, use_pallas: bool = True):
 def matmul(a_payload, b_payload, fmt_a=None, fmt_b=None,
            out_fmt: Optional[str] = None, *, use_pallas: bool = True):
     """Transprecision matmul on packed operands, f32 accumulation.  The
-    CUDA kernel takes f32 activations (``fmt_a=None``)."""
+    CUDA kernel takes f32 activations (``fmt_a=None``) or packed ones,
+    which it decodes itself."""
     if use_pallas:
         return qmatmul(a_payload, b_payload, fmt_a, fmt_b, out_fmt)
     return ref.qmatmul_ref(a_payload, b_payload, fmt_a, fmt_b, out_fmt)

@@ -26,6 +26,12 @@ GEMV and ``qmm_tile`` share theirs), so a row's result does not depend
 on the rows beside it: a speculative verify over B * k rows gives the
 logits of k decode steps over B rows bit for bit.
 
+Packed activations (``fmt_a`` set) are decoded inside ``qmm.cu``, once
+per launch (in ``qmm_split_a`` on the tensor-core route, by
+``qmm_decode_a`` into f32 scratch on the CUDA cores).  Decoding is exact
+and the summation order is the route's, so the product on packed A equals
+the product on its decoded values bit for bit.
+
 On a CPU tensor it runs the plain version (``qmatmul_plain``:
 dequantize, then ``torch.matmul`` in f32, then the same epilogue in the
 same order).
@@ -47,8 +53,8 @@ ACTS = {None: 0, "silu": 1, "gelu": 2, "relu2": 3}
 # kernel once per packed format, and qmm_tile for binary32 and for the
 # run-time formats
 LIB = _build.register(_build.KernelLib("qmm", {
-    "qmm_launch": [_build.P] * 6 + [_build.I32] * 12 + [_build.P],
-    "qmm_tc_launch": [_build.P] * 7 + [_build.I32] * 10 + [_build.P],
+    "qmm_launch": [_build.P] * 7 + [_build.I32] * 15 + [_build.P],
+    "qmm_tc_launch": [_build.P] * 7 + [_build.I32] * 13 + [_build.P],
 }, units=[(f"-DQMM_UNIT={i}",) for i in range(7)]))
 TC_FMT_CODES = (1, 2, 3, 4)   # binary8, binary8alt, binary16, binary16alt
 TC_BN, TC_BK = 128, 32        # the tensor-core kernel's block columns, K step
@@ -97,20 +103,26 @@ def qmatmul_plain(a_payload, b_payload, fmt_a, fmt_b,
 
 
 def _qmm_cuda(a, b, fmt_b, out_fmt, gate, bias, act, *,
-              tc_promote: bool = True,
-              tile_m: Optional[int] = None) -> torch.Tensor:
-    """The launch.  ``tc_promote=False`` and a ``tile_m`` other than
-    ``f32_tile_m(M)`` (a GEMV row block of 4 or 8, or a ``qmm_tile`` of
-    16, 32 or 64 rows, at any M) exist for ``chip_smoke.py``'s checks;
-    the serving path passes neither."""
+              tc_promote: bool = True, tile_m: Optional[int] = None,
+              fmt_a: Optional[FpFormat] = None) -> torch.Tensor:
+    """The launch.  ``fmt_a`` set: ``a`` holds packed activations in
+    ``fmt_a``'s containers, decoded in the kernel.  ``tc_promote=False``
+    and a ``tile_m`` other than ``f32_tile_m(M)`` (a GEMV row block of 4
+    or 8, or a ``qmm_tile`` of 16, 32 or 64 rows, at any M) exist for
+    ``chip_smoke.py``'s checks; the serving path passes neither."""
     M, K = a.shape
     N = b.shape[1]
     want = torch.float32 if fmt_b is None else fmt_b.container_dtype
     _build.check_operands("qmatmul", a.device, a=a, b=b, gate=gate,
                           bias=bias)
-    if a.dtype != torch.float32:
-        raise ValueError(f"qmatmul: activations must be float32, got "
-                         f"{a.dtype}")
+    want_a = torch.float32 if fmt_a is None or fmt_a.is_binary32 \
+        else fmt_a.container_dtype
+    if fmt_a is not None and fmt_a.is_binary32 \
+            and a.dtype == fmt_a.container_dtype:
+        a = a.view(torch.float32)        # binary32 containers are f32 bits
+    if a.dtype != want_a:
+        raise ValueError(f"qmatmul: activations must be {want_a} for "
+                         f"{fmt_a}, got {a.dtype}")
     if b.dtype != want or (gate is not None and gate.dtype != want):
         raise ValueError(f"qmatmul: weights must be {want} for "
                          f"{fmt_b}, got {b.dtype}")
@@ -126,6 +138,8 @@ def _qmm_cuda(a, b, fmt_b, out_fmt, gate, bias, act, *,
     fmt = fmt_b if fmt_b is not None else get_format("binary32")
     oe, om = (out_fmt.e, out_fmt.m) if out_fmt is not None else (0, 0)
     code = _build.fmt_code(fmt_b)
+    a_code = _build.fmt_code(fmt_a)
+    afmt = fmt_a if fmt_a is not None else get_format("binary32")
     entry, splits, k_chunk = qmm_plan(K, N, fmt_b, gate is not None,
                                       _build.sm_count(a.device))
     tc = entry == "qmm_tc_launch"
@@ -138,13 +152,17 @@ def _qmm_cuda(a, b, fmt_b, out_fmt, gate, bias, act, *,
         asplit = torch.empty((2, M, K), dtype=torch.float32, device=a.device)
         LIB.launch("qmm_tc_launch", p(a), p(asplit), p(b), p(gate), p(bias),
                    p(out), p(ws), M, K, N, splits, k_chunk, code, ACTS[act],
-                   oe, om, int(tc_promote), _build.stream_ptr(a.device),
-                   kernel="qmm_tc")
+                   oe, om, int(tc_promote), a_code, afmt.e, afmt.m,
+                   _build.stream_ptr(a.device), kernel="qmm_tc")
     else:
         tile_m = tile_m or f32_tile_m(M)
-        LIB.launch("qmm_launch", p(a), p(b), p(gate), p(bias), p(out),
-                   p(ws), M, K, N, splits, code, fmt.e, fmt.m, ACTS[act],
-                   oe, om, vec, tile_m, _build.stream_ptr(a.device),
+        adec = None
+        if a_code:
+            adec = torch.empty((M, K), dtype=torch.float32, device=a.device)
+        LIB.launch("qmm_launch", p(a), p(adec), p(b), p(gate), p(bias),
+                   p(out), p(ws), M, K, N, splits, code, fmt.e, fmt.m,
+                   ACTS[act], oe, om, vec, tile_m, a_code, afmt.e, afmt.m,
+                   _build.stream_ptr(a.device),
                    kernel="qmm_gemv" if tile_m in GEMV_TILES
                    else "qmm_tile")
     return out
@@ -258,9 +276,10 @@ def qmatmul(a_payload, b_payload, fmt_a, fmt_b,
     accumulation; fused epilogue ``+ bias`` -> ``act`` -> ``* (a @ G)``
     -> quantize to ``out_fmt``.  Returns f32 (M, N).
 
-    The CUDA kernel takes f32 activations (``fmt_a`` None), as every
-    caller on the serving path passes; packed activations are a plain-
-    version (CPU) feature."""
+    Activations are f32 (``fmt_a`` None, as every caller on the serving
+    path passes) or packed containers of ``fmt_a``, which the CUDA kernel
+    decodes itself; the result on packed A equals the result on its
+    decoded values bit for bit."""
     fmt_a = get_format(fmt_a) if fmt_a is not None else None
     fmt_b = get_format(fmt_b) if fmt_b is not None else None
     out_fmt = get_format(out_fmt) if out_fmt is not None else None
@@ -273,11 +292,8 @@ def qmatmul(a_payload, b_payload, fmt_a, fmt_b,
     if a_payload.device.type == "cpu":
         return qmatmul_plain(a_payload, b_payload, fmt_a, fmt_b, out_fmt,
                              gate_payload=gate_payload, bias=bias, act=act)
-    if fmt_a is not None:
-        raise ValueError("qmatmul: the CUDA kernel takes float32 "
-                         "activations (fmt_a=None)")
     return _qmm_cuda(a_payload, b_payload, fmt_b, out_fmt, gate_payload,
-                     bias, act)
+                     bias, act, fmt_a=fmt_a)
 
 
 def qmm_ffn(x, w_in_payload, w_gate_payload, fmt_w, *, bias=None,

@@ -206,3 +206,72 @@ def test_piece_count_is_a_function_of_the_row_length():
             _t(lens[b:b + 1]))
         np.testing.assert_allclose(alone[0].numpy(), full[b].numpy(),
                                    rtol=0, atol=1e-6)
+
+
+# The widened shapes: head_dim 16 and 256 at G 10 (recurrentgemma's group),
+# and G 2 (the reduced configs'), for every KV format.  The split twin
+# walks in f64: it is held within 1e-6 (output) and 1e-6 relative (m, l)
+# of the reference's formula evaluated in f64 on the decoded operands, and
+# to the JAX f32 oracle within 2e-6 on the output and 1e-5 relative on l
+# (that oracle's own f32 error can exceed 1e-6 at head_dim 256).
+
+def _exact_decode(q, kp, vp, fmt, lengths):
+    """``flash_decode_reference``'s formula in f64: (o, m, l)."""
+    def dec(x):
+        x = np.asarray(jqt.decode(jnp.asarray(x), fmt)) if fmt else x
+        return x.astype(np.float64)
+
+    k, v = dec(kp), dec(vp)
+    s = np.einsum("bhgd,bshd->bhgs", q.astype(np.float64), k) \
+        * float(np.float32(1.0 / np.sqrt(q.shape[-1])))
+    valid = np.arange(s.shape[-1])[None, :] < np.minimum(
+        lengths, k.shape[1])[:, None]
+    s = np.where(valid[:, None, None], s, -1e30)
+    m = s.max(axis=-1)
+    p = np.where(valid[:, None, None], np.exp(s - m[..., None]), 0.0)
+    l = p.sum(axis=-1)
+    o = np.einsum("bhgs,bshd->bhgd", p, v)
+    return (np.where(l[..., None] > 0,
+                     o / np.where(l > 0, l, 1.0)[..., None], 0.0), m, l)
+
+
+WIDE_FMTS = ["binary8", "binary8alt", "binary16", "binary16alt",
+             "binary32", "flexfloat<6,9>", None]
+
+
+@pytest.mark.parametrize("G,dh", [(10, 16), (10, 256), (2, 256)],
+                         ids=["G10-dh16", "G10-dh256", "G2-dh256"])
+@pytest.mark.parametrize("fmt", WIDE_FMTS, ids=lambda f: f or "f32")
+def test_split_twin_at_the_widened_shapes(fmt, G, dh):
+    S = 140
+    q, kp, vp, lens = _case(fmt, S=S, G=G, dh=dh, seed=G + dh,
+                            lengths=(0, 63, 129, S + 9))
+    got = tfa.flash_decode_split_plain(_t(q), _t(kp), _t(vp), fmt,
+                                       _t(lens), return_residuals=True)
+    eo, em, el = _exact_decode(q, kp, vp, fmt, lens)
+    wo, wm, wl = jfa.flash_decode_reference(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), fmt,
+        jnp.asarray(np.minimum(lens, S)), return_residuals=True)
+    o, m, l = (x.numpy() for x in got)
+    np.testing.assert_allclose(o, eo, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(m, em, rtol=1e-6)
+    np.testing.assert_allclose(l, el, rtol=1e-6)
+    np.testing.assert_allclose(o, np.asarray(wo), rtol=0, atol=2e-6)
+    np.testing.assert_allclose(m, np.asarray(wm), rtol=1e-6)
+    np.testing.assert_allclose(l, np.asarray(wl), rtol=1e-5)
+    assert (o[0] == 0).all() and (l[0] == 0).all()
+
+
+def test_split_twin_at_head_dim_256_matches_pallas_interpret():
+    q, kp, vp, lens = _case("binary8", S=48, G=10, dh=256, seed=3,
+                            lengths=(0, 7, 33, 48))
+    want = jfa.flash_decode(jnp.asarray(q), jnp.asarray(kp),
+                            jnp.asarray(vp), "binary8", jnp.asarray(lens),
+                            block_kv=16, interpret=True)
+    got = tfa.flash_decode_split_plain(_t(q), _t(kp), _t(vp), "binary8",
+                                       _t(lens), piece=16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=2e-6)
+    np.testing.assert_allclose(
+        got.numpy(), _exact_decode(q, kp, vp, "binary8", lens)[0], rtol=0,
+        atol=1e-6)

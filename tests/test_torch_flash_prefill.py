@@ -67,3 +67,32 @@ def test_flash_prefill_matches_pallas_interpret():
 def test_prefill_byte_model():
     assert tfa.prefill_hbm_bytes(1, 64, 128, 8, 4, 128, "binary8") == (
         2 * 64 * 8 * 4 * 128 * 4 + 2 * 128 * 8 * 128)
+
+
+@pytest.mark.parametrize("fmt", ["binary8", "binary16alt", None],
+                         ids=lambda f: f or "f32")
+@pytest.mark.parametrize("G,dh,q_offset,window,prefix",
+                         [(10, 16, 16, None, 0), (10, 256, 16, None, 0),
+                          (2, 256, 21, 6, 0), (10, 16, 10, None, 5)],
+                         ids=["G10-dh16", "G10-dh256", "G2-dh256-window",
+                              "G10-dh16-prefix"])
+def test_flash_prefill_at_the_widened_shapes(fmt, G, dh, q_offset, window,
+                                             prefix):
+    """head_dim 16 and 256 at G 10 and 2 (the shapes the CUDA kernel was
+    widened to), against the XLA oracle on decoded K/V: within 1e-6 at
+    head_dim 16; within 2e-6 at head_dim 256, where each of the two f32
+    functions can lie more than 1e-6 from the same formula evaluated in
+    f64 (each score sums 256 products), so that no f32 pair is held to
+    1e-6 of each other there."""
+    q, kp, vp, kd, vd = _case(fmt, Sq=16, Skv=40, G=G, dh=dh,
+                              seed=G + dh)
+    scale = float(1.0 / np.sqrt(dh))
+    want = np.asarray(jfa._prefill_xla_reference(
+        jnp.asarray(q), jnp.asarray(kd), jnp.asarray(vd), scale, window,
+        prefix, q_offset))
+    t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
+    got = tfa.flash_prefill(t(q), t(kp), t(vp), fmt, window=window,
+                            prefix_len=prefix, q_offset=q_offset)
+    assert got.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-6 if dh <= 128 else 2e-6)

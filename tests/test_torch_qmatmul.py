@@ -119,3 +119,26 @@ def test_hbm_byte_model():
         4096 * 4096 * 2 + 4 * 4096 * 4 + 4 * 4096 * 4)
     assert tq.qmm_hbm_bytes(1, 8, 16, "binary8", gated=True, bias=True) == (
         2 * 8 * 16 + 8 * 4 + 16 * 4 + 16 * 4)
+
+
+A_FMTS = ["binary8", "binary8alt", "binary16", "binary16alt"]
+
+
+@pytest.mark.parametrize("fmt_b", FMTS + ["binary8alt"])
+@pytest.mark.parametrize("fmt_a", A_FMTS)
+def test_qmatmul_packed_activations_and_weights(fmt_a, fmt_b):
+    """Packed A and packed B in every paper format against the JAX kernel
+    in interpret mode, 1e-6 in units of |a| @ |w| (A decoded): the
+    operand the CUDA kernel now decodes itself."""
+    M, K, N = 5, 96, 70
+    rng = np.random.default_rng(len(fmt_a) * 7 + len(fmt_b))
+    x = rng.normal(size=(M, K)).astype(np.float32)
+    xp = np.asarray(jqt.encode(jnp.asarray(x), fmt_a))
+    _, w, _, _ = _case(fmt_b, M, K, N, seed=23)
+    want = np.asarray(jq.qmatmul(jnp.asarray(xp), jnp.asarray(w), fmt_a,
+                                 fmt_b, interpret=True))
+    got = tq.qmatmul(_t(xp), _t(w), fmt_a, fmt_b).numpy()
+    xd = np.asarray(jqt.decode(jnp.asarray(xp), fmt_a))
+    err = np.abs(got - want)
+    assert (err <= 1e-6 * _scale(xd, w, None, None, fmt_b, None)).all(), \
+        err.max()
