@@ -38,7 +38,7 @@ Run from the root of a checkout.  Phases:
                   full-depth llama3-8b (random weights from the seed),
                   ``--decode-impl paged``, asserting the launch counts per
                   decode step and per prefill chunk (and per qmm kernel:
-                  all 193 on tensor cores in both).
+                  all 193 on tensor cores in both; and 65 rmsnorm).
 6. serve_flash -- the same workload under ``--decode-impl flash_pallas``
                   (the serving default on a card): 32 flash_decode and no
                   paged_decode per decode step.
@@ -53,14 +53,23 @@ Run from the root of a checkout.  Phases:
                   under ``paged`` and ``flash_pallas``: every request gets
                   its tokens, the attention launches go to the CUDA
                   kernels, the first-step logits agree with the plain
-                  path.
+                  path; then once under the tuned artifact ``--policy
+                  results/tuned/llama3-8b.reduced.json``.
 9. logits      -- a prefill chunk, a decode step and a speculative verify
                   step of a 2-layer, full-width model: kernel path against
                   plain path, and verify against sequential decode bit for
                   bit (logits, K/V pool bits, lengths), under binary32 and
-                  transprecision, with paged and flash_pallas decode;
-                  rmsnorm rows bit-identical at every row count.
-10. profile    -- short paged and speculative serve runs under
+                  transprecision, with paged and flash_pallas decode.
+10. resilience -- the engine's fault and recovery surface at full width
+                  (``run_resilience``): the streamed handoff with the
+                  router and two prefill workers, bit for bit the
+                  colocated run, without and with a seeded fault plan;
+                  binary32 quarantine and replay equal to the engine and
+                  to synchronous_generate; the speculative circuit
+                  breaker; the CLI's exit codes; rmsnorm rows bit-identical
+                  at every row count at d 4096, 5120 and 8192, the kernel
+                  against its twin, and its times.
+11. profile    -- short paged and speculative serve runs under
                   torch.profiler: device busy share and the kernels that
                   take the device time; the host syncs of a tiny serve.
 
@@ -99,6 +108,7 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 # + 32 new tokens) over 4 slots, capacity 256, page 64
 SERVE_REQUESTS, SERVE_SLOTS, SERVE_PROMPT, SERVE_MAX_NEW = 8, 4, 128, 32
 SERVE_CAPACITY, SERVE_PAGE = 256, 64
+NORMS = 65                  # rmsnorm launches a llama3-8b step: 2 x 32 + 1
 
 
 def fail(msg: str, code: int = 1):
@@ -1412,8 +1422,9 @@ def run_serve(torch, report, libs, args, decode_impl="paged", key="serve",
     runs on the CUDA cores: a decode step's 193 and a chunk's head (its
     last position, M = 1) on the GEMV, a chunk's 192 at M = 64 on
     qmm_tile.  Launch tuples are (qmm, paged_decode, flash_prefill,
-    flash_decode, flexfloat_cast); qmm by kernel (qmm_gemv, qmm_tile,
-    qmm_tc)."""
+    flash_decode, flexfloat_cast, rmsnorm): 65 rmsnorm launches (two a
+    layer and the final norm) a step and a chunk; qmm by kernel
+    (qmm_gemv, qmm_tile, qmm_tc)."""
     from repro_torch.engine import worker
 
     f32 = policy == "binary32"
@@ -1425,9 +1436,9 @@ def run_serve(torch, report, libs, args, decode_impl="paged", key="serve",
     reqs, per, launches, wall, peak = _drive_serve(
         torch, libs, argv, {"decode": (worker.DecodeWorker, "step"),
                             "prefill": (worker.PrefillWorker, "step")})
-    want_dec = (193, 32, 0, 0, 0) if decode_impl == "paged" \
-        else (193, 0, 0, 32, 0)
-    want_pre = (193, 0, 32, 0, 0)
+    want_dec = (193, 32, 0, 0, 0, NORMS) if decode_impl == "paged" \
+        else (193, 0, 0, 32, 0, NORMS)
+    want_pre = (193, 0, 32, 0, 0, NORMS)
     # the packed weights take the tensor-core kernel at every M (a decode
     # step, a 64-token chunk and its head); binary32 the CUDA cores
     want_dec_k, want_pre_k = ((193, 0, 0), (1, 192, 0)) if f32 \
@@ -1462,7 +1473,8 @@ def run_serve(torch, report, libs, args, decode_impl="paged", key="serve",
           f"mean {summary['ttft_mean_s']} s (max {summary['ttft_max_s']} "
           f"s), peak memory {peak / 1e9:.2f} GB")
     print(f"[{key}] launches {launches}; per decode step (qmm, paged, "
-          f"prefill, flash_decode, cast) {sorted(set(per['decode']))} (want "
+          f"prefill, flash_decode, cast, rmsnorm) "
+          f"{sorted(set(per['decode']))} (want "
           f"{want_dec}); per prefill chunk {sorted(set(per['prefill']))} "
           f"(want {want_pre}); qmm by kernel (qmm_gemv, qmm_tile, qmm_tc) "
           f"per decode step {sorted(set(per['decode/kern']))} (want "
@@ -1482,6 +1494,7 @@ def run_serve(torch, report, libs, args, decode_impl="paged", key="serve",
 # the reduced serve: llama3-8b --reduced (2 layers, head_dim 16, G 2),
 # 4 requests x (40 prompt + 8 new) over 2 slots, page 16
 RED_REQUESTS, RED_SLOTS, RED_PROMPT, RED_MAX_NEW, RED_PAGE = 4, 2, 40, 8, 16
+ARTIFACT = os.path.join(ROOT, "results", "tuned", "llama3-8b.reduced.json")
 
 
 def run_serve_reduced(torch, report, libs, args):
@@ -1502,6 +1515,7 @@ def run_serve_reduced(torch, report, libs, args):
     model, cfg = build("llama3-8b", reduced=True)
     layers = cfg.n_layers
     qmm_n = 6 * layers + 1
+    norms = 2 * layers + 1
     for dec in ("paged", "flash_pallas"):
         key = f"serve_reduced_{dec}"
         stats = f"{key}_stats.jsonl"
@@ -1515,9 +1529,9 @@ def run_serve_reduced(torch, report, libs, args):
         reqs, per, launches, wall, _ = _drive_serve(
             torch, libs, argv, {"decode": (worker.DecodeWorker, "step"),
                                 "prefill": (worker.PrefillWorker, "step")})
-        want_dec = (qmm_n, layers, 0, 0, 0) if dec == "paged" \
-            else (qmm_n, 0, 0, layers, 0)
-        want_pre = (qmm_n, 0, layers, 0, 0)
+        want_dec = (qmm_n, layers, 0, 0, 0, norms) if dec == "paged" \
+            else (qmm_n, 0, 0, layers, 0, norms)
+        want_pre = (qmm_n, 0, layers, 0, 0, norms)
         good = len(reqs) == RED_REQUESTS
         good &= all(r.done and not r.failed for r in reqs)
         good &= all(len(r.generated) == RED_MAX_NEW for r in reqs)
@@ -1574,7 +1588,53 @@ def run_serve_reduced(torch, report, libs, args):
                   f"{scale:.3f}, tol {rel:.2e} x that), attention launches "
                   f"(flash_prefill, decode) {attn} (want ({layers}, "
                   f"{layers})) {'ok' if good else 'FAIL'}")
+    ok &= run_serve_artifact(torch, report, libs, args, cfg)
     return ok
+
+
+def run_serve_artifact(torch, report, libs, args, cfg):
+    """The reduced serve once more under the committed tuned artifact
+    ``--policy results/tuned/llama3-8b.reduced.json`` (native mode,
+    binary8 weights, activations, attention probabilities and per-layer
+    KV): every request gets its tokens, and a decode step and a chunk
+    launch what the transprecision run launches."""
+    from repro_torch.engine import worker
+
+    key = "serve_artifact"
+    stats = f"{key}_stats.jsonl"
+    layers = cfg.n_layers
+    argv = ["--arch", "llama3-8b", "--reduced", "--policy", ARTIFACT,
+            "--decode-impl", "paged", "--matmul-impl", "qmm_pallas",
+            "--page-size", str(RED_PAGE), "--requests", str(RED_REQUESTS),
+            "--slots", str(RED_SLOTS), "--prompt-len", str(RED_PROMPT),
+            "--max-new", str(RED_MAX_NEW), "--capacity", str(4 * RED_PAGE),
+            "--seed", str(args.seed), "--stats-out",
+            os.path.join(args.out, stats)]
+    reqs, per, launches, wall, _ = _drive_serve(
+        torch, libs, argv, {"decode": (worker.DecodeWorker, "step"),
+                            "prefill": (worker.PrefillWorker, "step")})
+    want_dec = (6 * layers + 1, layers, 0, 0, 0, 2 * layers + 1)
+    want_pre = (6 * layers + 1, 0, layers, 0, 0, 2 * layers + 1)
+    good = len(reqs) == RED_REQUESTS
+    good &= all(r.done and not r.failed and len(r.generated) == RED_MAX_NEW
+                for r in reqs)
+    good &= all(0 <= t < cfg.vocab for r in reqs for t in r.generated)
+    good &= _counts_ok(per["decode"], want_dec)
+    good &= _counts_ok(per["prefill"], want_pre)
+    summary = _serve_summary(args, stats)
+    report[key] = dict(policy=os.path.relpath(ARTIFACT, ROOT),
+                       requests=len(reqs), wall_s=wall,
+                       tok_per_s=summary["tokens_per_s"], launches=launches,
+                       per_decode_step=sorted(set(per["decode"])),
+                       per_prefill_chunk=sorted(set(per["prefill"])),
+                       generated=[r.generated for r in reqs], ok=good)
+    print(f"[serve_reduced] --policy {os.path.relpath(ARTIFACT, ROOT)}: "
+          f"{len(reqs)} requests, {sum(len(r.generated) for r in reqs)} "
+          f"tokens in {wall:.2f} s; per decode step "
+          f"{sorted(set(per['decode']))} (want {want_dec}), per chunk "
+          f"{sorted(set(per['prefill']))} (want {want_pre}) "
+          f"{'ok' if good else 'FAIL'}")
+    return good
 
 
 SPEC_K, SPEC_REQUESTS, SPEC_MAX_NEW, SPEC_POOL_PAGES = 4, 4, 16, 32
@@ -1618,8 +1678,8 @@ def run_speculative(torch, report, libs, args):
          "draft_prefill": (speculative.SpeculativeDecoder, "prefill_prompt"),
          "prefill": (worker.PrefillWorker, "step"),
          "decode": (worker.DecodeWorker, "step")}, params=params)
-    want_round = (k * 193 + 193, k * 32, 0, k * 32, 0)
-    want_pre = (193, 0, 32, 0, 0)
+    want_round = (k * 193 + 193, k * 32, 0, k * 32, 0, (k + 1) * NORMS)
+    want_pre = (193, 0, 32, 0, 0, NORMS)
     # by qmm kernel (qmm_gemv, qmm_tile, qmm_tc): a verify of B slots
     # x k tokens runs its 193 projections (head included) on tensor cores
     # at every B * k (16 with every slot decoding), a prompt prefill too
@@ -1748,7 +1808,7 @@ def _profiled_serve(torch, argv, window=None):
     orig = getattr(cls, attr)
 
     def profiled(self, *a):
-        steady = self._task is None and not self._queue
+        steady = not self._tasks and not self._queue
         if window is not None and not (box["left"] and steady):
             return orig(self, *a)
         if "t0" not in box:
@@ -1916,7 +1976,6 @@ def check_logits(torch, report, args, qmm_lib):
                 f32 += f32_launches() - before
     report["logits_f32_launches"] = f32
     ok &= f32 > 0
-    ok &= check_rmsnorm_rows(torch, report, args)
     return ok
 
 
@@ -2027,36 +2086,437 @@ def check_verify_logits(torch, report, args, model, cfg, pol, dec,
     return good
 
 
+RMS_DIMS = (4096, 5120, 8192)   # llama3-8b, mistral-nemo, command-r
+
+
 def check_rmsnorm_rows(torch, report, args):
-    """rmsnorm (``models/layers.py``) on the card gives a row the same
-    bits whatever the number of rows beside it (ROW_COUNTS), at d_model
-    4096, under binary32 and transprecision; beside it, whether a single
-    ``torch.mean`` over the rows would."""
+    """rmsnorm (``models/layers.py``, the ``csrc/rmsnorm.cu`` kernel) on
+    the card gives a row the same bits whatever the number of rows beside
+    it (ROW_COUNTS), at d_model 4096, 5120 and 8192, under binary32 and
+    transprecision; the kernel is within 1e-6 relative of its plain twin
+    (``kernels/rmsnorm.rmsnorm_plain``, run on the card) on f32 and bf16
+    inputs; beside it, whether a single ``torch.mean`` over the rows
+    would be free of the row count (measured, not asserted)."""
     from repro_torch.core.policy import get_policy
+    from repro_torch.kernels import rmsnorm as rms
     from repro_torch.models.layers import rmsnorm
 
     g = torch.Generator(device="cuda").manual_seed(args.seed + 9)
-    x = torch.randn((128, 4096), generator=g, device="cuda") * 3.0
-    gamma = torch.randn((4096,), generator=g, device="cuda") * 0.1
-    res = {}
-    for pol in ("binary32", "transprecision"):
-        policy = get_policy(pol)
-        full = rmsnorm(x, gamma, policy)
-        res[pol] = all(torch.equal(rmsnorm(x[:m], gamma, policy), full[:m])
-                       for m in ROW_COUNTS)
-    good = all(res.values())
-    # what the two-level sum avoids: one torch.mean over the rows
-    # (measured, not asserted)
-    sq = x * x
-    whole = torch.mean(sq, dim=-1)
-    mean_rows = {m: torch.equal(torch.mean(sq[:m], dim=-1), whole[:m])
-                 for m in ROW_COUNTS}
+    res, twin, mean_rows = {}, {}, {}
+    err = 0.0
+    for d in RMS_DIMS:
+        x = torch.randn((128, d), generator=g, device="cuda") * 3.0
+        gamma = torch.randn((d,), generator=g, device="cuda") * 0.1
+        for pol in ("binary32", "transprecision"):
+            policy = get_policy(pol)
+            full = rmsnorm(x, gamma, policy)
+            res[f"{pol}/{d}"] = all(
+                torch.equal(rmsnorm(x[:m], gamma, policy), full[:m])
+                for m in ROW_COUNTS)
+        for xin in (x, x.to(torch.bfloat16)):
+            k = rms.rmsnorm_f32(xin, gamma)
+            p = rms.rmsnorm_plain(xin, gamma)
+            rel = float(((k - p).abs() / p.abs().clamp_min(1e-30)).max())
+            twin[f"{xin.dtype}/{d}"] = rel
+            err = max(err, float((k - p).abs().max()))
+        sq = x * x
+        whole = torch.mean(sq, dim=-1)
+        mean_rows[d] = sum(torch.equal(torch.mean(sq[:m], dim=-1), whole[:m])
+                           for m in ROW_COUNTS)
+    good = all(res.values()) and max(twin.values()) <= 1e-6
     report["rmsnorm_rows_invariant"] = res
+    report["rmsnorm_twin_max_rel_err"] = twin
+    report["rmsnorm_max_abs_err"] = err
     report["torch_mean_rows_invariant"] = mean_rows
-    print(f"[logits] rmsnorm rows bit-identical through {ROW_COUNTS} rows: "
-          f"{res} {'ok' if good else 'FAIL'}; one torch.mean over m rows "
-          f"equal to its rows of 128 (measured): {mean_rows}")
+    print(f"[rmsnorm] rows bit-identical through {ROW_COUNTS} rows at d "
+          f"{RMS_DIMS}: {res}; kernel vs twin max relative error {twin} "
+          f"(tol 1e-6) {'ok' if good else 'FAIL'}; one torch.mean over m "
+          f"rows equal to its rows of 128 for how many of the "
+          f"{len(ROW_COUNTS)} row counts (measured): {mean_rows}")
     return good
+
+
+def _rmsnorm_torch_ops(torch, x, gamma, eps=1e-6):
+    """The port's rmsnorm before the kernel: 128-wide ``torch.sum``
+    partials, a sum of the partials, ``rsqrt``, two products -- the torch
+    ops one kernel launch replaced (about 8 a norm)."""
+    xf = x.float()
+    d = xf.shape[-1]
+    part = torch.sum((xf * xf).reshape(-1, 128), dim=-1)
+    ms = torch.sum(part.reshape(*xf.shape[:-1], d // 128), dim=-1,
+                   keepdim=True) / d
+    return xf * torch.rsqrt(ms + eps) * (1.0 + gamma.float())
+
+
+def time_rmsnorm(torch, report, timer):
+    """The rmsnorm kernel at a decode step's rows (4) and a prefill
+    chunk's (64), d 4096, bf16 activations in, f32 out: beside its twin
+    on the card, the torch ops it replaced, ``F.rms_norm`` (one PyTorch
+    call for the same function, on the f32 of the input) and the byte
+    bound."""
+    from repro_torch.kernels import rmsnorm as rms
+
+    g = torch.Generator(device="cuda").manual_seed(report["seed"] + 10)
+    d = 4096
+    gamma = torch.randn((d,), generator=g, device="cuda") * 0.1
+    weight = 1.0 + gamma
+    for rows in (4, 64):
+        x = (torch.randn((rows, d), generator=g, device="cuda") * 3.0).to(
+            torch.bfloat16)
+        xf = x.float()
+        t_k = timer(lambda: rms.rmsnorm_f32(x, gamma))
+        t_p = timer(lambda: rms.rmsnorm_plain(x, gamma))
+        t_o = timer(lambda: _rmsnorm_torch_ops(torch, x, gamma))
+        t_l = timer(lambda: torch.nn.functional.rms_norm(
+            xf, (d,), weight=weight, eps=1e-6))
+        host = timer.host_us(lambda: rms.rmsnorm_f32(x, gamma))
+        nbytes = rms.rmsnorm_hbm_bytes(rows, d, 2)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        report["timings"].append(dict(
+            kernel="rmsnorm", rows=rows, d=d, ms=t_k, plain_ms=t_p,
+            torch_ops_ms=t_o, library_ms=t_l, bound_ms=bound,
+            bound_by="bytes", bytes=nbytes, host_us=host))
+        print(f"[timing] rmsnorm {rows:>3} x {d} bf16 -> f32: kernel "
+              f"{t_k:.4f} ms  twin {t_p:.4f} ms  torch ops before it "
+              f"{t_o:.4f} ms  F.rms_norm {t_l:.4f} ms  bound {bound:.5f} ms"
+              f"  host {host:.1f} us")
+
+
+# ---------------------------------------------------------------------------
+# phase 10: resilience -- faults, recovery, streamed handoff, the router
+# ---------------------------------------------------------------------------
+
+# (a) and (b): 4 requests x (128 prompt + 16 new), page 64, transprecision
+RES_REQUESTS, RES_MAX_NEW = 4, 16
+RES_ROUTER = ("--disaggregate", "--router", "--prefill-workers", "2")
+# (b): one of each fault the streamed, transprecision run can take, and a
+# pool of 10 pages where 4 sequences of 144 tokens need 12: an eviction
+RES_FAULTS = ("chunk_drop@1,chunk_dup@2,page_corrupt@3,step_exception@5,"
+              "pool_exhaust@6,seed=3")
+RES_FAULT_KINDS = {"chunk_drop", "chunk_dup", "page_corrupt",
+                   "step_exception", "pool_exhaust"}
+RES_POOL = 10
+# (c): binary32, 2 requests x (128 + 8), nan_logits at step 3.  (d):
+# 4 x (128 + 48), k = 4: every decoding slot's proposals diverged in the
+# rounds of steps 3, 4 and 5 (with one prefill worker the first decodes
+# at step 2), three failed rounds that open the breaker; under
+# transprecision that alone, under binary32 also a nan_logits at step 8,
+# inside the breaker's cooldown
+RES_F32_MAX_NEW, RES_SPEC_MAX_NEW = 8, 48
+RES_DIV_ONLY = ",".join(f"draft_div@{s}/{slot}" for s in (3, 4, 5)
+                        for slot in range(SERVE_SLOTS))
+RES_DIV = RES_DIV_ONLY + ",nan_logits@8"
+
+
+def _res_serve(torch, libs, args, name, argv, params):
+    """One serve through ``_drive_serve`` (decode and prefill hooked) with
+    the engine's host transfers (``scheduler._host``) counted; returns
+    the requests, per-call launches, launches, wall, the summary line and
+    the host-transfer count."""
+    from repro_torch.engine import scheduler, worker
+
+    calls = [0]
+    real = scheduler._host
+
+    def counted(*t):
+        calls[0] += 1
+        return real(*t)
+
+    scheduler._host = counted
+    try:
+        reqs, per, launches, wall, _ = _drive_serve(
+            torch, libs, argv, {"decode": (worker.DecodeWorker, "step"),
+                                "prefill": (worker.PrefillWorker, "step")},
+            params=params)
+    finally:
+        scheduler._host = real
+    summary = _serve_summary(args, f"{name}_stats.jsonl")
+    print(f"[resilience] {name}: {len(reqs)} requests, "
+          f"{sum(len(r.generated) for r in reqs)} tokens in {wall:.2f} s, "
+          f"{summary['tokens_per_s']} tok/s, {len(per['decode'])} decode "
+          f"steps, {len(per['prefill'])} prefill chunks, host transfers "
+          f"{calls[0]}; counters faults={summary['faults_injected']} "
+          f"(unfired {summary['faults_unfired']}, "
+          f"{summary['faults_by_kind']}), retries={summary['retries']}, "
+          f"crc_mismatches={summary['crc_mismatches']}, "
+          f"quarantines={summary['quarantines']}, "
+          f"evictions={summary['evictions']}, "
+          f"degraded_steps={summary['degraded_steps']}, "
+          f"breaker_trips={summary['breaker_trips']}, "
+          f"failures={summary['failures']}, prefill chunks by worker "
+          f"{summary['prefill_chunks_by_worker']}")
+    return reqs, per, launches, wall, summary, calls[0]
+
+
+def _res_breaker_serve(torch, libs, args, name, argv, params):
+    """``_res_serve`` with the circuit breaker's state recorded after each
+    round it records; returns ``_res_serve``'s tuple plus those states."""
+    from repro_torch.engine import resilience
+
+    states = []
+    real = resilience.CircuitBreaker.record
+
+    def record(self, *a, **k):
+        real(self, *a, **k)
+        states.append(self.state)
+
+    resilience.CircuitBreaker.record = record
+    try:
+        return _res_serve(torch, libs, args, name, argv, params) + (states,)
+    finally:
+        resilience.CircuitBreaker.record = real
+
+
+def _res_record(out, runs):
+    """Keep each ``_res_breaker_serve`` run's numbers in the report."""
+    for name, run in runs.items():
+        out[name] = dict(tok_per_s=run[4]["tokens_per_s"], wall_s=run[3],
+                         decode_steps=len(run[1]["decode"]),
+                         host_transfers=run[5], summary=run[4],
+                         breaker_states=run[6])
+
+
+def _breaker_ok(tag, spec_run, clean_run, quarantines):
+    """Check (d) on one speculative run against the plain serve of the
+    same requests: no token differs, every request got its tokens, the
+    breaker opened and closed again with degraded steps between, and the
+    run quarantined ``quarantines`` slots.  Prints one line."""
+    spec = [r.generated for r in spec_run[0]]
+    clean = [r.generated for r in clean_run[0]]
+    s, states = spec_run[4], spec_run[6]
+    opened = "open" in states
+    reclosed = opened and "closed" in states[states.index("open"):]
+    n_diff = sum(a != b for ga, gb in zip(spec, clean)
+                 for a, b in zip(ga, gb))
+    good = n_diff == 0 and all(len(g) == RES_SPEC_MAX_NEW for g in spec)
+    good &= s["breaker_trips"] >= 1 and reclosed
+    good &= s["degraded_steps"] >= 1 and s["quarantines"] == quarantines
+    good &= s["faults_unfired"] == 0 and s["failures"] == 0
+    runs_of = []   # the breaker's state after each round, run-length
+    for st in states:
+        if runs_of and runs_of[-1][0] == st:
+            runs_of[-1][1] += 1
+        else:
+            runs_of.append([st, 1])
+    print(f"[resilience] (d) speculative k={SPEC_K}, {tag}: tokens "
+          f"differing from the plain serve {n_diff} (want 0); breaker "
+          f"state after each round {runs_of} (opens, then closes again: "
+          f"{reclosed}); trips {s['breaker_trips']}, degraded steps "
+          f"{s['degraded_steps']}, accept rate {s['accept_rate']}, "
+          f"quarantines {s['quarantines']} (want {quarantines}) "
+          f"{'ok' if good else 'FAIL'}")
+    return good
+
+
+def run_resilience(torch, report, libs, args, timer):
+    """The serving engine's resilience surface at full width llama3-8b,
+    on weights made once per policy from the seed (the serve and
+    serve_f32 phases' weights) and passed to ``serve.main(..., params=)``:
+
+    (a) ``--disaggregate --router --prefill-workers 2`` (streamed,
+        CRC-checked handoff, two workers, the asyncio router), 4 x
+        (128 + 16), transprecision, paged: the tokens of a plain
+        colocated run bit for bit; a decode step 193 qmm + 32
+        paged_decode + 65 rmsnorm, a chunk 193 + 32 flash_prefill + 65;
+        one host transfer a decode step (and one a finished prefill).
+    (b) the same with a seeded plan of chunk_drop, chunk_dup,
+        page_corrupt, step_exception and pool_exhaust and a 10-page pool
+        (an eviction): the tokens of (a); every fault fired and explained
+        by its counters; the launch counts of (a).
+    (c) ``--policy binary32``, 2 x (128 + 8), a nan_logits fault:
+        quarantine and replay give the fault-free engine's tokens and
+        ``synchronous_generate``'s on the card, bit for bit.
+    (d) ``--speculate-k 4`` (binary8 draft), 4 x (128 + 48): three
+        rounds with every proposal diverged trip the breaker, it opens
+        and closes again, with degraded one-token steps between; no token
+        differs from the plain serve under the same policy.  Under
+        transprecision (packed weights, binary8 KV) the draft_div rounds
+        alone; under binary32 also one nan_logits, since a replay runs
+        ``synchronous_generate``, whose whole-prompt prefill attends over
+        the unrounded K/V where the engine reads the pool's.  That a
+        replay under a binary8 KV leaves the engine's tokens is measured
+        here, not held: a transprecision nan_logits run, 2 x (128 + 8),
+        against the fault-free engine and ``synchronous_generate``.
+    (e) ``cli_main`` in process: 71 for a deadline plan; 72 for a CRC-
+        exhausted request that may not requeue (the reference recomputes
+        a request whose handoff fails its CRC, so a TransportError (73)
+        never reaches the CLI: with ``--max-requeues 0`` the recompute is
+        refused and the request dead-letters).
+    Also: rmsnorm rows (``check_rmsnorm_rows``) and its timing."""
+    from repro_torch.core.policy import get_policy
+    from repro_torch.engine import synchronous_generate
+    from repro_torch.launch import serve
+    from repro_torch.models import qparams
+    from repro_torch.models.registry import build
+
+    ok = check_rmsnorm_rows(torch, report, args)
+    time_rmsnorm(torch, report, timer)
+    out = report["resilience"] = {}
+    model, cfg = build("llama3-8b")
+
+    def weights(pol):
+        policy = get_policy(pol, decode_impl="paged",
+                            matmul_impl="qmm_pallas")
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        return policy, qparams.encode_params(
+            model.init_params(gen, policy, device="cuda"), policy)
+
+    want_dec = (193, 32, 0, 0, 0, NORMS)
+    want_pre = (193, 0, 32, 0, 0, NORMS)
+
+    # ---- (a) streamed handoff + router, no faults ----------------------
+    policy, params = weights("transprecision")
+    runs = {}
+    for name, extra in (("plain", ()), ("router", RES_ROUTER),
+                        ("faults", RES_ROUTER + (
+                            "--fault-plan", RES_FAULTS, "--pool-pages",
+                            str(RES_POOL)))):
+        key = f"resilience_{name}"
+        argv = _serve_argv(args, "paged", RES_REQUESTS, RES_MAX_NEW,
+                           f"{key}_stats.jsonl", extra)
+        runs[name] = _res_serve(torch, libs, args, key, argv, params)
+    base = [r.generated for r in runs["plain"][0]]
+    for name, (reqs, per, launches, wall, summary, host) in runs.items():
+        good = all(r.done and not r.failed and len(r.generated)
+                   == RES_MAX_NEW for r in reqs)
+        good &= [r.generated for r in reqs] == base
+        good &= _counts_ok(per["decode"], want_dec)
+        good &= _counts_ok(per["prefill"], want_pre)
+        good &= summary["failures"] == 0
+        if name != "faults":
+            # no eviction: one transfer a decode step, one a prefill
+            good &= host == len(per["decode"]) + RES_REQUESTS
+        if name != "plain":
+            good &= set(summary["prefill_chunks_by_worker"]) == {"0", "1"}
+        if name == "faults":
+            good &= summary["faults_injected"] == len(
+                RES_FAULTS.split(",")) - 1
+            good &= summary["faults_unfired"] == 0
+            good &= set(summary["faults_by_kind"]) == RES_FAULT_KINDS
+            good &= summary["crc_mismatches"] >= 2   # corrupt + drop
+            good &= summary["retries"] >= 3          # 2 refetches + 1 step
+            good &= summary["evictions"] >= 1
+        out[name] = dict(tok_per_s=summary["tokens_per_s"], wall_s=wall,
+                         decode_steps=len(per["decode"]),
+                         prefill_chunks=len(per["prefill"]),
+                         per_decode_step=sorted(set(per["decode"])),
+                         per_prefill_chunk=sorted(set(per["prefill"])),
+                         host_transfers=host, launches=launches,
+                         summary=summary, ok=good)
+        print(f"[resilience] ({'a' if name != 'faults' else 'b'}) {name}: "
+              f"tokens equal to the colocated run: "
+              f"{[r.generated for r in reqs] == base}; per decode step "
+              f"{sorted(set(per['decode']))} (want {want_dec}), per chunk "
+              f"{sorted(set(per['prefill']))} (want {want_pre}) "
+              f"{'ok' if good else 'FAIL'}")
+        ok &= good
+
+    # ---- (d) under transprecision: the breaker alone; a replay measured
+    tp = {}
+    for name, requests, max_new, extra in (
+            ("tp_clean48", RES_REQUESTS, RES_SPEC_MAX_NEW, ()),
+            ("tp_spec", RES_REQUESTS, RES_SPEC_MAX_NEW,
+             ("--speculate-k", str(SPEC_K), "--fault-plan", RES_DIV_ONLY)),
+            ("tp_clean", F32_REQUESTS, RES_F32_MAX_NEW, ()),
+            ("tp_nan", F32_REQUESTS, RES_F32_MAX_NEW,
+             ("--fault-plan", "nan_logits@3"))):
+        key = f"resilience_{name}"
+        argv = _serve_argv(args, "paged", requests, max_new,
+                           f"{key}_stats.jsonl", extra)
+        tp[name] = _res_breaker_serve(torch, libs, args, key, argv, params)
+    good_dt = _breaker_ok("transprecision target, draft_div only",
+                          tp["tp_spec"], tp["tp_clean48"], quarantines=0)
+    tp_clean = [r.generated for r in tp["tp_clean"][0]]
+    tp_nan = [r.generated for r in tp["tp_nan"][0]]
+    tp_sync = synchronous_generate(model, cfg, policy, params,
+                                   [r.prompt for r in tp["tp_clean"][0]],
+                                   max_new=RES_F32_MAX_NEW,
+                                   capacity=SERVE_CAPACITY, device="cuda")
+    s_tn = tp["tp_nan"][4]
+    def n_diff(x, y):
+        return sum(a != b for a, b in zip(x, y))
+
+    # per request: tokens differing from the fault-free engine's, from
+    # synchronous_generate's, and the oracle's from the engine's
+    per_req = [(n_diff(n, c), n_diff(n, y), n_diff(y, c))
+               for n, c, y in zip(tp_nan, tp_clean, tp_sync)]
+    tp_diff = sum(d[0] for d in per_req)
+    tp_sync_diff = sum(d[2] for d in per_req)
+    print(f"[resilience] transprecision nan_logits (measured, not held): "
+          f"tokens differing from the fault-free engine's {tp_diff} of "
+          f"{sum(map(len, tp_clean))}, synchronous_generate's from the "
+          f"engine's {tp_sync_diff}; per request (faulted run vs engine, "
+          f"faulted run vs synchronous_generate, synchronous_generate vs "
+          f"engine) {per_req}; quarantines {s_tn['quarantines']}, "
+          f"failures {s_tn['failures']}")
+    _res_record(out, tp)
+    out["tp_nan_tokens_differing"] = per_req
+    out["d_tp_ok"] = good_dt
+    ok &= good_dt
+    del params, runs, tp
+    torch.cuda.empty_cache()
+
+    # ---- (c) quarantine + replay under binary32 ------------------------
+    policy, params = weights("binary32")
+    f32 = {}
+    for name, requests, max_new, extra in (
+            ("f32_clean", F32_REQUESTS, RES_F32_MAX_NEW, ()),
+            ("f32_nan", F32_REQUESTS, RES_F32_MAX_NEW,
+             ("--fault-plan", "nan_logits@3")),
+            ("f32_clean48", RES_REQUESTS, RES_SPEC_MAX_NEW, ()),
+            ("f32_spec", RES_REQUESTS, RES_SPEC_MAX_NEW,
+             ("--speculate-k", str(SPEC_K), "--fault-plan", RES_DIV))):
+        key = f"resilience_{name}"
+        argv = _serve_argv(args, "paged", requests, max_new,
+                           f"{key}_stats.jsonl", extra, policy="binary32")
+        f32[name] = _res_breaker_serve(torch, libs, args, key, argv, params)
+    prompts = [r.prompt for r in f32["f32_clean"][0]]
+    t0 = time.perf_counter()
+    sync = synchronous_generate(model, cfg, policy, params, prompts,
+                                max_new=RES_F32_MAX_NEW,
+                                capacity=SERVE_CAPACITY, device="cuda")
+    sync_s = time.perf_counter() - t0
+    clean = [r.generated for r in f32["f32_clean"][0]]
+    nan_run = [r.generated for r in f32["f32_nan"][0]]
+    s_nan = f32["f32_nan"][4]
+    good_c = clean == nan_run == sync and s_nan["quarantines"] == 1 \
+        and s_nan["faults_unfired"] == 0 and s_nan["failures"] == 0
+    print(f"[resilience] (c) binary32 nan_logits: replayed tokens equal to "
+          f"the fault-free engine's: {nan_run == clean}, to "
+          f"synchronous_generate on the card ({sync_s:.2f} s): "
+          f"{clean == sync}; quarantines {s_nan['quarantines']} "
+          f"(pages {s_nan['quarantined_pages']}) "
+          f"{'ok' if good_c else 'FAIL'}")
+    good_d = _breaker_ok("binary32 target, with a nan_logits",
+                         f32["f32_spec"], f32["f32_clean48"], quarantines=1)
+    _res_record(out, f32)
+    out["f32_sync_s"] = sync_s
+    out["c_ok"], out["d_ok"] = good_c, good_d
+    ok &= good_c and good_d
+
+    # ---- (e) exit codes -------------------------------------------------
+    codes = {}
+    base_e = ["--arch", "llama3-8b", "--policy", "binary32",
+              "--decode-impl", "paged", "--matmul-impl", "qmm_pallas",
+              "--page-size", str(SERVE_PAGE), "--slots", "1",
+              "--prompt-len", str(SERVE_PROMPT), "--max-new", "2",
+              "--capacity", str(SERVE_CAPACITY), "--seed", str(args.seed)]
+    codes["deadline"] = serve.cli_main(
+        base_e + ["--requests", "2", "--deadline-steps", "1"], params=params)
+    codes["crc_exhausted"] = serve.cli_main(
+        base_e + ["--requests", "1", "--disaggregate", "--max-requeues",
+                  "0", "--fault-plan", ",".join(["page_corrupt@1"] * 4)],
+        params=params)
+    good_e = codes == {"deadline": 71, "crc_exhausted": 72}
+    out["exit_codes"] = codes
+    print(f"[resilience] (e) cli_main exit codes {codes} (want deadline 71, "
+          f"CRC-exhausted request with --max-requeues 0: 72) "
+          f"{'ok' if good_e else 'FAIL'}")
+    ok &= good_e
+    del params
+    torch.cuda.empty_cache()
+    out["ok"] = ok
+    return ok
 
 
 # ---------------------------------------------------------------------------
@@ -2065,7 +2525,7 @@ def check_rmsnorm_rows(torch, report, args):
 
 ALL_PHASES = ("build", "kernels", "casts", "ops", "serve", "serve_flash",
               "speculative", "serve_f32", "serve_reduced", "logits",
-              "profile")
+              "resilience", "profile")
 
 
 def kernel_rows(report):
@@ -2080,7 +2540,10 @@ def kernel_rows(report):
     launches per prefill chunk), ``qmm_tc`` (``qmm_tc_launch``, times and
     launches per prefill chunk), ``qmm_tc_decode_step`` (the same kernel,
     times and launches per decode step) and ``qmm_packed_a`` (the same
-    kernel on binary8 activations, M = 64, the ops phase's launches)."""
+    kernel on binary8 activations, M = 64, the ops phase's launches).
+    ``rmsnorm`` is a port-only kernel (its ``replaces`` names the
+    reference's XLA rmsnorm): times at a decode step's 4 rows, the serve
+    phase's launches."""
     def timing(name, **match):
         return next((t for t in report["timings"] if t["kernel"] == name
                      and all(t.get(k) == v for k, v in match.items())), None)
@@ -2138,6 +2601,10 @@ def kernel_rows(report):
          "src/repro/kernels/flexfloat_cast.py:42",
          ops_counts.get("dequantize_decode_launch", 0), cast_err,
          timing("dequantize_decode", fmt="binary16alt")),
+        # port-only: the reference's rmsnorm is XLA, not a TPU kernel
+        ("rmsnorm", "src/repro_torch/csrc/rmsnorm.cu",
+         "src/repro/models/layers.py:221", serve.get("rmsnorm", 0),
+         report.get("rmsnorm_max_abs_err"), timing("rmsnorm", rows=4)),
     ]
     kernels = []
     for name, source, replaces, launches, err, t in rows:
@@ -2175,14 +2642,14 @@ def main() -> int:
              "the port on a CUDA card", 2)
     sys.path.insert(0, src)
     from repro_torch.kernels import (_build, flash_attention, flexfloat_cast,
-                                     paged_attention, qmatmul)
+                                     paged_attention, qmatmul, rmsnorm)
 
     os.makedirs(args.out, exist_ok=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     libs = (qmatmul.LIB, paged_attention.LIB, flash_attention.LIB,
-            flash_attention.DECODE_LIB, flexfloat_cast.LIB)
+            flash_attention.DECODE_LIB, flexfloat_cast.LIB, rmsnorm.LIB)
     report = dict(seed=args.seed, src=src, cases=[], timings=[], casts=[],
                   cast_kernels=[], logits=[],
                   device=torch.cuda.get_device_name(0))
@@ -2244,6 +2711,9 @@ def main() -> int:
                 ok = run_serve_reduced(torch, report, libs, args)
             elif phase == "logits":
                 ok = check_logits(torch, report, args, qmatmul.LIB)
+            elif phase == "resilience":
+                timer = timer or Timer(torch)
+                ok = run_resilience(torch, report, libs, args, timer)
             elif phase == "profile":
                 ok = run_profile(torch, report, args)
             else:

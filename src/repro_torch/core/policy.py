@@ -1,19 +1,26 @@
 """Precision policies: the transprecision type system applied to models.
 
-The port's copy of ``repro.core.policy`` (loading tuned artifacts waits).
-A :class:`PrecisionPolicy` assigns a format to every tensor role; role
-keys are flat (``"kv_cache"``) or per decoder layer
-(``"layers.3.kv_cache"``), resolved by longest match, and
-:meth:`PrecisionPolicy.at_layer` flattens a policy to one layer's view.
+The port's copy of ``repro.core.policy``.  A :class:`PrecisionPolicy`
+assigns a format to every tensor role; role keys are flat
+(``"kv_cache"``) or per decoder layer (``"layers.3.kv_cache"``),
+resolved by longest match, and :meth:`PrecisionPolicy.at_layer` flattens
+a policy to one layer's view.
 
 ``native`` mode stores and computes in torch dtypes (binary8 ->
 float8_e5m2, binary16 -> float16, binary16alt -> bfloat16, binary32 ->
 float32); ``emulated`` mode keeps f32 tensors and sanitizes every
 annotated edge with :func:`~repro_torch.core.flexfloat.quantize`.
+
+Policies serialize to the reference's versioned JSON **artifact**
+(:meth:`PrecisionPolicy.to_artifact` / :meth:`~PrecisionPolicy.
+from_artifact`), the exchange format ``python -m repro.tuning`` writes and
+``serve.py --policy path.json`` loads (``repro_torch.tuning.artifact``).
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import re
 from typing import Mapping, Optional
 
@@ -30,6 +37,13 @@ DEFAULT_ROLES = (
 )
 
 _LAYERED_KEY = re.compile(r"^layers\.(\d+)\.(\w+)$")
+
+# the policy-artifact JSON exchange format, the reference's
+ARTIFACT_SCHEMA = "repro.policy"
+ARTIFACT_VERSION = 1
+_ARTIFACT_REQUIRED = ("schema", "version", "mode", "default_fmt", "formats")
+_ARTIFACT_KEYS = frozenset(_ARTIFACT_REQUIRED) | {
+    "decode_impl", "matmul_impl", "provenance"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,6 +105,69 @@ class PrecisionPolicy:
                   if k.startswith(prefix)})
         return dataclasses.replace(self, formats=f)
 
+
+    def to_artifact(self, provenance: Optional[dict] = None) -> dict:
+        """The versioned JSON-serializable policy artifact (``provenance``
+        carried verbatim; :meth:`from_artifact` ignores it)."""
+        return {
+            "schema": ARTIFACT_SCHEMA,
+            "version": ARTIFACT_VERSION,
+            "mode": self.mode,
+            "default_fmt": self.default_fmt.name,
+            "formats": {k: get_format(v).name
+                        for k, v in sorted(self.formats.items())},
+            "decode_impl": self.decode_impl,
+            "matmul_impl": self.matmul_impl,
+            "provenance": dict(provenance or {}),
+        }
+
+    @classmethod
+    def from_artifact(cls, artifact) -> "PrecisionPolicy":
+        """Rebuild a policy from :meth:`to_artifact` output (a dict or a
+        path to a JSON file).  Strict, as the reference: a non-artifact
+        document, an unknown version, unknown top-level keys or an
+        unparsable format name raise ``ValueError``."""
+        doc = artifact
+        if isinstance(artifact, (str, os.PathLike)):
+            with open(artifact) as f:
+                try:
+                    doc = json.load(f)
+                except json.JSONDecodeError as e:
+                    raise ValueError(
+                        f"policy artifact {artifact}: not valid JSON "
+                        f"({e})") from e
+        if not isinstance(doc, dict):
+            raise ValueError(
+                f"policy artifact must be a JSON object, got "
+                f"{type(doc).__name__}")
+        if doc.get("schema") != ARTIFACT_SCHEMA:
+            raise ValueError(
+                f"not a policy artifact: schema={doc.get('schema')!r} "
+                f"(expected {ARTIFACT_SCHEMA!r})")
+        if doc.get("version") != ARTIFACT_VERSION:
+            raise ValueError(
+                f"policy artifact version skew: artifact has version "
+                f"{doc.get('version')!r}, this build reads "
+                f"{ARTIFACT_VERSION} -- re-run the tuner")
+        missing = [k for k in _ARTIFACT_REQUIRED if k not in doc]
+        if missing:
+            raise ValueError(f"policy artifact missing keys: {missing}")
+        unknown = set(doc) - _ARTIFACT_KEYS
+        if unknown:
+            raise ValueError(
+                f"policy artifact has unknown keys: {sorted(unknown)}")
+        formats = doc["formats"]
+        if not isinstance(formats, dict):
+            raise ValueError("policy artifact 'formats' must be a mapping")
+        try:
+            fmts = {k: get_format(v) for k, v in formats.items()}
+            default = get_format(doc["default_fmt"])
+        except KeyError as e:
+            raise ValueError(f"policy artifact names an unknown format: "
+                             f"{e}") from e
+        return cls(formats=fmts, mode=doc["mode"], default_fmt=default,
+                   decode_impl=doc.get("decode_impl"),
+                   matmul_impl=doc.get("matmul_impl"))
 
 def binary32_policy(mode: str = "native",
                     kv_fmt: Optional[FpFormat] = None,

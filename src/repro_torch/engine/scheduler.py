@@ -1,52 +1,77 @@
 """Continuous-batching scheduler over one shared page pool: the port of
-the core of ``repro.engine.scheduler``.
+``repro.engine.scheduler``.
 
 Each engine step does, in order:
 
-1. **Admission** -- while the prefill worker is idle and a slot is free,
+1. **Deadlines** -- requests (queued or slotted) past their per-request
+   step deadline fail with a classified
+   :class:`~repro_torch.engine.resilience.DeadlineExceeded` result (slot
+   released, never a hang).  Deadlines count engine steps since the
+   request was enqueued.
+2. **Admission** -- while a prefill worker is idle and a slot is free,
    pop the queue head if ``PagePool.can_admit`` says its KV (plus one
-   decode token) fits, and reserve its pages.
-2. **One prefill chunk** (default: one page of tokens) for the prompt in
-   flight, written straight into the pool; the last chunk's logits give
-   the request's first token.
-3. **Growth / eviction** -- every decoding slot gets a mapped page for its
-   next token; when the pool runs dry the most recently admitted sequence
-   is evicted back to the queue head (LIFO) and its pages reused.
-4. **One batched decode step** over every decoding slot, or with a
+   decode token) fits, and reserve its pages.  With one prefill worker
+   (the default) one prompt is in flight; with N workers, N prompts, each
+   through its own transport.
+3. **One prefill chunk per in-flight prompt** (default: one page of
+   tokens; ``prefill_chunk=0`` prefills the whole prompt at once),
+   landing in the decode pool through the worker's transport; the last
+   chunk's logits give the request's first token.
+4. **Growth / eviction** -- every decoding slot gets a mapped page for
+   its next token(s); when the pool runs dry the most recently admitted
+   sequence is evicted back to the queue head (LIFO) and its pages
+   reused.  A request evicted more than ``max_requeues`` times fails as a
+   :class:`~repro_torch.engine.resilience.DeadLetterRequest`.
+5. **One batched decode step** over every decoding slot, or with a
    :class:`~repro_torch.engine.speculative.SpeculativeDecoder` one
-   speculation round (k draft steps + one target verify); a mid-prefill
-   slot's block-table row is masked to -1, so its writes drop and its
-   length stays.
+   speculation round; a mid-prefill slot's block-table row is masked to
+   -1, so its writes drop and its length stays.
 
-With speculation every slot also owns pages in the pool's ``draft``
-namespace: admission reserves both sides, growth maps this round's worst
-case (k tokens, clamped to what the request can still emit) on both,
-acceptance truncates both, and finishing or eviction frees both.
+:meth:`Engine.run` drives a fixed request list to completion; the async
+router (:mod:`repro_torch.engine.router`) feeds the same loop through
+:meth:`Engine.enqueue` / :meth:`Engine.step` / :meth:`Engine.finalize`;
+``step()`` returns the requests that reached a terminal state.
 
-The argmax tokens and the NaN/Inf verdicts (a round's targets, emit and
-accept counts) cross to the host in one transfer per step
-(:func:`_host`).  A slot whose logits are not finite fails with a
-classified ``NonFiniteLogits`` result (the reference's
-quarantine-and-replay, fault injection, the speculative circuit breaker,
-deadlines and the router wait).
+**Self-healing** (``docs/resilience.md`` has the recovery matrix): the
+decode step and the speculation round run through a retry wrapper (the
+injected step exception fires before the step launches anything, so a
+re-run starts from the same pool bytes and lengths and is bit-identical,
+although the port writes KV in place); the argmax tokens and the NaN/Inf
+verdicts cross to the host in one transfer per step (:func:`_host`); a
+slot with non-finite logits has its pages quarantined (never recycled)
+and its request replays through
+:func:`~repro_torch.engine.reference.synchronous_generate`, the oracle
+the engine's tokens are pinned to; a
+:class:`~repro_torch.engine.resilience.CircuitBreaker` drops persistent
+draft divergence back to plain decode (draft KV kept warm by a shadow
+step) and re-probes after a cooldown; and an optional wall-clock watchdog
+turns wedged steps into a classified
+:class:`~repro_torch.engine.resilience.WatchdogTimeout`.  An engine on a
+card loads (and on a fresh checkout builds) every kernel library when it
+is constructed, so the build never counts against the watchdog.
+
+Deterministic fault schedules (:class:`~repro_torch.engine.faults.
+FaultPlan`) exercise every path: under a plan of recoverable faults the
+greedy tokens are bit-identical to the fault-free run.  With no fault
+armed, the injector's hooks launch nothing and sync nothing.
 """
 from __future__ import annotations
 
+import time
 from typing import List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.kernels import paged_cache
+from repro_torch.kernels import _build, paged_cache
 
+from . import resilience
+from .faults import FaultInjector, FaultPlan, SimulatedFault
+from .reference import synchronous_generate
 from .stats import EngineStats
 from .transport import ColocatedTransport
 from .worker import DecodeWorker, PrefillTask, PrefillWorker
-
-
-class NonFiniteLogits(RuntimeError):
-    kind = "non_finite"
 
 
 def _host(*tensors) -> List[np.ndarray]:
@@ -62,21 +87,25 @@ def _host(*tensors) -> List[np.ndarray]:
 
 
 class Request:
-    def __init__(self, rid: int, prompt: List[int], max_new: int):
+    def __init__(self, rid: int, prompt: List[int], max_new: int,
+                 deadline_steps: Optional[int] = None):
         self.rid = rid
         self.prompt = prompt
         self.max_new = max_new
+        self.deadline_steps = deadline_steps  # overrides the engine default
         self.generated: List[int] = []
         self.done = False
         self.evictions = 0
-        self.error: Optional[Exception] = None
+        self.error: Optional[Exception] = None  # classified EngineError
+        self.enqueued_step = 0     # engine step at enqueue (deadline base)
 
     @property
     def failed(self) -> bool:
         return self.error is not None
 
     def reset(self):
-        """Requeued after eviction: generation restarts from the prompt."""
+        """Requeued after eviction: generation restarts from the prompt,
+        and any stale classified error is cleared."""
         self.generated = []
         self.evictions += 1
         self.error = None
@@ -86,15 +115,40 @@ class Engine:
     """Paged continuous-batching engine over a fixed number of slots.  Its
     pools and token buffers live on ``device`` (default ``cuda``; raises
     when no card is present unless ``device="cpu"``), which must be the
-    device the parameters live on."""
+    device the parameters live on.
+
+    prefill_chunk: tokens prefilled per engine step (``None``: one page;
+    ``0``: the whole prompt in one step).
+
+    transport: one transport, or a list with one per concurrent prefill
+    worker (the engine runs as many workers as it is given transports; a
+    ``StreamedTransport`` owns a single-slot source pool and serves one
+    worker).
+
+    Resilience knobs, as in the reference: ``fault_plan``,
+    ``deadline_steps`` (default per-request deadline in engine steps from
+    enqueue), ``max_requeues`` (evictions a request survives before it
+    dead-letters; None = forever), ``retry_policy``, ``breaker`` (default
+    one with stock thresholds under speculation), ``watchdog_s`` /
+    ``watchdog_limit`` (wall-clock budget per step; ``watchdog_limit``
+    consecutive over-budget steps raise ``WatchdogTimeout``).
+    """
 
     def __init__(self, model, cfg, policy, params, *, slots: int,
                  capacity: int,
                  page_size: int = paged_cache.DEFAULT_PAGE_SIZE,
                  pool_pages: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
-                 transport=None, stats: Optional[EngineStats] = None,
-                 speculative=None, device=None):
+                 transport=None,
+                 stats: Optional[EngineStats] = None,
+                 speculative=None,
+                 fault_plan: Optional[FaultPlan] = None,
+                 deadline_steps: Optional[int] = None,
+                 max_requeues: Optional[int] = None,
+                 retry_policy: Optional[resilience.RetryPolicy] = None,
+                 breaker: Optional[resilience.CircuitBreaker] = None,
+                 watchdog_s: Optional[float] = None,
+                 watchdog_limit: int = 3, device=None):
         self.model, self.cfg, self.policy = model, cfg, policy
         self.params = params
         self.slots = slots
@@ -117,6 +171,19 @@ class Engine:
         self.pool = paged_cache.PagePool(self.num_pages, page, slots,
                                          self.pages_per_seq)
         self.stats = stats if stats is not None else EngineStats()
+
+        self.injector = FaultInjector(fault_plan, self.stats)
+        self.retry_policy = (retry_policy if retry_policy is not None
+                             else resilience.RetryPolicy())
+        self.deadline_steps = deadline_steps
+        self.max_requeues = max_requeues
+        self.watchdog_s = watchdog_s
+        self.watchdog_limit = int(watchdog_limit)
+        if self.device.type == "cuda":
+            # nvcc runs at first use (minutes on a fresh checkout): do it
+            # now, so no timed step ever waits for a build
+            _build.build_all()
+
         # each layer owns its pool, so the KV format may vary by layer
         self.states = [
             paged_cache.init_paged_cache(
@@ -124,34 +191,59 @@ class Engine:
                 cfg.head_dim, policy.dtype("kv_cache", layer=li),
                 device=self.device)
             for li in range(cfg.n_layers)]
-        self.transport = transport if transport is not None \
-            else ColocatedTransport()
-        self.transport.setup(self)
+
+        if transport is None:
+            transports = [ColocatedTransport()]
+        elif isinstance(transport, (list, tuple)):
+            transports = list(transport)
+            if not transports:
+                raise ValueError("transport=[] gives no prefill worker")
+        else:
+            transports = [transport]
+        if len(set(map(id, transports))) != len(transports):
+            raise ValueError(
+                "the same transport instance appears twice in the worker "
+                "list; each prefill worker needs its own transport")
+        self.transports = transports
+        self.transport = transports[0]
+        self.n_prefill_workers = len(transports)
+        for tr in self.transports:
+            tr.setup(self)
         chunk_tokens = page if prefill_chunk is None else prefill_chunk
-        self.prefill_worker = PrefillWorker(model, cfg, policy,
-                                            self.transport, self.stats,
-                                            chunk_tokens=chunk_tokens)
+        self.prefill_workers = [
+            PrefillWorker(model, cfg, policy, tr, self.stats,
+                          chunk_tokens=chunk_tokens)
+            for tr in self.transports]
         self.decode_worker = DecodeWorker(model, policy)
         self.spec = speculative
         if self.spec is not None:
             self.spec.setup(self)
+        self.breaker = breaker if breaker is not None else (
+            resilience.CircuitBreaker() if speculative is not None
+            else None)
         self.kv_bytes_per_token = sum(
             cfg.n_kv * cfg.head_dim * 2
             * policy.dtype("kv_cache", layer=li).itemsize
             for li in range(cfg.n_layers))
         self.summary: Optional[dict] = None
 
+        # serving-loop state: run() and the async router drive the same
+        # incremental step machine (enqueue -> step* -> finalize)
         self._queue: List[Request] = []
         self._slots: List[Optional[Request]] = [None] * slots
-        self._admitted_at = [0] * slots
-        self._admissions = 0
-        self._task: Optional[PrefillTask] = None
+        self._admitted_at = [0] * slots  # admission counter per slot
+        self._admissions = 0             # (LIFO eviction: newest first)
+        self._tasks: List[PrefillTask] = []  # in-flight prompts
         self._tokens = torch.zeros((slots, 1), dtype=torch.int32,
                                    device=self.device)
-        self._terminal = 0
+        self._terminal = 0        # requests that reached a terminal state
+        self._step_done: List[Request] = []  # terminal this step
         self.decode_steps = 0
         self._engine_step = 0
+        self._progressed = False  # non-step progress (failures) this step
         self._new_tokens = 0
+        self._wd_over = 0         # consecutive over-budget steps
+        self._finalized = False
 
     # ------------------------------------------------------------------ utils
     def _push_tables(self, mask_slots=()) -> None:
@@ -173,9 +265,8 @@ class Engine:
             self.spec.push_tables(both[1])
         else:
             dev = torch.as_tensor(tables).to(self.device)
-        for li in range(len(self.states)):
-            self.states[li] = paged_cache.set_block_tables(self.states[li],
-                                                           dev)
+        self.states = [paged_cache.set_block_tables(s, dev)
+                       for s in self.states]
 
     def _check_feasible(self, r: Request) -> None:
         worst = self.pool.pages_for(len(r.prompt) + r.max_new)
@@ -191,39 +282,81 @@ class Engine:
                 f"per-seq, {self.num_pages} total); raise "
                 f"--capacity/--pool-pages")
 
+    def _deadline_of(self, r: Request) -> Optional[int]:
+        return (r.deadline_steps if r.deadline_steps is not None
+                else self.deadline_steps)
+
+    def _task_for_slot(self, si: int) -> Optional[PrefillTask]:
+        for task in self._tasks:
+            if task.slot == si:
+                return task
+        return None
+
+    # ----------------------------------------------------- serving interface
     def enqueue(self, r: Request) -> Request:
+        """Admit ``r`` into the serving queue (an infeasible request is
+        rejected here, at submission); the deadline clock starts now."""
         self._check_feasible(r)
+        r.enqueued_step = self._engine_step
         self.stats.note_enqueued(r.rid)
         self._queue.append(r)
         return r
 
     def has_work(self) -> bool:
-        return bool(self._queue or self._task
+        """True while any request is queued, prefilling, or decoding."""
+        return bool(self._queue or self._tasks
                     or any(s is not None for s in self._slots))
 
     def finalize(self) -> Optional[dict]:
-        if self.summary is None:
+        """Emit the summary line and close the stats stream (idempotent;
+        run() calls it in a ``finally``)."""
+        if not self._finalized:
+            self._finalized = True
             self.summary = self.stats.summary(
-                kv_bytes_per_token=self.kv_bytes_per_token)
+                kv_bytes_per_token=self.kv_bytes_per_token,
+                faults_unfired=len(self.injector.pending))
             self.stats.close()
         return self.summary
 
+    # --------------------------------------------------------- step internals
+    def _fail_request(self, r: Request, err: Exception) -> None:
+        """Classified failure result: the request completes with
+        ``r.error`` set, never hangs the loop."""
+        r.error = err
+        self._terminal += 1
+        self._step_done.append(r)
+        self._progressed = True
+        self.stats.note_failure(getattr(type(err), "kind", "engine"))
+
     def _release_slot_state(self, si: int) -> None:
+        """Free ``si`` everywhere: pool pages (all namespaces), device
+        table rows, draft rows, and any in-flight prefill."""
         self.pool.free_slot(si)        # every namespace at once
-        for li in range(len(self.states)):
-            self.states[li] = paged_cache.release_slot(self.states[li], si)
+        self.states = [paged_cache.release_slot(s, si) for s in self.states]
         if self.spec is not None:
             self.spec.release_slot(si)
-        if self._task is not None and self._task.slot == si:
-            self._task = None
+        task = self._task_for_slot(si)
+        if task is not None:
+            self.transports[task.worker].abort(self, task)
+            self._tasks.remove(task)
         self._slots[si] = None
 
     def _evict(self, si: int) -> None:
+        # an eviction IS step progress: the requeued request becomes
+        # admissible next iteration
         r = self._slots[si]
         self._release_slot_state(si)
         r.reset()
+        self._progressed = True
         self.stats.note_eviction()
-        self._queue.insert(0, r)
+        if (self.max_requeues is not None
+                and r.evictions > self.max_requeues):
+            self._fail_request(r, resilience.DeadLetterRequest(
+                f"request {r.rid} evicted {r.evictions} times "
+                f"(max_requeues={self.max_requeues}); failing instead "
+                f"of thrashing the pool"))
+        else:
+            self._queue.insert(0, r)
 
     def _newest_active(self) -> Optional[int]:
         active = [si for si in range(self.slots)
@@ -232,24 +365,50 @@ class Engine:
             if active else None
 
     def _finish_slot(self, si: int) -> None:
-        self._slots[si].done = True
+        r = self._slots[si]
+        r.done = True
         self._terminal += 1
+        self._step_done.append(r)
         self.stats.note_completed()
         self._release_slot_state(si)
 
-    def _fail_slot(self, si: int, what: str) -> None:
+    def _quarantine_and_replay(self, si: int) -> int:
+        """The NaN/Inf guard tripped for ``si``'s prefill, decode or verify
+        logits: pull its pages out of circulation (suspect memory is never
+        recycled) and regenerate the request through the synchronous
+        oracle, which the engine's tokens are pinned to, so recovery keeps
+        the determinism contract.  -> tokens emitted now."""
         r = self._slots[si]
-        r.error = NonFiniteLogits(f"request {r.rid}: non-finite {what}")
+        pages = self.pool.quarantine_slot(si)
+        self.states = [paged_cache.release_slot(s, si) for s in self.states]
+        if self.spec is not None:
+            self.spec.release_slot(si)
+        self._slots[si] = None
+        self.stats.note_quarantine(pages)
+        prev = len(r.generated)
+        out = synchronous_generate(
+            self.model, self.cfg, self.policy, self.params,
+            [r.prompt], max_new=r.max_new,
+            capacity=max(self.capacity, len(r.prompt) + r.max_new),
+            device=self.device)
+        r.generated = list(out[0])
+        r.done = True
         self._terminal += 1
-        self.stats.failures += 1
-        self._release_slot_state(si)
+        self._step_done.append(r)
+        self._progressed = True
+        self.stats.note_completed()
+        self.stats.note_first_token(r.rid)
+        self.stats.note_decode_tokens(len(r.generated) - prev)
+        return len(r.generated) - prev
 
     def _complete_prefill(self, task: PrefillTask) -> None:
+        """A prompt's last chunk just landed: read its first token (one
+        host transfer) and hand the slot to the decode batch."""
         r, si = task.request, task.slot
         last = task.logits[0, -1]
         am, fin = _host(torch.argmax(last), torch.isfinite(last).all())
         if not bool(fin):
-            self._fail_slot(si, "prefill logits")
+            self._new_tokens += self._quarantine_and_replay(si)
             return
         r.generated.append(int(am))
         self.stats.note_first_token(r.rid)
@@ -263,41 +422,213 @@ class Engine:
             # (the draft tables were pushed with the prefill chunk's)
             self.spec.prefill_prompt(si, r.prompt)
 
-    def _round_tokens(self, si: int) -> int:
-        """Tokens slot ``si`` may append this step: 1, or with speculation
-        k clamped to what its request can still emit."""
-        if self.spec is None:
-            return 1
-        r = self._slots[si]
-        return min(self.spec.k, r.max_new - len(r.generated))
+    # -------------------------------------------------------------------- step
+    def step(self) -> List[Request]:
+        """One engine iteration; returns the requests that reached a
+        terminal state (done or classified failure) during it."""
+        n = self.slots
+        self._step_done = []
+        step = self._engine_step + 1    # 1-based, matches stats records
+        self.injector.begin_step(step)
+        t_step = time.perf_counter()
+        self._new_tokens = 0
+        self._progressed = False
+        # ---- deadlines: expired requests fail classified, never hang ----
+        for r in list(self._queue):
+            dl = self._deadline_of(r)
+            if dl is not None and self._engine_step - r.enqueued_step >= dl:
+                self._queue.remove(r)
+                self._fail_request(r, resilience.DeadlineExceeded(
+                    f"request {r.rid} still queued after its "
+                    f"{dl}-step deadline"))
+        for si in range(n):
+            r = self._slots[si]
+            dl = self._deadline_of(r) if r is not None else None
+            if dl is not None and self._engine_step - r.enqueued_step >= dl:
+                self._release_slot_state(si)
+                self._fail_request(r, resilience.DeadlineExceeded(
+                    f"request {r.rid} exceeded its {dl}-step deadline "
+                    f"({len(r.generated)}/{r.max_new} tokens)"))
+        # ---- admission: one prompt in flight per idle prefill worker ----
+        while self._queue and len(self._tasks) < self.n_prefill_workers:
+            si = next((i for i in range(n) if self._slots[i] is None), None)
+            if si is None:
+                break
+            need = len(self._queue[0].prompt)
+            needs = ((need + 1, need) if self.spec is not None
+                     else (need + 1,))
+            if not self.pool.can_admit(*needs):
+                break
+            r = self._queue.pop(0)
+            ok = self.pool.allocate(si, need)
+            if self.spec is not None:
+                ok = ok and self.pool.allocate(si, need, ns=self.spec.NS)
+            assert ok, (si, need)  # can_admit held above
+            self._slots[si] = r
+            self._admissions += 1
+            self._admitted_at[si] = self._admissions
+            self.stats.note_admitted(r.rid)
+            busy = {t.worker for t in self._tasks}
+            wi = next(w for w in range(self.n_prefill_workers)
+                      if w not in busy)
+            task = PrefillTask(r, si, need, worker=wi)
+            self.transports[wi].begin(self, task)
+            self._tasks.append(task)
+        # ---- one prefill chunk per task (decode below still runs) -------
+        ran_chunks = 0
+        if self._tasks:
+            self._push_tables()
+            for task in list(self._tasks):
+                ran_chunks += 1
+                self.stats.note_prefill_chunk(task.worker)
+                tr = self.transports[task.worker]
+                try:
+                    view, vslot = tr.prefill_view(self, task)
+                    view = self.prefill_workers[task.worker].step(
+                        task, view, vslot)
+                    tr.absorb(self, task, view)
+                    if task.done:
+                        tr.finish(self, task)
+                except resilience.TransportError:
+                    # checksum refetch exhausted: the handoff cannot be
+                    # trusted, so recompute the request from its prompt
+                    # (bounded by max_requeues like any other eviction)
+                    self._evict(task.slot)
+                    continue
+                if task.done:
+                    self._tasks.remove(task)
+                    self._complete_prefill(task)
+        # ---- growth: every decoding slot needs a mapped page for its
+        # next token(s); evict LIFO when the pool runs dry --------------
+        use_spec = (self.spec is not None
+                    and self.breaker.allows(step))
+        task_slots = {t.slot for t in self._tasks}
+        for si in range(n):
+            if self._slots[si] is None or si in task_slots:
+                continue
+            while self._slots[si] is not None:
+                L = int(self.pool.lens[si])
+                if use_spec:
+                    # this round's worst case in BOTH namespaces: k
+                    # appends, clamped to what the request can still emit
+                    gi = min(self.spec.k, self._slots[si].max_new
+                             - len(self._slots[si].generated))
+                    ok = (self.pool.ensure_capacity(si, L + gi)
+                          and self.pool.ensure_capacity(
+                              si, L + gi, ns=self.spec.NS))
+                elif self.spec is not None:
+                    # degraded (breaker-open) step: one token, but the
+                    # draft shadow append needs its page too
+                    ok = (self.pool.ensure_capacity(si, L + 1)
+                          and self.pool.ensure_capacity(
+                              si, L + 1, ns=self.spec.NS))
+                else:
+                    ok = self.pool.ensure_capacity(si, L + 1)
+                if ok and self.injector.pool_exhausted():
+                    ok = False  # injected exhaustion: walk the normal
+                if ok:          # eviction/requeue path below
+                    break
+                victim = self._newest_active()
+                self._evict(victim)
+                task_slots = {t.slot for t in self._tasks}
+                if victim == si:
+                    break
+        # ---- one batched decode step over the page pool ---------------
+        decoding = [si for si in range(n)
+                    if self._slots[si] is not None and si not in task_slots]
+        if decoding and use_spec:
+            self._spec_round(step, decoding, task_slots)
+        elif decoding:
+            self._push_tables(mask_slots=task_slots)
+            # None unless a fault is armed: then nothing is launched for it
+            nan_mask = self.injector.slot_mask("nan_logits", decoding, n)
 
-    def _grow(self, si: int) -> bool:
-        """Map pages for this step's appends, in both namespaces under
-        speculation."""
-        need = int(self.pool.lens[si]) + self._round_tokens(si)
-        ok = self.pool.ensure_capacity(si, need)
-        if ok and self.spec is not None:
-            ok = self.pool.ensure_capacity(si, need, ns=self.spec.NS)
-        return ok
+            def _decode_call():
+                self.injector.maybe_raise()
+                return self.decode_worker.step(self.params, self._tokens,
+                                               self.states, nan_mask)
 
-    def _spec_round(self, decoding: List[int]) -> None:
-        """One speculation round over the decoding slots, in place of the
-        batched decode step."""
-        tgt_d, m_d, acc_d, pending, bad_d, self.states = self.spec.round(
-            self.params, self._tokens, self.states)
+            nxt, bad_d, self.states = resilience.with_retries(
+                _decode_call, self.retry_policy, self.stats,
+                retriable=(SimulatedFault,), what="decode step")
+            self.decode_steps += 1
+            self.stats.note_target_step()
+            if self.spec is not None:
+                # breaker open: plain decode, but keep the draft KV in
+                # lockstep so the half-open probe can accept again
+                self.spec.shadow_step(self._tokens)
+                self.stats.note_degraded_step()
+            nxt_h, bad = _host(nxt, bad_d)
+            for si in decoding:
+                if bool(bad[si]):
+                    self._new_tokens += self._quarantine_and_replay(si)
+                    continue
+                r = self._slots[si]
+                self.pool.note_decode_step(si)
+                if self.spec is not None:
+                    self.pool.note_decode_step(si, ns=self.spec.NS)
+                r.generated.append(int(nxt_h[si]))
+                self.stats.note_decode_tokens(1)
+                self._new_tokens += 1
+                if len(r.generated) >= r.max_new:
+                    self._finish_slot(si)
+            self._tokens = nxt[:, None]
+        elif self.has_work() and not ran_chunks and not self._progressed:
+            # pre-run feasibility makes this unreachable without page
+            # quarantine; with it, a loud classified error beats a hang
+            raise resilience.EngineError(
+                "engine stalled: queue non-empty but no slot "
+                "admissible and no sequence decoding (quarantined "
+                f"pages: {len(self.pool.quarantined)})")
+        self._engine_step += 1
+        self.stats.step_record(
+            step=self._engine_step, queue_depth=len(self._queue),
+            prefilling=ran_chunks, decoding=len(decoding),
+            new_tokens=self._new_tokens, pool_stats=self.pool.stats())
+        if self.watchdog_s is not None:
+            if time.perf_counter() - t_step > self.watchdog_s:
+                self.stats.note_watchdog_trip()
+                self._wd_over += 1
+                if self._wd_over >= self.watchdog_limit:
+                    raise resilience.WatchdogTimeout(
+                        f"{self._wd_over} consecutive engine steps over "
+                        f"the {self.watchdog_s}s watchdog budget")
+            else:
+                self._wd_over = 0
+        return self._step_done
+
+    def _spec_round(self, step: int, decoding: List[int],
+                    task_slots) -> None:
+        """One speculation round (k draft steps + 1 verify) over the
+        decoding slots, in place of the batched decode step."""
+        self._push_tables(mask_slots=task_slots)
+        nan_mask = self.injector.slot_mask("nan_logits", decoding,
+                                           self.slots)
+        div_mask = self.injector.slot_mask("draft_div", decoding,
+                                           self.slots)
+
+        def _spec_call():
+            self.injector.maybe_raise()
+            return self.spec.round(self.params, self._tokens, self.states,
+                                   nan_mask=nan_mask, div_mask=div_mask)
+
+        (tgt_d, m_d, acc_d, pending, bad_d,
+         self.states) = resilience.with_retries(
+            _spec_call, self.retry_policy, self.stats,
+            retriable=(SimulatedFault,), what="speculation round")
         self.decode_steps += 1
         self.stats.note_target_step()
         tgt, m, acc, bad = _host(tgt_d, m_d, acc_d, bad_d)
         proposed = accepted = 0
         for si in decoding:
             if bool(bad[si]):
-                self._fail_slot(si, "verify logits")
+                self._new_tokens += self._quarantine_and_replay(si)
                 continue
             r = self._slots[si]
             L = int(self.pool.lens[si])
-            gi = self._round_tokens(si)
-            # positions at or past gi had no page mapped for them; the
-            # device rollback kept base + m, so clamp the host view alike
+            gi = min(self.spec.k, r.max_new - len(r.generated))
+            # positions >= gi had no page mapped for them; the device
+            # rollback kept base + m, so clamp the host view alike
             mi = min(int(m[si]), gi)
             r.generated.extend(int(t) for t in tgt[si, :mi])
             self.stats.note_decode_tokens(mi)
@@ -309,96 +640,15 @@ class Engine:
             if len(r.generated) >= r.max_new:
                 self._finish_slot(si)
         self.stats.note_spec_round(proposed=proposed, accepted=accepted)
+        self.breaker.record(step=step, proposed=proposed,
+                            accepted=accepted, stats=self.stats)
         self._tokens = pending
 
-    # -------------------------------------------------------------------- step
-    def step(self) -> None:
-        n = self.slots
-        self._new_tokens = 0
-        # ---- admission: one prompt in flight --------------------------------
-        if self._queue and self._task is None:
-            si = next((i for i in range(n) if self._slots[i] is None), None)
-            need = len(self._queue[0].prompt)
-            needs = (need + 1, need) if self.spec is not None \
-                else (need + 1,)
-            if si is not None and self.pool.can_admit(*needs):
-                r = self._queue.pop(0)
-                ok = self.pool.allocate(si, need)
-                if self.spec is not None:
-                    ok = ok and self.pool.allocate(si, need,
-                                                   ns=self.spec.NS)
-                assert ok, (si, need)   # can_admit held above
-                self._slots[si] = r
-                self._admissions += 1
-                self._admitted_at[si] = self._admissions
-                self.stats.note_admitted(r.rid)
-                self._task = PrefillTask(r, si, need)
-        # ---- one prefill chunk ----------------------------------------------
-        ran_chunks = 0
-        if self._task is not None:
-            task = self._task
-            self._push_tables()
-            ran_chunks = 1
-            self.stats.note_prefill_chunk(task.worker)
-            view, vslot = self.transport.prefill_view(self, task)
-            view = self.prefill_worker.step(task, view, vslot)
-            self.transport.absorb(self, task, view)
-            if task.done:
-                self._task = None
-                self._complete_prefill(task)
-        # ---- growth: a mapped page for every decoding slot's next token ----
-        task_slots = {self._task.slot} if self._task is not None else set()
-        for si in range(n):
-            if self._slots[si] is None or si in task_slots:
-                continue
-            while self._slots[si] is not None:
-                if self._grow(si):
-                    break
-                victim = self._newest_active()
-                self._evict(victim)
-                task_slots = {self._task.slot} if self._task is not None \
-                    else set()
-                if victim == si:
-                    break
-        # ---- one batched decode step over the page pool ---------------------
-        decoding = [si for si in range(n)
-                    if self._slots[si] is not None and si not in task_slots]
-        if decoding:
-            self._push_tables(mask_slots=task_slots)
-        if decoding and self.spec is not None:
-            self._spec_round(decoding)
-        elif decoding:
-            nxt, bad_d, self.states = self.decode_worker.step(
-                self.params, self._tokens, self.states)
-            self.decode_steps += 1
-            self.stats.note_target_step()
-            nxt_h, bad = _host(nxt, bad_d)
-            for si in decoding:
-                if bool(bad[si]):
-                    self._fail_slot(si, "decode logits")
-                    continue
-                r = self._slots[si]
-                self.pool.note_decode_step(si)
-                r.generated.append(int(nxt_h[si]))
-                self.stats.note_decode_tokens(1)
-                self._new_tokens += 1
-                if len(r.generated) >= r.max_new:
-                    self._finish_slot(si)
-            self._tokens = nxt[:, None]
-        elif self.has_work() and not ran_chunks:
-            raise RuntimeError(
-                "engine stalled: queue non-empty but no slot admissible "
-                "and no sequence decoding")
-        self._engine_step += 1
-        self.stats.step_record(
-            step=self._engine_step, queue_depth=len(self._queue),
-            prefilling=ran_chunks, decoding=len(decoding),
-            new_tokens=self._new_tokens, pool_stats=self.pool.stats())
-
+    # -------------------------------------------------------------------- run
     def run(self, reqs: List[Request]) -> List[Request]:
         """Drive a fixed request list to completion."""
         for r in reqs:
-            self._check_feasible(r)
+            self._check_feasible(r)   # all-or-nothing, before any enqueue
         for r in reqs:
             self.enqueue(r)
         base = self._terminal

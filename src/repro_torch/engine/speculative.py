@@ -22,9 +22,14 @@ One speculation **round** replaces one batched decode step:
 Draft and target KV share one ``PagePool``: the target in namespace
 ``""``, the draft under :data:`DRAFT_NAMESPACE`.  A round keeps the
 pending tokens on the device; the scheduler makes one device -> host
-transfer per round.  The reference's fault-injection masks, shadow step
-and circuit breaker come with the port of ``faults.py`` /
-``resilience.py``.
+transfer per round.
+
+Resilience hooks, as in the reference: a round takes the fault
+injector's ``nan_mask`` (poison a slot's verify logits) and ``div_mask``
+(shift a slot's proposals off the target's argmax), each passed only when
+such a fault is armed; and :meth:`SpeculativeDecoder.shadow_step` keeps
+the draft KV in lockstep with the target while the circuit breaker holds
+speculation open and the engine decodes plain.
 """
 from __future__ import annotations
 
@@ -33,6 +38,8 @@ from typing import List, Optional
 import torch
 
 from repro_torch.kernels import paged_cache
+
+from .worker import poison
 
 DRAFT_NAMESPACE = "draft"
 
@@ -107,12 +114,24 @@ class SpeculativeDecoder:
                        for s in self.states]
 
     @torch.no_grad()
-    def round(self, params, tokens, states):
+    def shadow_step(self, tokens) -> None:
+        """While the circuit breaker holds speculation open, advance the
+        draft KV by the token the target just consumed (the scheduler
+        decodes plain; the draft's logits are dropped): the draft cache
+        stays in lockstep with the target, so acceptance has a chance the
+        moment the breaker re-probes."""
+        _, self.states = self.model.decode_step(self.params, tokens,
+                                                self.states, self.policy)
+
+    @torch.no_grad()
+    def round(self, params, tokens, states, nan_mask=None, div_mask=None):
         """One speculation round with the target's ``params`` from its
         pending ``tokens`` (n, 1) over its paged ``states``.  Returns
         device tensors ``(tgt (n, k), m (n,), accepted (n,), pending
         (n, 1), bad (n,))`` and the target's new states; the draft's
-        states are updated on ``self``."""
+        states are updated on ``self``.  ``nan_mask`` / ``div_mask`` are
+        the fault injector's per-slot host masks (None = no fault, and
+        then nothing is launched for them)."""
         target_model, target_policy = self._target
         k = self.k
         t, dstates = tokens, self.states
@@ -125,10 +144,19 @@ class SpeculativeDecoder:
                 torch.int32)[:, None]
             props.append(t[:, 0])
         props = torch.stack(props, dim=1)                      # (n, k)
+        if div_mask is not None:
+            # injected draft divergence: shift a masked slot's proposals
+            # off the target argmax (+1 mod vocab never matches); only
+            # acceptance can suffer -- greedy verification stays exact
+            div = torch.as_tensor(div_mask, dtype=torch.bool).to(
+                props.device)[:, None]
+            props = torch.where(div, (props + 1) % self.cfg.vocab, props)
         v = torch.cat([tokens, props[:, :-1]], dim=1)          # (n, k)
         bases = [s.seq_lens for s in states]
         logits, states = target_model.verify_step(params, v, states,
                                                   target_policy)
+        if nan_mask is not None:
+            logits = poison(logits, nan_mask)
         tgt = torch.argmax(logits, dim=-1).to(torch.int32)     # (n, k)
         bad = ~torch.isfinite(logits).all(dim=2).all(dim=1)
         matches = (tgt == props).to(torch.int32)

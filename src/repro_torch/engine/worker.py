@@ -1,50 +1,67 @@
 """Prefill and decode workers: the compute the scheduler drives.
 
 The prefill worker runs ``Model.prefill_chunk`` one chunk (default: one
-page) at a time, writing each chunk's K/V page by page into the pool, so
-the transient staging buffer is one chunk per layer.  The decode worker
-runs one batched ``decode_step`` and returns the argmax tokens and the
-NaN/Inf guard verdicts, computed on the device.
+page) at a time, writing each chunk's K/V page by page into the view its
+transport hands it (the decode pool itself, or a streamed transport's
+private source pool), so the transient staging buffer is one chunk per
+layer.  ``chunk_tokens == 0`` is whole-prompt prefill: one
+``Model.prefill`` into a prompt-sized contiguous cache, then a bulk
+``write_prefill`` into the pages.  The decode worker runs one batched
+``decode_step`` and returns the argmax tokens and the NaN/Inf guard
+verdicts, computed on the device.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import paged_cache
+
 
 class PrefillTask:
-    """One in-flight prompt: chunk cursor and result."""
+    """One in-flight prompt: chunk cursor, stream cursor, and result."""
 
     def __init__(self, request, slot: int, n_tokens: int, worker: int = 0):
         self.request = request
         self.slot = slot
-        self.n_tokens = n_tokens
-        self.worker = worker
-        self.offset = 0
+        self.n_tokens = n_tokens   # KV rows the prompt occupies
+        self.worker = worker       # prefill worker / transport index
+        self.offset = 0            # tokens already prefilled
+        self.streamed = 0          # pages already handed to the decode pool
         self.done = False
-        self.logits = None
+        self.logits = None         # last-position logits once done
 
 
 class PrefillWorker:
+    """Runs prompts into the transport-provided page-pool view.
+
+    chunk_tokens > 0: page-granular chunked prefill (transient staging =
+    one chunk).  chunk_tokens == 0: one-shot ``Model.prefill`` followed by
+    a bulk ``write_prefill`` (transient staging = the whole prompt)."""
+
     def __init__(self, model, cfg, policy, transport, stats, *,
                  chunk_tokens: int):
-        if not chunk_tokens or chunk_tokens <= 0:
-            raise ValueError("repro_torch's engine prefills in chunks; "
-                             "--prefill-chunk must be positive (whole-prompt "
-                             "prefill into pages is not ported yet)")
+        if chunk_tokens is None or chunk_tokens < 0:
+            raise ValueError(f"--prefill-chunk must be >= 0 (0 = whole-"
+                             f"prompt prefill), got {chunk_tokens}")
         self.model, self.cfg, self.policy = model, cfg, policy
         self.transport = transport
         self.stats = stats
         self.chunk_tokens = int(chunk_tokens)
 
+    def _tokens(self, toks) -> torch.Tensor:
+        return torch.tensor([list(toks)], dtype=torch.int32,
+                            device=self.transport.device)
+
     def step(self, task: PrefillTask, view_states, slot: int):
-        """Advance ``task`` by one chunk; returns the updated states."""
+        """Advance ``task`` by one chunk (or the whole prompt); returns
+        the updated state view for the transport to absorb."""
+        if self.chunk_tokens == 0:
+            return self._whole_step(task, view_states, slot)
         C = min(self.chunk_tokens, task.n_tokens - task.offset)
         toks = task.request.prompt[task.offset:task.offset + C]
-        t = torch.tensor([toks], dtype=torch.int32,
-                         device=self.transport.device)
         logits, view_states = self.model.prefill_chunk(
-            self.transport.params, t, view_states, self.policy, slot=slot,
-            q_offset=task.offset)
+            self.transport.params, self._tokens(toks), view_states,
+            self.policy, slot=slot, q_offset=task.offset)
         self.stats.note_prefill_transient(C)
         task.offset += C
         if task.offset >= task.n_tokens:
@@ -52,17 +69,48 @@ class PrefillWorker:
             task.logits = logits
         return view_states
 
+    def _whole_step(self, task: PrefillTask, view_states, slot: int):
+        batch = {"tokens": self._tokens(task.request.prompt)}
+        logits, one = self.model.prefill(self.transport.params, batch,
+                                         self.policy, None)
+        view_states = [paged_cache.write_prefill(s, slot, c.k[0], c.v[0])
+                       for s, c in zip(view_states, one)]
+        self.stats.note_prefill_transient(task.n_tokens)
+        task.offset = task.n_tokens
+        task.done = True
+        task.logits = logits
+        return view_states
+
 
 class DecodeWorker:
-    """One batched decode step over the shared page pool."""
+    """One batched decode step over the shared page pool.
+
+    Returns ``(next_tokens, bad, states)``: the argmax and the NaN/Inf
+    guard (``bad[s]``: slot ``s``'s logits hold a non-finite value) are
+    computed on the device, so the scheduler's one host transfer a step
+    carries the verdict.  ``nan_mask`` is the fault injector's per-slot
+    poison mask (a host bool array), passed only on a step where a
+    ``nan_logits`` fault is armed: a step without one launches nothing
+    for it."""
 
     def __init__(self, model, policy):
         self.model, self.policy = model, policy
 
-    def step(self, params, tokens, states):
+    def step(self, params, tokens, states, nan_mask=None):
         logits, states = self.model.decode_step(params, tokens, states,
                                                 self.policy)
+        if nan_mask is not None:
+            logits = poison(logits, nan_mask)
         last = logits[:, -1, :]
         nxt = torch.argmax(last, dim=-1).to(torch.int32)
         bad = ~torch.isfinite(last).all(dim=-1)
         return nxt, bad, states
+
+
+def poison(logits: torch.Tensor, mask) -> torch.Tensor:
+    """``logits`` with the rows of ``mask`` (a host bool array over the
+    slots) set to NaN: the injected ``nan_logits`` fault."""
+    m = torch.as_tensor(mask, dtype=torch.bool).to(logits.device)
+    return torch.where(m.view(-1, *([1] * (logits.dim() - 1))),
+                       torch.full((), float("nan"), dtype=logits.dtype,
+                                  device=logits.device), logits)

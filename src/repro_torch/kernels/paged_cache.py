@@ -16,9 +16,9 @@ The port's copy of ``repro.kernels.paged_cache``.  Two halves:
 
 The device functions are the reference's: ``append_decode``,
 ``append_block`` (K tokens per slot, the speculative verify write),
-``write_chunk``, ``set_seq_len``, ``truncate_seq_lens`` (the speculative
-rollback), ``release_slot``, ``set_block_tables``, ``gather_pages`` and
-``paged_view_of_contiguous``.
+``write_chunk``, ``write_prefill``, ``set_seq_len``,
+``truncate_seq_lens`` (the speculative rollback), ``release_slot``,
+``set_block_tables``, ``gather_pages`` and ``paged_view_of_contiguous``.
 
 Unmapped block-table entries are ``-1``.  Writes through an unmapped entry
 are dropped: JAX drops them with ``mode="drop"``, torch's ``index_put``
@@ -191,6 +191,15 @@ def write_chunk(cache: PagedKVCache, slot: int, k, v,
     return cache._replace(seq_lens=lens)
 
 
+def write_prefill(cache: PagedKVCache, slot: int, k, v) -> PagedKVCache:
+    """Write a whole prefilled prompt (positions 0..S-1) into ``slot``'s
+    pages.  k / v: (S, n_kv, head_dim), e.g. ``KVCache.k[0][:S]`` of the
+    transient contiguous prefill cache.  Pages must already be mapped;
+    unmapped tails are dropped and the length clamped as in
+    :func:`write_chunk`."""
+    return write_chunk(cache, slot, k, v, 0)
+
+
 def set_seq_len(cache: PagedKVCache, slot: int, n) -> PagedKVCache:
     """Host-declared length for ``slot`` (a transport that copies whole
     pages into the pool sets the device length at handoff)."""
@@ -262,6 +271,25 @@ def gather_pages(pool, block_tables):
     g = pool.view(signed)[tbl].view(pool.dtype) if signed else pool[tbl]
     B, P, page = g.shape[0], g.shape[1], g.shape[2]
     return g.reshape((B, P * page) + tuple(g.shape[3:]))
+
+
+def read_pages(pool, ids) -> torch.Tensor:
+    """The physical pages ``ids`` (int tensor) of a pool, as a new
+    (len(ids), page, H, dh) tensor of the pool's dtype."""
+    signed = _SIGNED_VIEW.get(pool.dtype)
+    if signed:
+        return pool.view(signed)[ids.long()].view(pool.dtype)
+    return pool[ids.long()]
+
+
+def write_pages(pool, ids, pages) -> None:
+    """pool[ids] = pages in place: whole physical pages, bits unchanged
+    (the streamed transport's handoff copy)."""
+    signed = _SIGNED_VIEW.get(pool.dtype)
+    if signed:
+        pool.view(signed)[ids.long()] = pages.view(signed)
+    else:
+        pool[ids.long()] = pages
 
 
 # ---------------------------------------------------------------------------

@@ -1,18 +1,25 @@
-"""Argparse wiring for the backend-selection flags, shared with the
-reference CLI's spellings (``repro.launch.cli``); the legal values come
-from the port's registries."""
+"""Argparse wiring shared with the reference CLI's spellings
+(``repro.launch.cli``): the backend, speculative, router and resilience
+flags.  The legal backend values come from the port's registries."""
 from __future__ import annotations
 
 from repro_torch import configs
-from repro_torch.core.policy import POLICIES
 from repro_torch.kernels import dispatch, paged_cache
 
 
 def add_backend_args(ap, *, include_pool: bool = True):
+    """The backend flags; ``--policy`` takes a registry name or a tuned
+    artifact path, and ``--kv-fmt`` overrides a named policy's KV format
+    (an artifact pins its knobs: ``tuning.artifact.load_policy`` rejects
+    conflicting overrides)."""
     ap.add_argument("--policy", default="transprecision",
-                    choices=sorted(POLICIES),
-                    help="precision policy (tuned-artifact paths are not "
-                         "ported yet)")
+                    help="precision policy: a registry name (binary32 / "
+                         "transprecision) or a path to a tuned policy "
+                         "artifact JSON (per-layer kv_cache bindings "
+                         "included)")
+    ap.add_argument("--kv-fmt", default=None,
+                    help="override a named policy's kv_cache format (e.g. "
+                         "binary16alt); conflicts with an artifact")
     ap.add_argument("--decode-impl", default=None,
                     choices=list(dispatch.legal_impls()),
                     help="attention backend (default: flash_pallas on "
@@ -47,4 +54,52 @@ def add_speculative_args(ap):
     ap.add_argument("--draft-config", default=None,
                     choices=list(configs.ARCHS),
                     help="arch of the draft model (default: the target's)")
+    return ap
+
+
+def add_router_args(ap):
+    """Async serving front-end flags, the reference's.  ``--prefill-
+    workers`` works with or without ``--router``: the engine itself runs N
+    concurrent prefill tasks (one transport each)."""
+    ap.add_argument("--router", action="store_true",
+                    help="serve through the asyncio request router "
+                         "(concurrent submissions with per-request "
+                         "futures; tokens stay bit-identical to the "
+                         "synchronous run)")
+    ap.add_argument("--prefill-workers", type=int, default=1,
+                    help="concurrent prefill workers, one transport (and "
+                         "with --disaggregate one streamed source pool) "
+                         "each; the decode batch stays single (default: 1)")
+    ap.add_argument("--max-pending", type=int, default=None,
+                    help="router backpressure: cap on requests in flight "
+                         "(queued + serving); submit() awaits when full "
+                         "(default: unbounded)")
+    return ap
+
+
+def add_resilience_args(ap):
+    """Fault-injection and recovery flags, the reference's.  The recovery
+    machinery is always on; these flags bound it (deadlines, requeue caps,
+    the watchdog) or exercise it (``--fault-plan``)."""
+    ap.add_argument("--fault-plan", default=None,
+                    help="deterministic fault schedule: an inline spec "
+                         "'kind@step[/slot],...,seed=N' (kinds: "
+                         "chunk_drop chunk_dup page_corrupt nan_logits "
+                         "draft_div step_exception pool_exhaust) or a "
+                         "path to a JSON file "
+                         "{\"seed\": N, \"faults\": [{kind, step, slot}]}; "
+                         "under a plan of recoverable faults the served "
+                         "tokens are bit-identical to the fault-free run")
+    ap.add_argument("--deadline-steps", type=int, default=None,
+                    help="per-request deadline in engine steps from run "
+                         "start; an expired request fails with a "
+                         "classified DeadlineExceeded result (default: no "
+                         "deadline)")
+    ap.add_argument("--max-requeues", type=int, default=None,
+                    help="evictions a request survives before failing as "
+                         "a DeadLetterRequest (default: requeue forever)")
+    ap.add_argument("--watchdog-s", type=float, default=None,
+                    help="wall-clock budget per engine step; 3 "
+                         "consecutive over-budget steps raise a "
+                         "classified WatchdogTimeout (default: off)")
     return ap

@@ -3,19 +3,32 @@
 ``python -m repro_torch.launch.serve --arch llama3-8b --decode-impl paged
 --matmul-impl qmm_pallas``
 
-The port of ``repro.launch.serve`` for this subset of its flags:
-``--arch --reduced --requests --slots --prompt-len --max-new --capacity
---policy --decode-impl --matmul-impl --page-size --pool-pages
---prefill-chunk --speculate-k --draft-config``, plus ``--device``
-(default ``cuda``; raises when no card is present unless ``--device
-cpu``), ``--seed`` (weights from a
-``torch.Generator``, prompts from numpy) and ``--stats-out``.  It prints
-the same ``[serve] ... tok/s ...`` summary line, and :func:`main`
-returns the ``Request`` list.
+The port of ``repro.launch.serve``: every flag of the reference's dense
+path -- ``--arch --reduced --requests --slots --prompt-len --max-new
+--capacity --policy (a registry name or a tuned artifact path)
+--decode-impl --matmul-impl --page-size --pool-pages --prefill-chunk
+(0 = whole-prompt prefill) --disaggregate --stats-out``, the router's
+``--router --prefill-workers --max-pending``, the speculative
+``--speculate-k --draft-config`` and the resilience ``--fault-plan
+--deadline-steps --max-requeues --watchdog-s`` -- plus ``--kv-fmt``
+(a named policy's KV format), ``--device`` (default ``cuda``; raises when
+no card is present unless ``--device cpu``) and ``--seed`` (weights from
+a ``torch.Generator``, prompts from numpy).  It prints the reference's
+``[serve]`` lines (the summary, and the ``router:`` and ``resilience:``
+lines where they apply); :func:`main` returns the ``Request`` list and
+:func:`cli_main` maps a classified engine error to its exit code (70-76)
+and one structured stderr line.
+
+``--disaggregate`` streams finished KV pages from a private prefill pool
+into the decode pool (``StreamedTransport``, CRC-checked): with two or
+more cards worker i's pool sits on card 1 + i mod (cards - 1), on one
+card beside the decode pool.
 """
 from __future__ import annotations
 
 import argparse
+import asyncio
+import dataclasses
 import sys
 
 import numpy as np
@@ -24,14 +37,18 @@ import torch
 from repro_torch import configs, resolve_device
 from repro_torch.core.formats import BINARY8
 from repro_torch.core.policy import get_policy
-from repro_torch.engine import (Engine, EngineStats, Request,
-                                SpeculativeDecoder)
+from repro_torch.engine import (ColocatedTransport, Engine, EngineStats,
+                                FaultPlan, Request, SpeculativeDecoder,
+                                StreamedTransport, exit_code_for,
+                                format_error, run_router)
 from repro_torch.kernels import dispatch
-from repro_torch.launch.cli import add_backend_args, add_speculative_args
+from repro_torch.launch.cli import (add_backend_args, add_resilience_args,
+                                    add_router_args, add_speculative_args)
 from repro_torch.models import qparams
 from repro_torch.models.registry import build
+from repro_torch.tuning.artifact import load_policy
 
-__all__ = ["Request", "build_draft", "main"]
+__all__ = ["Request", "build_draft", "cli_main", "main"]
 
 
 def build_draft(model, cfg, *, arch=None, reduced=False, k: int,
@@ -67,30 +84,58 @@ def parse_args(argv=None):
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--capacity", type=int, default=128)
     add_backend_args(ap, include_pool=True)
-    add_speculative_args(ap)
     ap.add_argument("--prefill-chunk", type=int, default=None,
                     help="tokens prefilled per engine step (default: one "
-                         "page)")
+                         "page; 0 = whole-prompt prefill)")
+    ap.add_argument("--disaggregate", action="store_true",
+                    help="prefill into a private pool and stream finished "
+                         "KV pages into the decode pool (CRC-checked; on "
+                         "a second card when there is one)")
+    ap.add_argument("--stats-out", default=None,
+                    help="write per-step engine stats as JSON lines here")
+    add_router_args(ap)
+    add_speculative_args(ap)
+    add_resilience_args(ap)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and prompts")
-    ap.add_argument("--stats-out", default=None,
-                    help="write per-step engine stats as JSON lines here")
     return ap.parse_args(argv)
+
+
+def _transports(args, device):
+    """One transport per prefill worker: streamed ones with
+    ``--disaggregate`` (worker i's pool on card 1 + i mod (cards - 1)
+    when there are two or more, else on the decode card)."""
+    n = args.prefill_workers
+    if not args.disaggregate:
+        return [ColocatedTransport() for _ in range(n)]
+    ndev = torch.cuda.device_count() if device.type == "cuda" else 1
+    return [StreamedTransport(device_index=(1 + i % (ndev - 1))
+                              if ndev > 1 else 0) for i in range(n)]
 
 
 def main(argv=None, *, params=None):
     """Serve ``--requests`` random prompts; returns the Request list.
 
-    ``params``: a ready param tree (e.g. weights carried across from the
-    JAX package by ``models/convert.py``) to serve instead of random
-    weights from ``--seed``; it is packed here like random ones."""
+    ``params``: a ready param tree (random weights made once and served
+    several times, or weights carried across from the JAX package by
+    ``models/convert.py``) to serve instead of random weights from
+    ``--seed``; unpacked leaves are packed here like random ones, packed
+    ones (``QTensor``) are served as they are."""
     args = parse_args(argv)
+    if args.prefill_workers < 1:
+        raise ValueError(
+            f"--prefill-workers must be >= 1, got {args.prefill_workers}")
     device = resolve_device(args.device)
-    decode_impl = args.decode_impl or dispatch.default_serving_impl(device)
-    policy = get_policy(args.policy, decode_impl=decode_impl,
-                        matmul_impl=args.matmul_impl)
+    # an artifact pins its knobs: only the explicit flags take part in
+    # the conflict check, and the serving default fills in afterwards
+    policy = load_policy(args.policy, decode_impl=args.decode_impl,
+                         matmul_impl=args.matmul_impl, kv_fmt=args.kv_fmt)
+    if policy.decode_impl is None:
+        impl = dispatch.default_serving_impl(device)
+        if impl is not None:
+            policy = dataclasses.replace(policy, decode_impl=impl)
     model, cfg = build(args.arch, reduced=args.reduced)
     if params is None:
         gen = torch.Generator(device=device).manual_seed(args.seed)
@@ -114,13 +159,33 @@ def main(argv=None, *, params=None):
         print(f"[serve] speculative: draft={speculative.cfg.arch} "
               f"(binary8 packed weights, binary8 KV), k={args.speculate_k}")
 
+    fault_plan = None
+    if args.fault_plan:
+        fault_plan = FaultPlan.load(args.fault_plan)
+        print(f"[serve] fault plan: {fault_plan.describe()}")
+
+    transports = _transports(args, device)
     engine = Engine(model, cfg, policy, params, slots=args.slots,
                     capacity=args.capacity, page_size=args.page_size,
                     pool_pages=args.pool_pages,
                     prefill_chunk=args.prefill_chunk,
+                    transport=transports,
                     stats=EngineStats(args.stats_out),
-                    speculative=speculative, device=device)
-    engine.run(reqs)
+                    speculative=speculative, fault_plan=fault_plan,
+                    deadline_steps=args.deadline_steps,
+                    max_requeues=args.max_requeues,
+                    watchdog_s=args.watchdog_s, device=device)
+    if args.router:
+        # async front-end: submissions flow through the Router's queue
+        # into the same engine; a ticket's classified per-request failure
+        # comes back on the Request, engine-fatal errors raise here
+        asyncio.run(run_router(engine, reqs, max_pending=args.max_pending))
+        print(f"[serve] router: {args.prefill_workers} prefill worker(s), "
+              f"queue wait mean: {engine.summary['queue_wait_mean_s']}s, "
+              f"per-worker prefill chunks: "
+              f"{engine.summary['prefill_chunks_by_worker']}")
+    else:
+        engine.run(reqs)
 
     s = engine.summary
     st = engine.pool.stats()
@@ -148,12 +213,42 @@ def main(argv=None, *, params=None):
           f"ttft mean: {s['ttft_mean_s']}s, "
           f"peak prefill staging: {s['peak_prefill_transient_tokens']} "
           f"tokens)")
+    if fault_plan is not None or s["failures"] or s["faults_injected"]:
+        print(f"[serve] resilience: faults={s['faults_injected']} "
+              f"(unfired: {s['faults_unfired']}), "
+              f"retries={s['retries']}, "
+              f"crc_mismatches={s['crc_mismatches']}, "
+              f"quarantines={s['quarantines']}, "
+              f"degraded_steps={s['degraded_steps']}, "
+              f"breaker_trips={s['breaker_trips']}, "
+              f"deadline_misses={s['deadline_misses']}, "
+              f"dead_letters={s['dead_letters']}, "
+              f"failures={s['failures']}")
     return reqs
 
 
-def cli_main(argv=None) -> int:
-    reqs = main(argv)
-    return 1 if any(r.failed for r in reqs) else 0
+def cli_main(argv=None, *, params=None) -> int:
+    """Process entry point: a classified engine error becomes its exit
+    code (70-76) plus one structured stderr line instead of a traceback.
+    In-process callers use :func:`main`, which raises."""
+    try:
+        reqs = main(argv, params=params)
+    except Exception as e:  # noqa: BLE001 -- classified errors only
+        code = exit_code_for(e)
+        if code is None:
+            raise  # a real bug deserves its traceback
+        print(format_error(e), file=sys.stderr)
+        return code
+    failed = [r for r in reqs if r.error is not None]
+    if failed:
+        # requests that failed with classified results (deadline misses,
+        # dead letters): the run completed, but the process should not
+        # exit 0 -- report the most severe class
+        worst = max(failed, key=lambda r: exit_code_for(r.error) or 0)
+        print(format_error(worst.error, requests=len(failed)),
+              file=sys.stderr)
+        return exit_code_for(worst.error) or 70
+    return 0
 
 
 if __name__ == "__main__":

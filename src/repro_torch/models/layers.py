@@ -33,6 +33,7 @@ from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.core.qtensor import QTensor
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.qmatmul import apply_act, qmatmul, qmm_ffn
+from repro_torch.kernels.rmsnorm import rmsnorm_f32
 
 F32 = torch.float32
 
@@ -137,27 +138,12 @@ def act_cast(x, policy: PrecisionPolicy, role: str = "act"):
     return quantize(x, policy.fmt(role))
 
 
-def _mean_square(xf):
-    """Mean of squares over the last axis, summed in an order that does
-    not depend on the number of rows: 128-wide partial sums, then one sum
-    of the d / 128 partials.  A single ``torch.mean`` over (rows, 4096)
-    on CUDA shapes its thread blocks by the row count (4 rows of a decode
-    step, 16 of a speculative verify), and so its summation order; a row
-    of 128, or of at most 32 partials (d a multiple of 128 up to 4096),
-    is summed by one warp whatever the number of rows, so a verify row
-    normalizes as the decode row does (``chip_smoke.py`` checks it)."""
-    d = xf.shape[-1]
-    c = 128 if d > 128 and d % 128 == 0 else d
-    part = torch.sum((xf * xf).reshape(-1, c), dim=-1)
-    return torch.sum(part.reshape(*xf.shape[:-1], d // c), dim=-1,
-                     keepdim=True) / d
-
-
 def rmsnorm(x, gamma, policy, eps=1e-6):
-    xf = x.to(F32)
-    y = xf * torch.rsqrt(_mean_square(xf) + eps)
-    y = y * (1.0 + gamma.to(F32))
-    return act_cast(y, policy)
+    """``kernels/rmsnorm``: one launch on a card, its twin on the CPU,
+    both summing in an order fixed by d alone, so a row normalizes to
+    the same bits whatever rows are beside it (a verify row as the
+    decode row, a prefill chunk's row as the whole prompt's)."""
+    return act_cast(rmsnorm_f32(x, gamma, eps), policy)
 
 
 def norm_init(d, device=None):

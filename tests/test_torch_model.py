@@ -166,13 +166,14 @@ def test_params_from_numpy_keeps_payload_bits():
 
 
 @pytest.mark.parametrize("rows", [1, 4, 16])
-@pytest.mark.parametrize("d", [64, 4096])
+@pytest.mark.parametrize("d", [64, 4096, 5120, 8192])
 def test_rmsnorm_matches_jax(rows, d):
-    """rmsnorm sums the squares as 128-wide partials and then the
-    partials (an order free of the row count on the card); under
-    binary32 it differs from the reference's one mean by the order of a
-    sum of d positive terms only, within 1e-6 relative, and each row
-    equals the row normalized alone."""
+    """rmsnorm sums the squares in an order fixed by d alone (128
+    strided per-thread partials, then a tree: ``kernels/rmsnorm.py``,
+    the order of its CUDA kernel); under binary32 it differs from the
+    reference's one mean by the order of a sum of d positive terms only,
+    within 1e-6 relative, and each row equals the row normalized
+    alone."""
     from repro.models import layers as jlayers
     from repro_torch.models import layers as tlayers
 
