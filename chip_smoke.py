@@ -27,8 +27,10 @@ Run from the root of a checkout.  Phases:
                   the plain codec (every container pattern, 2^24 seeded
                   f32 patterns plus every boundary, the four specialised
                   pack formats and a run-time format of each container,
-                  0-d / odd / 3-d / misaligned inputs); their times on
-                  one llama3-8b FFN weight.
+                  0-d / odd / 3-d / misaligned inputs); the cast kernel on
+                  all 2^32 f32 patterns for binary8, binary16,
+                  binary16alt and binary8alt, saturate off and on; their
+                  times on one llama3-8b FFN weight.
 4. ops         -- the ops API (``kernels/ops.py``: pack, unpack, cast,
                   matmul) on a 4096 x 14336 weight, the cast kernels'
                   main path, against its oracle path; the matmul on
@@ -69,7 +71,22 @@ Run from the root of a checkout.  Phases:
                   breaker; the CLI's exit codes; rmsnorm rows bit-identical
                   at every row count at d 4096, 5120 and 8192, the kernel
                   against its twin, and its times.
-11. profile    -- short paged and speculative serve runs under
+11. paper      -- the six paper apps on ``TPContext(device="cuda")``:
+                  each binary32 baseline, ``tune`` at eps 1e-1, 1e-2 and
+                  1e-3 (V2, 2 input sets) with the tuned runs' stats and
+                  cost, and PCA's manual_vec runs, all equal to
+                  ``results/paper/tuning_cache.json`` (final_error within
+                  1e-5 relative); every quantize on the flexfloat_cast
+                  kernel (launches per evaluation), none on the plain
+                  codec.
+12. serve_tune -- ``python -m repro_torch.tuning`` on full-width,
+                  full-depth llama3-8b (1 set x 2 prompts x 16 tokens, 2
+                  decode positions, 2 KV groups, 1 round, eps 0.1):
+                  KL within eps, fewer bytes than binary32, the artifact
+                  round-trips, 32 flash_prefill a prefill and 32
+                  flash_decode a decode step; then the artifact serves 2
+                  requests x (16 + 8) with packed weights.
+13. profile    -- short paged and speculative serve runs under
                   torch.profiler: device busy share and the kernels that
                   take the device time; the host syncs of a tiny serve.
 
@@ -84,7 +101,9 @@ Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
 without that line, when there is no CUDA device, when it is not run from
 a checkout, when a phase other than profile is left out, or when any
-phase fails.  Longer reports go to ``--out`` (default ``chiprun_out/``).
+phase fails.  Longer reports go to ``--out`` (default ``chiprun_out/``):
+``chip_smoke_report.json``, the serve phases' stats JSONL, ``ptxas.txt``
+and the tuned artifact ``serve_tune.json``.
 """
 from __future__ import annotations
 
@@ -1052,7 +1071,10 @@ def _boundaries(torch, fmt):
 
 def check_casts(torch, np, report):
     from repro_torch.core.formats import BINARY8, BINARY16ALT
-    from repro_torch.core.qtensor import decode, encode
+    from repro_torch.kernels.flexfloat_cast import (dequantize_decode_plain
+                                                    as decode,
+                                                    quantize_encode_plain
+                                                    as encode)
 
     rng = np.random.default_rng(report["seed"])
     bits = rng.integers(0, 1 << 32, size=1 << 24, dtype=np.uint64)
@@ -1165,6 +1187,49 @@ def check_cast_kernels(torch, np, report):
               + ("0 mismatches ok" if good else f"mismatches {bad} FAIL"))
         del x, pats, un
     torch.cuda.empty_cache()
+    return ok
+
+
+# the 2^32 sweep: the paper's 8- and 16-bit formats, chunks of 2^28 f32
+SWEEP_FORMATS = ("binary8", "binary16", "binary16alt", "binary8alt")
+SWEEP_CHUNK = 1 << 28
+
+
+def check_cast_sweep(torch, report):
+    """flexfloat_cast bit-identical to flexfloat_cast_plain on every one of
+    the 2^32 f32 bit patterns, for ``SWEEP_FORMATS``, with saturate off
+    and on (NaN held to the codec's canonical NaN bit for bit): each chunk
+    of 2^28 patterns made on the card once and cast 8 ways."""
+    from repro_torch.core.formats import get_format
+    from repro_torch.kernels import flexfloat_cast as FF
+
+    fmts = [get_format(n) for n in SWEEP_FORMATS]
+    mism = {f"{f.name} sat={sat}": 0 for f in fmts for sat in (False, True)}
+    t0 = time.perf_counter()
+    for start in range(0, 1 << 32, SWEEP_CHUNK):
+        u = torch.arange(start, start + SWEEP_CHUNK, dtype=torch.int64,
+                         device="cuda")
+        x = torch.where(u >= 1 << 31, u - (1 << 32), u).to(torch.int32)
+        del u
+        x = x.view(torch.float32)
+        for fmt in fmts:
+            for sat in (False, True):
+                got = FF.flexfloat_cast(x, fmt, saturate=sat)
+                want = FF.flexfloat_cast_plain(x, fmt, saturate=sat)
+                mism[f"{fmt.name} sat={sat}"] += int(
+                    (got.view(torch.int32) != want.view(torch.int32)).sum())
+                del got, want
+        del x
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    ok = not any(mism.values())
+    report["cast_sweep"] = dict(patterns=1 << 32, formats=list(SWEEP_FORMATS),
+                                mismatches=mism, seconds=secs, ok=ok)
+    print(f"[casts] flexfloat_cast on all 2^32 f32 patterns x "
+          f"{', '.join(SWEEP_FORMATS)} x saturate off/on against "
+          f"flexfloat_cast_plain: mismatches {mism} in {secs:.1f} s "
+          f"{'ok' if ok else 'FAIL'}")
     return ok
 
 
@@ -2520,20 +2585,324 @@ def run_resilience(torch, report, libs, args, timer):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: paper -- the six apps, their tuner and the energy model
+# ---------------------------------------------------------------------------
+
+PAPER_CACHE = os.path.join(ROOT, "results", "paper", "tuning_cache.json")
+PAPER_EPS = (1e-1, 1e-2, 1e-3)
+
+
+def _stats_payload(stats):
+    """The reference cache's stats payload (``benchmarks/paper_results``)."""
+    return {
+        "fp_elems": {f"{k[0]}|{int(k[1])}": v
+                     for k, v in stats.fp_elems.items()},
+        "fp_instrs": {f"{k[0]}|{int(k[1])}": v
+                      for k, v in stats.fp_instrs.items()},
+        "casts": {f"{k[0]}|{k[1]}": v for k, v in stats.casts.items()},
+        "mem_words": {f"{k[0]}|{int(k[1])}": v
+                      for k, v in stats.mem_words.items()},
+        "other": stats.other_instrs,
+        "narrow_fraction": stats.narrow_fraction(),
+        "vector_fraction": stats.vector_fraction(),
+        "total_casts": stats.total_casts(),
+    }
+
+
+def _cost_payload(rep):
+    return {"cycles": rep.cycles, "energy_pj": rep.energy_pj,
+            "fp_pj": rep.energy_fp_pj, "mem_pj": rep.energy_mem_pj,
+            "other_pj": rep.energy_other_pj, "mem_words": rep.mem_words}
+
+
+def _counted_run(app, formats, inputs):
+    """One counted run on the card: (stats payload, cost payload, the
+    CostReport)."""
+    from repro_torch.apps.common import TPContext
+    from repro_torch.core import energy
+    ctx = TPContext(formats, device="cuda")
+    app.run(ctx, inputs)
+    rep = energy.cost(ctx.stats)
+    return _stats_payload(ctx.stats), _cost_payload(rep), rep
+
+
+def _binding_diffs(art, want):
+    """Keys of the tuned artifact that differ from the cache's: every
+    provenance key but the tuner's name and final_error exactly, and the
+    formats; (diffs, relative final_error deviation)."""
+    got_p, want_p = art["provenance"], want["provenance"]
+    diffs = [k for k in want_p if k not in ("tuner", "final_error")
+             and got_p.get(k) != want_p[k]]
+    if art["formats"] != want["formats"]:
+        diffs.append("formats")
+    dev = abs(got_p["final_error"] - want_p["final_error"]) \
+        / max(abs(want_p["final_error"]), 1e-300)
+    return diffs, dev
+
+
+def run_paper(torch, report, libs):
+    """The paper's six apps on the card, held to the reference's cache
+    ``results/paper/tuning_cache.json`` (read, never written): for each
+    app the binary32 baseline (``gen_inputs(seed=1000)``), then
+    ``tune(app, eps, n_input_sets=2, type_system="V2")`` at eps 1e-1,
+    1e-2 and 1e-3 with the tuned run's stats and cost, and PCA's
+    ``manual_vec`` runs of the three bindings (the cache re-tunes for
+    them; the tuner is deterministic, so the binding is the one just
+    tuned).  Formats, precisions, needs_wide, sizes, n_evals and the
+    other provenance keys equal the cache's, final_error within 1e-5
+    relative, every count of the stats payload, the cost and the
+    ``relative`` entries equal.  Every evaluation's quantize runs on
+    ``TPContext(device="cuda")``, so through the flexfloat_cast kernel:
+    its launches are counted per evaluation, and the plain codec's bit
+    math must meet no CUDA tensor (``codec._quantize`` / ``_encode`` /
+    ``_decode`` are watched)."""
+    from repro_torch.apps import all_apps
+    from repro_torch.apps.pca import Pca
+    from repro_torch.core import energy
+    from repro_torch.core.tuning import tune
+    from repro_torch.kernels import codec
+
+    with open(PAPER_CACHE) as f:
+        cache = json.load(f)["apps"]
+    ff = libs[4]
+    plain_on_card = []
+    saved = {n: getattr(codec, n) for n in ("_quantize", "_encode",
+                                             "_decode")}
+
+    def watched(name, fn):
+        def w(x, *a, **k):
+            if x.is_cuda:
+                plain_on_card.append(name)
+            return fn(x, *a, **k)
+        return w
+    for n, fn in saved.items():
+        setattr(codec, n, watched(n, fn))
+    ok, rows, worst_dev = True, {}, 0.0
+    for lib in libs:
+        lib.reset_counts()               # counts of the apps' path only
+    t_all = time.perf_counter()
+    try:
+        for app in all_apps():
+            per_eval = []
+            run = app.run
+
+            def counted(ctx, inputs, _run=run, _per=per_eval):
+                before = ff.launches
+                out = _run(ctx, inputs)
+                _per.append(ff.launches - before)
+                return out
+            app.run = counted
+            t0 = time.perf_counter()
+            entry = cache[app.name]
+            inputs = app.gen_inputs(seed=1000)
+            stats, cost, base = _counted_run(app, {}, inputs)
+            res_app = {"baseline": dict(
+                stats_equal=stats == entry["baseline"]["stats"],
+                cost_equal=cost == entry["baseline"]["cost"])}
+            good = all(res_app["baseline"].values())
+            tuned = {}
+            for eps in PAPER_EPS:
+                key = f"eps{eps:g}|V2"
+                res = tune(app, eps, n_input_sets=2, type_system="V2",
+                           device="cuda")
+                tuned[eps] = res
+                diffs, dev = _binding_diffs(res.to_artifact(),
+                                            entry[key]["artifact"])
+                stats, cost, rep = _counted_run(app, res.formats,
+                                                inputs)
+                row = dict(binding_diffs=diffs, final_error=res.final_error,
+                           final_error_rel_dev=dev, n_evals=res.n_evals,
+                           stats_equal=stats == entry[key]["stats"],
+                           cost_equal=cost == entry[key]["cost"],
+                           relative_equal=energy.relative(rep, base)
+                           == entry[key]["relative"])
+                row["ok"] = (not diffs and dev <= 1e-5 and row["stats_equal"]
+                             and row["cost_equal"] and row["relative_equal"])
+                worst_dev = max(worst_dev, dev)
+                good &= row["ok"]
+                res_app[key] = row
+            if app.name == "PCA":
+                mv = Pca()
+                mv.manual_vec = True
+                for eps in PAPER_EPS:
+                    key = f"eps{eps:g}|V2|manual_vec"
+                    stats, cost, rep = _counted_run(mv, tuned[eps].formats,
+                                                    inputs)
+                    row = dict(stats_equal=stats == entry[key]["stats"],
+                               cost_equal=cost == entry[key]["cost"],
+                               relative_equal=energy.relative(rep, base)
+                               == entry[key]["relative"])
+                    row["ok"] = all(row.values())
+                    good &= row["ok"]
+                    res_app[key] = row
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            app.run = run
+            res_app.update(
+                wall_s=wall, evaluations=len(per_eval),
+                launches_per_evaluation=dict(
+                    min=min(per_eval), max=max(per_eval),
+                    mean=sum(per_eval) / len(per_eval)),
+                flexfloat_cast_launches=sum(per_eval), ok=good)
+            rows[app.name] = res_app
+            ok &= good
+            print(f"[paper] {app.name:<6} baseline + 3 V2 bindings"
+                  f"{' + 3 manual_vec' if app.name == 'PCA' else ''}: "
+                  f"{len(per_eval)} evaluations on the card in {wall:.2f} "
+                  f"s, flexfloat_cast launches per evaluation "
+                  f"{min(per_eval)}-{max(per_eval)} (mean "
+                  f"{sum(per_eval) / len(per_eval):.1f}), n_evals "
+                  f"{[tuned[e].n_evals for e in PAPER_EPS]}; equal to the "
+                  f"cache: {good} "
+                  + ("ok" if good else f"FAIL {res_app}"))
+    finally:
+        for n, fn in saved.items():
+            setattr(codec, n, fn)
+    total = time.perf_counter() - t_all
+    launches = dict(ff.by_symbol)
+    ok &= launches.get("flexfloat_cast_launch", 0) > 0
+    ok &= not plain_on_card
+    report["paper"] = dict(apps=rows, wall_s=total,
+                           worst_final_error_rel_dev=worst_dev,
+                           launches={lib.name: lib.launches for lib in libs},
+                           flexfloat_cast_by_entry=launches,
+                           plain_codec_calls_on_card=len(plain_on_card),
+                           ok=ok)
+    print(f"[paper] 18 V2 bindings and PCA's manual_vec runs against "
+          f"results/paper/tuning_cache.json: largest final_error deviation "
+          f"{worst_dev:.2e} (tol 1e-5 relative); flexfloat_cast launches "
+          f"{launches}; plain codec calls on CUDA tensors "
+          f"{len(plain_on_card)}; {total:.1f} s {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+# ---------------------------------------------------------------------------
+# phase 12: serve_tune -- the serve-time tuner at full width, then serving
+# its artifact
+# ---------------------------------------------------------------------------
+
+TUNE_EPS = 0.1
+TUNE_ARGV = ("--arch", "llama3-8b", "--sets", "1", "--prompts", "2",
+             "--prompt-len", "16", "--decode-steps", "2", "--kv-groups",
+             "2", "--max-rounds", "1", "--eps", str(TUNE_EPS))
+TUNED_REQUESTS, TUNED_PROMPT, TUNED_MAX_NEW = 2, 16, 8
+
+
+def run_serve_tune(torch, report, libs, args):
+    """``python -m repro_torch.tuning`` (``__main__.main``) on full-width,
+    full-depth llama3-8b with the card's default decode (``flash_pallas``):
+    1 calibration set x 2 prompts of 16 tokens, 2 decode positions, 2 KV
+    depth groups, 1 round, eps 0.1, writing ``serve_tune.json`` under
+    ``--out``.  Holds: final KL <= eps; tuned bytes below the binary32
+    bytes; the artifact round-trips to ``to_policy()``; every prefill
+    launches 32 flash_prefill and every decode step 32 flash_decode (so
+    no attention ran the plain path on the card); peak memory under the
+    card's.  Then the artifact serves 2 requests x (16 + 8) through
+    ``serve.main(["--policy", path, ...])`` with packed weights."""
+    from repro_torch import configs
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.models.transformer import Model
+    from repro_torch.tuning import __main__ as tune_cli
+
+    path = os.path.join(args.out, "serve_tune.json")
+    argv = list(TUNE_ARGV) + ["--seed", str(args.seed), "--out", path]
+    calls = {"prefill": 0, "decode": 0}
+    saved = {k: getattr(Model, a) for k, a in (("prefill", "prefill"),
+                                               ("decode", "decode_step"))}
+
+    def counting(kind):
+        def fn(self, *a, **k):
+            calls[kind] += 1
+            return saved[kind](self, *a, **k)
+        return fn
+    Model.prefill, Model.decode_step = counting("prefill"), \
+        counting("decode")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for lib in libs:
+        lib.reset_counts()               # counts of the tuner's path only
+    t0 = time.perf_counter()
+    try:
+        res = tune_cli.main(argv)
+    finally:
+        Model.prefill, Model.decode_step = saved["prefill"], saved["decode"]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {lib.name: lib.launches for lib in libs}
+    layers = configs.get("llama3-8b").n_layers
+    attn = (libs[2].launches, libs[3].launches)
+    want_attn = (layers * calls["prefill"], layers * calls["decode"])
+    total = res.weight_bytes + res.kv_bytes_per_token
+    total32 = res.weight_bytes_f32 + res.kv_bytes_per_token_f32
+    card_mem = torch.cuda.get_device_properties(0).total_memory
+    checks = dict(
+        kl_within_eps=res.final_kl <= TUNE_EPS,
+        bytes_below_f32=total < total32,
+        artifact_round_trips=PrecisionPolicy.from_artifact(
+            res.to_artifact()) == res.to_policy(),
+        attention_on_kernels=attn == want_attn and min(attn) > 0,
+        decode_is_flash=res.decode_impl == "flash_pallas",
+        memory_under_card=peak < card_mem)
+    print(f"[serve_tune] llama3-8b full (32 layers, d_model 4096): KL "
+          f"{res.final_kl:.4g} (eps {TUNE_EPS}), {res.n_evals} evals, "
+          f"formats {res.fmt_histogram()}, bytes {total}/{total32} "
+          f"({total / total32:.3f}x f32), {calls['prefill']} prefills and "
+          f"{calls['decode']} decode steps: (flash_prefill, flash_decode) "
+          f"launches {attn} (want {want_attn}); peak memory "
+          f"{peak / 1e9:.2f} GB of {card_mem / 1e9:.2f}; {wall:.1f} s; "
+          f"checks {checks}")
+    torch.cuda.empty_cache()
+
+    stats = "serve_tune_stats.jsonl"
+    serve_argv = ["--arch", "llama3-8b", "--policy", path, "--matmul-impl",
+                  "qmm_pallas", "--requests", str(TUNED_REQUESTS), "--slots",
+                  str(TUNED_REQUESTS), "--prompt-len", str(TUNED_PROMPT),
+                  "--max-new", str(TUNED_MAX_NEW), "--capacity", "64",
+                  "--page-size", "16", "--seed", str(args.seed),
+                  "--stats-out", os.path.join(args.out, stats)]
+    reqs, _, served, swall, speak = _drive_serve(torch, libs, serve_argv,
+                                                 {})
+    checks["artifact_serves"] = (
+        len(reqs) == TUNED_REQUESTS
+        and all(r.done and not r.failed and len(r.generated) == TUNED_MAX_NEW
+                and all(0 <= t < 128256 for t in r.generated)
+                for r in reqs)
+        and served["flash_decode"] > 0 and served["flash_prefill"] > 0)
+    ok = all(checks.values())
+    report["serve_tune"] = dict(
+        argv=argv, final_kl=res.final_kl, n_evals=res.n_evals,
+        formats={k: f.name for k, f in res.formats.items()},
+        fmt_histogram=res.fmt_histogram(), bytes=total, bytes_f32=total32,
+        prefills=calls["prefill"], decode_steps=calls["decode"],
+        launches=launches, wall_s=wall, peak_mem_bytes=peak,
+        card_mem_bytes=card_mem, serve_launches=served, serve_wall_s=swall,
+        serve_peak_mem_bytes=speak,
+        generated=[r.generated for r in reqs], checks=checks, ok=ok)
+    print(f"[serve_tune] --policy {os.path.relpath(path, ROOT)}: "
+          f"{len(reqs)} requests x ({TUNED_PROMPT} + {TUNED_MAX_NEW}) in "
+          f"{swall:.2f} s, launches {served} "
+          f"{'ok' if ok else 'FAIL'}")
+    return ok
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
 ALL_PHASES = ("build", "kernels", "casts", "ops", "serve", "serve_flash",
               "speculative", "serve_f32", "serve_reduced", "logits",
-              "resilience", "profile")
+              "resilience", "paper", "serve_tune", "profile")
 
 
 def kernel_rows(report):
     """The ``{"kernels": [...]}`` entries: one per kernel, its launches
     from the main-path run that drives it (the serve phase for qmm's
     tensor-core kernel, paged_decode and flash_prefill, serve_flash for
-    flash_decode, the ops phase for the three cast kernels and for qmm on
-    packed activations, serve_f32 for qmm's CUDA-core kernels).  qmm has
+    flash_decode, the paper phase for flexfloat_cast (the ops phase's
+    when paper did not run), the ops phase for the pack and unpack
+    kernels and for qmm on packed activations, serve_f32 for qmm's
+    CUDA-core kernels).  qmm has
     five rows: ``qmm_gemv`` (``qmm_launch`` at M <= 8, binary32 weights,
     times per decode step, launches of serve_f32's decode steps and
     heads), ``qmm_tile`` (``qmm_launch`` at M > 8, binary32, times and
@@ -2552,8 +2921,11 @@ def kernel_rows(report):
     flash = report.get("serve_flash", {}).get("launches", {})
     ops_counts = report.get("ops", {}).get("launches", {}).get(
         "flexfloat_cast", {})
+    paper_counts = report.get("paper", {}).get("flexfloat_cast_by_entry",
+                                               ops_counts)
     casts_ok = bool(report.get("cast_kernels")) and all(
-        c["ok"] for c in report["cast_kernels"])
+        c["ok"] for c in report["cast_kernels"]) and report.get(
+            "cast_sweep", {}).get("ok", False)
     cast_err = 0.0 if casts_ok else None
     ff_src = "src/repro_torch/csrc/flexfloat_cast.cu"
     qmm_src, qmm_tpu = ("src/repro_torch/csrc/qmm.cu",
@@ -2591,7 +2963,7 @@ def kernel_rows(report):
          report.get("flash_decode_max_abs_err"), timing("flash_decode")),
         ("flexfloat_cast", ff_src,
          "src/repro/kernels/flexfloat_cast.py:33",
-         ops_counts.get("flexfloat_cast_launch", 0), cast_err,
+         paper_counts.get("flexfloat_cast_launch", 0), cast_err,
          timing("flexfloat_cast", fmt="binary16alt")),
         ("quantize_encode", ff_src,
          "src/repro/kernels/flexfloat_cast.py:37",
@@ -2694,6 +3066,7 @@ def main() -> int:
                 timer = timer or Timer(torch)
                 ok = check_casts(torch, np, report)
                 ok &= check_cast_kernels(torch, np, report)
+                ok &= check_cast_sweep(torch, report)
                 time_cast_kernels(torch, np, report, timer)
             elif phase == "ops":
                 ok = run_ops(torch, np, report, libs)
@@ -2714,6 +3087,10 @@ def main() -> int:
             elif phase == "resilience":
                 timer = timer or Timer(torch)
                 ok = run_resilience(torch, report, libs, args, timer)
+            elif phase == "paper":
+                ok = run_paper(torch, report, libs)
+            elif phase == "serve_tune":
+                ok = run_serve_tune(torch, report, libs, args)
             elif phase == "profile":
                 ok = run_profile(torch, report, args)
             else:
@@ -2723,8 +3100,10 @@ def main() -> int:
             ok = False
         torch.cuda.synchronize()
         results[phase] = ok
+        secs = time.perf_counter() - t0
+        report.setdefault("phase_seconds", {})[phase] = secs
         print(f"[phase] {phase}: {'ok' if ok else 'FAILED'} in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
+              f"{secs:.1f} s", flush=True)
 
     kernels = kernel_rows(report)
     report["kernels"] = kernels

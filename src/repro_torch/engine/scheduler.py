@@ -125,6 +125,9 @@ class Engine:
     ``StreamedTransport`` owns a single-slot source pool and serves one
     worker).
 
+    calibration_tap: a ``tuning.CalibrationTap`` offered every admitted
+    prompt (the serve-time tuner's live-traffic reservoir).
+
     Resilience knobs, as in the reference: ``fault_plan``,
     ``deadline_steps`` (default per-request deadline in engine steps from
     enqueue), ``max_requeues`` (evictions a request survives before it
@@ -141,7 +144,7 @@ class Engine:
                  prefill_chunk: Optional[int] = None,
                  transport=None,
                  stats: Optional[EngineStats] = None,
-                 speculative=None,
+                 speculative=None, calibration_tap=None,
                  fault_plan: Optional[FaultPlan] = None,
                  deadline_steps: Optional[int] = None,
                  max_requeues: Optional[int] = None,
@@ -150,6 +153,7 @@ class Engine:
                  watchdog_s: Optional[float] = None,
                  watchdog_limit: int = 3, device=None):
         self.model, self.cfg, self.policy = model, cfg, policy
+        self.calibration_tap = calibration_tap
         self.params = params
         self.slots = slots
         self.capacity = capacity
@@ -468,6 +472,8 @@ class Engine:
             self._admissions += 1
             self._admitted_at[si] = self._admissions
             self.stats.note_admitted(r.rid)
+            if self.calibration_tap is not None:
+                self.calibration_tap.observe(r.prompt)
             busy = {t.worker for t in self._tasks}
             wi = next(w for w in range(self.n_prefill_workers)
                       if w not in busy)

@@ -25,6 +25,9 @@ Tile functions
                               ``encode_fused``), for the tests.
 ``tf32_round(x)``             f32 -> nearest TF32 (``cvt.rna``), the
                               tensor-core qmm's activation split.
+``pack_word_tile(payload)``   uint8/uint16 lanes -> uint32 words (the
+                              FPU's 4 x 8 b / 2 x 16 b vector word).
+``unpack_word_tile(w, dt)``   the inverse.
 """
 from __future__ import annotations
 
@@ -304,3 +307,40 @@ def _decode(bits, fmt):
     mag = torch.where(is_special, special,
                       torch.where(exp_t == 0, denorm, normal))
     return float32(sign | mag)
+
+
+# ---------------------------------------------------------------------------
+# word packing: 4 x 8 b / 2 x 16 b lanes per u32 (the FPU's vector word)
+# ---------------------------------------------------------------------------
+
+def pack_word_tile(payload: torch.Tensor) -> torch.Tensor:
+    """Pack a uint8/uint16 payload into uint32 words along the last axis,
+    lane i in bits [8 i, 8 i + 8) (16-bit lanes alike): the FPU's 4 x 8 b
+    / 2 x 16 b word layout.  Requires divisibility."""
+    item = payload.element_size()
+    if item == 4:
+        return payload.to(torch.uint32)
+    lanes = 4 // item
+    *lead, n = payload.shape
+    if n % lanes:
+        raise ValueError(f"pack_word_tile: last axis {n} is not a multiple "
+                         f"of {lanes} lanes")
+    grouped = payload.to(_I64).reshape(*lead, n // lanes, lanes)
+    shifts = torch.arange(lanes, dtype=_I64, device=payload.device) \
+        * (8 * item)
+    return torch.sum(grouped << shifts, dim=-1).to(torch.uint32)
+
+
+def unpack_word_tile(words: torch.Tensor, dtype) -> torch.Tensor:
+    """Inverse of :func:`pack_word_tile`: uint32 words -> ``dtype``
+    (``torch.uint8`` / ``uint16`` / ``uint32``) lanes."""
+    item = dtype.itemsize
+    if item == 4:
+        return words.to(dtype)
+    lanes = 4 // item
+    shifts = torch.arange(lanes, dtype=_I64, device=words.device) \
+        * (8 * item)
+    parts = ((words.to(_I64) & 0xFFFF_FFFF)[..., None] >> shifts) \
+        & ((1 << (8 * item)) - 1)
+    *lead, n, _ = parts.shape
+    return parts.reshape(*lead, n * lanes).to(dtype)

@@ -10,25 +10,25 @@ from __future__ import annotations
 
 from typing import Optional
 
-from repro_torch.core.flexfloat import quantize
-from repro_torch.core.formats import FpFormat, get_format
-from repro_torch.core.qtensor import decode, encode
+from repro_torch.core.formats import FpFormat
 
+from .flexfloat_cast import (dequantize_decode_plain, flexfloat_cast_plain,
+                             quantize_encode_plain)
 from .qmatmul import qmatmul_plain
 
 
 def flexfloat_cast_ref(x, fmt, *, saturate: bool = False):
     """Oracle for the cast kernel: sanitize f32 -> (e, m), return f32."""
-    return quantize(x, fmt, saturate=saturate)
+    return flexfloat_cast_plain(x, fmt, saturate=saturate)
 
 
 def quantize_encode_ref(x, fmt):
     """Oracle for the fused quantize + pack kernel: f32 -> container."""
-    return encode(x, get_format(fmt))
+    return quantize_encode_plain(x, fmt)
 
 
 def dequantize_ref(payload, fmt):
-    return decode(payload, get_format(fmt))
+    return dequantize_decode_plain(payload, fmt)
 
 
 def qmatmul_ref(a_payload, b_payload, fmt_a: Optional[FpFormat],

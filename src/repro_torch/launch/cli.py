@@ -7,19 +7,23 @@ from repro_torch import configs
 from repro_torch.kernels import dispatch, paged_cache
 
 
-def add_backend_args(ap, *, include_pool: bool = True):
+def add_backend_args(ap, *, include_pool: bool = True,
+                     include_policy: bool = True):
     """The backend flags; ``--policy`` takes a registry name or a tuned
     artifact path, and ``--kv-fmt`` overrides a named policy's KV format
     (an artifact pins its knobs: ``tuning.artifact.load_policy`` rejects
-    conflicting overrides)."""
-    ap.add_argument("--policy", default="transprecision",
-                    help="precision policy: a registry name (binary32 / "
-                         "transprecision) or a path to a tuned policy "
-                         "artifact JSON (per-layer kv_cache bindings "
-                         "included)")
-    ap.add_argument("--kv-fmt", default=None,
-                    help="override a named policy's kv_cache format (e.g. "
-                         "binary16alt); conflicts with an artifact")
+    conflicting overrides).  ``include_policy=False`` leaves both out (the
+    tuner searches the formats itself)."""
+    if include_policy:
+        ap.add_argument("--policy", default="transprecision",
+                        help="precision policy: a registry name (binary32 "
+                             "/ transprecision) or a path to a tuned policy "
+                             "artifact JSON (per-layer kv_cache bindings "
+                             "included)")
+        ap.add_argument("--kv-fmt", default=None,
+                        help="override a named policy's kv_cache format "
+                             "(e.g. binary16alt); conflicts with an "
+                             "artifact")
     ap.add_argument("--decode-impl", default=None,
                     choices=list(dispatch.legal_impls()),
                     help="attention backend (default: flash_pallas on "

@@ -1,5 +1,5 @@
 """Policy-artifact helpers for every consumer of ``--policy``: the port
-of the load side of ``repro.tuning.artifact``.
+of ``repro.tuning.artifact`` (the resolver and the writer).
 
 A ``--policy`` *spec* is a registry name (``binary32`` /
 ``transprecision``) or a path to a tuned artifact JSON; :func:`load_policy`
@@ -12,6 +12,7 @@ next to ``--policy path.json`` raises.  Knobs the artifact leaves unset
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 from typing import Optional
 
@@ -62,3 +63,14 @@ def load_policy(spec, *, decode_impl: Optional[str] = None,
         if flag is not None and pinned is None:
             policy = dataclasses.replace(policy, **{knob: flag})
     return policy
+
+
+def save_artifact(artifact: dict, path) -> None:
+    """Write an artifact dict as canonical JSON (round-trip checked)."""
+    PrecisionPolicy.from_artifact(artifact)  # refuse to write garbage
+    d = os.path.dirname(os.fspath(path))
+    if d:
+        os.makedirs(d, exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(artifact, f, indent=1, sort_keys=True)
+        f.write("\n")
