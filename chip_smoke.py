@@ -13,14 +13,18 @@ Run from the root of a checkout.  Phases:
                   flash_prefill and flash_decode against their plain
                   PyTorch versions on the card, at the serving path's
                   shapes, at ragged edge shapes and at the widened
-                  attention shapes (head_dim 8-256, G 1-16), with the
-                  stated tolerances; qmm on packed activations
-                  bit-identical to qmm on the decoded ones; qmm,
+                  attention shapes (head_dim 8-256, G 1-16), qmm at every
+                  projection, expert block, router and untied head of
+                  yi-9b, mistral-nemo-12b, command-r-35b, granite-moe
+                  and qwen3-moe, with the stated tolerances; qmm on
+                  packed activations bit-identical to qmm on the
+                  decoded ones; qmm,
                   flash_decode and paged_decode rows bit-identical
                   whatever rows are beside them, qmm_tile bit-identical
                   to the GEMV; times each kernel, its plain version and
                   a library yardstick (qmm per decode step, per prefill
-                  chunk and per verify round, packed and binary32).
+                  chunk and per verify round, packed and binary32; one
+                  qwen3-moe expert launch).
 3. casts       -- torch's CUDA f32 -> float8_e5m2 / bfloat16 casts (the
                   KV write and the activation cast) against the plain
                   codec; the three flexfloat_cast kernels bit-identical to
@@ -61,7 +65,10 @@ Run from the root of a checkout.  Phases:
                   step of a 2-layer, full-width model: kernel path against
                   plain path, and verify against sequential decode bit for
                   bit (logits, K/V pool bits, lengths), under binary32 and
-                  transprecision, with paged and flash_pallas decode.
+                  transprecision, with paged and flash_pallas decode, for
+                  llama3-8b and command-r-35b (layernorm, tied head); a
+                  2-layer qwen3-moe: kernel path against plain path, and
+                  the qmm router's experts equal the plain product's.
 10. resilience -- the engine's fault and recovery surface at full width
                   (``run_resilience``): the streamed handoff with the
                   router and two prefill workers, bit for bit the
@@ -69,9 +76,19 @@ Run from the root of a checkout.  Phases:
                   binary32 quarantine and replay equal to the engine and
                   to synchronous_generate; the speculative circuit
                   breaker; the CLI's exit codes; rmsnorm rows bit-identical
-                  at every row count at d 4096, 5120 and 8192, the kernel
-                  against its twin, and its times.
-11. paper      -- the six paper apps on ``TPContext(device="cuda")``:
+                  at every row count at d 1024-8192, the kernel against
+                  its twin, and its times; layernorm bit-identical to its
+                  twin, its rows at every row count at d 8192 and 384,
+                  and its times.
+11. archs      -- ``serve.main`` on yi-9b, mistral-nemo-12b, command-r-35b,
+                  granite-moe-1b-a400m and qwen3-moe-30b-a3b at full width
+                  and depth (transprecision, qmm_pallas, flash_pallas, 2 x
+                  (64 + 8)), mistral-nemo and granite also under paged:
+                  launches per decode step and prefill chunk by kernel,
+                  the experts' qmm launches, tok/s, peak memory, the
+                  device busy share of a decode step, each model freed
+                  before the next.
+12. paper      -- the six paper apps on ``TPContext(device="cuda")``:
                   each binary32 baseline, ``tune`` at eps 1e-1, 1e-2 and
                   1e-3 (V2, 2 input sets) with the tuned runs' stats and
                   cost, and PCA's manual_vec runs, all equal to
@@ -79,14 +96,14 @@ Run from the root of a checkout.  Phases:
                   1e-5 relative); every quantize on the flexfloat_cast
                   kernel (launches per evaluation), none on the plain
                   codec.
-12. serve_tune -- ``python -m repro_torch.tuning`` on full-width,
+13. serve_tune -- ``python -m repro_torch.tuning`` on full-width,
                   full-depth llama3-8b (1 set x 2 prompts x 16 tokens, 2
                   decode positions, 2 KV groups, 1 round, eps 0.1):
                   KL within eps, fewer bytes than binary32, the artifact
                   round-trips, 32 flash_prefill a prefill and 32
                   flash_decode a decode step; then the artifact serves 2
                   requests x (16 + 8) with packed weights.
-13. profile    -- short paged and speculative serve runs under
+14. profile    -- short paged and speculative serve runs under
                   torch.profiler: device busy share and the kernels that
                   take the device time; the host syncs of a tiny serve.
 
@@ -109,6 +126,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -427,6 +445,117 @@ def check_qmm(torch, np, report):
     print(f"[kernels] qmm_tile bit-identical to the GEMV's 8-row blocks: "
           f"{same} {'ok' if all(same.values()) else 'FAIL'}")
     torch.cuda.empty_cache()
+    return ok
+
+
+def arch_qmm_cases(cfg):
+    """The packed products a full-width ``cfg`` serves, as ``(name,
+    M values, K, N, gated, binary32)``: the attention projections and
+    the dense fused gated FFN with w_out at a decode step's 4 rows and a
+    64-row chunk, or the MoE experts' blocks (M = capacity rows: 8 at a
+    decode step, 64 in a chunk's worth) and the binary32 router; the
+    untied head at M 4 (a tied head is ``torch.matmul``).  Products of
+    one shape are one case."""
+    d, ff = cfg.d_model, cfg.d_ff
+    rows = [("wq", (4, 64), d, cfg.q_dim, False, False),
+            ("wk/wv", (4, 64), d, cfg.kv_dim, False, False),
+            ("wo", (4, 64), cfg.q_dim, d, False, False)]
+    if cfg.moe_experts:
+        rows += [("router", (4, 64), d, cfg.moe_experts, False, True),
+                 ("expert w_in/w_gate", (8, 64), d, ff, False, False),
+                 ("expert w_out", (8, 64), ff, d, False, False)]
+    else:
+        rows += [("ffn gated silu" if cfg.gated_ffn else "ffn silu",
+                  (4, 64), d, ff, cfg.gated_ffn, False),
+                 ("w_out", (4, 64), ff, d, False, False)]
+    if not cfg.tied_embeddings:
+        rows.append(("head", (4,), d, cfg.vocab, False, False))
+    cases = {}
+    for name, Ms, K, N, gated, f32 in rows:
+        key = (Ms, K, N, gated, f32)
+        cases[key] = f"{cases[key]}/{name}" if key in cases else name
+    return [(name,) + key for key, name in cases.items()]
+
+
+def check_qmm_archs(torch, report, timer):
+    """qmm at the ninth slice's shapes, taken from each full config by
+    :func:`arch_qmm_cases`, against qmatmul_plain, within 1e-6 in units
+    of |x| @ |w| + 1 (``check_qmm``'s tolerance): every packed product
+    of yi-9b, mistral-nemo-12b, command-r-35b, granite-moe and qwen3-moe
+    on the tensor cores (binary16alt), and the binary32 routers (K x E)
+    on the GEMV (M 4) and ``qmm_tile`` (M 64).  Then one qwen3 expert
+    launch (M 8, K 2048, N 768) timed against its bound and
+    torch.matmul."""
+    from repro_torch import configs
+    from repro_torch.core.formats import BINARY16ALT, BINARY32
+    from repro_torch.core.qtensor import decode
+    from repro_torch.kernels import qmatmul as Q
+
+    gen = torch.Generator(device="cuda").manual_seed(report["seed"] + 13)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    ok, worst, res = True, {"all": 0.0, "expert": 0.0}, {}
+    cases = [(arch, name, M, K, N, gated, BINARY32 if f32 else BINARY16ALT)
+             for arch in ARCHS
+             for name, Ms, K, N, gated, f32 in arch_qmm_cases(
+                 configs.get(arch))
+             for M in Ms]
+    for arch, name, M, K, N, gated, fmt in cases:
+        x = rand(M, K)
+        wp = _pack_weight(rand(K, N), fmt)
+        gp = _pack_weight(rand(K, N), fmt) if gated else None
+        act = "silu" if gated else None
+        got = Q.qmatmul(x, wp, None, fmt, gate_payload=gp, act=act)
+        want = Q.qmatmul_plain(x, wp, None, fmt, gate_payload=gp, act=act)
+        xa = x.abs()
+        unit = xa @ decode(wp, fmt).abs() + 1.0
+        if gated:
+            unit = unit * (xa @ decode(gp, fmt).abs() + 1.0)
+        err = (got - want).abs()
+        norm = float((err / unit).max())
+        good = norm <= 1e-6
+        ok &= good
+        for k in ("all", "expert") if name.startswith("expert") \
+                else ("all",):
+            worst[k] = max(worst[k], float(err.max()))
+        key = f"{arch} {name} M={M} K={K} N={N} {fmt.name}"
+        res[key] = norm
+        report["cases"].append(dict(kernel="qmm", case=f"{arch} {name}",
+                                    M=M, K=K, N=N, fmt=fmt.name,
+                                    gated=gated, path=Q.qmm_kernel(fmt, M),
+                                    max_abs_err=float(err.max()),
+                                    max_err_in_acc_units=norm, ok=good))
+        print(f"[kernels] qmm {key:<58} {Q.qmm_kernel(fmt, M):<8} "
+              f"max|err|={float(err.max()):.3e} ({norm:.2e} x |x|@|w|, "
+              f"tol 1e-6) {'ok' if good else 'FAIL'}")
+        del x, wp, gp, got, want, xa, unit, err
+    torch.cuda.empty_cache()
+    report["qmm_archs_max_abs_err"] = worst["all"]
+    report["qmm_expert_max_abs_err"] = worst["expert"]
+
+    qwen3 = configs.get("qwen3-moe-30b-a3b")   # one expert launch, M 8
+    M, K, N = 8, qwen3.d_model, qwen3.d_ff
+    x = rand(M, K)
+    wp = _pack_weight(rand(K, N), BINARY16ALT)
+    wf = _unpack_weight(wp, BINARY16ALT)
+    t_k = timer(lambda: Q.qmatmul(x, wp, None, BINARY16ALT))
+    t_p = timer(lambda: Q.qmatmul_plain(x, wp, None, BINARY16ALT), iters=5)
+    t_l = timer(lambda: torch.matmul(x, wf))
+    host = timer.host_us(lambda: Q.qmatmul(x, wp, None, BINARY16ALT))
+    nbytes = Q.qmm_hbm_bytes(M, K, N, BINARY16ALT)
+    bound, by = qmm_bound(Q, BINARY16ALT, nbytes, 2 * M * K * N)
+    report["timings"].append(dict(
+        kernel="qmm_tc_expert", M=M, K=K, N=N, fmt="binary16alt", ms=t_k,
+        plain_ms=t_p, library_ms=t_l, bound_ms=bound, bound_by=by,
+        bytes=nbytes, host_us=host))
+    print(f"[timing] qmm_tc one qwen3 expert M={M} K={K} N={N} binary16alt: "
+          f"kernel {t_k:.4f} ms  plain {t_p:.4f} ms  torch.matmul "
+          f"{t_l:.4f} ms  bound {bound:.5f} ms ({by})  host {host:.1f} us")
+    print(f"[kernels] qmm at the ninth slice's shapes: {len(res)} cases, "
+          f"worst {max(res.values()):.2e} x |x|@|w| (tol 1e-6) "
+          f"{'ok' if ok else 'FAIL'}")
     return ok
 
 
@@ -1459,6 +1588,7 @@ def _drive_serve(torch, libs, argv, hooks, params=None):
     launches = {lib.name: lib.launches for lib in libs}
     launches["qmm_by_entry"] = dict(libs[0].by_symbol)
     launches["qmm_by_kernel"] = dict(libs[0].by_kernel)
+    launches["norms_by_entry"] = dict(libs[5].by_symbol)
     return reqs, per, launches, wall, torch.cuda.max_memory_allocated()
 
 
@@ -1487,7 +1617,7 @@ def run_serve(torch, report, libs, args, decode_impl="paged", key="serve",
     runs on the CUDA cores: a decode step's 193 and a chunk's head (its
     last position, M = 1) on the GEMV, a chunk's 192 at M = 64 on
     qmm_tile.  Launch tuples are (qmm, paged_decode, flash_prefill,
-    flash_decode, flexfloat_cast, rmsnorm): 65 rmsnorm launches (two a
+    flash_decode, flexfloat_cast, norms): 65 rmsnorm launches (two a
     layer and the final norm) a step and a chunk; qmm by kernel
     (qmm_gemv, qmm_tile, qmm_tc)."""
     from repro_torch.engine import worker
@@ -1538,7 +1668,7 @@ def run_serve(torch, report, libs, args, decode_impl="paged", key="serve",
           f"mean {summary['ttft_mean_s']} s (max {summary['ttft_max_s']} "
           f"s), peak memory {peak / 1e9:.2f} GB")
     print(f"[{key}] launches {launches}; per decode step (qmm, paged, "
-          f"prefill, flash_decode, cast, rmsnorm) "
+          f"prefill, flash_decode, cast, norms) "
           f"{sorted(set(per['decode']))} (want "
           f"{want_dec}); per prefill chunk {sorted(set(per['prefill']))} "
           f"(want {want_pre}); qmm by kernel (qmm_gemv, qmm_tile, qmm_tc) "
@@ -1855,18 +1985,21 @@ def run_speculative(torch, report, libs, args):
 # phase 9: where the serve time goes (torch.profiler over Engine.run)
 # ---------------------------------------------------------------------------
 
-def _profiled_serve(torch, argv, window=None):
-    """``serve.main(argv)`` under torch.profiler: the whole of
-    ``Engine.run``, or with ``window = n`` only n engine steps taken once
-    every prompt is prefilled (a steady decode window).  Returns (device
-    busy seconds from the CUDA rows, wall seconds, the top ten CUDA rows,
-    decode steps or rounds in the profile, the key_averages rows)."""
+def _profiled_serve(torch, argv, window=None, params=None, cpu=True):
+    """``serve.main(argv, params=params)`` under torch.profiler: the
+    whole of ``Engine.run``, or with ``window = n`` only n engine steps
+    taken once every prompt is prefilled (a steady decode window);
+    ``cpu=False`` traces the device activity alone (a qwen3-moe step
+    launches ~19k kernels).  Returns (device busy seconds from the CUDA
+    rows, wall seconds, the top ten CUDA rows, decode steps or rounds in
+    the profile, the key_averages rows)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.engine import scheduler
     from repro_torch.launch import serve
 
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof = profile(activities=([ProfilerActivity.CPU] if cpu else [])
+                   + [ProfilerActivity.CUDA])
     box = {"left": window}
     cls, attr = (scheduler.Engine, "run") if window is None \
         else (scheduler.Engine, "step")
@@ -1892,7 +2025,7 @@ def _profiled_serve(torch, argv, window=None):
 
     setattr(cls, attr, profiled)
     try:
-        serve.main(argv)
+        serve.main(argv, params=params)
     finally:
         setattr(cls, attr, orig)
         if "t0" in box and "wall" not in box:
@@ -1983,6 +2116,15 @@ def run_profile(torch, report, args):
 # phase 8: logits, kernel path against plain path
 # ---------------------------------------------------------------------------
 
+# the phase's tolerances on max|kernel - plain| in units of max|logit|.
+# binary32: both paths compute f32 products with f32 sums; only the
+# summation order differs (K up to 22528), so 1e-4 x max|logit|.
+# transprecision: the plain path rounds attention probabilities to bf16
+# (attn_probs), the fused kernels keep them f32, and one bf16 ulp is
+# 2^-8 of a value, so 2^-5 x max|logit|.
+LOGIT_TOL = {"binary32": 1e-4, "transprecision": 2.0 ** -5}
+
+
 def check_logits(torch, report, args, qmm_lib):
     """Logits of a 2-layer, full-width model: kernel path against plain
     path (prefill chunk, decode step), then verify against sequential
@@ -2002,12 +2144,7 @@ def check_logits(torch, report, args, qmm_lib):
     def f32_launches():
         return qmm_lib.by_symbol.get("qmm_launch", 0)
 
-    # binary32: both paths compute f32 products with f32 sums; only the
-    # summation order differs (K up to 14336), so 1e-4 x max|logit|.
-    # transprecision: the plain path rounds attention probabilities to
-    # bf16 (attn_probs), the fused kernels keep them f32, and one bf16
-    # ulp is 2^-8 of a value, so 2^-5 x max|logit|.
-    for pol, rel in (("binary32", 1e-4), ("transprecision", 2.0 ** -5)):
+    for pol, rel in LOGIT_TOL.items():
         res = {}
         for path, (dec, mm) in (("kernel", ("paged", "qmm_pallas")),
                                 ("plain", ("xla", "xla"))):
@@ -2041,6 +2178,98 @@ def check_logits(torch, report, args, qmm_lib):
                 f32 += f32_launches() - before
     report["logits_f32_launches"] = f32
     ok &= f32 > 0
+    ok &= check_logits_archs(torch, report, args)
+    return ok
+
+
+def check_logits_archs(torch, report, args):
+    """The ninth slice's two new layer kinds at 2 layers, full width:
+    command-r-35b (layernorm, the tied head on ``torch.matmul`` in
+    8-row blocks) under binary32 and transprecision, kernel path against
+    plain path, then verify against sequential decode bit for bit
+    (:func:`check_verify_logits`) under both, with paged and
+    flash_pallas; qwen3-moe-30b-a3b (MoE) under transprecision, kernel
+    path against plain path, and in every router call of the kernel path
+    the experts the qmm router picks equal to those the plain product
+    picks on the same rows.  The two paths' own picks (their inputs
+    differ by the attention probabilities' bf16 rounding) are counted,
+    not held.  No MoE verify check: expert capacity follows the row
+    count, so verify does not equal decode there, in the reference
+    neither."""
+    from repro_torch.models import moe
+    from repro_torch.models.registry import build
+    from repro_torch.models.transformer import Model
+
+    ok = True
+    for arch, pols in (("command-r-35b", ("binary32", "transprecision")),
+                       ("qwen3-moe-30b-a3b", ("transprecision",))):
+        _, full = build(arch)
+        cfg = dataclasses.replace(full, n_layers=2)
+        model = Model(cfg)
+        for pol in pols:
+            res, picks, agree = {}, {}, []
+            real = moe.moe_route
+
+            def route(p, xt, c, policy, _path=None):
+                r = real(p, xt, c, policy)
+                picks[_path].append(r.top_e)
+                if _path == "kernel":
+                    plain = real(p, xt, c, dataclasses.replace(
+                        policy, matmul_impl="xla"))
+                    agree.append((int((plain.top_e == r.top_e).all(-1)
+                                      .sum()), xt.shape[0]))
+                return r
+            for path, (dec, mm) in (("kernel", ("paged", "qmm_pallas")),
+                                    ("plain", ("xla", "xla"))):
+                picks[path] = []
+                moe.moe_route = lambda *a, _p=path: route(*a, _path=_p)
+                try:
+                    res[path] = _first_step_logits(
+                        torch, model, cfg, pol, dec, mm, args.seed,
+                        prompt=64, page=64)
+                finally:
+                    moe.moe_route = real
+            rel = LOGIT_TOL[pol]
+            for i, what in enumerate(("prefill chunk", "decode step")):
+                a, b = res["kernel"][i], res["plain"][i]
+                err = float((a - b).abs().max())
+                scale = float(b.abs().max())
+                good = err <= rel * max(scale, 1.0) and bool(
+                    torch.isfinite(a).all())
+                ok &= good
+                report["logits"].append(dict(
+                    arch=arch, policy=pol, what=what, max_abs_err=err,
+                    max_abs_logit=scale, tol_rel=rel,
+                    argmax_equal=bool((a.argmax(-1) == b.argmax(-1)).all()),
+                    ok=good))
+                print(f"[logits] {arch} {pol:<14} {what:<13} 2-layer full "
+                      f"width: max|kernel - plain| = {err:.3e} (max|logit| "
+                      f"{scale:.3f}, tol {rel:.2e} x that) "
+                      f"{'ok' if good else 'FAIL'}")
+            if cfg.moe_experts:
+                same = sum(a for a, _ in agree)
+                rows = sum(n for _, n in agree)
+                paths = sum(int((a == b).all(-1).sum()) for a, b in
+                            zip(picks["kernel"], picks["plain"]))
+                good = rows > 0 and same == rows \
+                    and len(agree) == 2 * cfg.n_layers
+                ok &= good
+                report["logits"].append(dict(
+                    arch=arch, policy=pol, what="router picks",
+                    rows=rows, rows_same_experts=same,
+                    rows_same_experts_across_paths=paths, ok=good))
+                print(f"[logits] {arch} {pol}: the qmm router's experts "
+                      f"equal the plain product's in {same} of {rows} "
+                      f"rows ({len(agree)} router calls) "
+                      f"{'ok' if good else 'FAIL'}; the kernel and plain "
+                      f"paths pick the same experts in {paths} of {rows} "
+                      f"rows (measured)")
+            else:
+                for dec in ("paged", "flash_pallas"):
+                    ok &= check_verify_logits(torch, report, args, model,
+                                              cfg, pol, dec)
+        del model
+        torch.cuda.empty_cache()
     return ok
 
 
@@ -2137,13 +2366,14 @@ def check_verify_logits(torch, report, args, model, cfg, pol, dec,
                   for a, b in zip(bst, st))
     good = same_logits and pools_equal and lens_ok \
         and bool(torch.isfinite(blk).all())
-    report["logits"].append(dict(policy=pol, decode_impl=dec,
+    report["logits"].append(dict(arch=cfg.arch, policy=pol, decode_impl=dec,
                                  what=f"verify k={k} vs {k} decode steps",
                                  max_abs_err=err, logits_equal=same_logits,
                                  kv_pools_equal=pools_equal,
                                  seq_lens_equal=lens_ok, ok=good))
-    print(f"[logits] {pol} verify_step (k={k}) vs {k} decode steps, 2-layer "
-          f"full width, {dec}: logits equal: {same_logits} (max|diff| "
+    print(f"[logits] {cfg.arch} {pol} verify_step (k={k}) vs {k} decode "
+          f"steps, 2-layer full width, {dec}: logits equal: {same_logits} "
+          f"(max|diff| "
           f"{err:.3e}), K/V pool bits equal: {pools_equal}, lengths equal: "
           f"{lens_ok} {'ok' if good else 'FAIL'}")
     del params
@@ -2151,17 +2381,19 @@ def check_verify_logits(torch, report, args, model, cfg, pol, dec,
     return good
 
 
-RMS_DIMS = (4096, 5120, 8192)   # llama3-8b, mistral-nemo, command-r
+# granite-moe, qwen3-moe, llama3-8b, mistral-nemo, command-r
+RMS_DIMS = (1024, 2048, 4096, 5120, 8192)
+LN_DIMS = (8192, 384)           # command-r; whisper-tiny's, for later
 
 
 def check_rmsnorm_rows(torch, report, args):
     """rmsnorm (``models/layers.py``, the ``csrc/rmsnorm.cu`` kernel) on
     the card gives a row the same bits whatever the number of rows beside
-    it (ROW_COUNTS), at d_model 4096, 5120 and 8192, under binary32 and
-    transprecision; the kernel is within 1e-6 relative of its plain twin
-    (``kernels/rmsnorm.rmsnorm_plain``, run on the card) on f32 and bf16
-    inputs; beside it, whether a single ``torch.mean`` over the rows
-    would be free of the row count (measured, not asserted)."""
+    it (ROW_COUNTS), at d_model 1024, 2048, 4096, 5120 and 8192, under
+    binary32 and transprecision; the kernel is within 1e-6 relative of
+    its plain twin (``kernels/rmsnorm.rmsnorm_plain``, run on the card) on
+    f32 and bf16 inputs; beside it, whether a single ``torch.mean`` over
+    the rows would be free of the row count (measured, not asserted)."""
     from repro_torch.core.policy import get_policy
     from repro_torch.kernels import rmsnorm as rms
     from repro_torch.models.layers import rmsnorm
@@ -2199,6 +2431,84 @@ def check_rmsnorm_rows(torch, report, args):
           f"rows equal to its rows of 128 for how many of the "
           f"{len(ROW_COUNTS)} row counts (measured): {mean_rows}")
     return good
+
+
+def check_layernorm_rows(torch, report, args):
+    """layernorm (``models/layers.py``, ``layernorm_launch`` of
+    ``csrc/rmsnorm.cu``) on the card: the kernel bit-identical to its
+    plain twin (``kernels/layernorm.layernorm_plain``, run on the card)
+    on f32 and bf16 inputs, and a row's bits free of the number of rows
+    beside it (ROW_COUNTS) under binary32 and transprecision, at d 8192
+    (command-r-35b) and 384; beside it, whether ``F.layer_norm`` is free
+    of the row count (measured, not asserted)."""
+    from repro_torch.core.policy import get_policy
+    from repro_torch.kernels import layernorm as ln
+    from repro_torch.models.layers import layernorm
+
+    g = torch.Generator(device="cuda").manual_seed(args.seed + 11)
+    rows, twin, lib_rows = {}, {}, {}
+    err = 0.0
+    for d in LN_DIMS:
+        x = torch.randn((128, d), generator=g, device="cuda") * 3.0 + 1.5
+        gamma = 1.0 + torch.randn((d,), generator=g, device="cuda") * 0.1
+        beta = torch.randn((d,), generator=g, device="cuda") * 0.1
+        for pol in ("binary32", "transprecision"):
+            policy = get_policy(pol)
+            full = layernorm(x, gamma, beta, policy)
+            rows[f"{pol}/{d}"] = all(
+                torch.equal(layernorm(x[:m], gamma, beta, policy), full[:m])
+                for m in ROW_COUNTS)
+        for xin in (x, x.to(torch.bfloat16)):
+            k = ln.layernorm_f32(xin, gamma, beta)
+            p = ln.layernorm_plain(xin, gamma, beta)
+            twin[f"{xin.dtype}/{d}"] = torch.equal(k, p)
+            err = max(err, float((k - p).abs().max()))
+        whole = torch.nn.functional.layer_norm(x, (d,), gamma, beta, 1e-5)
+        lib_rows[d] = sum(torch.equal(torch.nn.functional.layer_norm(
+            x[:m], (d,), gamma, beta, 1e-5), whole[:m]) for m in ROW_COUNTS)
+    good = all(rows.values()) and all(twin.values())
+    report["layernorm_rows_invariant"] = rows
+    report["layernorm_twin_equal"] = twin
+    report["layernorm_max_abs_err"] = err
+    report["layer_norm_rows_invariant"] = lib_rows
+    print(f"[layernorm] kernel bit-identical to its twin: {twin}; rows "
+          f"bit-identical through {ROW_COUNTS} rows at d {LN_DIMS}: {rows} "
+          f"{'ok' if good else 'FAIL'}; F.layer_norm over m rows equal to "
+          f"its rows of 128 for how many of the {len(ROW_COUNTS)} row "
+          f"counts (measured): {lib_rows}")
+    return good
+
+
+def time_layernorm(torch, report, timer):
+    """The layernorm kernel at a decode step's rows (4) and a prefill
+    chunk's (64), d 8192 (command-r-35b), bf16 activations in, f32 out:
+    beside its twin on the card, ``F.layer_norm`` (one PyTorch call for
+    the same function, on the f32 of the input) and the byte bound
+    (``layernorm_hbm_bytes``)."""
+    from repro_torch.kernels import layernorm as ln
+
+    g = torch.Generator(device="cuda").manual_seed(report["seed"] + 12)
+    d = 8192
+    gamma = 1.0 + torch.randn((d,), generator=g, device="cuda") * 0.1
+    beta = torch.randn((d,), generator=g, device="cuda") * 0.1
+    for rows in (4, 64):
+        x = (torch.randn((rows, d), generator=g, device="cuda") * 3.0).to(
+            torch.bfloat16)
+        xf = x.float()
+        t_k = timer(lambda: ln.layernorm_f32(x, gamma, beta))
+        t_p = timer(lambda: ln.layernorm_plain(x, gamma, beta))
+        t_l = timer(lambda: torch.nn.functional.layer_norm(
+            xf, (d,), gamma, beta, 1e-5))
+        host = timer.host_us(lambda: ln.layernorm_f32(x, gamma, beta))
+        nbytes = ln.layernorm_hbm_bytes(rows, d, 2)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        report["timings"].append(dict(
+            kernel="layernorm", rows=rows, d=d, ms=t_k, plain_ms=t_p,
+            library_ms=t_l, bound_ms=bound, bound_by="bytes", bytes=nbytes,
+            host_us=host))
+        print(f"[timing] layernorm {rows:>3} x {d} bf16 -> f32: kernel "
+              f"{t_k:.4f} ms  twin {t_p:.4f} ms  F.layer_norm {t_l:.4f} ms"
+              f"  bound {bound:.5f} ms  host {host:.1f} us")
 
 
 def _rmsnorm_torch_ops(torch, x, gamma, eps=1e-6):
@@ -2407,7 +2717,8 @@ def run_resilience(torch, report, libs, args, timer):
         a request whose handoff fails its CRC, so a TransportError (73)
         never reaches the CLI: with ``--max-requeues 0`` the recompute is
         refused and the request dead-letters).
-    Also: rmsnorm rows (``check_rmsnorm_rows``) and its timing."""
+    Also: rmsnorm and layernorm rows (``check_rmsnorm_rows``,
+    ``check_layernorm_rows``) and their timings."""
     from repro_torch.core.policy import get_policy
     from repro_torch.engine import synchronous_generate
     from repro_torch.launch import serve
@@ -2415,7 +2726,9 @@ def run_resilience(torch, report, libs, args, timer):
     from repro_torch.models.registry import build
 
     ok = check_rmsnorm_rows(torch, report, args)
+    ok &= check_layernorm_rows(torch, report, args)
     time_rmsnorm(torch, report, timer)
+    time_layernorm(torch, report, timer)
     out = report["resilience"] = {}
     model, cfg = build("llama3-8b")
 
@@ -2581,6 +2894,186 @@ def run_resilience(torch, report, libs, args, timer):
     del params
     torch.cuda.empty_cache()
     out["ok"] = ok
+    return ok
+
+
+# ---------------------------------------------------------------------------
+# archs: the ninth slice's configs served at full width and depth
+# ---------------------------------------------------------------------------
+
+ARCHS = ("yi-9b", "mistral-nemo-12b", "command-r-35b",
+         "granite-moe-1b-a400m", "qwen3-moe-30b-a3b")
+ARCHS_PAGED = ("mistral-nemo-12b", "granite-moe-1b-a400m")
+ARCH_REQUESTS, ARCH_SLOTS, ARCH_PROMPT, ARCH_MAX_NEW = 2, 2, 64, 8
+ARCH_CAPACITY, ARCH_PAGE = 128, 64
+
+
+def arch_launches(cfg, decode_impl):
+    """What a decode step and a prefill chunk of ``cfg`` launch under
+    transprecision with packed weights: ``(tuple per decode step, tuple
+    per chunk, qmm by kernel per decode step, per chunk)``, tuples in
+    ``libs`` order (qmm, paged_decode, flash_prefill, flash_decode,
+    flexfloat_cast, norms), qmm by kernel (qmm_gemv, qmm_tile, qmm_tc).
+    A layer: wq, wk, wv, wo, then the fused gated FFN and w_out (dense)
+    or the binary32 router and w_in, w_gate, w_out once per expert
+    (MoE), all packed bf16 on the tensor cores except the router (the
+    GEMV at a decode step's 2 rows, qmm_tile in a 64-row chunk); the
+    untied head one qmm_tc, the tied one ``torch.matmul``; two norms a
+    layer and the final one."""
+    L = cfg.n_layers
+    head = 0 if cfg.tied_embeddings else 1
+    tc = L * (4 + (3 * cfg.moe_experts if cfg.moe_experts else 2)) + head
+    router = L if cfg.moe_experts else 0
+    norms = 2 * L + 1
+    dec = (tc + router, L if decode_impl == "paged" else 0, 0,
+           0 if decode_impl == "paged" else L, 0, norms)
+    pre = (tc + router, 0, L, 0, 0, norms)
+    return dec, pre, (router, 0, tc), (0, router, tc)
+
+
+def _arch_serve(torch, report, libs, args, arch, decode_impl, params, cfg):
+    """One counted serve of ``arch`` over ``params``; the checks of
+    :func:`run_archs`.  Returns (ok, the report entry)."""
+    from repro_torch.engine import worker
+    from repro_torch.models import moe
+
+    key = f"{arch}/{decode_impl}"
+    stats = f"archs_{arch}_{decode_impl}_stats.jsonl"
+    argv = ["--arch", arch, "--policy", "transprecision",
+            "--decode-impl", decode_impl, "--matmul-impl", "qmm_pallas",
+            "--page-size", str(ARCH_PAGE), "--requests", str(ARCH_REQUESTS),
+            "--slots", str(ARCH_SLOTS), "--prompt-len", str(ARCH_PROMPT),
+            "--max-new", str(ARCH_MAX_NEW), "--capacity",
+            str(ARCH_CAPACITY), "--seed", str(args.seed), "--stats-out",
+            os.path.join(args.out, stats)]
+    # the experts' launches: qmm_tc launches inside the grouped products
+    real, experts = moe.pgrouped_dot, [0]
+
+    def counted(*a, **k):
+        before = libs[0].by_kernel.get("qmm_tc", 0)
+        out = real(*a, **k)
+        experts[0] += libs[0].by_kernel.get("qmm_tc", 0) - before
+        return out
+    moe.pgrouped_dot = counted
+    try:
+        reqs, per, launches, wall, peak = _drive_serve(
+            torch, libs, argv, {"decode": (worker.DecodeWorker, "step"),
+                                "prefill": (worker.PrefillWorker, "step")},
+            params=params)
+    finally:
+        moe.pgrouped_dot = real
+    want_dec, want_pre, want_dec_k, want_pre_k = arch_launches(
+        cfg, decode_impl)
+    norm_entry = "layernorm_launch" if cfg.norm == "layernorm" \
+        else "rmsnorm_launch"
+    calls = len(per["decode"]) + len(per["prefill"])
+    ok = all(r.done and not r.failed for r in reqs)
+    ok &= all(len(r.generated) == ARCH_MAX_NEW for r in reqs)
+    ok &= all(0 <= t < cfg.vocab for r in reqs for t in r.generated)
+    ok &= _counts_ok(per["decode"], want_dec)
+    ok &= _counts_ok(per["prefill"], want_pre)
+    ok &= _counts_ok(per["decode/kern"], want_dec_k)
+    ok &= _counts_ok(per["prefill/kern"], want_pre_k)
+    ok &= launches["norms_by_entry"] == {norm_entry: calls * want_dec[5]}
+    ok &= experts[0] == calls * 3 * cfg.moe_experts * cfg.n_layers
+    summary = _serve_summary(args, stats)
+    entry = dict(
+        arch=arch, decode_impl=decode_impl, n_layers=cfg.n_layers,
+        d_model=cfg.d_model, params=cfg.param_count(),
+        requests=len(reqs), tokens=sum(len(r.generated) for r in reqs),
+        wall_s=wall, tok_per_s=summary["tokens_per_s"],
+        ttft_mean_s=summary["ttft_mean_s"], decode_steps=len(per["decode"]),
+        prefill_chunks=len(per["prefill"]), launches=launches,
+        expert_qmm_tc_launches=experts[0], peak_mem_bytes=peak,
+        per_decode_step=sorted(set(per["decode"])),
+        per_prefill_chunk=sorted(set(per["prefill"])),
+        qmm_kernels_per_decode_step=sorted(set(per["decode/kern"])),
+        qmm_kernels_per_prefill_chunk=sorted(set(per["prefill/kern"])),
+        want=dict(decode=want_dec, prefill=want_pre, decode_kern=want_dec_k,
+                  prefill_kern=want_pre_k),
+        generated=[r.generated for r in reqs], ok=ok)
+    print(f"[archs] {arch} full ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}), transprecision, qmm_pallas, {decode_impl}: "
+          f"{len(reqs)} requests, {entry['tokens']} tokens in {wall:.2f} s, "
+          f"{summary['tokens_per_s']} tok/s, TTFT mean "
+          f"{summary['ttft_mean_s']} s, peak memory {peak / 1e9:.2f} GB "
+          f"({report['nvidia_smi']})")
+    print(f"[archs] {arch} {decode_impl}: per decode step "
+          f"{entry['per_decode_step']} (want {want_dec}), per prefill chunk "
+          f"{entry['per_prefill_chunk']} (want {want_pre}); qmm by kernel "
+          f"(gemv, tile, tc) {entry['qmm_kernels_per_decode_step']} / "
+          f"{entry['qmm_kernels_per_prefill_chunk']} (want {want_dec_k} / "
+          f"{want_pre_k}); norms {launches['norms_by_entry']}; expert "
+          f"qmm_tc launches {experts[0]} {'ok' if ok else 'FAIL'}")
+    return ok, entry
+
+
+def run_archs(torch, report, libs, args):
+    """``serve.main`` on each of the ninth slice's configs at full width
+    and full depth (random weights from ``--seed``, made once a config
+    and served as they are): transprecision, ``qmm_pallas``,
+    ``flash_pallas``, 2 requests x (64 + 8) over 2 slots, page 64,
+    capacity 128; mistral-nemo-12b and granite-moe once more under
+    ``paged``.  Asserted: every request gets its tokens; the launches of
+    every decode step and every prefill chunk, by library and by qmm
+    kernel (``arch_launches``); the norm kind (layernorm only for
+    command-r); the experts' qmm_tc launches (3 x E a layer a call: every
+    expert streams, kept rows or not); and each model freed before the
+    next is built.  Measured: tok/s, TTFT, peak memory (init and serve)
+    and the device busy share of one steady decode step (torch.profiler,
+    device activity only).  MoE tokens are not held to speculative
+    exactness (see ``check_logits_archs``)."""
+    from repro_torch.core.policy import get_policy
+    from repro_torch.models.registry import build
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    out = report["archs"] = {}
+    ok = True
+    for arch in ARCHS:
+        model, cfg = build(arch)
+        policy = get_policy("transprecision", decode_impl="flash_pallas",
+                            matmul_impl="qmm_pallas")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        params = model.init_params(gen, policy, device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        init_peak = torch.cuda.max_memory_allocated()
+        for dec in ("flash_pallas",) + (("paged",) if arch in ARCHS_PAGED
+                                        else ()):
+            good, entry = _arch_serve(torch, report, libs, args, arch, dec,
+                                      params, cfg)
+            entry.update(init_s=init_s, init_peak_mem_bytes=init_peak)
+            ok &= good
+            out[f"{arch}/{dec}"] = entry
+        argv = ["--arch", arch, "--policy", "transprecision",
+                "--decode-impl", "flash_pallas", "--matmul-impl",
+                "qmm_pallas", "--page-size", str(ARCH_PAGE), "--requests",
+                str(ARCH_REQUESTS), "--slots", str(ARCH_SLOTS),
+                "--prompt-len", str(ARCH_PROMPT), "--max-new", "4",
+                "--capacity", str(ARCH_CAPACITY), "--seed", str(args.seed)]
+        busy, wall, top, steps, rows = _profiled_serve(
+            torch, argv, window=1, params=params, cpu=False)
+        out[f"{arch}/flash_pallas"].update(
+            step_wall_s=wall, step_device_busy_s=busy,
+            step_busy_share=busy / wall, step_top=top[:5])
+        print(f"[archs] {arch}: one steady decode step {wall * 1e3:.1f} ms "
+              f"wall, device busy {busy * 1e3:.2f} ms "
+              f"({100 * busy / wall:.1f} %); top: "
+              + ", ".join(f"{e['name'][:40]} {e['device_ms']:.2f} ms "
+                          f"x{e['count']}" for e in top[:3]))
+        del params, model, rows
+        gc.collect()
+        torch.cuda.empty_cache()
+        left = torch.cuda.memory_allocated() - base
+        freed = left < (256 << 20)
+        ok &= freed
+        out[f"{arch}/flash_pallas"]["left_after_free_bytes"] = left
+        print(f"[archs] {arch} freed: {left / 1e6:.1f} MB left above the "
+              f"phase's start {'ok' if freed else 'FAIL'}")
     return ok
 
 
@@ -2892,7 +3385,7 @@ def run_serve_tune(torch, report, libs, args):
 
 ALL_PHASES = ("build", "kernels", "casts", "ops", "serve", "serve_flash",
               "speculative", "serve_f32", "serve_reduced", "logits",
-              "resilience", "paper", "serve_tune", "profile")
+              "resilience", "archs", "paper", "serve_tune", "profile")
 
 
 def kernel_rows(report):
@@ -2910,15 +3403,19 @@ def kernel_rows(report):
     launches per prefill chunk), ``qmm_tc_decode_step`` (the same kernel,
     times and launches per decode step) and ``qmm_packed_a`` (the same
     kernel on binary8 activations, M = 64, the ops phase's launches).
-    ``rmsnorm`` is a port-only kernel (its ``replaces`` names the
-    reference's XLA rmsnorm): times at a decode step's 4 rows, the serve
-    phase's launches."""
+    ``rmsnorm`` and ``layernorm`` are port-only kernels (their
+    ``replaces`` names the reference's XLA norm): times at a decode
+    step's 4 rows, launches of the serve phase and of the archs phase's
+    command-r-35b serve.  ``qmm_tc_expert``: one qwen3-moe expert launch
+    (M 8, K 2048, N 768) timed, the archs phase's qwen3-moe serve's
+    expert launches."""
     def timing(name, **match):
         return next((t for t in report["timings"] if t["kernel"] == name
                      and all(t.get(k) == v for k, v in match.items())), None)
 
     serve = report.get("serve", {}).get("launches", {})
     flash = report.get("serve_flash", {}).get("launches", {})
+    archs = report.get("archs", {})
     ops_counts = report.get("ops", {}).get("launches", {}).get(
         "flexfloat_cast", {})
     paper_counts = report.get("paper", {}).get("flexfloat_cast_by_entry",
@@ -2975,8 +3472,19 @@ def kernel_rows(report):
          timing("dequantize_decode", fmt="binary16alt")),
         # port-only: the reference's rmsnorm is XLA, not a TPU kernel
         ("rmsnorm", "src/repro_torch/csrc/rmsnorm.cu",
-         "src/repro/models/layers.py:221", serve.get("rmsnorm", 0),
+         "src/repro/models/layers.py:221",
+         serve.get("norms_by_entry", {}).get("rmsnorm_launch", 0),
          report.get("rmsnorm_max_abs_err"), timing("rmsnorm", rows=4)),
+        # port-only, as rmsnorm: the reference's layernorm is XLA
+        ("layernorm", "src/repro_torch/csrc/rmsnorm.cu",
+         "src/repro/models/layers.py:228",
+         archs.get("command-r-35b/flash_pallas", {}).get("launches", {})
+         .get("norms_by_entry", {}).get("layernorm_launch", 0),
+         report.get("layernorm_max_abs_err"), timing("layernorm", rows=4)),
+        ("qmm_tc_expert", qmm_src, qmm_tpu,
+         archs.get("qwen3-moe-30b-a3b/flash_pallas", {}).get(
+             "expert_qmm_tc_launches", 0),
+         report.get("qmm_expert_max_abs_err"), timing("qmm_tc_expert")),
     ]
     kernels = []
     for name, source, replaces, launches, err, t in rows:
@@ -3055,6 +3563,7 @@ def main() -> int:
                 ok &= check_paged(torch, np, report, timer)
                 ok &= check_prefill(torch, np, report, timer)
                 ok &= check_flash_decode(torch, np, report)
+                ok &= check_qmm_archs(torch, report, timer)
                 time_kernels(torch, np, report, timer)
             elif phase == "timing":
                 # the kernels' times alone (for --src)
@@ -3087,6 +3596,8 @@ def main() -> int:
             elif phase == "resilience":
                 timer = timer or Timer(torch)
                 ok = run_resilience(torch, report, libs, args, timer)
+            elif phase == "archs":
+                ok = run_archs(torch, report, libs, args)
             elif phase == "paper":
                 ok = run_paper(torch, report, libs)
             elif phase == "serve_tune":

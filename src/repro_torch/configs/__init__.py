@@ -2,7 +2,8 @@
 ``reduced()`` a small same-family config for CPU tests."""
 from importlib import import_module
 
-ARCHS = ("llama3-8b",)
+ARCHS = ("llama3-8b", "yi-9b", "mistral-nemo-12b", "command-r-35b",
+         "granite-moe-1b-a400m", "qwen3-moe-30b-a3b")
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCHS}
 

@@ -10,7 +10,7 @@ torch's CUDA reduction shapes its summation order by the whole tensor.
 Both versions compute, for each row of d values, in f32 with every op
 rounded to nearest:
 
-* 128 partial sums, partial t summing ``x[t + 128 j]^2`` over j in
+* 128 partial sums, partial t adding ``x[t + 128 j]^2`` over j to 0 in
   sequence (the square rounded before the add);
 * a halving tree over the partials (64, 32, ..., 1), zeros past d;
 * ``ms = total / d``, ``r = 1 / sqrt(ms + eps)``,
@@ -29,24 +29,28 @@ from . import _build
 
 THREADS = 128   # csrc/rmsnorm.cu kThreads: the partials of a row
 
+# one library for both norms (``kernels/layernorm.py`` holds the
+# layernorm entry's wrapper); a launch counts under its entry point
 LIB = _build.register(_build.KernelLib("rmsnorm", {
     "rmsnorm_launch": [_build.P, _build.P, _build.P, _build.I64, _build.I32,
                        _build.F32, _build.I32, _build.P],
+    "layernorm_launch": [_build.P, _build.P, _build.P, _build.P, _build.I64,
+                         _build.I32, _build.F32, _build.I32, _build.P],
 }))
 
 
-def mean_square_plain(xf: torch.Tensor) -> torch.Tensor:
-    """Mean of squares over the last axis in the kernel's order (keepdim).
-    ``xf`` is f32."""
-    d = xf.shape[-1]
+def row_mean_plain(v: torch.Tensor) -> torch.Tensor:
+    """Mean over the last axis in the kernels' order (keepdim): 128
+    partials, partial t adding ``v[t + 128 j]`` to 0 in sequence, the
+    halving tree, one division by d.  ``v`` is f32."""
+    d = v.shape[-1]
     n = -(-d // THREADS)
-    sq = xf * xf
     if n * THREADS != d:
-        sq = F.pad(sq, (0, n * THREADS - d))
-    sq = sq.reshape(*xf.shape[:-1], n, THREADS)
-    acc = sq[..., 0, :]
-    for j in range(1, n):
-        acc = acc + sq[..., j, :]
+        v = F.pad(v, (0, n * THREADS - d))
+    v = v.reshape(*v.shape[:-1], n, THREADS)
+    acc = torch.zeros_like(v[..., 0, :])
+    for j in range(n):
+        acc = acc + v[..., j, :]
     h = THREADS // 2
     while h:
         acc = acc[..., :h] + acc[..., h:2 * h]
@@ -57,6 +61,12 @@ def mean_square_plain(xf: torch.Tensor) -> torch.Tensor:
     return acc / torch.full_like(acc, float(d))
 
 
+def mean_square_plain(xf: torch.Tensor) -> torch.Tensor:
+    """Mean of squares over the last axis in the kernel's order (keepdim).
+    ``xf`` is f32."""
+    return row_mean_plain(xf * xf)
+
+
 def rmsnorm_plain(x, gamma, eps: float = 1e-6) -> torch.Tensor:
     """The twin: f32 ``(x * r) * (1 + gamma)`` in the kernel's order."""
     xf = x.to(torch.float32)
@@ -64,26 +74,34 @@ def rmsnorm_plain(x, gamma, eps: float = 1e-6) -> torch.Tensor:
     return (xf * r) * (1.0 + gamma.to(torch.float32))
 
 
+def norm_operands(what: str, x, **params):
+    """``x`` as a contiguous f32 or bf16 tensor, each (d,) parameter as
+    contiguous f32, the f32 output, and the row count: what a norm kernel
+    of this library takes."""
+    d = x.shape[-1]
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        x = x.to(torch.float32)
+    x = x.contiguous()
+    ps = {k: p.to(torch.float32).contiguous() for k, p in params.items()}
+    _build.check_operands(what, x.device, x=x, **ps)
+    for k, p in ps.items():
+        if p.shape != (d,):
+            raise ValueError(f"{what}: {k} must be ({d},), got "
+                             f"{tuple(p.shape)}")
+    y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    return x, list(ps.values()), y, (x.numel() // d if d else 0)
+
+
 def rmsnorm_f32(x, gamma, eps: float = 1e-6) -> torch.Tensor:
     """rmsnorm of ``x`` (..., d) with ``gamma`` (d,), as f32: the kernel
     on a CUDA tensor (one launch), the twin on a CPU one."""
     if x.device.type == "cpu":
         return rmsnorm_plain(x, gamma, eps)
-    d = x.shape[-1]
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        x = x.to(torch.float32)
-    x = x.contiguous()
-    g = gamma.to(torch.float32).contiguous()
-    _build.check_operands("rmsnorm", x.device, x=x, gamma=g)
-    if g.shape != (d,):
-        raise ValueError(f"rmsnorm: gamma must be ({d},), got "
-                         f"{tuple(g.shape)}")
-    y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
-    rows = x.numel() // d if d else 0
+    x, (g,), y, rows = norm_operands("rmsnorm", x, gamma=gamma)
     if rows == 0:
         return y
     LIB.launch("rmsnorm_launch", _build.ptr(x), _build.ptr(g),
-               _build.ptr(y), rows, d, float(eps),
+               _build.ptr(y), rows, x.shape[-1], float(eps),
                int(x.dtype == torch.bfloat16), _build.stream_ptr(x.device))
     return y
 

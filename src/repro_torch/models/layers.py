@@ -1,20 +1,27 @@
 """Policy-aware primitives shared by the model: the port of
-``repro.models.layers`` for the dense decoder.
+``repro.models.layers`` for the dense and MoE decoders.
 
 Every parameter-consuming contraction goes through :func:`pdot` /
-:func:`peinsum`, which resolve their implementation in the matmul
-registry (``kernels/dispatch.py``):
+:func:`peinsum` / :func:`pgrouped_dot`, which resolve their
+implementation in the matmul registry (``kernels/dispatch.py``):
 
 ``"xla"``
     torch matmul/einsum.  Packed (:class:`QTensor`) weights are
     dequantized first and multiplied in f32.  Plain weights in native
     mode are rounded to bf16 whenever either operand is not f32 (the
     reference's ``_dot_xla`` computes in bf16 then, f16 weights
-    included); bf16 x bf16 products are exact in f32, so multiplying the
-    rounded operands in f32 is that computation up to summation order.
+    included; its grouped form always does); bf16 x bf16 products are
+    exact in f32, so multiplying the rounded operands in f32 is that
+    computation up to summation order.
 ``"qmm_pallas"``
     ``kernels/qmatmul.qmatmul``: the CUDA kernel on a card, its plain
-    version on the CPU.  Plain (unpacked) weights take the "xla" path.
+    version on the CPU; the grouped form launches it once per expert.
+    Plain (unpacked) weights take the "xla" path.
+
+The LM head of a tied embedding is the plain table transposed (the
+packed store does not pack the table): :func:`lm_logits` multiplies it
+in blocks of :data:`HEAD_ROWS` rows, so a row's logits do not depend on
+the rows beside it, as qmm's do not.
 
 torch float8 tensors have no arithmetic, so every op on activations
 widens first.
@@ -32,6 +39,7 @@ from repro_torch.core.flexfloat import quantize
 from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.core.qtensor import QTensor
 from repro_torch.kernels import dispatch
+from repro_torch.kernels.layernorm import layernorm_f32
 from repro_torch.kernels.qmatmul import apply_act, qmatmul, qmm_ffn
 from repro_torch.kernels.rmsnorm import rmsnorm_f32
 
@@ -63,6 +71,12 @@ def peinsum(expr, a, b, policy: PrecisionPolicy, role: str, *,
         expr, a, b, policy, role, out_act=out_act)
 
 
+def pgrouped_dot(a, w, policy: PrecisionPolicy, role: str):
+    """Batched expert matmul ``(E, M, K) @ (E, K, N) -> (E, M, N)`` (MoE
+    grouped FFN).  Returns raw f32 (callers ``act_cast`` as needed)."""
+    return dispatch.resolve_matmul(_impl(policy)).grouped(a, w, policy, role)
+
+
 def _finish(y, policy: PrecisionPolicy, out_act: bool):
     if not out_act:
         return y
@@ -71,41 +85,50 @@ def _finish(y, policy: PrecisionPolicy, out_act: bool):
     return quantize(y, policy.fmt("act"))
 
 
-def _compute_operands(a, b):
-    """Native-mode operands as the reference computes them: bf16 unless
-    both are f32, held in f32 for the matmul (exact products)."""
-    if a.dtype == F32 and b.dtype == F32:
-        return a, b
+def _compute_operands(a, b, policy):
+    """The operands of a plain product as the reference computes it, held
+    in f32 for the matmul: in native mode bf16 unless both are f32
+    (exact products), else f32."""
+    if policy.mode != "native" or (a.dtype == F32 and b.dtype == F32):
+        return a.to(F32), b.to(F32)
     return (a.to(torch.bfloat16).to(F32), b.to(torch.bfloat16).to(F32))
 
 
 def _dot_xla(x, w, policy, role, *, out_act=True):
     if isinstance(w, QTensor):
         y = torch.matmul(x.to(F32), w.dequantize())
-        return _finish(y, policy, out_act)
-    if policy.mode == "native":
-        y = torch.matmul(*_compute_operands(x, w))
-        return y.to(policy.dtype("act")) if out_act else y
-    y = torch.matmul(x.to(F32), w.to(F32))
-    return quantize(y, policy.fmt("act")) if out_act else y
+    else:
+        y = torch.matmul(*_compute_operands(x, w, policy))
+    return _finish(y, policy, out_act)
 
 
 def _einsum_xla(expr, a, b, policy, role, *, out_act=True):
     if isinstance(a, QTensor) or isinstance(b, QTensor):
         af = a.dequantize() if isinstance(a, QTensor) else a.to(F32)
         bf = b.dequantize() if isinstance(b, QTensor) else b.to(F32)
-        return _finish(torch.einsum(expr, af, bf), policy, out_act)
+        y = torch.einsum(expr, af, bf)
+    else:
+        y = torch.einsum(expr, *_compute_operands(a, b, policy))
+    return _finish(y, policy, out_act)
+
+
+def _grouped_xla(a, w, policy, role):
+    if isinstance(w, QTensor):
+        return torch.einsum("eck,ekn->ecn", a.to(F32), w.dequantize())
     if policy.mode == "native":
-        y = torch.einsum(expr, *_compute_operands(a, b))
-        return y.to(policy.dtype("act")) if out_act else y
-    y = torch.einsum(expr, a.to(F32), b.to(F32))
-    return quantize(y, policy.fmt("act")) if out_act else y
+        # the reference's grouped form computes in bf16 in native mode,
+        # f32 operands included
+        bf = torch.bfloat16
+        return torch.einsum("eck,ekn->ecn", a.to(bf).to(F32),
+                            w.to(bf).to(F32))
+    return torch.einsum("eck,ekn->ecn", a.to(F32), w.to(F32))
 
 
 @dispatch.register_matmul("xla")
 class _XlaMatmul:
     dot = staticmethod(_dot_xla)
     einsum = staticmethod(_einsum_xla)
+    grouped = staticmethod(_grouped_xla)
 
 
 def _out_fmt(policy, out_act):
@@ -126,10 +149,21 @@ def _dot_qmm(x, w, policy, role, *, out_act=True):
     return y
 
 
+def _grouped_qmm(a, w, policy, role):
+    if not isinstance(w, QTensor):
+        return _grouped_xla(a, w, policy, role)
+    # one launch per expert on its packed block, as the reference unrolls
+    # it: every expert streams, rows kept or not
+    a = a.to(F32)
+    return torch.stack([qmatmul(a[e].contiguous(), w.payload[e], None,
+                                w.fmt) for e in range(a.shape[0])])
+
+
 @dispatch.register_matmul("qmm_pallas")
 class _QmmMatmul:
     dot = staticmethod(_dot_qmm)
     einsum = staticmethod(_einsum_xla)   # activation-only contractions
+    grouped = staticmethod(_grouped_qmm)
 
 
 def act_cast(x, policy: PrecisionPolicy, role: str = "act"):
@@ -146,8 +180,23 @@ def rmsnorm(x, gamma, policy, eps=1e-6):
     return act_cast(rmsnorm_f32(x, gamma, eps), policy)
 
 
-def norm_init(d, device=None):
-    return {"gamma": torch.zeros((d,), dtype=F32, device=device)}
+def layernorm(x, gamma, beta, policy, eps=1e-5):
+    """``kernels/layernorm``: rmsnorm's row-count-free order for the
+    mean and the (two-pass) variance."""
+    return act_cast(layernorm_f32(x, gamma, beta, eps), policy)
+
+
+def apply_norm(x, p, policy, kind):
+    if kind == "rmsnorm":
+        return rmsnorm(x, p["gamma"], policy)
+    return layernorm(x, p["gamma"], p["beta"], policy)
+
+
+def norm_init(d, kind, device=None):
+    if kind == "rmsnorm":
+        return {"gamma": torch.zeros((d,), dtype=F32, device=device)}
+    return {"gamma": torch.ones((d,), dtype=F32, device=device),
+            "beta": torch.zeros((d,), dtype=F32, device=device)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -235,8 +284,40 @@ def embed_lookup(table, tokens, policy, scale=False):
     return act_cast(e, policy) if policy.mode == "emulated" else e
 
 
+HEAD_ROWS = 8           # rows a product of an unpacked head
+HEAD_COLS = 32768       # vocab columns widened to f32 at a time
+
+
+def _head_plain(x, w, policy):
+    """``x @ w`` for an unpacked head (a tied embedding's table,
+    transposed), the reference's plain product: f32 products of the
+    operands as :func:`_compute_operands` takes them, with f32 sums.  ``torch.matmul`` picks its algorithm by the shape, so rows go
+    in zero-padded blocks of ``HEAD_ROWS``: each block is the same call
+    whatever the row count, and a verify row's logits equal the decode
+    row's.  The weight is widened ``HEAD_COLS`` columns at a time, never
+    whole (command-r's table is 8.4 GB in f32)."""
+    lead, K = x.shape[:-1], x.shape[-1]
+    N = w.shape[-1]
+    xf = x.reshape(-1, K)
+    M = xf.shape[0]
+    pad = -M % HEAD_ROWS
+    out = torch.empty((M + pad, N), dtype=F32, device=x.device)
+    for n0 in range(0, N, HEAD_COLS):
+        # widened in the table's own layout: the product takes the
+        # transposed operand as it is, no transposing copy
+        xc, wc = _compute_operands(xf, w[:, n0:n0 + HEAD_COLS], policy)
+        xc = torch.nn.functional.pad(xc, (0, 0, 0, pad))
+        for m0 in range(0, M + pad, HEAD_ROWS):
+            out[m0:m0 + HEAD_ROWS, n0:n0 + wc.shape[1]] = torch.matmul(
+                xc[m0:m0 + HEAD_ROWS], wc)
+    return out[:M].reshape(*lead, N)
+
+
 def lm_logits(x, head_w, policy):
-    y = pdot(x, head_w, policy, "embed_w", out_act=False)
+    if isinstance(head_w, QTensor):
+        y = pdot(x, head_w, policy, "embed_w", out_act=False)
+    else:
+        y = _head_plain(x, head_w, policy)
     if policy.mode == "emulated":
         return quantize(y, policy.fmt("logits"))
     return y.to(policy.dtype("logits"))

@@ -1,6 +1,6 @@
-"""The dense decoder-only LM: the port of ``repro.models.transformer``
-for the ``dense`` family (MoE, rwkv, rglru, prefix-LM and enc-dec
-wait).  Parameters are plain nested dicts of tensors,
+"""The decoder-only LM: the port of ``repro.models.transformer`` for the
+``dense`` and ``moe`` families, rmsnorm or layernorm (rwkv, rglru,
+prefix-LM and enc-dec wait).  Parameters are plain nested dicts of tensors,
 made on ``cuda`` unless the caller passes ``device="cpu"``; the forward
 entry points run on the device their parameters live on.
 """
@@ -16,9 +16,10 @@ from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.kernels.paged_cache import PagedKVCache
 
 from . import attention as attn
+from . import moe as moe_mod
 from .base import ModelConfig
-from .layers import (dense_init, embed_lookup, ffn_apply, ffn_init,
-                     lm_logits, norm_init, residual_add, rmsnorm)
+from .layers import (apply_norm, dense_init, embed_lookup, ffn_apply,
+                     ffn_init, lm_logits, norm_init, residual_add)
 
 
 class Model:
@@ -45,7 +46,7 @@ class Model:
         params: Dict[str, Any] = {
             "embed": dense_init(gen, (cfg.vocab, cfg.d_model), scale=1.0,
                                 dtype=edt, device=device),
-            "final_norm": norm_init(cfg.d_model, device),
+            "final_norm": norm_init(cfg.d_model, cfg.norm, device),
             "layers": [],
         }
         if not cfg.tied_embeddings:
@@ -53,12 +54,15 @@ class Model:
                                         dtype=edt, device=device)
         for li in range(cfg.n_layers):
             lp = policy.at_layer(li)
+            fdt = lp.dtype("ffn_w")
             params["layers"].append({
-                "norm1": norm_init(cfg.d_model, device),
+                "norm1": norm_init(cfg.d_model, cfg.norm, device),
                 "mix": attn.attn_init(gen, cfg, lp.dtype("attn_w"), device),
-                "norm2": norm_init(cfg.d_model, device),
-                "ffn": ffn_init(gen, cfg.d_model, cfg.d_ff, cfg.gated_ffn,
-                                cfg.use_bias, lp.dtype("ffn_w"), device),
+                "norm2": norm_init(cfg.d_model, cfg.norm, device),
+                "ffn": (moe_mod.moe_init(gen, cfg, fdt, device)
+                        if cfg.moe_experts else
+                        ffn_init(gen, cfg.d_model, cfg.d_ff, cfg.gated_ffn,
+                                 cfg.use_bias, fdt, device)),
             })
         return params
 
@@ -68,15 +72,22 @@ class Model:
         return params["head"]
 
     def _block(self, layer, x, lp, attend):
-        """One decoder block around the attention call ``attend(h)``."""
-        h = rmsnorm(x, layer["norm1"]["gamma"], lp)
+        """One decoder block around the attention call ``attend(h)``; the
+        MoE FFN's aux loss is dropped (serving), as the reference's
+        serving paths drop it."""
+        cfg = self.cfg
+        h = apply_norm(x, layer["norm1"], lp, cfg.norm)
         a, st = attend(h)
         x = residual_add(x, a)
-        h = rmsnorm(x, layer["norm2"]["gamma"], lp)
-        return residual_add(x, ffn_apply(layer["ffn"], h, lp, self.cfg)), st
+        h = apply_norm(x, layer["norm2"], lp, cfg.norm)
+        if cfg.moe_experts:
+            f, _ = moe_mod.moe_apply(layer["ffn"], h, cfg, lp)
+        else:
+            f = ffn_apply(layer["ffn"], h, lp, cfg)
+        return residual_add(x, f), st
 
     def _logits(self, params, x, policy):
-        x = rmsnorm(x, params["final_norm"]["gamma"], policy)
+        x = apply_norm(x, params["final_norm"], policy, self.cfg.norm)
         return lm_logits(x, self._head_w(params), policy)
 
     def init_state(self, batch_size, capacity, policy, device=None):
@@ -148,8 +159,10 @@ class Model:
         row-wise, and attention goes per position through the same decode
         backend (``attention.verify_paged``).  The two agree bit for bit
         on the CPU plain path and on the card, where qmm sums a row in one
-        order at every M and rmsnorm's sum does not depend on the row
-        count.
+        order at every M, the norms' sums do not depend on the row count
+        and an unpacked (tied) head multiplies fixed row blocks.  Not on
+        an MoE config, in the reference neither: expert capacity depends
+        on the row count, so verify may drop tokens a decode step keeps.
 
         Needs an all-attention decoder over paged caches, as in the
         reference: recurrent layer states cannot roll back rejected

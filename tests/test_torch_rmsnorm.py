@@ -4,10 +4,10 @@ The twin sums in the CUDA kernel's order (``csrc/rmsnorm.cu``): 128
 per-thread partials, each summing ``x[t + 128 j]^2`` in sequence, then a
 halving tree.  Here: the twin equals a scalar model of the kernel's
 threads; a row's bits do not depend on the number of rows beside it at
-d 4096, 5120 and 8192 (``chip_smoke.py`` holds the kernel to the same on
-the card, and to the twin); and under transprecision the bf16 result is
-within one ulp of the JAX rmsnorm's, whose one ``mean`` sums in another
-order."""
+d 1024, 2048, 4096, 5120 and 8192 (``chip_smoke.py`` holds the kernel
+to the same on the card, and to the twin); and under transprecision the
+bf16 result is within one ulp of the JAX rmsnorm's, whose one ``mean``
+sums in another order."""
 import numpy as np
 import pytest
 
@@ -56,7 +56,7 @@ def test_twin_sums_in_the_kernels_order(d):
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("d", [4096, 5120, 8192])
+@pytest.mark.parametrize("d", [1024, 2048, 4096, 5120, 8192])
 def test_twin_rows_do_not_depend_on_the_row_count(d):
     x, gamma = _inputs(128, d)
     xt, gt = torch.from_numpy(x), torch.from_numpy(gamma)
