@@ -69,6 +69,11 @@
 //    the tile height either.  Ragged M, K and N are masked (zero-filled
 //    copies); a shape whose rows are not 16-byte aligned loads element by
 //    element into the same stages.
+//  * qmm_tc_grouped (entry point qmm_tc_grouped_launch): the MoE expert
+//    product, every expert's block of one weight in one launch, only the
+//    experts with kept rows streaming; each work unit is qmm_tc's tile
+//    body (tc_tile) and the K split is qmm_tc's, so its rows equal a
+//    per-expert qmm_tc launch's bit for bit (see its section below).
 //  * binary32 / f32 weights (not exact in TF32) and run-time (e, m)
 //    formats, at every M; entry point qmm_launch, row tile picked by M
 //    (kernels/qmatmul.py, f32_tile_m).  The order of an output's sum: the
@@ -146,6 +151,16 @@ extern "C" int qmm_tc_fmt1(QMM_TC_PARAMS);
 extern "C" int qmm_tc_fmt2(QMM_TC_PARAMS);
 extern "C" int qmm_tc_fmt3(QMM_TC_PARAMS);
 extern "C" int qmm_tc_fmt4(QMM_TC_PARAMS);
+
+// a tensor-core unit's grouped (MoE expert) launcher
+#define QMM_GROUPED_PARAMS                                                 \
+  const float *a, float *asplit, const void *b, float *out, float *ws,     \
+      const int *rows, int *work, int n_exp, int C, int K, int N,          \
+      int splits, int k_chunk, int n_sm, cudaStream_t stream
+extern "C" int qmm_tc_grouped_fmt1(QMM_GROUPED_PARAMS);
+extern "C" int qmm_tc_grouped_fmt2(QMM_GROUPED_PARAMS);
+extern "C" int qmm_tc_grouped_fmt3(QMM_GROUPED_PARAMS);
+extern "C" int qmm_tc_grouped_fmt4(QMM_GROUPED_PARAMS);
 
 // a qmm_tile unit's launcher (qmm_launch calls it for tile_m > 8)
 #define QMM_TILE_PARAMS                                                    \
@@ -556,13 +571,18 @@ __device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4],
 //    same 4 adjacent outputs and the gate stays in registers.
 // Either way a thread keeps 16 accumulators per m16 tile, plus their
 // promoted sums.
+// One block's tile: rows m0 .. m0 + BM - 1 (those below Mrows) x the
+// block's columns from n0, over K split z of `splits`.  qmm_tc runs one
+// tile a block; qmm_tc_grouped runs one a work unit, with the pointers
+// offset to its expert.  Split-K partials go to ws + z * plane + idx.
 template <typename TB, int E, int M, int BM>
-__global__ void __launch_bounds__(TcShape<BM>::kThreads,
-                                  TcShape<BM>::kMinBlocks)
-qmm_tc(const float* __restrict__ a_hi, const float* __restrict__ a_lo,
-       const TB* __restrict__ b, const TB* __restrict__ g,
-       float* __restrict__ out, float* __restrict__ ws, Epilogue ep,
-       int Mrows, int K, int N, int k_chunk, int aligned, int promote) {
+__device__ __forceinline__ void tc_tile(
+    unsigned char* smem_raw, const float* __restrict__ a_hi,
+    const float* __restrict__ a_lo, const TB* __restrict__ b,
+    const TB* __restrict__ g, float* __restrict__ out,
+    float* __restrict__ ws, const Epilogue& ep, int Mrows, int K, int N,
+    int k_chunk, int aligned, int promote, int m0, int n0, int z,
+    int splits, size_t plane) {
   using S = TcShape<BM>;
   constexpr int kMT = S::kMT, kThreads = S::kThreads, kStages = S::kStages;
   constexpr int kItem = sizeof(TB);
@@ -573,9 +593,7 @@ qmm_tc(const float* __restrict__ a_hi, const float* __restrict__ a_lo,
   constexpr int kBCh = kTcBN * kItem / 16;        // per weight row
   constexpr int kPer = 16 / kItem;                // weights per chunk
   const bool gated = g != nullptr;
-  const int bn = gated ? kTcBN / 2 : kTcBN;       // output columns a block
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
   float* As = reinterpret_cast<float*>(smem_raw);   // [stage][BM][stride]
   float* Al = As + kStages * kAStage;               // the same for a_lo
   unsigned char* Bs =
@@ -585,8 +603,7 @@ qmm_tc(const float* __restrict__ a_hi, const float* __restrict__ a_lo,
   const int gid = lane >> 2, tig = lane & 3;
   const int wm0 = (warp / 4) * 16 * kMT;
   const int wn0 = (warp % 4) * (gated ? 16 : 32);   // warp's first output
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * bn;
-  const int k_lo = blockIdx.z * k_chunk;
+  const int k_lo = z * k_chunk;
   const int k_hi = min(K, k_lo + k_chunk);
   const int n_kt = k_hi > k_lo ? (k_hi - k_lo + kTcBK - 1) / kTcBK : 0;
   // this thread's weight columns in a smem row, in bytes
@@ -720,8 +737,6 @@ qmm_tc(const float* __restrict__ a_hi, const float* __restrict__ a_lo,
   // c element j of n8 tile p holds row (j < 2 ? gid : gid + 8); its column
   // is 8 tig + 4 (j & 1) + p (ungated) or 4 tig + 2 (j & 1) + (p & 1)
   // (gated, p < 2 for B and p >= 2 for G)
-  const size_t plane = (size_t)Mrows * N;
-  const int splits = gridDim.z;
   const bool vec_out = (N % 4) == 0;
 #pragma unroll
   for (int i = 0; i < kMT; ++i)
@@ -758,8 +773,8 @@ qmm_tc(const float* __restrict__ a_hi, const float* __restrict__ a_lo,
 #pragma unroll
           for (int u = 0; u < 4; ++u) v[u] = ep(v[u], gv[u], col0 + u);
         } else {   // partials [split][row][col], the gate's after all
-          dst = ws + blockIdx.z * plane + idx;
-          if (gated) gdst = ws + (splits + blockIdx.z) * plane + idx;
+          dst = ws + z * plane + idx;
+          if (gated) gdst = ws + (splits + z) * plane + idx;
         }
         if (vec_out && col0 + 3 < N) {
           *reinterpret_cast<float4*>(dst) =
@@ -777,6 +792,21 @@ qmm_tc(const float* __restrict__ a_hi, const float* __restrict__ a_lo,
         }
       }
     }
+}
+
+template <typename TB, int E, int M, int BM>
+__global__ void __launch_bounds__(TcShape<BM>::kThreads,
+                                  TcShape<BM>::kMinBlocks)
+qmm_tc(const float* __restrict__ a_hi, const float* __restrict__ a_lo,
+       const TB* __restrict__ b, const TB* __restrict__ g,
+       float* __restrict__ out, float* __restrict__ ws, Epilogue ep,
+       int Mrows, int K, int N, int k_chunk, int aligned, int promote) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int bn = g != nullptr ? kTcBN / 2 : kTcBN;  // output columns a block
+  tc_tile<TB, E, M, BM>(smem_raw, a_hi, a_lo, b, g, out, ws, ep, Mrows, K,
+                        N, k_chunk, aligned, promote, blockIdx.y * BM,
+                        blockIdx.x * bn, blockIdx.z, gridDim.z,
+                        (size_t)Mrows * N);
 }
 
 template <typename TB, int E, int M, int BM>
@@ -835,6 +865,237 @@ cudaError_t launch_tc(const void* a, float* asplit, const void* bv,
   const int plane = Mrows * N;
   const int blocks = (plane + 255) / 256 < 1024 ? (plane + 255) / 256 : 1024;
   qmm_splitk<<<blocks, 256, 0, stream>>>(ws, out, ep, Mrows, N, splits);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// the MoE expert product: every expert's packed block in one launch a weight
+// ---------------------------------------------------------------------------
+//
+// a (E, C, K) f32, B (E, K, N) packed, rows (E,) int32 on the device: expert
+// e's rows [0, rows[e]) get a[e] @ B[e], rows [rows[e], C) +0.  Replaces the
+// reference's _grouped_qmm (repro/models/layers.py), which unrolls one
+// qmatmul a expert, every expert streaming whether a row of it was kept or
+// not.  Bound by the live experts' weight bytes (a qwen3-moe decode step of
+// 2 tokens touches at most 16 of 128 experts a layer).  Three launches a
+// call, each reading the counts on the device (no host synchronisation):
+//  * qmm_grouped_prep: one block a row of a; a row below its count is split
+//    into a_hi / a_lo as qmm_split_a splits it (the rest are never read);
+//    the last block compacts the live (expert, row tile) items into the
+//    work list; without a K split it also zeroes the dead rows of out.
+//  * qmm_tc_grouped: a persistent grid (the blocks an SM holds x the SMs)
+//    walks the work units (item, column tile, K split); each unit is
+//    qmm_tc's tile (tc_tile) on the expert's pointers.  An expert with no
+//    kept row has no item and costs no weight bytes.
+//  * qmm_grouped_splitk: one block a row of out; a live row sums its
+//    partials in split order from 0.0f, as qmm_splitk does, a dead one is
+//    +0.
+// The K split is tiled_splits(K, N), the per-expert qmm_tc's, and an
+// mma's rows are independent, so every row equals the per-expert qmm_tc
+// loop's bit for bit (kernels/qmatmul.py, qmm_grouped_loop).
+
+constexpr int kGrThreads = 256;   // prep and reduce blocks
+
+__global__ void qmm_grouped_prep(const float* __restrict__ a,
+                                 float* __restrict__ hi,
+                                 float* __restrict__ lo,
+                                 const int* __restrict__ rows,
+                                 int* __restrict__ work,
+                                 float* __restrict__ out, int n_exp, int C,
+                                 int K, int N, int tile_m, int vec) {
+  extern __shared__ int first[];   // n_exp + 1, the work list's block
+  const int tid = threadIdx.x;
+  if (blockIdx.x == (unsigned)(n_exp * C)) {
+    // the work list: tiles a expert, their exclusive scan by warp 0 (32
+    // experts a pass), then each expert's items e * m_tiles + t in order
+    for (int e = tid; e < n_exp; e += blockDim.x) {
+      const int live = min(max(rows[e], 0), C);
+      first[e] = (live + tile_m - 1) / tile_m;
+    }
+    __syncthreads();
+    if (tid < 32) {
+      int carry = 0;
+      for (int base = 0; base < n_exp; base += 32) {
+        const int i = base + tid;
+        const int v = i < n_exp ? first[i] : 0;
+        int s = v;
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+          const int o = __shfl_up_sync(0xffffffffu, s, d);
+          if (tid >= d) s += o;
+        }
+        if (i < n_exp) first[i] = carry + s - v;
+        carry += __shfl_sync(0xffffffffu, s, 31);
+      }
+      if (tid == 0) {
+        first[n_exp] = carry;
+        work[0] = carry;
+      }
+    }
+    __syncthreads();
+    const int m_tiles = (C + tile_m - 1) / tile_m;
+    for (int e = tid; e < n_exp; e += blockDim.x)
+      for (int s = first[e]; s < first[e + 1]; ++s)
+        work[1 + s] = e * m_tiles + (s - first[e]);
+    return;
+  }
+  const int e = blockIdx.x / C, r = blockIdx.x % C;
+  const size_t row = blockIdx.x;
+  if (r >= min(max(rows[e], 0), C)) {
+    if (out != nullptr)
+      for (int c = tid; c < N; c += blockDim.x) out[row * N + c] = 0.0f;
+    return;
+  }
+  if (vec) {
+    const float4* src = reinterpret_cast<const float4*>(a + row * K);
+    float4* h4 = reinterpret_cast<float4*>(hi + row * K);
+    float4* l4 = reinterpret_cast<float4*>(lo + row * K);
+    for (int i = tid; i < K / 4; i += blockDim.x) {
+      const float4 v = src[i];
+      float4 h, l;
+      split_tf32(v.x, h.x, l.x);
+      split_tf32(v.y, h.y, l.y);
+      split_tf32(v.z, h.z, l.z);
+      split_tf32(v.w, h.w, l.w);
+      h4[i] = h;
+      l4[i] = l;
+    }
+  } else {
+    for (int i = tid; i < K; i += blockDim.x)
+      split_tf32(a[row * K + i], hi[row * K + i], lo[row * K + i]);
+  }
+}
+
+template <typename TB, int E, int M, int BM>
+__global__ void __launch_bounds__(TcShape<BM>::kThreads,
+                                  TcShape<BM>::kMinBlocks)
+qmm_tc_grouped(const float* __restrict__ a_hi,
+               const float* __restrict__ a_lo, const TB* __restrict__ b,
+               float* __restrict__ out, float* __restrict__ ws,
+               const int* __restrict__ rows, const int* __restrict__ work,
+               int n_exp, int C, int K, int N, int k_chunk, int splits,
+               int aligned) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int count = work[0];
+  const int n_tiles = (N + kTcBN - 1) / kTcBN;
+  const int m_tiles = (C + BM - 1) / BM;
+  const long long units = (long long)count * n_tiles * splits;
+  const Epilogue ep{nullptr, kNone, 0, 0, false};
+  const size_t plane = (size_t)n_exp * C * N;
+  // the items of one (column tile, split) side by side: a row tile's
+  // neighbours are its expert's other row tiles, which share its weights
+  for (long long u = blockIdx.x; u < units; u += gridDim.x) {
+    const int item = work[1 + (int)(u % count)];
+    const int rest = (int)(u / count);
+    const int nt = rest % n_tiles, z = rest / n_tiles;
+    const int e = item / m_tiles, t = item % m_tiles;
+    const int live = min(max(rows[e], 0), C);
+    __syncthreads();   // the last unit's reads of the stages are done
+    tc_tile<TB, E, M, BM>(
+        smem_raw, a_hi + (size_t)e * C * K, a_lo + (size_t)e * C * K,
+        b + (size_t)e * K * N, nullptr, out + (size_t)e * C * N,
+        ws != nullptr ? ws + (size_t)e * C * N : nullptr, ep, live, K, N,
+        k_chunk, aligned, 1, t * BM, nt * kTcBN, z, splits, plane);
+  }
+}
+
+__global__ void qmm_grouped_splitk(const float* __restrict__ ws,
+                                   float* __restrict__ out,
+                                   const int* __restrict__ rows, int C,
+                                   int N, int splits, size_t plane,
+                                   int vec) {
+  const int e = blockIdx.x / C, r = blockIdx.x % C;
+  const bool live = r < min(max(rows[e], 0), C);
+  const size_t base = (size_t)blockIdx.x * N;
+  if (vec) {
+    float4* o4 = reinterpret_cast<float4*>(out + base);
+    for (int c = threadIdx.x; c < N / 4; c += blockDim.x) {
+      float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      for (int z = 0; live && z < splits; ++z) {
+        const float4 v =
+            reinterpret_cast<const float4*>(ws + z * plane + base)[c];
+        s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
+      }
+      o4[c] = s;
+    }
+  } else {
+    for (int c = threadIdx.x; c < N; c += blockDim.x) {
+      float s = 0.0f;
+      for (int z = 0; live && z < splits; ++z) s += ws[z * plane + base + c];
+      out[base + c] = s;
+    }
+  }
+}
+
+template <typename TB, int E, int M, int BM>
+cudaError_t launch_grouped_bm(const float* a_hi, const float* a_lo,
+                              const TB* b, float* out, float* ws,
+                              const int* rows, const int* work, int n_exp,
+                              int C, int K, int N, int splits, int k_chunk,
+                              int aligned, int n_sm, cudaStream_t stream) {
+  auto kern = qmm_tc_grouped<TB, E, M, BM>;
+  constexpr size_t smem = tc_smem_bytes<TB, BM>();
+  static int per_sm = 0;   // blocks an SM holds, asked once
+  if (per_sm == 0) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    int held = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &held, kern, TcShape<BM>::kThreads, smem);
+    if (e != cudaSuccess) return e;
+    per_sm = held > 0 ? held : 1;
+  }
+  const long long most = (long long)n_exp * ((C + BM - 1) / BM) *
+                         ((N + kTcBN - 1) / kTcBN) * splits;
+  const long long held = (long long)per_sm * n_sm;
+  const int grid = (int)(most < held ? most : held);
+  kern<<<grid, TcShape<BM>::kThreads, smem, stream>>>(
+      a_hi, a_lo, b, out, ws, rows, work, n_exp, C, K, N, k_chunk, splits,
+      aligned);
+  return cudaGetLastError();
+}
+
+// asplit: 2 * E * C * K floats; work: 1 + E * ceil(C / tile) ints; ws:
+// splits * E * C * N floats when splits > 1
+template <typename TB, int E, int M>
+cudaError_t launch_grouped(const float* a, float* asplit, const void* bv,
+                           float* out, float* ws, const int* rows, int* work,
+                           int n_exp, int C, int K, int N, int splits,
+                           int k_chunk, int n_sm, cudaStream_t stream) {
+  const TB* b = static_cast<const TB*>(bv);
+  const size_t n = (size_t)n_exp * C * K;
+  float* a_hi = asplit;
+  float* a_lo = asplit + n;
+  const int tile_m = C <= 16 ? 16 : C <= 32 ? 32 : 64;
+  const int vec = K % 4 == 0 &&
+      (((uintptr_t)a | (uintptr_t)a_hi | (uintptr_t)a_lo) & 15u) == 0;
+  qmm_grouped_prep<<<n_exp * C + 1, kGrThreads,
+                     (n_exp + 1) * sizeof(int), stream>>>(
+      a, a_hi, a_lo, rows, work, splits == 1 ? out : nullptr, n_exp, C, K,
+      N, tile_m, vec);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const int aligned =
+      K % 4 == 0 && (N * (int)sizeof(TB)) % 16 == 0 &&
+      (((uintptr_t)a_hi | (uintptr_t)a_lo | (uintptr_t)b) & 15u) == 0;
+  if (tile_m == 16)
+    e = launch_grouped_bm<TB, E, M, 16>(a_hi, a_lo, b, out, ws, rows, work,
+                                        n_exp, C, K, N, splits, k_chunk,
+                                        aligned, n_sm, stream);
+  else if (tile_m == 32)
+    e = launch_grouped_bm<TB, E, M, 32>(a_hi, a_lo, b, out, ws, rows, work,
+                                        n_exp, C, K, N, splits, k_chunk,
+                                        aligned, n_sm, stream);
+  else
+    e = launch_grouped_bm<TB, E, M, 64>(a_hi, a_lo, b, out, ws, rows, work,
+                                        n_exp, C, K, N, splits, k_chunk,
+                                        aligned, n_sm, stream);
+  if (e != cudaSuccess || splits == 1) return e;
+  const int vec_out = N % 4 == 0 &&
+      (((uintptr_t)out | (uintptr_t)ws) & 15u) == 0;
+  qmm_grouped_splitk<<<n_exp * C, kGrThreads, 0, stream>>>(
+      ws, out, rows, C, N, splits, (size_t)n_exp * C * N, vec_out);
   return cudaGetLastError();
 }
 
@@ -1320,19 +1581,57 @@ extern "C" int qmm_tc_launch(const void* a, void* asplit, const void* b,
   }
 }
 
-#elif QMM_TC_UNIT  // the launcher of one packed format
+// The MoE expert product (qmm_tc_grouped above): a (E, C, K) f32, b
+// (E, K, N) in fmt_code 1-4, rows (E,) int32, out (E, C, N).  asplit:
+// 2 * E * C * K floats; work: 1 + E * ceil(C / tile) ints (tile = 16, 32
+// or 64 by C); splits > 1 needs ws (splits * E * C * N floats), k_chunk a
+// multiple of 32 and (splits - 1) * k_chunk < K.  n_sm: the card's SMs.
+extern "C" int qmm_tc_grouped_launch(const void* a, void* asplit,
+                                     const void* b, void* out, void* ws,
+                                     const void* rows, void* work, int n_exp,
+                                     int C, int K, int N, int splits,
+                                     int k_chunk, int fmt_code, int n_sm,
+                                     void* stream) {
+  if (n_exp < 1 || C < 1 || K < 1 || N < 1 || n_sm < 1 || a == nullptr ||
+      asplit == nullptr || rows == nullptr || work == nullptr ||
+      splits < 1 || k_chunk < 1 ||
+      (splits > 1 && (ws == nullptr || k_chunk % kTcBK != 0 ||
+                      (long long)(splits - 1) * k_chunk >= K)))
+    return (int)cudaErrorInvalidValue;
+  if (splits == 1) k_chunk = K;
+  const float* A = static_cast<const float*>(a);
+  float* AS = static_cast<float*>(asplit);
+  float* O = static_cast<float*>(out);
+  float* W = static_cast<float*>(ws);
+  const int* R = static_cast<const int*>(rows);
+  int* WK = static_cast<int*>(work);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (fmt_code) {
+    case 1: return qmm_tc_grouped_fmt1(A, AS, b, O, W, R, WK, n_exp, C, K, N, splits, k_chunk, n_sm, s);
+    case 2: return qmm_tc_grouped_fmt2(A, AS, b, O, W, R, WK, n_exp, C, K, N, splits, k_chunk, n_sm, s);
+    case 3: return qmm_tc_grouped_fmt3(A, AS, b, O, W, R, WK, n_exp, C, K, N, splits, k_chunk, n_sm, s);
+    case 4: return qmm_tc_grouped_fmt4(A, AS, b, O, W, R, WK, n_exp, C, K, N, splits, k_chunk, n_sm, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+#elif QMM_TC_UNIT  // the launchers of one packed format
 
 #if QMM_UNIT == 1
 #define QMM_TC_FN qmm_tc_fmt1
+#define QMM_GROUPED_FN qmm_tc_grouped_fmt1
 #define QMM_TC_FMT uint8_t, 5, 2      // binary8
 #elif QMM_UNIT == 2
 #define QMM_TC_FN qmm_tc_fmt2
+#define QMM_GROUPED_FN qmm_tc_grouped_fmt2
 #define QMM_TC_FMT uint8_t, 4, 3      // binary8alt
 #elif QMM_UNIT == 3
 #define QMM_TC_FN qmm_tc_fmt3
+#define QMM_GROUPED_FN qmm_tc_grouped_fmt3
 #define QMM_TC_FMT uint16_t, 5, 10    // binary16
 #elif QMM_UNIT == 4
 #define QMM_TC_FN qmm_tc_fmt4
+#define QMM_GROUPED_FN qmm_tc_grouped_fmt4
 #define QMM_TC_FMT uint16_t, 8, 7     // binary16alt
 #endif
 
@@ -1341,6 +1640,12 @@ extern "C" int QMM_TC_FN(QMM_TC_PARAMS) {
   return (int)launch_tc<QMM_TC_FMT>(a, asplit, b, g, out, ws, ep, M, K, N,
                                     splits, k_chunk, promote, a_code, a_e,
                                     a_m, stream);
+}
+
+extern "C" int QMM_GROUPED_FN(QMM_GROUPED_PARAMS) {
+  return (int)launch_grouped<QMM_TC_FMT>(a, asplit, b, out, ws, rows, work,
+                                         n_exp, C, K, N, splits, k_chunk,
+                                         n_sm, stream);
 }
 
 #elif QMM_UNIT == 5  // qmm_tile for binary32 / f32 weights

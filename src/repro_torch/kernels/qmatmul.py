@@ -35,6 +35,14 @@ the product on its decoded values bit for bit.
 On a CPU tensor it runs the plain version (``qmatmul_plain``:
 dequantize, then ``torch.matmul`` in f32, then the same epilogue in the
 same order).
+
+The MoE expert product ``qmm_grouped(a, payload, fmt, rows)`` (a (E, C,
+K), packed (E, K, N), rows (E,) int32) is one ``qmm_tc_grouped_launch``
+for the four packed formats: expert e's rows below ``rows[e]`` get
+``a[e] @ B[e]``, the rest +0, and only experts with a kept row stream
+their weights.  Its K split is the per-expert product's
+(``grouped_plan``), so every row equals the per-expert ``qmm_tc`` loop
+(``qmm_grouped_loop``) bit for bit.
 """
 from __future__ import annotations
 
@@ -55,6 +63,8 @@ ACTS = {None: 0, "silu": 1, "gelu": 2, "relu2": 3}
 LIB = _build.register(_build.KernelLib("qmm", {
     "qmm_launch": [_build.P] * 7 + [_build.I32] * 15 + [_build.P],
     "qmm_tc_launch": [_build.P] * 7 + [_build.I32] * 13 + [_build.P],
+    "qmm_tc_grouped_launch": [_build.P] * 7 + [_build.I32] * 8
+    + [_build.P],
 }, units=[(f"-DQMM_UNIT={i}",) for i in range(7)]))
 TC_FMT_CODES = (1, 2, 3, 4)   # binary8, binary8alt, binary16, binary16alt
 TC_BN, TC_BK = 128, 32        # the tensor-core kernel's block columns, K step
@@ -311,3 +321,92 @@ def qmm_hbm_bytes(M: int, K: int, N: int, fmt_w, *, gated: bool = False,
     item = 4 if fmt_w is None else get_format(fmt_w).container_bytes
     total = K * N * item * (2 if gated else 1) + M * K * 4 + M * N * 4
     return total + (N * 4 if bias else 0)
+
+
+def grouped_plan(C: int, K: int, N: int, n_sm: int) -> tuple:
+    """(row tile, K splits, K rows a split) of the grouped expert
+    product: the row tile follows the capacity C (``tc_tile_m``) and the
+    K split is ``tiled_splits(K, N)``, the per-expert product's, so an
+    expert's rows are summed in the order of its own qmm_tc launch."""
+    return (tc_tile_m(C),) + tiled_splits(K, N, n_sm)
+
+
+def qmm_grouped_plain(a, payload, fmt, rows) -> torch.Tensor:
+    """The plain version of :func:`qmm_grouped`: ``qmatmul_plain`` of
+    each expert's block, rows past its count set to +0."""
+    fmt = get_format(fmt)
+    E, C = a.shape[:2]
+    out = torch.stack([qmatmul_plain(a[e], payload[e], None, fmt)
+                       for e in range(E)])
+    keep = torch.arange(C, device=a.device)[None, :] \
+        < rows.to(a.device, torch.int64)[:, None]
+    return torch.where(keep[..., None], out, 0.0)
+
+
+def qmm_grouped_loop(a, payload, fmt) -> torch.Tensor:
+    """One ``qmatmul`` per expert on its packed block, every row of every
+    expert, as the reference's ``_grouped_qmm`` unrolls it: the route of
+    binary32 and run-time-format experts, and on the card the exact
+    oracle of :func:`qmm_grouped` (its rows equal these bit for bit)."""
+    a = a.to(torch.float32)
+    return torch.stack([qmatmul(a[e].contiguous(), payload[e], None, fmt)
+                        for e in range(a.shape[0])])
+
+
+def qmm_grouped(a, payload, fmt, rows) -> torch.Tensor:
+    """The MoE expert product: ``a`` (E, C, K) f32, ``payload`` (E, K, N)
+    packed in ``fmt`` (binary8, binary8alt, binary16 or binary16alt),
+    ``rows`` (E,) int32 kept rows an expert.  Expert e's rows below
+    ``rows[e]`` get ``a[e] @ B[e]`` in f32, the rest +0.  On a CUDA tensor
+    one ``qmm_tc_grouped_launch`` that reads the counts on the device
+    (no host synchronisation) and streams only experts with a kept row;
+    on a CPU tensor the plain version."""
+    fmt = get_format(fmt)
+    E, C, K = a.shape
+    if tuple(payload.shape[:2]) != (E, K) or tuple(rows.shape) != (E,):
+        raise ValueError(f"qmm_grouped: a {tuple(a.shape)}, weights "
+                         f"{tuple(payload.shape)}, rows {tuple(rows.shape)}")
+    if a.device.type == "cpu":
+        return qmm_grouped_plain(a, payload, fmt, rows)
+    return _qmm_grouped_cuda(a, payload, fmt, rows)
+
+
+def _qmm_grouped_cuda(a, b, fmt: FpFormat, rows) -> torch.Tensor:
+    E, C, K = a.shape
+    N = b.shape[2]
+    code = _build.fmt_code(fmt)
+    if code not in TC_FMT_CODES:
+        raise ValueError(f"qmm_grouped: {fmt.name} weights take the "
+                         f"per-expert loop (qmm_grouped_loop)")
+    _build.check_operands("qmm_grouped", a.device, a=a, b=b, rows=rows)
+    if a.dtype != torch.float32 or b.dtype != fmt.container_dtype \
+            or rows.dtype != torch.int32:
+        raise ValueError(f"qmm_grouped: want f32 a, {fmt.container_dtype} "
+                         f"weights, int32 rows; got {a.dtype}, {b.dtype}, "
+                         f"{rows.dtype}")
+    out = torch.empty((E, C, N), dtype=torch.float32, device=a.device)
+    if out.numel() == 0:
+        return out
+    n_sm = _build.sm_count(a.device)
+    tile_m, splits, k_chunk = grouped_plan(C, K, N, n_sm)
+    asplit = torch.empty((2, E, C, K), dtype=torch.float32, device=a.device)
+    ws = torch.empty((splits, E, C, N), dtype=torch.float32,
+                     device=a.device) if splits > 1 else None
+    work = torch.empty((1 + E * -(-C // tile_m),), dtype=torch.int32,
+                       device=a.device)
+    p = _build.ptr
+    LIB.launch("qmm_tc_grouped_launch", p(a), p(asplit), p(b), p(out),
+               p(ws), p(rows), p(work), E, C, K, N, splits, k_chunk, code,
+               n_sm, _build.stream_ptr(a.device), kernel="qmm_tc_grouped")
+    return out
+
+
+def qmm_grouped_hbm_bytes(rows, K: int, N: int, fmt, C: int) -> int:
+    """Bytes one grouped product of capacity ``C`` must move: the weights
+    of the experts with a kept row (each read once), the kept rows' f32
+    activations in, and the whole (E, C, N) f32 result out (the dead
+    rows' +0 included)."""
+    rows = [int(r) for r in rows]
+    item = get_format(fmt).container_bytes
+    weights = sum(1 for r in rows if r > 0) * K * N * item
+    return weights + sum(rows) * K * 4 + len(rows) * C * N * 4

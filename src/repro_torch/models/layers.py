@@ -15,8 +15,11 @@ implementation in the matmul registry (``kernels/dispatch.py``):
     computation up to summation order.
 ``"qmm_pallas"``
     ``kernels/qmatmul.qmatmul``: the CUDA kernel on a card, its plain
-    version on the CPU; the grouped form launches it once per expert.
-    Plain (unpacked) weights take the "xla" path.
+    version on the CPU.  The grouped form over the four packed formats
+    is ``qmatmul.qmm_grouped``, one launch a weight that streams only the
+    experts with kept rows (``rows``); binary32 and run-time formats
+    launch qmm once per expert.  Plain (unpacked) weights take the "xla"
+    path.
 
 The LM head of a tied embedding is the plain table transposed (the
 packed store does not pack the table): :func:`lm_logits` multiplies it
@@ -40,7 +43,9 @@ from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.core.qtensor import QTensor
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.layernorm import layernorm_f32
-from repro_torch.kernels.qmatmul import apply_act, qmatmul, qmm_ffn
+from repro_torch.kernels.qmatmul import (apply_act, qmatmul, qmm_entry,
+                                         qmm_ffn, qmm_grouped,
+                                         qmm_grouped_loop)
 from repro_torch.kernels.rmsnorm import rmsnorm_f32
 
 F32 = torch.float32
@@ -71,10 +76,14 @@ def peinsum(expr, a, b, policy: PrecisionPolicy, role: str, *,
         expr, a, b, policy, role, out_act=out_act)
 
 
-def pgrouped_dot(a, w, policy: PrecisionPolicy, role: str):
+def pgrouped_dot(a, w, policy: PrecisionPolicy, role: str, rows=None):
     """Batched expert matmul ``(E, M, K) @ (E, K, N) -> (E, M, N)`` (MoE
-    grouped FFN).  Returns raw f32 (callers ``act_cast`` as needed)."""
-    return dispatch.resolve_matmul(_impl(policy)).grouped(a, w, policy, role)
+    grouped FFN).  Returns raw f32 (callers ``act_cast`` as needed).
+    ``rows`` (E,) int32, the kept rows of each expert (the dispatch packs
+    them first): the packed qmm spelling computes only those and gives
+    +0 past them; the others compute every row."""
+    return dispatch.resolve_matmul(_impl(policy)).grouped(a, w, policy, role,
+                                                          rows=rows)
 
 
 def _finish(y, policy: PrecisionPolicy, out_act: bool):
@@ -112,7 +121,7 @@ def _einsum_xla(expr, a, b, policy, role, *, out_act=True):
     return _finish(y, policy, out_act)
 
 
-def _grouped_xla(a, w, policy, role):
+def _grouped_xla(a, w, policy, role, rows=None):
     if isinstance(w, QTensor):
         return torch.einsum("eck,ekn->ecn", a.to(F32), w.dequantize())
     if policy.mode == "native":
@@ -149,14 +158,18 @@ def _dot_qmm(x, w, policy, role, *, out_act=True):
     return y
 
 
-def _grouped_qmm(a, w, policy, role):
+def _grouped_qmm(a, w, policy, role, rows=None):
     if not isinstance(w, QTensor):
         return _grouped_xla(a, w, policy, role)
-    # one launch per expert on its packed block, as the reference unrolls
-    # it: every expert streams, rows kept or not
-    a = a.to(F32)
-    return torch.stack([qmatmul(a[e].contiguous(), w.payload[e], None,
-                                w.fmt) for e in range(a.shape[0])])
+    a = a.to(F32).contiguous()
+    if qmm_entry(w.fmt) != "qmm_tc_launch":
+        # binary32 and run-time formats: one launch per expert, as the
+        # reference unrolls it
+        return qmm_grouped_loop(a, w.payload, w.fmt)
+    if rows is None:
+        rows = torch.full((a.shape[0],), a.shape[1], dtype=torch.int32,
+                          device=a.device)
+    return qmm_grouped(a, w.payload, w.fmt, rows)
 
 
 @dispatch.register_matmul("qmm_pallas")

@@ -4,9 +4,12 @@
 Tokens are routed top-k, sorted by expert id, packed into (E, C, d) with
 capacity dropping, run through the grouped expert FFN
 (:func:`~repro_torch.models.layers.pgrouped_dot`: under ``qmm_pallas``
-one qmm launch per expert and weight, every expert streaming whether or
-not a row of it was kept, as the reference unrolls it) and combined back
-with the router weights.  The expert-parallel ``moe_apply_sharded`` waits
+on packed experts one grouped launch a weight, which reads each expert's
+kept-row count ``Routing.rows`` on the device and streams only the
+experts with a kept row; the reference unrolls one launch per expert)
+and combined back with the router weights.  Nothing here waits for the
+device: the counts stay there (no ``bincount``, whose CUDA version reads
+its maximum on the host).  The expert-parallel ``moe_apply_sharded`` waits
 for multi-device.
 
 Where the reference's order is not torch's default, the port fixes it:
@@ -66,6 +69,7 @@ class Routing(NamedTuple):
     order: torch.Tensor   # (T * K,) the stable sort by expert id
     keep: torch.Tensor    # (T * K,) sorted entry within capacity
     dest: torch.Tensor    # (T * K,) its row of (E * C + 1); E * C drops
+    rows: torch.Tensor    # (E,) int32 kept rows an expert, min(count, C)
 
 
 def moe_route(p, xt, cfg, policy: PrecisionPolicy) -> Routing:
@@ -84,20 +88,21 @@ def moe_route(p, xt, cfg, policy: PrecisionPolicy) -> Routing:
     top_p = act_cast(top_p / total[:, None], policy, "router_probs")
 
     me = torch.mean(probs, dim=0)
-    ce = torch.mean(torch.nn.functional.one_hot(top_e, E).to(F32).sum(1),
-                    dim=0)
+    hot = torch.nn.functional.one_hot(top_e, E)          # (T, K, E)
+    ce = torch.mean(hot.to(F32).sum(1), dim=0)
     aux = E * torch.sum(me * ce / K)
 
     C = capacity(cfg, T)
     flat_e = top_e.reshape(T * K)
     order = torch.sort(flat_e, stable=True).indices
     se = flat_e[order]
-    counts = torch.bincount(flat_e, minlength=E)
+    counts = hot.sum((0, 1))                             # bincount
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(T * K, device=dev) - starts[se]
     keep = pos < C
     dest = torch.where(keep, se * C + pos, torch.full_like(se, E * C))
-    return Routing(top_p, top_e, aux, C, order, keep, dest)
+    rows = torch.clamp(counts, max=C).to(torch.int32)
+    return Routing(top_p, top_e, aux, C, order, keep, dest, rows)
 
 
 def moe_apply(p, x, cfg, policy: PrecisionPolicy):
@@ -115,12 +120,12 @@ def moe_apply(p, x, cfg, policy: PrecisionPolicy):
     xe[r.dest] = xt[st]
     xe = xe[:E * C].reshape(E, C, d)
 
-    h = pgrouped_dot(xe, p["w_in"], policy, "ffn_w")
+    h = pgrouped_dot(xe, p["w_in"], policy, "ffn_w", rows=r.rows)
     a = apply_act(h.to(F32), cfg.act_fn)
     if "w_gate" in p:
-        a = a * pgrouped_dot(xe, p["w_gate"], policy, "ffn_w")
+        a = a * pgrouped_dot(xe, p["w_gate"], policy, "ffn_w", rows=r.rows)
     a = act_cast(a, policy)
-    ye = pgrouped_dot(a, p["w_out"], policy, "ffn_w")
+    ye = pgrouped_dot(a, p["w_out"], policy, "ffn_w", rows=r.rows)
     ye = act_cast(ye, policy).reshape(E * C, d)
 
     gathered = ye[torch.where(r.keep, r.dest, 0)]
