@@ -25,12 +25,16 @@ Run from the root of a checkout.  Phases:
                   a library yardstick (qmm per decode step, per prefill
                   chunk and per verify round, packed and binary32; one
                   qwen3-moe expert launch); the MoE expert product
-                  (qmm_grouped, one launch a weight) at qwen3-moe's and
+                  (qmm_grouped, and qmm_grouped_ffn for the gated pair:
+                  one device kernel a call) at qwen3-moe's and
                   granite-moe's expert shapes, C 8 and 20, binary16alt
                   and binary8, under router, empty, full and dropped
-                  counts: bit for bit the per-expert qmm_tc loop, dead
-                  rows +0, and timed at qwen3's 2- and 4-token routing
-                  against torch.bmm.
+                  counts: bit for bit the per-expert qmm_tc and qmm_ffn
+                  loops, dead rows +0, and timed at qwen3's 2- and
+                  4-token routing beside torch.bmm; add_rmsnorm (the
+                  residual add, rmsnorm and the cast in one launch) bit
+                  for bit its plain version at 1-64 rows and every
+                  served rmsnorm width, NaN and Inf rows included.
 3. casts       -- torch's CUDA f32 -> float8_e5m2 / bfloat16 casts (the
                   KV write and the activation cast) against the plain
                   codec; the three flexfloat_cast kernels bit-identical to
@@ -50,7 +54,8 @@ Run from the root of a checkout.  Phases:
                   full-depth llama3-8b (random weights from the seed),
                   ``--decode-impl paged``, asserting the launch counts per
                   decode step and per prefill chunk (and per qmm kernel:
-                  all 193 on tensor cores in both; and 65 rmsnorm).
+                  all 193 on tensor cores in both; and 65 norms, each
+                  one fused add_rmsnorm, no standalone residual add).
 6. serve_flash -- the same workload under ``--decode-impl flash_pallas``
                   (the serving default on a card): 32 flash_decode and no
                   paged_decode per decode step.
@@ -72,12 +77,14 @@ Run from the root of a checkout.  Phases:
                   plain path, and verify against sequential decode bit for
                   bit (logits, K/V pool bits, lengths), under binary32 and
                   transprecision, with paged and flash_pallas decode, for
-                  llama3-8b and command-r-35b (layernorm, tied head); a
+                  llama3-8b and command-r-35b (layernorm, tied head);
+                  llama3-8b's logits on the fused norm route bit for bit
+                  those on the three-step route (add, norm, cast); a
                   2-layer qwen3-moe: kernel path against plain path, and
                   the qmm router's experts equal the plain product's;
                   2-layer qwen3-moe and granite-moe logits on the grouped
                   expert product bit for bit those on the per-expert
-                  loop.
+                  loops.
 10. resilience -- the engine's fault and recovery surface at full width
                   (``run_resilience``): the streamed handoff with the
                   router and two prefill workers, bit for bit the
@@ -86,7 +93,8 @@ Run from the root of a checkout.  Phases:
                   to synchronous_generate; the speculative circuit
                   breaker; the CLI's exit codes; rmsnorm rows bit-identical
                   at every row count at d 1024-8192, the kernel against
-                  its twin, and its times; layernorm bit-identical to its
+                  its twin, and its times (add_rmsnorm's too); layernorm
+                  bit-identical to its
                   twin, its rows at every row count at d 8192 and 384,
                   and its times.
 11. archs      -- ``serve.main`` on yi-9b, mistral-nemo-12b, command-r-35b,
@@ -94,11 +102,11 @@ Run from the root of a checkout.  Phases:
                   and depth (transprecision, qmm_pallas, flash_pallas, 2 x
                   (64 + 8)), mistral-nemo and granite also under paged:
                   launches per decode step and prefill chunk by kernel,
-                  the experts' launches (3 qmm_tc_grouped a layer, no
-                  per-expert qmm_tc), one MoE layer with no host
-                  synchronisation, tok/s, peak memory, the device busy
-                  share of a decode step, each model freed before the
-                  next.
+                  the experts' launches (2 grouped calls a layer, one
+                  device kernel each, no per-expert qmm_tc), one MoE
+                  layer with no host synchronisation, tok/s, peak
+                  memory, the device busy share and device activities of
+                  a decode step, each model freed before the next.
 12. paper      -- the six paper apps on ``TPContext(device="cuda")``:
                   each binary32 baseline, ``tune`` at eps 1e-1, 1e-2 and
                   1e-3 (V2, 2 input sets) with the tuned runs' stats and
@@ -116,14 +124,17 @@ Run from the root of a checkout.  Phases:
                   requests x (16 + 8) with packed weights.
 14. profile    -- short paged and speculative serve runs under
                   torch.profiler: device busy share and the kernels that
-                  take the device time; the host syncs of a tiny serve.
+                  take the device time; one steady decode step's device
+                  activities; the host syncs of a tiny serve.
 
 ``--phases build,timing --src OTHER/src`` times another checkout's
 qmm (decode step, prefill chunk, verify round, packed and binary32),
 flash_prefill, paged_decode, flash_decode and the three cast kernels
 with this script's timing code, e.g. a parent commit unpacked into a
 git-ignored directory, to set its kernels beside this checkout's in one
-chip call.
+chip call; ``--phases build,steps --src OTHER/src`` profiles one steady
+decode step of full-width llama3-8b and qwen3-moe there (wall, device
+busy time, device activities, norm and grouped expert kernels).
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -156,7 +167,9 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 # + 32 new tokens) over 4 slots, capacity 256, page 64
 SERVE_REQUESTS, SERVE_SLOTS, SERVE_PROMPT, SERVE_MAX_NEW = 8, 4, 128, 32
 SERVE_CAPACITY, SERVE_PAGE = 256, 64
-NORMS = 65                  # rmsnorm launches a llama3-8b step: 2 x 32 + 1
+NORMS = 65                  # norm launches a llama3-8b step: 2 x 32 + 1,
+                            # each a fused add_rmsnorm (the first adds
+                            # nothing)
 
 
 def fail(msg: str, code: int = 1):
@@ -464,7 +477,8 @@ def arch_qmm_cases(cfg):
     M values, K, N, gated, binary32)``: the attention projections and
     the dense fused gated FFN with w_out at a decode step's 4 rows and a
     64-row chunk, or the MoE experts' blocks (M = capacity rows: 8 at a
-    decode step, 64 in a chunk's worth) and the binary32 router; the
+    decode step, 64 in a chunk's worth; w_in with w_gate as one gated
+    product, as ``qmm_ffn`` serves it) and the binary32 router; the
     untied head at M 4 (a tied head is ``torch.matmul``).  Products of
     one shape are one case."""
     d, ff = cfg.d_model, cfg.d_ff
@@ -473,7 +487,8 @@ def arch_qmm_cases(cfg):
             ("wo", (4, 64), cfg.q_dim, d, False, False)]
     if cfg.moe_experts:
         rows += [("router", (4, 64), d, cfg.moe_experts, False, True),
-                 ("expert w_in/w_gate", (8, 64), d, ff, False, False),
+                 ("expert w_in/w_gate", (8, 64), d, ff, cfg.gated_ffn,
+                  False),
                  ("expert w_out", (8, 64), ff, d, False, False)]
     else:
         rows += [("ffn gated silu" if cfg.gated_ffn else "ffn silu",
@@ -611,26 +626,34 @@ def _dispatched(torch, gen, E, C, K, rows, fill):
 
 
 def check_qmm_grouped(torch, report):
-    """The MoE expert product (``qmm_grouped``, one
-    ``qmm_tc_grouped_launch``) at qwen3-moe's (E 128, 2048 -> 768 and
-    768 -> 2048) and granite-moe's (E 32, 1024 <-> 512) expert shapes, C 8
-    and 20, binary16alt and binary8 weights, with the counts of a real
-    router at 2 and 4 tokens (top-8), all experts empty, one expert full
-    and dropped counts (up to 3 C, clamped to C).  Held: every row bit
-    for bit the per-expert ``qmm_tc`` loop (``qmm_grouped_loop``) on the
-    dispatch's zero-padded input, while the grouped product gets NaN in
-    the dead rows (it must never read them); kept rows within 1e-6 x
-    |x| @ |w| + 1 of the plain version; dead rows +0."""
+    """The MoE expert product (``qmm_grouped`` and its gated form
+    ``qmm_grouped_ffn``, one ``qmm_tc_grouped_launch`` each) at
+    qwen3-moe's (E 128, 2048 -> 768 and 768 -> 2048) and granite-moe's
+    (E 32, 1024 <-> 512) expert shapes, C 8 and 20, binary16alt and
+    binary8 weights, with the counts of a real router at 2 and 4 tokens
+    (top-8), all experts empty, one expert full and dropped counts (up to
+    3 C, clamped to C).  Held in each case: every row of ``qmm_grouped``
+    bit for bit the per-expert ``qmm_tc`` loop (``qmm_grouped_loop``) on
+    the dispatch's zero-padded input, and every row of the gated call
+    (silu, a second weight as the gate) bit for bit the per-expert
+    ``qmm_ffn`` loop (``qmm_grouped_ffn_loop``), while both grouped calls
+    get NaN in the dead rows (they must never read them); kept rows within
+    1e-6 x |x| @ |w| + 1 of the plain version, and the gated call's
+    within 1e-6 x (|x| @ |w_in| + 1)(|x| @ |w_gate| + 1) (``check_qmm``'s
+    gated tolerance); dead rows +0."""
     from repro_torch.core.formats import BINARY8, BINARY16ALT
     from repro_torch.kernels import qmatmul as Q
 
     gen = torch.Generator(device="cuda").manual_seed(report["seed"] + 21)
-    ok, worst, res = True, 0.0, []
+    ok, worst, gworst, res = True, 0.0, 0.0, []
     for arch, weight, E, K, N in grouped_shapes():
         for fmt in (BINARY16ALT, BINARY8):
             wp = _pack_weight(torch.randn((E, K, N), generator=gen,
                                           device="cuda"), fmt)
+            gp = _pack_weight(torch.randn((E, K, N), generator=gen,
+                                          device="cuda"), fmt)
             wabs = _unpack_weight(wp, fmt).abs()
+            gabs = _unpack_weight(gp, fmt).abs()
             for C in (8, 20):
                 one = torch.zeros(E, dtype=torch.int32, device="cuda")
                 one[E // 3] = C
@@ -648,15 +671,31 @@ def check_qmm_grouped(torch, report):
                     got = Q.qmm_grouped(noisy, wp, fmt, rows)
                     loop = Q.qmm_grouped_loop(a, wp, fmt)
                     want = Q.qmm_grouped_plain(a, wp, fmt, rows)
+                    gated = Q.qmm_grouped_ffn(noisy, wp, gp, fmt, rows,
+                                              act="silu")
+                    gloop = Q.qmm_grouped_ffn_loop(a, wp, gp, fmt,
+                                                   act="silu")
+                    gwant = Q.qmm_grouped_ffn_plain(a, wp, gp, fmt, rows,
+                                                    act="silu")
                     torch.cuda.synchronize()
                     same = torch.equal(got.view(torch.int32),
                                        loop.view(torch.int32))
+                    gsame = torch.equal(gated.view(torch.int32),
+                                        gloop.view(torch.int32))
                     unit = torch.bmm(a.abs(), wabs) + 1.0
                     err = torch.where(dead[..., None], 0.0,
                                       (got - want).abs())
                     norm = float((err / unit).max())
-                    zero = bool((got.view(torch.int32)[dead] == 0).all())
-                    good = same and zero and norm <= 1e-6
+                    gerr = torch.where(dead[..., None], 0.0,
+                                       (gated - gwant).abs())
+                    gunit = unit * (torch.bmm(a.abs(), gabs) + 1.0)
+                    gnorm = float((gerr / gunit).max())
+                    gerr = float(gerr.max())
+                    gworst = max(gworst, gerr)
+                    zero = bool((got.view(torch.int32)[dead] == 0).all()) \
+                        and bool((gated.view(torch.int32)[dead] == 0).all())
+                    good = same and gsame and zero and norm <= 1e-6 \
+                        and gnorm <= 1e-6
                     ok &= good
                     worst = max(worst, float(err.max()))
                     live = int((rows > 0).sum())
@@ -665,33 +704,52 @@ def check_qmm_grouped(torch, report):
                                     fmt=fmt.name, counts=what,
                                     live_experts=live,
                                     kept_rows=int(rows.sum()),
-                                    bits_equal_loop=same, dead_rows_zero=zero,
+                                    bits_equal_loop=same,
+                                    gated_bits_equal_loop=gsame,
+                                    dead_rows_zero=zero,
                                     max_abs_err=float(err.max()),
-                                    max_err_in_acc_units=norm, ok=good))
+                                    max_err_in_acc_units=norm,
+                                    gated_max_abs_err=gerr,
+                                    gated_max_err_in_acc_units=gnorm,
+                                    ok=good))
                     print(f"[kernels] qmm_grouped {arch[:6]} {weight:<11} "
                           f"E={E} C={C:<2} K={K:<4} N={N:<4} "
                           f"{fmt.name:<11} {what:<15} live {live:>3}: "
-                          f"= loop bit for bit {same}, dead rows +0 {zero}, "
-                          f"{norm:.2e} x |x|@|w| (tol 1e-6) "
-                          f"{'ok' if good else 'FAIL'}")
-                    del a, dead, noisy, got, loop, want, unit, err
-            del wp, wabs
+                          f"= loop bit for bit {same}, gated = qmm_ffn "
+                          f"loop {gsame}, dead rows +0 {zero}, "
+                          f"{norm:.2e} x |x|@|w|, gated {gnorm:.2e} "
+                          f"(tol 1e-6) {'ok' if good else 'FAIL'}")
+                    del a, dead, noisy, got, loop, want, unit, err, gated, \
+                        gloop, gwant, gunit
+            del wp, gp, wabs, gabs
             torch.cuda.empty_cache()
     report["cases"].extend(res)
     report["qmm_grouped_max_abs_err"] = worst
+    report["qmm_grouped_ffn_max_abs_err"] = gworst
     print(f"[kernels] qmm_grouped: {len(res)} cases, "
           f"{sum(r['bits_equal_loop'] for r in res)} bit for bit the "
-          f"per-expert loop {'ok' if ok else 'FAIL'}")
+          f"per-expert loop, gated {sum(r['gated_bits_equal_loop'] for r in res)}"
+          f" bit for bit the per-expert qmm_ffn loop, gated against the "
+          f"plain version worst "
+          f"{max(r['gated_max_err_in_acc_units'] for r in res):.2e} (tol "
+          f"1e-6) {'ok' if ok else 'FAIL'}")
     return ok
 
 
 def time_qmm_grouped(torch, report, timer):
-    """One grouped call at qwen3-moe's expert shapes (binary16alt) with
-    the counts of its full-width router at 2 and 4 tokens: kernel (CUDA
-    events, L2 flushed), the plain version, ``torch.bmm`` on the widened
-    (E, K, N) f32 weights (every expert, every row: timed only, never
-    called by the port), the host microseconds a call, and the bound of
-    the live experts' bytes (``qmm_grouped_hbm_bytes``)."""
+    """The MoE layer's two grouped calls at qwen3-moe's expert shapes
+    (binary16alt) with the counts of its full-width router at 2 and 4
+    tokens: the gated pair (``qmm_grouped_ffn``, silu, at 2048 -> 768)
+    and w_out (``qmm_grouped``, 768 -> 2048).  Each: the kernel (CUDA
+    events, L2 flushed), the plain version, the host microseconds a call
+    and the bound of the live experts' bytes (``qmm_grouped_hbm_bytes``);
+    w_out beside ``torch.bmm`` on the widened (E, K, N) f32 weights
+    (every expert, every row: timed only, never called by the port).  No
+    one PyTorch call computes the gated pair; beside it: ``torch.bmm`` on
+    the two weights side by side (the products alone), the same shape's
+    ungated ``qmm_grouped`` (w_in's call before the pair was fused) and
+    the composition the fused call replaced (two ungated grouped calls,
+    silu, the product, the bf16 cast)."""
     from repro_torch.core.formats import BINARY16ALT
     from repro_torch.kernels import qmatmul as Q
 
@@ -700,34 +758,68 @@ def time_qmm_grouped(torch, report, timer):
     for arch, weight, E, K, N in grouped_shapes():
         if arch != "qwen3-moe-30b-a3b":
             continue
+        gated = weight == "w_in/w_gate"
         wp = _pack_weight(torch.randn((E, K, N), generator=gen,
                                       device="cuda"), fmt)
+        gp = _pack_weight(torch.randn((E, K, N), generator=gen,
+                                      device="cuda"), fmt) if gated else None
         wf = _unpack_weight(wp, fmt)
+        if gated:
+            wf = torch.cat([wf, _unpack_weight(gp, fmt)], dim=2)
         for T in (2, 4):
             rows = router_rows(torch, arch, T, 7 + T)
             C = 8
             a, _ = _dispatched(torch, gen, E, C, K, rows, 0.0)
-            t_k = timer(lambda: Q.qmm_grouped(a, wp, fmt, rows))
-            t_p = timer(lambda: Q.qmm_grouped_plain(a, wp, fmt, rows),
-                        iters=5)
-            t_l = timer(lambda: torch.bmm(a, wf))
-            host = timer.host_us(lambda: Q.qmm_grouped(a, wp, fmt, rows))
+            extra = {}
+            if gated:
+                def call():
+                    return Q.qmm_grouped_ffn(a, wp, gp, fmt, rows,
+                                             act="silu")
+
+                def plain():
+                    return Q.qmm_grouped_ffn_plain(a, wp, gp, fmt, rows,
+                                                   act="silu")
+
+                def unfused():
+                    h = Q.qmm_grouped(a, wp, fmt, rows)
+                    return (Q.apply_act(h, "silu")
+                            * Q.qmm_grouped(a, gp, fmt, rows)).to(
+                                torch.bfloat16)
+                extra = dict(
+                    ungated_ms=timer(lambda: Q.qmm_grouped(a, wp, fmt, rows)),
+                    unfused_ms=timer(unfused))
+            else:
+                def call():
+                    return Q.qmm_grouped(a, wp, fmt, rows)
+
+                def plain():
+                    return Q.qmm_grouped_plain(a, wp, fmt, rows)
+            t_k = timer(call)
+            t_p = timer(plain, iters=5)
+            t_b = timer(lambda: torch.bmm(a, wf))
+            host = timer.host_us(call)
             rl = rows.tolist()
-            nbytes = Q.qmm_grouped_hbm_bytes(rl, K, N, fmt, C)
-            bound, by = qmm_bound(Q, fmt, nbytes, 2 * sum(rl) * K * N)
+            nbytes = Q.qmm_grouped_hbm_bytes(rl, K, N, fmt, C, gated=gated)
+            flops = (2 if gated else 1) * 2 * sum(rl) * K * N
+            bound, by = qmm_bound(Q, fmt, nbytes, flops)
             live = sum(r > 0 for r in rl)
+            name = "qmm_tc_grouped_ffn" if gated else "qmm_tc_grouped"
             report["timings"].append(dict(
-                kernel="qmm_tc_grouped", arch=arch, shape=weight, tokens=T,
+                kernel=name, arch=arch, shape=weight, tokens=T,
                 E=E, C=C, K=K, N=N, fmt=fmt.name, live_experts=live,
-                kept_rows=sum(rl), ms=t_k, plain_ms=t_p, library_ms=t_l,
-                bound_ms=bound, bound_by=by, bytes=nbytes, host_us=host))
-            print(f"[timing] qmm_grouped qwen3 {weight:<11} {T} tokens "
+                kept_rows=sum(rl), ms=t_k, plain_ms=t_p,
+                library_ms=None if gated else t_b,
+                bmm_ms=t_b, bound_ms=bound, bound_by=by, bytes=nbytes,
+                host_us=host, **extra))
+            more = "".join(f"  {k[:-3]} {v:.4f} ms" for k, v in extra.items())
+            print(f"[timing] {name} qwen3 {weight:<11} {T} tokens "
                   f"({live} of {E} experts live, {sum(rl)} rows) E={E} "
                   f"C={C} K={K} N={N} {fmt.name}: kernel {t_k:.4f} ms  "
-                  f"plain {t_p:.4f} ms  torch.bmm {t_l:.4f} ms  bound "
-                  f"{bound:.5f} ms ({by})  host {host:.1f} us")
+                  f"plain {t_p:.4f} ms  torch.bmm{' (both weights)' if gated else ''} "
+                  f"{t_b:.4f} ms{more}  bound {bound:.5f} ms ({by})  host "
+                  f"{host:.1f} us")
             del a
-        del wp, wf
+        del wp, gp, wf
         torch.cuda.empty_cache()
 
 
@@ -1718,13 +1810,22 @@ def _qmm_kernels(lib, before=None):
                                             zip(now, before))
 
 
+GROUPED_KERNELS = ("qmm_tc_grouped", "qmm_tc_grouped_ffn")
+
+
+def _grouped_launches(lib) -> int:
+    """The MoE expert product's launches: w_out's and the gated pair's."""
+    return sum(lib.by_kernel.get(k, 0) for k in GROUPED_KERNELS)
+
+
 def _drive_serve(torch, libs, argv, hooks, params=None):
     """``serve.main(argv)`` with every launch count set to 0 just before
     and read just after, and the launches of each call of each hooked
     method ``hooks[name] = (class, attribute)`` recorded as a tuple in
     ``libs`` order; ``per[name + "/kern"]`` holds the same calls' qmm
     launches by kernel (qmm_gemv, qmm_tile, qmm_tc) and
-    ``per[name + "/grouped"]`` their ``qmm_tc_grouped`` launches."""
+    ``per[name + "/grouped"]`` their grouped launches (``qmm_tc_grouped``
+    and ``qmm_tc_grouped_ffn``)."""
     from repro_torch.launch import serve
 
     per = {name: [] for name in hooks}
@@ -1739,10 +1840,10 @@ def _drive_serve(torch, libs, argv, hooks, params=None):
         def wrapped(self, *a, _fn=fn, _name=name, **k):
             before = [lib.launches for lib in libs]
             kern = _qmm_kernels(libs[0])
-            grouped = libs[0].by_kernel.get("qmm_tc_grouped", 0)
+            grouped = _grouped_launches(libs[0])
             out = _fn(self, *a, **k)
             per[_name + "/grouped"].append(
-                libs[0].by_kernel.get("qmm_tc_grouped", 0) - grouped)
+                _grouped_launches(libs[0]) - grouped)
             per[_name].append(tuple(lib.launches - b0 for lib, b0
                                     in zip(libs, before)))
             per[_name + "/kern"].append(_qmm_kernels(libs[0], kern))
@@ -1794,10 +1895,13 @@ def run_serve(torch, report, libs, args, decode_impl="paged", key="serve",
     runs on the CUDA cores: a decode step's 193 and a chunk's head (its
     last position, M = 1) on the GEMV, a chunk's 192 at M = 64 on
     qmm_tile.  Launch tuples are (qmm, paged_decode, flash_prefill,
-    flash_decode, flexfloat_cast, norms): 65 rmsnorm launches (two a
-    layer and the final norm) a step and a chunk; qmm by kernel
-    (qmm_gemv, qmm_tile, qmm_tc)."""
+    flash_decode, flexfloat_cast, norms): 65 norm launches (two a
+    layer and the final norm) a step and a chunk, every one a fused
+    ``add_rmsnorm`` (the residual add and the activation cast inside it:
+    no standalone residual add and no three-step norm in the run); qmm
+    by kernel (qmm_gemv, qmm_tile, qmm_tc)."""
     from repro_torch.engine import worker
+    from repro_torch.models import layers
 
     f32 = policy == "binary32"
     requests, max_new = (F32_REQUESTS, F32_MAX_NEW) if f32 \
@@ -1805,9 +1909,23 @@ def run_serve(torch, report, libs, args, decode_impl="paged", key="serve",
     stats = f"{key}_stats.jsonl"
     argv = _serve_argv(args, decode_impl, requests, max_new, stats,
                        policy=policy)
-    reqs, per, launches, wall, peak = _drive_serve(
-        torch, libs, argv, {"decode": (worker.DecodeWorker, "step"),
-                            "prefill": (worker.PrefillWorker, "step")})
+    apart = {"residual_add": 0, "apply_norm": 0}   # the three-step route
+    real = {k: getattr(layers, k) for k in apart}
+
+    def counted(name):
+        def fn(*a, **k):
+            apart[name] += 1
+            return real[name](*a, **k)
+        return fn
+    for k in apart:
+        setattr(layers, k, counted(k))
+    try:
+        reqs, per, launches, wall, peak = _drive_serve(
+            torch, libs, argv, {"decode": (worker.DecodeWorker, "step"),
+                                "prefill": (worker.PrefillWorker, "step")})
+    finally:
+        for k, fn in real.items():
+            setattr(layers, k, fn)
     want_dec = (193, 32, 0, 0, 0, NORMS) if decode_impl == "paged" \
         else (193, 0, 0, 32, 0, NORMS)
     want_pre = (193, 0, 32, 0, 0, NORMS)
@@ -1822,6 +1940,10 @@ def run_serve(torch, report, libs, args, decode_impl="paged", key="serve",
     ok &= _counts_ok(per["prefill"], want_pre)
     ok &= _counts_ok(per["decode/kern"], want_dec_k)
     ok &= _counts_ok(per["prefill/kern"], want_pre_k)
+    calls = len(per["decode"]) + len(per["prefill"])
+    want_norms = {"add_rmsnorm_launch": calls * NORMS}
+    ok &= launches["norms_by_entry"] == want_norms
+    ok &= apart == {"residual_add": 0, "apply_norm": 0}
     summary = _serve_summary(args, stats)
     tokens = sum(len(r.generated) for r in reqs)
     report[key] = dict(
@@ -1835,6 +1957,7 @@ def run_serve(torch, report, libs, args, decode_impl="paged", key="serve",
         per_prefill_chunk=sorted(set(per["prefill"])),
         qmm_kernels_per_decode_step=sorted(set(per["decode/kern"])),
         qmm_kernels_per_prefill_chunk=sorted(set(per["prefill/kern"])),
+        norms_apart=apart,
         decode_launches_by_kernel=[sum(c) for c in zip(*per["decode/kern"])],
         prefill_launches_by_kernel=[sum(c)
                                     for c in zip(*per["prefill/kern"])],
@@ -1851,8 +1974,10 @@ def run_serve(torch, report, libs, args, decode_impl="paged", key="serve",
           f"(want {want_pre}); qmm by kernel (qmm_gemv, qmm_tile, qmm_tc) "
           f"per decode step {sorted(set(per['decode/kern']))} (want "
           f"{want_dec_k}), per prefill chunk "
-          f"{sorted(set(per['prefill/kern']))} (want {want_pre_k}) "
-          f"{'ok' if ok else 'FAIL'}")
+          f"{sorted(set(per['prefill/kern']))} (want {want_pre_k}); "
+          f"norms by entry {launches['norms_by_entry']} (want "
+          f"{want_norms}), standalone residual adds and three-step norms "
+          f"{apart} (want 0) {'ok' if ok else 'FAIL'}")
     if key == "serve_flash" and "serve" in report:
         base = report["serve"]["generated"]
         diff = sum(a != b for ga, gb in zip(base, report[key]["generated"])
@@ -1968,8 +2093,10 @@ def run_serve_artifact(torch, report, libs, args, cfg):
     """The reduced serve once more under the committed tuned artifact
     ``--policy results/tuned/llama3-8b.reduced.json`` (native mode,
     binary8 weights, activations, attention probabilities and per-layer
-    KV): every request gets its tokens, and a decode step and a chunk
-    launch what the transprecision run launches."""
+    KV): every request gets its tokens, a decode step and a chunk launch
+    what the transprecision run launches, and every norm takes the
+    three-step route (``rmsnorm_launch``: binary8 is no dtype of the
+    fused kernel)."""
     from repro_torch.engine import worker
 
     key = "serve_artifact"
@@ -1993,6 +2120,11 @@ def run_serve_artifact(torch, report, libs, args, cfg):
     good &= all(0 <= t < cfg.vocab for r in reqs for t in r.generated)
     good &= _counts_ok(per["decode"], want_dec)
     good &= _counts_ok(per["prefill"], want_pre)
+    # binary8 activations are no dtype of add_rmsnorm's kernel: every norm
+    # takes the three steps (torch's add, the rmsnorm kernel, the cast)
+    calls = len(per["decode"]) + len(per["prefill"])
+    want_norms = {"rmsnorm_launch": calls * (2 * layers + 1)}
+    good &= launches["norms_by_entry"] == want_norms
     summary = _serve_summary(args, stats)
     report[key] = dict(policy=os.path.relpath(ARTIFACT, ROOT),
                        requests=len(reqs), wall_s=wall,
@@ -2004,7 +2136,8 @@ def run_serve_artifact(torch, report, libs, args, cfg):
           f"{len(reqs)} requests, {sum(len(r.generated) for r in reqs)} "
           f"tokens in {wall:.2f} s; per decode step "
           f"{sorted(set(per['decode']))} (want {want_dec}), per chunk "
-          f"{sorted(set(per['prefill']))} (want {want_pre}) "
+          f"{sorted(set(per['prefill']))} (want {want_pre}); norms by "
+          f"entry {launches['norms_by_entry']} (want {want_norms}) "
           f"{'ok' if good else 'FAIL'}")
     return good
 
@@ -2170,7 +2303,6 @@ def _profiled_serve(torch, argv, window=None, params=None, cpu=True):
     launches ~19k kernels).  Returns (device busy seconds from the CUDA
     rows, wall seconds, the top ten CUDA rows, decode steps or rounds in
     the profile, the key_averages rows)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.engine import scheduler
     from repro_torch.launch import serve
@@ -2211,21 +2343,76 @@ def _profiled_serve(torch, argv, window=None, params=None, cpu=True):
         raise RuntimeError(f"the profile window of {window} steady steps "
                            f"was not reached")
 
-    def dev_us(e):
-        return (getattr(e, "self_device_time_total", 0)
-                or getattr(e, "self_cuda_time_total", 0))
-
-    # only the device's own rows (kernels, memcpys, memsets): a CPU op's
-    # row also carries the device time of what it launched, so summing
-    # every row would count that time twice (torch's table footer sums
-    # the same rows)
     rows = prof.key_averages()           # costly on a long trace: once
-    events = [e for e in rows
-              if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
-    busy = sum(dev_us(e) for e in events) / 1e6
-    top = [dict(name=e.key[:80], count=e.count, device_ms=dev_us(e) / 1e3)
-           for e in sorted(events, key=dev_us, reverse=True)[:10]]
+    events = device_rows(rows)
+    busy = sum(_dev_us(e) for e in events) / 1e6
+    top = [dict(name=e.key[:80], count=e.count, device_ms=_dev_us(e) / 1e3)
+           for e in sorted(events, key=_dev_us, reverse=True)[:10]]
     return busy, box["wall"], top, box["steps"], rows
+
+
+def _dev_us(e):
+    return (getattr(e, "self_device_time_total", 0)
+            or getattr(e, "self_cuda_time_total", 0))
+
+
+def device_rows(rows):
+    """The device's own rows of a profile's ``key_averages()`` (kernels,
+    memcpys, memsets): a CPU op's row also carries the device time of
+    what it launched, so summing every row would count that time twice
+    (torch's table footer sums the same rows)."""
+    from torch.autograd import DeviceType
+    return [e for e in rows
+            if e.device_type == DeviceType.CUDA and _dev_us(e) > 0]
+
+
+def device_counts(rows, *names):
+    """(device activities, then those whose name holds each of
+    ``names``) in a profile."""
+    ev = device_rows(rows)
+    return (sum(e.count for e in ev),) + tuple(
+        sum(e.count for e in ev if n in e.key) for n in names)
+
+
+STEP_ARCHS = ("llama3-8b", "qwen3-moe-30b-a3b")
+
+
+def run_steps(torch, report, args):
+    """One steady decode step of full-width, full-depth llama3-8b and
+    qwen3-moe under torch.profiler (the archs phase's serve:
+    transprecision, ``qmm_pallas``, ``flash_pallas``, 2 requests x (64 +
+    4) over 2 slots, page 64, random weights from ``--seed``, profiled
+    once every prompt is prefilled): wall, device busy time, device
+    activities and the norm and grouped expert kernels among them.  Uses
+    only the serve CLI and the kernel names, so ``--phases build,steps
+    --src OTHER/src`` profiles another checkout with the same code: run
+    parent, change, change, parent, each in its own process."""
+    report["steps"] = {}
+    for arch in STEP_ARCHS:
+        argv = ["--arch", arch, "--policy", "transprecision",
+                "--decode-impl", "flash_pallas", "--matmul-impl",
+                "qmm_pallas", "--page-size", "64", "--requests", "2",
+                "--slots", "2", "--prompt-len", "64", "--max-new", "4",
+                "--capacity", "128", "--seed", str(args.seed)]
+        busy, wall, top, steps, rows = _profiled_serve(
+            torch, argv, window=1, cpu=False)
+        # "rmsnorm_kernel" also names add_rmsnorm_kernel
+        acts, grouped, old, norms, rms = device_counts(
+            rows, "qmm_tc_grouped", "qmm_grouped_", "add_rmsnorm",
+            "rmsnorm_kernel")
+        rms -= norms
+        report["steps"][arch] = dict(
+            wall_s=wall, device_busy_s=busy, busy_share=busy / wall,
+            device_activities=acts, grouped_kernels=grouped + old,
+            add_rmsnorm_kernels=norms, rmsnorm_kernels=rms, top=top[:6])
+        print(f"[steps] {arch}: decode step wall {wall * 1e3:.2f} ms, "
+              f"device busy {busy * 1e3:.3f} ms "
+              f"({100 * busy / wall:.1f} %), {acts} device activities, "
+              f"grouped expert kernels {grouped + old}, add_rmsnorm {norms}"
+              f", rmsnorm {rms}", flush=True)
+        del rows
+        torch.cuda.empty_cache()
+    return True
 
 
 def run_profile(torch, report, args):
@@ -2241,24 +2428,32 @@ def run_profile(torch, report, args):
             "--capacity", "256", "--seed", str(args.seed)]
     # the speculative run is profiled over a window of 3 rounds: a round
     # traces some 20000 events, and summing a long trace takes minutes
+    # and one steady decode step of the paged serve, device activity
+    # only: the device activities a step (kernels, copies, sets), the
+    # fused norms among them
     runs = (("serve", ["--decode-impl", "paged", "--max-new", "8"], None),
             ("speculative", ["--decode-impl", "flash_pallas", "--max-new",
                              "16", "--speculate-k", str(SPEC_K),
-                             "--pool-pages", str(SPEC_POOL_PAGES)], 3))
+                             "--pool-pages", str(SPEC_POOL_PAGES)], 3),
+            ("decode_step", ["--decode-impl", "paged", "--max-new", "8"],
+             1))
     report["profile"] = {}
     for name, extra, window in runs:
-        busy, wall, top, steps, rows = _profiled_serve(torch, base + extra,
-                                                       window)
+        busy, wall, top, steps, rows = _profiled_serve(
+            torch, base + extra, window, cpu=name != "decode_step")
+        acts, norms = device_counts(rows, "add_rmsnorm")
         report["profile"][name] = dict(
             wall_s=wall, device_busy_s=busy, busy_share=busy / wall,
-            decode_steps=steps, top=top)
+            decode_steps=steps, device_activities=acts,
+            add_rmsnorm_kernels=norms, top=top)
         with open(os.path.join(args.out, f"profile_{name}.txt"), "w") as f:
             f.write(rows.table(row_limit=40))
         what = "the whole run" if window is None \
             else f"{window} steady steps"
         print(f"[profile] {name} 4 requests x (128 + {extra[3]}), "
               f"{what}: wall {wall:.3f} s, {steps} decode steps or rounds, "
-              f"device busy {busy:.3f} s ({100 * busy / wall:.1f} %)")
+              f"device busy {busy:.3f} s ({100 * busy / wall:.1f} %), "
+              f"{acts} device activities ({norms} add_rmsnorm)")
         for e in top:
             print(f"[profile]   {e['device_ms']:9.2f} ms  x{e['count']:<6} "
                   f"{e['name'][:70]}")
@@ -2355,27 +2550,87 @@ def check_logits(torch, report, args, qmm_lib):
                 f32 += f32_launches() - before
     report["logits_f32_launches"] = f32
     ok &= f32 > 0
+    ok &= check_fused_norm_logits(torch, report, args, model, cfg)
     ok &= check_logits_archs(torch, report, args)
     ok &= check_grouped_logits(torch, report, args)
+    return ok
+
+
+def check_fused_norm_logits(torch, report, args, model, cfg):
+    """The 2-layer, full-width llama3-8b's prefill chunk and decode step
+    under binary32 and transprecision (``qmm_pallas``, paged and
+    flash_pallas): logits on the fused norm route (``add_norm``: one
+    ``add_rmsnorm`` launch a norm) bit for bit those on the three-step
+    route (torch's add, the rmsnorm kernel, the cast: the parent's
+    composition), with the norm launches of each route counted (2 x 2 + 1
+    a call, on ``add_rmsnorm_launch`` or ``rmsnorm_launch``)."""
+    from repro_torch.kernels import rmsnorm as rms
+    from repro_torch.models import layers, transformer
+
+    def three_steps(x, y, p, policy, kind):
+        s = x if y is None else layers.residual_add(x, y)
+        return s, layers.apply_norm(s, p, policy, kind)
+
+    real = transformer.add_norm
+    per_call = 2 * cfg.n_layers + 1
+    ok = True
+    for pol in ("binary32", "transprecision"):
+        for dec in ("paged", "flash_pallas"):
+            res, counts = {}, {}
+            for route in ("fused", "three steps"):
+                before = dict(rms.LIB.by_symbol)
+                if route == "three steps":
+                    transformer.add_norm = three_steps
+                try:
+                    res[route] = _first_step_logits(
+                        torch, model, cfg, pol, dec, "qmm_pallas", args.seed,
+                        prompt=64, page=64)
+                finally:
+                    transformer.add_norm = real
+                counts[route] = {k: v - before.get(k, 0)
+                                 for k, v in rms.LIB.by_symbol.items()
+                                 if v != before.get(k, 0)}
+            same = [torch.equal(_bits(a), _bits(b))
+                    for a, b in zip(res["fused"], res["three steps"])]
+            good = all(same) \
+                and counts["fused"] == {"add_rmsnorm_launch": 2 * per_call} \
+                and counts["three steps"] == {"rmsnorm_launch": 2 * per_call}
+            ok &= good
+            report["logits"].append(dict(
+                arch=cfg.arch, policy=pol, decode_impl=dec,
+                what="fused norm route vs three steps",
+                bits_equal=dict(zip(("prefill chunk", "decode step"), same)),
+                norm_launches=counts, ok=good))
+            print(f"[logits] {cfg.arch} {pol:<14} {dec:<12} 2-layer full "
+                  f"width: logits on the fused norm route bit for bit the "
+                  f"three-step route's (prefill chunk, decode step) {same}; "
+                  f"norm launches {counts} {'ok' if good else 'FAIL'}")
     return ok
 
 
 def check_grouped_logits(torch, report, args):
     """The MoE configs at 2 layers, full width, transprecision, paged:
     a prefill chunk's and a decode step's logits with every expert
-    product on ``qmm_grouped`` (the serving route) bit for bit those with
-    the per-expert ``qmm_tc`` loop (``qmm_grouped_loop``, the reference's
-    unrolled scheme), with the launches of each route counted."""
+    product on the grouped calls (the serving route: the gated pair in
+    one ``qmm_grouped_ffn``, w_out in one ``qmm_grouped``) bit for bit
+    those with the per-expert loops (``qmm_grouped_ffn_loop``: one
+    ``qmm_ffn`` an expert; ``qmm_grouped_loop``: one ``qmm_tc`` an
+    expert; the reference's unrolled scheme), with the launches of each
+    route counted."""
     from repro_torch.kernels import dispatch
     from repro_torch.kernels import qmatmul as Q
+    from repro_torch.models import layers
     from repro_torch.models.registry import build
     from repro_torch.models.transformer import Model
 
     impl = dispatch.resolve_matmul("qmm_pallas")
-    real = impl.grouped
+    real, real_ffn = impl.grouped, layers.qmm_grouped_ffn
 
     def loop(a, w, policy, role, rows=None):
         return Q.qmm_grouped_loop(a.to(torch.float32), w.payload, w.fmt)
+
+    def ffn_loop(a, w_in, w_gate, fmt, rows, **kw):
+        return Q.qmm_grouped_ffn_loop(a, w_in, w_gate, fmt, **kw)
 
     ok = True
     for arch in MOE_ARCHS:
@@ -2387,22 +2642,27 @@ def check_grouped_logits(torch, report, args):
             before = dict(Q.LIB.by_kernel)
             if route == "loop":
                 impl.grouped = staticmethod(loop)
+                layers.qmm_grouped_ffn = ffn_loop
             try:
                 res[route] = _first_step_logits(
                     torch, model, cfg, "transprecision", "paged",
                     "qmm_pallas", args.seed, prompt=64, page=64)
             finally:
                 impl.grouped = staticmethod(real)
+                layers.qmm_grouped_ffn = real_ffn
             counts[route] = {k: v - before.get(k, 0)
                              for k, v in Q.LIB.by_kernel.items()
                              if v != before.get(k, 0)}
         same = [torch.equal(a.view(torch.int32), b.view(torch.int32))
                 for a, b in zip(res["grouped"], res["loop"])]
-        # two calls (chunk, step) x 2 layers x 3 weights; the loop E each
+        # two calls (chunk, step) x 2 layers x (the gated pair, w_out);
+        # the loops E qmm_tc launches each
         good = all(same) \
-            and counts["grouped"].get("qmm_tc_grouped") == 12 \
+            and counts["grouped"].get("qmm_tc_grouped") == 4 \
+            and counts["grouped"].get("qmm_tc_grouped_ffn") == 4 \
+            and not any(k in counts["loop"] for k in GROUPED_KERNELS) \
             and counts["loop"].get("qmm_tc", 0) \
-            - counts["grouped"].get("qmm_tc", 0) == 12 * cfg.moe_experts
+            - counts["grouped"].get("qmm_tc", 0) == 8 * cfg.moe_experts
         ok &= good
         report["logits"].append(dict(
             arch=arch, policy="transprecision",
@@ -2670,6 +2930,70 @@ def check_rmsnorm_rows(torch, report, args):
     return good
 
 
+# the served rmsnorm widths (1024-5120), then 8192 (the widest a thread
+# keeps in registers, gamma read from memory) and 8320 (past it: the
+# kernel's two-pass variant that reads the residual back)
+ADD_RMS_DIMS = RMS_DIMS + (8320,)
+ADD_RMS_ROWS = (1, 2, 3, 4, 8, 9, 16, 17, 33, 64)
+
+
+def check_add_rmsnorm(torch, report, args):
+    """``add_rmsnorm`` (``add_rmsnorm_launch`` of ``csrc/rmsnorm.cu``) on
+    the card bit for bit its plain version (``residual_add``, then
+    ``rmsnorm_plain``, then the cast, run on the card) in both outputs,
+    the residual and the normed row, at 1-64 rows and every served
+    rmsnorm width (1024, 2048, 4096, 5120) and the kernel's two widest
+    variants (8192, 8320), for bf16, f32 and f16 pairs,
+    a mixed pair (f32 + bf16) and no add (the first norm), with a NaN
+    row, an Inf row and a row past bf16's range in the inputs; and a
+    row's bits free of the rows beside it (each row count against the
+    64-row call)."""
+    from repro_torch.kernels import rmsnorm as rms
+
+    bf, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    combos = ((bf, bf, bf), (f32, f32, f32), (f16, f16, f16),
+              (f32, bf, bf), (bf, None, bf))
+    g = torch.Generator(device="cuda").manual_seed(args.seed + 13)
+    res, worst = {}, 0.0
+    for d in ADD_RMS_DIMS:
+        gamma = torch.randn((d,), generator=g, device="cuda") * 0.1
+        for xdt, ydt, odt in combos:
+            x = torch.randn((64, d), generator=g, device="cuda") * 3.0
+            y = torch.randn((64, d), generator=g, device="cuda") * 2.0
+            x[5, 7] = float("nan")
+            y[9, 100] = float("inf")
+            x[12, 3] = 3.0e38 if xdt != f16 else 6.0e4
+            x = x.to(xdt)
+            y = None if ydt is None else y.to(ydt)
+            s64, n64 = rms.add_rmsnorm(x, y, gamma, odt)
+            good = True
+            for m in ADD_RMS_ROWS:
+                ym = None if y is None else y[:m]
+                s, n = rms.add_rmsnorm(x[:m], ym, gamma, odt)
+                ps, pn = rms.add_rmsnorm_plain(x[:m], ym, gamma, odt)
+                good &= torch.equal(_bits(s), _bits(ps)) \
+                    and torch.equal(_bits(n), _bits(pn)) \
+                    and torch.equal(_bits(s), _bits(s64[:m])) \
+                    and torch.equal(_bits(n), _bits(n64[:m]))
+                fin = torch.isfinite(pn)
+                if fin.any():
+                    worst = max(worst, float((n.float() - pn.float())
+                                             [fin].abs().max()))
+            key = f"{d}/{str(xdt)[6:]}+{str(ydt)[6:]}->{str(odt)[6:]}"
+            res[key] = good
+    ok = all(res.values())
+    report["add_rmsnorm_bits_equal_plain"] = res
+    report["add_rmsnorm_max_abs_err"] = worst
+    print(f"[kernels] add_rmsnorm: residual and normed rows bit for bit "
+          f"the plain version (add, rmsnorm_plain, cast) at {ADD_RMS_ROWS} "
+          f"rows, d {ADD_RMS_DIMS}, with NaN / Inf / 3e38 inputs, and free "
+          f"of the row count: {sum(res.values())} of {len(res)} "
+          f"(width, dtypes) cases {'ok' if ok else 'FAIL'}")
+    if not ok:
+        print(f"[kernels] add_rmsnorm cases: {res}")
+    return ok
+
+
 def check_layernorm_rows(torch, report, args):
     """layernorm (``models/layers.py``, ``layernorm_launch`` of
     ``csrc/rmsnorm.cu``) on the card: the kernel bit-identical to its
@@ -2765,16 +3089,22 @@ def time_rmsnorm(torch, report, timer):
     chunk's (64), d 4096, bf16 activations in, f32 out: beside its twin
     on the card, the torch ops it replaced, ``F.rms_norm`` (one PyTorch
     call for the same function, on the f32 of the input) and the byte
-    bound."""
+    bound.  Then ``add_rmsnorm`` at the same rows, bf16 + bf16 -> bf16
+    residual and bf16 normed rows (the transprecision decoder's norm):
+    beside its plain version, the three launches it replaced (torch's
+    add, the rmsnorm kernel, the bf16 cast), the torch sequence ``x + y;
+    F.rms_norm(...).to(bfloat16)`` and its byte bound (no one PyTorch
+    call computes the three)."""
     from repro_torch.kernels import rmsnorm as rms
 
     g = torch.Generator(device="cuda").manual_seed(report["seed"] + 10)
     d = 4096
     gamma = torch.randn((d,), generator=g, device="cuda") * 0.1
     weight = 1.0 + gamma
+    bf = torch.bfloat16
     for rows in (4, 64):
-        x = (torch.randn((rows, d), generator=g, device="cuda") * 3.0).to(
-            torch.bfloat16)
+        x = (torch.randn((rows, d), generator=g, device="cuda") * 3.0).to(bf)
+        y = (torch.randn((rows, d), generator=g, device="cuda") * 2.0).to(bf)
         xf = x.float()
         t_k = timer(lambda: rms.rmsnorm_f32(x, gamma))
         t_p = timer(lambda: rms.rmsnorm_plain(x, gamma))
@@ -2792,6 +3122,29 @@ def time_rmsnorm(torch, report, timer):
               f"{t_k:.4f} ms  twin {t_p:.4f} ms  torch ops before it "
               f"{t_o:.4f} ms  F.rms_norm {t_l:.4f} ms  bound {bound:.5f} ms"
               f"  host {host:.1f} us")
+
+        def three():
+            s = x + y
+            return s, rms.rmsnorm_f32(s, gamma).to(bf)
+        t_f = timer(lambda: rms.add_rmsnorm(x, y, gamma, bf))
+        t_fp = timer(lambda: rms.add_rmsnorm_plain(x, y, gamma, bf))
+        t_3 = timer(three)
+        t_seq = timer(lambda: torch.nn.functional.rms_norm(
+            (x + y).float(), (d,), weight=weight, eps=1e-6).to(bf))
+        host_f = timer.host_us(lambda: rms.add_rmsnorm(x, y, gamma, bf))
+        host_3 = timer.host_us(three)
+        nbytes = rms.add_rmsnorm_hbm_bytes(rows, d, 2, 2, 2, 2)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        report["timings"].append(dict(
+            kernel="add_rmsnorm", rows=rows, d=d, ms=t_f, plain_ms=t_fp,
+            three_launches_ms=t_3, torch_sequence_ms=t_seq, library_ms=None,
+            bound_ms=bound, bound_by="bytes", bytes=nbytes, host_us=host_f,
+            three_launches_host_us=host_3))
+        print(f"[timing] add_rmsnorm {rows:>3} x {d} bf16 + bf16 -> bf16: "
+              f"kernel {t_f:.4f} ms  plain {t_fp:.4f} ms  add + rmsnorm "
+              f"kernel + cast {t_3:.4f} ms  x + y; F.rms_norm().to(bf16) "
+              f"{t_seq:.4f} ms  bound {bound:.6f} ms  host {host_f:.1f} us "
+              f"(the three: {host_3:.1f} us)")
 
 
 # ---------------------------------------------------------------------------
@@ -3148,21 +3501,23 @@ ARCH_CAPACITY, ARCH_PAGE = 128, 64
 def arch_launches(cfg, decode_impl):
     """What a decode step and a prefill chunk of ``cfg`` launch under
     transprecision with packed weights: ``(tuple per decode step, tuple
-    per chunk, qmm by kernel per decode step, per chunk, qmm_tc_grouped
+    per chunk, qmm by kernel per decode step, per chunk, grouped
     launches per step or chunk)``, tuples in ``libs`` order (qmm,
     paged_decode, flash_prefill, flash_decode, flexfloat_cast, norms),
     qmm by kernel (qmm_gemv, qmm_tile, qmm_tc).  A layer: wq, wk, wv, wo,
-    then the fused gated FFN and w_out (dense) or the binary32 router and
-    one grouped launch each for w_in, w_gate and w_out (MoE), all packed
-    bf16 on the tensor cores except the router (the GEMV at a decode
-    step's 2 rows, qmm_tile in a 64-row chunk); the untied head one
-    qmm_tc, the tied one ``torch.matmul``; two norms a layer and the
-    final one."""
+    then the fused gated FFN and w_out (dense) or the binary32 router, one
+    grouped launch for the gated pair (``qmm_tc_grouped_ffn``) and one for
+    w_out (``qmm_tc_grouped``) (MoE), all packed bf16 on the tensor cores
+    except the router (the GEMV at a decode step's 2 rows, qmm_tile in a
+    64-row chunk); the untied head one qmm_tc, the tied one
+    ``torch.matmul``; two norms a layer and the final one (fused
+    ``add_rmsnorm`` for the rmsnorm configs, ``layernorm`` with a
+    separate add for command-r)."""
     L = cfg.n_layers
     head = 0 if cfg.tied_embeddings else 1
     tc = L * (4 if cfg.moe_experts else 6) + head
     router = L if cfg.moe_experts else 0
-    grouped = 3 * L if cfg.moe_experts else 0
+    grouped = 2 * L if cfg.moe_experts else 0
     norms = 2 * L + 1
     qmm = tc + router + grouped
     dec = (qmm, L if decode_impl == "paged" else 0, 0,
@@ -3186,29 +3541,35 @@ def _arch_serve(torch, report, libs, args, arch, decode_impl, params, cfg):
             "--max-new", str(ARCH_MAX_NEW), "--capacity",
             str(ARCH_CAPACITY), "--seed", str(args.seed), "--stats-out",
             os.path.join(args.out, stats)]
-    # the experts' launches inside the grouped products: qmm_tc_grouped,
-    # and per-expert qmm_tc (none)
-    real, experts, per_expert = moe.pgrouped_dot, [0], [0]
+    # the experts' launches inside the grouped products (the gated pair's
+    # and w_out's): qmm_tc_grouped_ffn and qmm_tc_grouped, and per-expert
+    # qmm_tc (none)
+    real = {k: getattr(moe, k) for k in ("pgrouped_dot", "grouped_ffn_in")}
+    experts, per_expert = [0], [0]
 
-    def counted(*a, **k):
-        by = libs[0].by_kernel
-        before = by.get("qmm_tc_grouped", 0), by.get("qmm_tc", 0)
-        out = real(*a, **k)
-        experts[0] += by.get("qmm_tc_grouped", 0) - before[0]
-        per_expert[0] += by.get("qmm_tc", 0) - before[1]
-        return out
-    moe.pgrouped_dot = counted
+    def counted(fn):
+        def wrapped(*a, **k):
+            by = libs[0].by_kernel
+            before = _grouped_launches(libs[0]), by.get("qmm_tc", 0)
+            out = fn(*a, **k)
+            experts[0] += _grouped_launches(libs[0]) - before[0]
+            per_expert[0] += by.get("qmm_tc", 0) - before[1]
+            return out
+        return wrapped
+    for k, fn in real.items():
+        setattr(moe, k, counted(fn))
     try:
         reqs, per, launches, wall, peak = _drive_serve(
             torch, libs, argv, {"decode": (worker.DecodeWorker, "step"),
                                 "prefill": (worker.PrefillWorker, "step")},
             params=params)
     finally:
-        moe.pgrouped_dot = real
+        for k, fn in real.items():
+            setattr(moe, k, fn)
     want_dec, want_pre, want_dec_k, want_pre_k, want_grouped = \
         arch_launches(cfg, decode_impl)
     norm_entry = "layernorm_launch" if cfg.norm == "layernorm" \
-        else "rmsnorm_launch"
+        else "add_rmsnorm_launch"
     calls = len(per["decode"]) + len(per["prefill"])
     ok = all(r.done and not r.failed for r in reqs)
     ok &= all(len(r.generated) == ARCH_MAX_NEW for r in reqs)
@@ -3230,6 +3591,8 @@ def _arch_serve(torch, report, libs, args, arch, decode_impl, params, cfg):
         ttft_mean_s=summary["ttft_mean_s"], decode_steps=len(per["decode"]),
         prefill_chunks=len(per["prefill"]), launches=launches,
         grouped_launches=experts[0], expert_qmm_tc_launches=per_expert[0],
+        grouped_by_kernel={k: launches["qmm_by_kernel"].get(k, 0)
+                           for k in GROUPED_KERNELS},
         grouped_per_decode_step=sorted(set(per["decode/grouped"])),
         grouped_per_prefill_chunk=sorted(set(per["prefill/grouped"])),
         peak_mem_bytes=peak,
@@ -3251,7 +3614,7 @@ def _arch_serve(torch, report, libs, args, arch, decode_impl, params, cfg):
           f"{entry['per_prefill_chunk']} (want {want_pre}); qmm by kernel "
           f"(gemv, tile, tc) {entry['qmm_kernels_per_decode_step']} / "
           f"{entry['qmm_kernels_per_prefill_chunk']} (want {want_dec_k} / "
-          f"{want_pre_k}); qmm_tc_grouped per step / chunk "
+          f"{want_pre_k}); grouped per step / chunk "
           f"{entry['grouped_per_decode_step']} / "
           f"{entry['grouped_per_prefill_chunk']} (want {want_grouped}); "
           f"norms {launches['norms_by_entry']}; per-expert qmm_tc launches "
@@ -3304,11 +3667,13 @@ def run_archs(torch, report, libs, args):
     ``paged``.  Asserted: every request gets its tokens; the launches of
     every decode step and every prefill chunk, by library and by qmm
     kernel (``arch_launches``); the norm kind (layernorm only for
-    command-r); the experts' launches (one qmm_tc_grouped a weight: 3 a
-    layer a step or chunk, and no per-expert qmm_tc); one MoE layer of
-    each MoE config with no host synchronisation (``check_moe_no_sync``);
-    and each model freed before the next is built.  Measured: tok/s,
-    TTFT, peak memory (init and serve) and the device busy share of one
+    command-r, fused add_rmsnorm for the rest); the experts' launches
+    (two grouped calls a layer a step or chunk, the gated pair and w_out,
+    and no per-expert qmm_tc), one device kernel a grouped call in the
+    profiled step; one MoE layer of each MoE config with no host
+    synchronisation (``check_moe_no_sync``); and each model freed before
+    the next is built.  Measured: tok/s, TTFT, peak memory (init and
+    serve) and the device busy share and device activities of one
     steady decode step (torch.profiler, device activity only).  MoE
     tokens are not held to speculative exactness (see
     ``check_logits_archs``)."""
@@ -3349,12 +3714,24 @@ def run_archs(torch, report, libs, args):
                 "--capacity", str(ARCH_CAPACITY), "--seed", str(args.seed)]
         busy, wall, top, steps, rows = _profiled_serve(
             torch, argv, window=1, params=params, cpu=False)
+        # device activities of the step; the grouped expert product's
+        # device kernels: one a call, two a MoE layer (the split and
+        # reduce kernels of the three-launch design are gone)
+        acts, grouped, old = device_counts(rows, "qmm_tc_grouped",
+                                           "qmm_grouped_")
+        want = 2 * cfg.n_layers if cfg.moe_experts else 0
+        good = grouped == want and old == 0
+        ok &= good
         out[f"{arch}/flash_pallas"].update(
             step_wall_s=wall, step_device_busy_s=busy,
-            step_busy_share=busy / wall, step_top=top[:5])
+            step_busy_share=busy / wall, step_top=top[:5],
+            step_device_activities=acts, step_grouped_kernels=grouped)
         print(f"[archs] {arch}: one steady decode step {wall * 1e3:.1f} ms "
               f"wall, device busy {busy * 1e3:.2f} ms "
-              f"({100 * busy / wall:.1f} %); top: "
+              f"({100 * busy / wall:.1f} %), {acts} device activities, "
+              f"grouped device kernels {grouped} (want {want}), "
+              f"split / reduce kernels {old} (want 0) "
+              f"{'ok' if good else 'FAIL'}; top: "
               + ", ".join(f"{e['name'][:40]} {e['device_ms']:.2f} ms "
                           f"x{e['count']}" for e in top[:3]))
         del params, model, rows
@@ -3695,20 +4072,24 @@ def kernel_rows(report):
     launches per prefill chunk), ``qmm_tc_decode_step`` (the same kernel,
     times and launches per decode step) and ``qmm_packed_a`` (the same
     kernel on binary8 activations, M = 64, the ops phase's launches).
-    ``rmsnorm`` and ``layernorm`` are port-only kernels (their
-    ``replaces`` names the reference's XLA norm): times at a decode
-    step's 4 rows, launches of the serve phase and of the archs phase's
-    command-r-35b serve.  ``qmm_tc_grouped``: the MoE expert product,
-    one qwen3-moe w_in call at its 2-token routing (E 128, C 8, K 2048,
-    N 768) timed, the archs phase's qwen3-moe serve's grouped launches
-    (one qwen3 expert launch on ``qmm_tc``, the reference's unrolled
-    scheme, is still timed into the report as ``qmm_tc_expert``, but no
-    longer runs on the main path)."""
+    ``add_rmsnorm``, ``rmsnorm`` and ``layernorm`` are port-only kernels
+    (their ``replaces`` names the reference's XLA norm): times at a
+    decode step's 4 rows; launches of the serve phase (every norm fused),
+    of the serve_reduced phase's tuned-artifact serve (binary8
+    activations: the three-step route's ``rmsnorm_launch``) and of the
+    archs phase's command-r-35b serve.  The MoE expert product's two
+    calls, timed at qwen3-moe's 2-token routing (E 128, C 8) with the
+    archs phase's qwen3-moe serve's launches: ``qmm_tc_grouped_ffn``,
+    the gated pair (K 2048, N 768), and ``qmm_tc_grouped``, w_out (K
+    768, N 2048).  (One qwen3 expert launch on ``qmm_tc``, the
+    reference's unrolled scheme, is still timed into the report as
+    ``qmm_tc_expert``, but no longer runs on the main path.)"""
     def timing(name, **match):
         return next((t for t in report["timings"] if t["kernel"] == name
                      and all(t.get(k) == v for k, v in match.items())), None)
 
     serve = report.get("serve", {}).get("launches", {})
+    artifact = report.get("serve_artifact", {}).get("launches", {})
     flash = report.get("serve_flash", {}).get("launches", {})
     archs = report.get("archs", {})
     ops_counts = report.get("ops", {}).get("launches", {}).get(
@@ -3728,6 +4109,8 @@ def kernel_rows(report):
 
     f32_all = report.get("serve_f32", {}).get("launches", {}).get(
         "qmm_by_kernel", {})
+    qwen3_grouped = archs.get("qwen3-moe-30b-a3b/flash_pallas", {}).get(
+        "grouped_by_kernel", {})
     rows = [
         ("qmm_gemv", qmm_src, qmm_tpu, f32_all.get("qmm_gemv", 0),
          report.get("qmm_max_abs_err"), report.get("qmm_step_f32")),
@@ -3766,9 +4149,14 @@ def kernel_rows(report):
          ops_counts.get("dequantize_decode_launch", 0), cast_err,
          timing("dequantize_decode", fmt="binary16alt")),
         # port-only: the reference's rmsnorm is XLA, not a TPU kernel
+        ("add_rmsnorm", "src/repro_torch/csrc/rmsnorm.cu",
+         "src/repro/models/layers.py:221",
+         serve.get("norms_by_entry", {}).get("add_rmsnorm_launch", 0),
+         report.get("add_rmsnorm_max_abs_err"),
+         timing("add_rmsnorm", rows=4)),
         ("rmsnorm", "src/repro_torch/csrc/rmsnorm.cu",
          "src/repro/models/layers.py:221",
-         serve.get("norms_by_entry", {}).get("rmsnorm_launch", 0),
+         artifact.get("norms_by_entry", {}).get("rmsnorm_launch", 0),
          report.get("rmsnorm_max_abs_err"), timing("rmsnorm", rows=4)),
         # port-only, as rmsnorm: the reference's layernorm is XLA
         ("layernorm", "src/repro_torch/csrc/rmsnorm.cu",
@@ -3776,11 +4164,14 @@ def kernel_rows(report):
          archs.get("command-r-35b/flash_pallas", {}).get("launches", {})
          .get("norms_by_entry", {}).get("layernorm_launch", 0),
          report.get("layernorm_max_abs_err"), timing("layernorm", rows=4)),
-        ("qmm_tc_grouped", qmm_src, qmm_tpu,
-         archs.get("qwen3-moe-30b-a3b/flash_pallas", {}).get(
-             "grouped_launches", 0),
+        ("qmm_tc_grouped_ffn", qmm_src, qmm_tpu, qwen3_grouped.get(
+            "qmm_tc_grouped_ffn", 0),
+         report.get("qmm_grouped_ffn_max_abs_err"),
+         timing("qmm_tc_grouped_ffn", tokens=2, shape="w_in/w_gate")),
+        ("qmm_tc_grouped", qmm_src, qmm_tpu, qwen3_grouped.get(
+            "qmm_tc_grouped", 0),
          report.get("qmm_grouped_max_abs_err"),
-         timing("qmm_tc_grouped", tokens=2, shape="w_in/w_gate")),
+         timing("qmm_tc_grouped", tokens=2, shape="w_out")),
     ]
     kernels = []
     for name, source, replaces, launches, err, t in rows:
@@ -3861,6 +4252,7 @@ def main() -> int:
                 ok &= check_flash_decode(torch, np, report)
                 ok &= check_qmm_archs(torch, report, timer)
                 ok &= check_qmm_grouped(torch, report)
+                ok &= check_add_rmsnorm(torch, report, args)
                 time_kernels(torch, np, report, timer)
                 time_qmm_grouped(torch, report, timer)
             elif phase == "timing":
@@ -3902,6 +4294,9 @@ def main() -> int:
                 ok = run_serve_tune(torch, report, libs, args)
             elif phase == "profile":
                 ok = run_profile(torch, report, args)
+            elif phase == "steps":
+                # one decode step's device activities alone (for --src)
+                ok = run_steps(torch, report, args)
             else:
                 raise ValueError(f"unknown phase {phase!r}")
         except Exception:  # noqa: BLE001 -- reported, and the run fails

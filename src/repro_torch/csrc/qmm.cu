@@ -70,10 +70,11 @@
 //    copies); a shape whose rows are not 16-byte aligned loads element by
 //    element into the same stages.
 //  * qmm_tc_grouped (entry point qmm_tc_grouped_launch): the MoE expert
-//    product, every expert's block of one weight in one launch, only the
-//    experts with kept rows streaming; each work unit is qmm_tc's tile
-//    body (tc_tile) and the K split is qmm_tc's, so its rows equal a
-//    per-expert qmm_tc launch's bit for bit (see its section below).
+//    product, every expert's block of one weight (or of the gated pair,
+//    with qmm_tc's epilogue) in one kernel, only the experts with kept
+//    rows streaming; each work unit repeats qmm_tc's tile arithmetic and
+//    the K split is qmm_tc's, so its rows equal a per-expert qmm_tc
+//    launch's bit for bit (see its section below).
 //  * binary32 / f32 weights (not exact in TF32) and run-time (e, m)
 //    formats, at every M; entry point qmm_launch, row tile picked by M
 //    (kernels/qmatmul.py, f32_tile_m).  The order of an output's sum: the
@@ -154,9 +155,10 @@ extern "C" int qmm_tc_fmt4(QMM_TC_PARAMS);
 
 // a tensor-core unit's grouped (MoE expert) launcher
 #define QMM_GROUPED_PARAMS                                                 \
-  const float *a, float *asplit, const void *b, float *out, float *ws,     \
-      const int *rows, int *work, int n_exp, int C, int K, int N,          \
-      int splits, int k_chunk, int n_sm, cudaStream_t stream
+  const float *a, const void *b, const void *g, float *out, float *ws,     \
+      int *counts, const int *rows, int n_exp, int C, int K, int N,        \
+      int splits, int k_chunk, int act, int out_e, int out_m, int n_sm,    \
+      cudaStream_t stream
 extern "C" int qmm_tc_grouped_fmt1(QMM_GROUPED_PARAMS);
 extern "C" int qmm_tc_grouped_fmt2(QMM_GROUPED_PARAMS);
 extern "C" int qmm_tc_grouped_fmt3(QMM_GROUPED_PARAMS);
@@ -571,119 +573,98 @@ __device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4],
 //    same 4 adjacent outputs and the gate stays in registers.
 // Either way a thread keeps 16 accumulators per m16 tile, plus their
 // promoted sums.
-// One block's tile: rows m0 .. m0 + BM - 1 (those below Mrows) x the
-// block's columns from n0, over K split z of `splits`.  qmm_tc runs one
-// tile a block; qmm_tc_grouped runs one a work unit, with the pointers
-// offset to its expert.  Split-K partials go to ws + z * plane + idx.
-template <typename TB, int E, int M, int BM>
-__device__ __forceinline__ void tc_tile(
-    unsigned char* smem_raw, const float* __restrict__ a_hi,
-    const float* __restrict__ a_lo, const TB* __restrict__ b,
-    const TB* __restrict__ g, float* __restrict__ out,
-    float* __restrict__ ws, const Epilogue& ep, int Mrows, int K, int N,
-    int k_chunk, int aligned, int promote, int m0, int n0, int z,
-    int splits, size_t plane) {
-  using S = TcShape<BM>;
-  constexpr int kMT = S::kMT, kThreads = S::kThreads, kStages = S::kStages;
+// Activation rows m0.. (those below Mrows) x K [k0, k_hi) of a (rows of
+// K floats) -> a stage of BM x kTcAStride floats: cp.async 16 B a thread,
+// zero-filled past the edges; element by element when the rows are not
+// 16 B aligned.
+template <int BM>
+__device__ __forceinline__ void tc_load_a(float* dst0,
+                                          const float* __restrict__ a,
+                                          int Mrows, int K, int m0, int k0,
+                                          int k_hi, int aligned) {
+  constexpr int kACh = kTcBK / 4;                 // 16 B chunks per A row
+  for (int c = threadIdx.x; c < BM * kACh; c += TcShape<BM>::kThreads) {
+    const int r = c / kACh, kc = (c % kACh) * 4;
+    const int row = m0 + r, k = k0 + kc;
+    float* dst = dst0 + r * kTcAStride + kc;
+    if (aligned) {
+      const bool in = row < Mrows && k < k_hi;
+      cp_async16(dst, in ? a + (size_t)row * K + k : a, in);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        dst[j] = (row < Mrows && k + j < k_hi)
+                     ? a[(size_t)row * K + k + j] : 0.0f;
+    }
+  }
+}
+
+// Weight rows [k0, k_hi) x the tile's 128 smem columns from n0 (gated: 64
+// of B and the same 64 of G side by side) -> a stage, as tc_load_a.
+template <typename TB, int BM>
+__device__ __forceinline__ void tc_load_b(unsigned char* dst0,
+                                          const TB* __restrict__ b,
+                                          const TB* __restrict__ g, int N,
+                                          int n0, int k0, int k_hi,
+                                          int aligned) {
   constexpr int kItem = sizeof(TB);
   constexpr int kBRow = kTcBN * kItem + kTcBPad;  // bytes per weight row
-  constexpr int kAStage = BM * kTcAStride;        // floats
-  constexpr int kBStage = kTcBK * kBRow;          // bytes
-  constexpr int kACh = kTcBK / 4;                 // 16 B chunks per A row
-  constexpr int kBCh = kTcBN * kItem / 16;        // per weight row
+  constexpr int kBCh = kTcBN * kItem / 16;        // 16 B chunks per row
   constexpr int kPer = 16 / kItem;                // weights per chunk
   const bool gated = g != nullptr;
-
-  float* As = reinterpret_cast<float*>(smem_raw);   // [stage][BM][stride]
-  float* Al = As + kStages * kAStage;               // the same for a_lo
-  unsigned char* Bs =
-      reinterpret_cast<unsigned char*>(Al + kStages * kAStage);
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int wm0 = (warp / 4) * 16 * kMT;
-  const int wn0 = (warp % 4) * (gated ? 16 : 32);   // warp's first output
-  const int k_lo = z * k_chunk;
-  const int k_hi = min(K, k_lo + k_chunk);
-  const int n_kt = k_hi > k_lo ? (k_hi - k_lo + kTcBK - 1) / kTcBK : 0;
-  // this thread's weight columns in a smem row, in bytes
-  const int boff = gated ? (wn0 + 2 * gid) * kItem : (wn0 + 4 * gid) * kItem;
-
-  // stage `st` <- K tile `kt`: cp.async 16 B a thread, zero-filled past
-  // the edges; element by element when the rows are not 16 B aligned
-  auto load_tile = [&](int kt, int st) {
-    const int k0 = k_lo + kt * kTcBK;
-    for (int c = tid; c < 2 * BM * kACh; c += kThreads) {
-      const int part = c / (BM * kACh), cc = c % (BM * kACh);
-      const int r = cc / kACh, kc = (cc % kACh) * 4;
-      const int row = m0 + r, k = k0 + kc;
-      const float* src = part ? a_lo : a_hi;
-      float* dst = (part ? Al : As) + st * kAStage + r * kTcAStride + kc;
-      if (aligned) {
-        const bool in = row < Mrows && k < k_hi;
-        cp_async16(dst, in ? src + (size_t)row * K + k : src, in);
-      } else {
+  for (int c = threadIdx.x; c < kTcBK * kBCh; c += TcShape<BM>::kThreads) {
+    const int r = c / kBCh, cc = c % kBCh, k = k0 + r;
+    // gated: the row's first half is B's columns, the second G's
+    const bool second = gated && cc >= kBCh / 2;
+    const TB* src = second ? g : b;
+    const int col = n0 + (second ? cc - kBCh / 2 : cc) * kPer;
+    const size_t off = (size_t)k * N + col;
+    unsigned char* dst = dst0 + r * kBRow + cc * 16;
+    if (aligned) {
+      const bool in = k < k_hi && col < N;
+      cp_async16(dst, in ? src + off : src, in);
+    } else {
+      TB* d = reinterpret_cast<TB*>(dst);
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          dst[j] = (row < Mrows && k + j < k_hi)
-                       ? src[(size_t)row * K + k + j] : 0.0f;
-      }
+      for (int j = 0; j < kPer; ++j)
+        d[j] = (k < k_hi && col + j < N) ? src[off + j] : TB(0);
     }
-    for (int c = tid; c < kTcBK * kBCh; c += kThreads) {
-      const int r = c / kBCh, cc = c % kBCh, k = k0 + r;
-      // gated: the row's first half is B's columns, the second G's
-      const bool second = gated && cc >= kBCh / 2;
-      const TB* src = second ? g : b;
-      const int col = n0 + (second ? cc - kBCh / 2 : cc) * kPer;
-      const size_t off = (size_t)k * N + col;
-      unsigned char* dst = Bs + st * kBStage + r * kBRow + cc * 16;
-      if (aligned) {
-        const bool in = k < k_hi && col < N;
-        cp_async16(dst, in ? src + off : src, in);
-      } else {
-        TB* d = reinterpret_cast<TB*>(dst);
-#pragma unroll
-        for (int j = 0; j < kPer; ++j)
-          d[j] = (k < k_hi && col + j < N) ? src[off + j] : TB(0);
-      }
-    }
-  };
-
-  float acc[kMT][4][4], tot[kMT][4][4];
-#pragma unroll
-  for (int i = 0; i < kMT; ++i)
-#pragma unroll
-    for (int p = 0; p < 4; ++p)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) { acc[i][p][j] = 0.0f; tot[i][p][j] = 0.0f; }
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < n_kt) load_tile(s, s);
-    cp_async_commit();
   }
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int st = kt % kStages;
-    cp_async_wait<kStages - 2>();      // this thread's copies of tile kt
-    __syncthreads();                   // tile kt visible; kt - 1 consumed
-    {
-      const int nk = kt + kStages - 1;
-      if (nk < n_kt) load_tile(nk, nk % kStages);
-      cp_async_commit();
-    }
-    const float* as = As + st * kAStage;
-    const float* al = Al + st * kAStage;
-    const unsigned char* bs = Bs + st * kBStage + boff;
+}
+
+// One 32-deep K tile of a warp's outputs from a stage, into acc: for each
+// 8 of K, the a_lo pass over the warp's four n8 tiles, then the a_hi pass
+// (the two mma into one accumulator stand kMT * 4 issues apart).  SPLIT:
+// `as` holds the raw f32 activation and each fragment value is split into
+// its TF32 parts as it is read (`al` unused); else `as` and `al` hold the
+// parts.  bs: the stage's weights at this thread's first column.
+template <typename TB, int E, int M, int BM, bool SPLIT>
+__device__ __forceinline__ void tc_mma_tile(
+    const float* as, const float* al, const unsigned char* bs, bool gated,
+    int wm0, int gid, int tig, float (&acc)[TcShape<BM>::kMT][4][4]) {
+  constexpr int kMT = TcShape<BM>::kMT;
+  constexpr int kItem = sizeof(TB);
+  constexpr int kBRow = kTcBN * kItem + kTcBPad;
 #pragma unroll
-    for (int s = 0; s < kTcBK / 8; ++s) {
-      const int kk = 8 * s + 2 * tig;
-      uint32_t ah[kMT][4], alo[kMT][4];
+  for (int s = 0; s < kTcBK / 8; ++s) {
+    const int kk = 8 * s + 2 * tig;
+    uint32_t ah[kMT][4], alo[kMT][4];
 #pragma unroll
-      for (int i = 0; i < kMT; ++i) {
-        const int r = (wm0 + 16 * i + gid) * kTcAStride + kk;
-        const float2 h0 = *reinterpret_cast<const float2*>(as + r);
-        const float2 h1 =
-            *reinterpret_cast<const float2*>(as + r + 8 * kTcAStride);
+    for (int i = 0; i < kMT; ++i) {
+      const int r = (wm0 + 16 * i + gid) * kTcAStride + kk;
+      const float2 h0 = *reinterpret_cast<const float2*>(as + r);
+      const float2 h1 =
+          *reinterpret_cast<const float2*>(as + r + 8 * kTcAStride);
+      if constexpr (SPLIT) {
+        const float v[4] = {h0.x, h1.x, h0.y, h1.y};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          float hi, lo;
+          split_tf32(v[q], hi, lo);
+          ah[i][q] = __float_as_uint(hi);
+          alo[i][q] = __float_as_uint(lo);
+        }
+      } else {
         const float2 l0 = *reinterpret_cast<const float2*>(al + r);
         const float2 l1 =
             *reinterpret_cast<const float2*>(al + r + 8 * kTcAStride);
@@ -692,54 +673,67 @@ __device__ __forceinline__ void tc_tile(
         alo[i][0] = __float_as_uint(l0.x); alo[i][1] = __float_as_uint(l1.x);
         alo[i][2] = __float_as_uint(l0.y); alo[i][3] = __float_as_uint(l1.y);
       }
-      uint32_t w0[4], w1[4];           // weight rows kk and kk + 1
-      const unsigned char* p = bs + kk * kBRow;
-      if (gated) {
-        load_pair<TB>(p, w0);
-        load_pair<TB>(p + kTcBN / 2 * kItem, w0 + 2);
-        load_pair<TB>(p + kBRow, w1);
-        load_pair<TB>(p + kBRow + kTcBN / 2 * kItem, w1 + 2);
-      } else {
-        load_cols<TB>(p, w0);
-        load_cols<TB>(p + kBRow, w1);
-      }
-      uint32_t b0[4], b1[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        b0[q] = tc_decode<E, M>(w0[q]);
-        b1[q] = tc_decode<E, M>(w1[q]);
-      }
-      // the a_lo pass over every tile, then the a_hi pass: the two mma
-      // into one accumulator stand kMT * 4 issues apart
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-#pragma unroll
-        for (int i = 0; i < kMT; ++i) mma_tf32(acc[i][q], alo[i], b0[q], b1[q]);
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-#pragma unroll
-        for (int i = 0; i < kMT; ++i) mma_tf32(acc[i][q], ah[i], b0[q], b1[q]);
     }
-    if (promote) {   // the tensor core's sum of 32 products -> FADD
-#pragma unroll
-      for (int i = 0; i < kMT; ++i)
-#pragma unroll
-        for (int p = 0; p < 4; ++p)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            tot[i][p][j] += acc[i][p][j];
-            acc[i][p][j] = 0.0f;
-          }
+    uint32_t w0[4], w1[4];             // weight rows kk and kk + 1
+    const unsigned char* p = bs + kk * kBRow;
+    if (gated) {
+      load_pair<TB>(p, w0);
+      load_pair<TB>(p + kTcBN / 2 * kItem, w0 + 2);
+      load_pair<TB>(p + kBRow, w1);
+      load_pair<TB>(p + kBRow + kTcBN / 2 * kItem, w1 + 2);
+    } else {
+      load_cols<TB>(p, w0);
+      load_cols<TB>(p + kBRow, w1);
     }
+    uint32_t b0[4], b1[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      b0[q] = tc_decode<E, M>(w0[q]);
+      b1[q] = tc_decode<E, M>(w1[q]);
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int i = 0; i < kMT; ++i) mma_tf32(acc[i][q], alo[i], b0[q], b1[q]);
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int i = 0; i < kMT; ++i) mma_tf32(acc[i][q], ah[i], b0[q], b1[q]);
   }
-  cp_async_wait<0>();
+}
 
-  // c element j of n8 tile p holds row (j < 2 ? gid : gid + 8); its column
-  // is 8 tig + 4 (j & 1) + p (ungated) or 4 tig + 2 (j & 1) + (p & 1)
-  // (gated, p < 2 for B and p >= 2 for G)
+// The tensor core's sum of 32 products -> the FADD sums tot.
+template <int BM>
+__device__ __forceinline__ void tc_promote(
+    float (&tot)[TcShape<BM>::kMT][4][4],
+    float (&acc)[TcShape<BM>::kMT][4][4]) {
+#pragma unroll
+  for (int i = 0; i < TcShape<BM>::kMT; ++i)
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        tot[i][p][j] += acc[i][p][j];
+        acc[i][p][j] = 0.0f;
+      }
+}
+
+// A warp's outputs of a tile (rows m0 + wm0 + ..., those below Mrows;
+// columns from n0 + wn0), each tot + acc: through the epilogue into out,
+// or with a K split (splits > 1) as split z's partials into ws + z *
+// plane + idx (the gate's at (splits + z) * plane).  c element j of n8
+// tile p holds row (j < 2 ? gid : gid + 8); its column is 8 tig + 4
+// (j & 1) + p (ungated) or 4 tig + 2 (j & 1) + (p & 1) (gated, p < 2 for
+// B and p >= 2 for G).
+template <int BM>
+__device__ __forceinline__ void tc_store(
+    const float (&tot)[TcShape<BM>::kMT][4][4],
+    const float (&acc)[TcShape<BM>::kMT][4][4], float* out, float* ws,
+    const Epilogue& ep, bool gated, int Mrows, int N, int m0, int n0,
+    int wm0, int wn0, int gid, int tig, int z, int splits, size_t plane) {
   const bool vec_out = (N % 4) == 0;
 #pragma unroll
-  for (int i = 0; i < kMT; ++i)
+  for (int i = 0; i < TcShape<BM>::kMT; ++i)
 #pragma unroll
     for (int hrow = 0; hrow < 2; ++hrow) {
       const int row = m0 + wm0 + 16 * i + gid + 8 * hrow;
@@ -792,6 +786,78 @@ __device__ __forceinline__ void tc_tile(
         }
       }
     }
+}
+
+// qmm_tc's tile: rows m0 .. m0 + BM - 1 (those below Mrows) x the block's
+// columns from n0, over K split z of `splits`, through a ring of kStages
+// shared-memory stages (a_hi, a_lo and weight tiles).
+template <typename TB, int E, int M, int BM>
+__device__ __forceinline__ void tc_tile(
+    unsigned char* smem_raw, const float* __restrict__ a_hi,
+    const float* __restrict__ a_lo, const TB* __restrict__ b,
+    const TB* __restrict__ g, float* __restrict__ out,
+    float* __restrict__ ws, const Epilogue& ep, int Mrows, int K, int N,
+    int k_chunk, int aligned, int promote, int m0, int n0, int z,
+    int splits, size_t plane) {
+  using S = TcShape<BM>;
+  constexpr int kMT = S::kMT, kStages = S::kStages;
+  constexpr int kItem = sizeof(TB);
+  constexpr int kAStage = BM * kTcAStride;                  // floats
+  constexpr int kBStage = kTcBK * (kTcBN * kItem + kTcBPad);  // bytes
+  const bool gated = g != nullptr;
+
+  float* As = reinterpret_cast<float*>(smem_raw);   // [stage][BM][stride]
+  float* Al = As + kStages * kAStage;               // the same for a_lo
+  unsigned char* Bs =
+      reinterpret_cast<unsigned char*>(Al + kStages * kAStage);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int wm0 = (warp / 4) * 16 * kMT;
+  const int wn0 = (warp % 4) * (gated ? 16 : 32);   // warp's first output
+  const int k_lo = z * k_chunk;
+  const int k_hi = min(K, k_lo + k_chunk);
+  const int n_kt = k_hi > k_lo ? (k_hi - k_lo + kTcBK - 1) / kTcBK : 0;
+  // this thread's weight columns in a smem row, in bytes
+  const int boff = gated ? (wn0 + 2 * gid) * kItem : (wn0 + 4 * gid) * kItem;
+
+  auto load_tile = [&](int kt, int st) {
+    const int k0 = k_lo + kt * kTcBK;
+    tc_load_a<BM>(As + st * kAStage, a_hi, Mrows, K, m0, k0, k_hi, aligned);
+    tc_load_a<BM>(Al + st * kAStage, a_lo, Mrows, K, m0, k0, k_hi, aligned);
+    tc_load_b<TB, BM>(Bs + st * kBStage, b, g, N, n0, k0, k_hi, aligned);
+  };
+
+  float acc[kMT][4][4], tot[kMT][4][4];
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) { acc[i][p][j] = 0.0f; tot[i][p][j] = 0.0f; }
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_kt) load_tile(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int st = kt % kStages;
+    cp_async_wait<kStages - 2>();      // this thread's copies of tile kt
+    __syncthreads();                   // tile kt visible; kt - 1 consumed
+    {
+      const int nk = kt + kStages - 1;
+      if (nk < n_kt) load_tile(nk, nk % kStages);
+      cp_async_commit();
+    }
+    tc_mma_tile<TB, E, M, BM, false>(As + st * kAStage, Al + st * kAStage,
+                                     Bs + st * kBStage + boff, gated, wm0,
+                                     gid, tig, acc);
+    if (promote) tc_promote<BM>(tot, acc);
+  }
+  cp_async_wait<0>();
+  tc_store<BM>(tot, acc, out, ws, ep, gated, Mrows, N, m0, n0, wm0, wn0, gid,
+               tig, z, splits, plane);
 }
 
 template <typename TB, int E, int M, int BM>
@@ -869,174 +935,340 @@ cudaError_t launch_tc(const void* a, float* asplit, const void* bv,
 }
 
 // ---------------------------------------------------------------------------
-// the MoE expert product: every expert's packed block in one launch a weight
+// the MoE expert product: every expert's packed block in one kernel a call
 // ---------------------------------------------------------------------------
 //
-// a (E, C, K) f32, B (E, K, N) packed, rows (E,) int32 on the device: expert
-// e's rows [0, rows[e]) get a[e] @ B[e], rows [rows[e], C) +0.  Replaces the
-// reference's _grouped_qmm (repro/models/layers.py), which unrolls one
-// qmatmul a expert, every expert streaming whether a row of it was kept or
-// not.  Bound by the live experts' weight bytes (a qwen3-moe decode step of
-// 2 tokens touches at most 16 of 128 experts a layer).  Three launches a
-// call, each reading the counts on the device (no host synchronisation):
-//  * qmm_grouped_prep: one block a row of a; a row below its count is split
-//    into a_hi / a_lo as qmm_split_a splits it (the rest are never read);
-//    the last block compacts the live (expert, row tile) items into the
-//    work list; without a K split it also zeroes the dead rows of out.
-//  * qmm_tc_grouped: a persistent grid (the blocks an SM holds x the SMs)
-//    walks the work units (item, column tile, K split); each unit is
-//    qmm_tc's tile (tc_tile) on the expert's pointers.  An expert with no
-//    kept row has no item and costs no weight bytes.
-//  * qmm_grouped_splitk: one block a row of out; a live row sums its
-//    partials in split order from 0.0f, as qmm_splitk does, a dead one is
-//    +0.
-// The K split is tiled_splits(K, N), the per-expert qmm_tc's, and an
-// mma's rows are independent, so every row equals the per-expert qmm_tc
-// loop's bit for bit (kernels/qmatmul.py, qmm_grouped_loop).
+// a (E, C, K) f32, B (and G when gated) (E, K, N) packed, rows (E,) int32
+// on the device: expert e's rows [0, rows[e]) get ep(a[e] @ B[e], a[e] @
+// G[e]) -- qmm_tc's epilogue: act, gate, output format --, rows
+// [rows[e], C) +0.  Replaces the reference's _grouped_qmm
+// (repro/models/layers.py), which unrolls one qmatmul an expert and a
+// weight, every expert streaming whether a row of it was kept or not.
+// Bound by the live experts' weight bytes (a qwen3-moe decode step of 2
+// tokens touches at most 16 of 128 experts a layer).  One kernel a call
+// (the MoE layer makes two: the gated pair, then w_out), reading the
+// counts on the device (no host synchronisation):
+//  * the work list: each block scans the counts into its own shared
+//    memory (each expert's kept rows and its first (expert, row tile)
+//    item); an expert with no kept row has no item and costs no byte;
+//  * a persistent grid (the blocks an SM holds x the SMs) walks the work
+//    units (item, column tile, K split) with qmm_tc's tile arithmetic
+//    (the shared tc_* device functions: its warp layout, the a_lo pass
+//    before the a_hi pass, the 32-deep promotion, its stores).  The
+//    activation comes into shared memory as it is, and each stage's kept
+//    rows are split into their TF32 parts there once (split_tf32, the
+//    function qmm_split_a applies), so no split copy of a exists in
+//    device memory and the parts are the same bits;
+//  * the cp.async ring runs across units: a block's K tiles of all its
+//    units form one sequence, so the next unit's first weight tiles are
+//    in flight while this unit computes and stores;
+//  * the grid writes the dead rows' +0 while its first copies fly;
+//  * with a K split, each unit stores its partials and arrives on a
+//    counter per (item, column tile) after a fence; the last of a tile's
+//    splits to arrive (the block reads its count one unit later, so the
+//    atomic's round trip overlaps the next unit) sums the partials in
+//    split order from 0.0f, as qmm_splitk does, applies the epilogue and
+//    sets the counter back to 0 for the next call.  No value is added
+//    atomically.
+// The K split is tiled_splits(K, N, gated), the per-expert launch's, and
+// an mma's rows are independent, so every row equals the per-expert loop
+// (one qmm_tc launch an expert: kernels/qmatmul.py qmm_grouped_loop and
+// qmm_grouped_ffn_loop) bit for bit.
 
-constexpr int kGrThreads = 256;   // prep and reduce blocks
+// the copy ring's bytes: qmm_tc's stages x (raw activation tile, weight
+// tile), and one a_lo tile
+template <typename TB, int BM>
+constexpr size_t gr_stage_bytes() {
+  return TcShape<BM>::kStages *
+             (sizeof(float) * BM * kTcAStride +
+              kTcBK * (kTcBN * sizeof(TB) + kTcBPad)) +
+         sizeof(float) * BM * kTcAStride;
+}
 
-__global__ void qmm_grouped_prep(const float* __restrict__ a,
-                                 float* __restrict__ hi,
-                                 float* __restrict__ lo,
-                                 const int* __restrict__ rows,
-                                 int* __restrict__ work,
-                                 float* __restrict__ out, int n_exp, int C,
-                                 int K, int N, int tile_m, int vec) {
-  extern __shared__ int first[];   // n_exp + 1, the work list's block
-  const int tid = threadIdx.x;
-  if (blockIdx.x == (unsigned)(n_exp * C)) {
-    // the work list: tiles a expert, their exclusive scan by warp 0 (32
-    // experts a pass), then each expert's items e * m_tiles + t in order
-    for (int e = tid; e < n_exp; e += blockDim.x) {
-      const int live = min(max(rows[e], 0), C);
-      first[e] = (live + tile_m - 1) / tile_m;
-    }
-    __syncthreads();
-    if (tid < 32) {
-      int carry = 0;
-      for (int base = 0; base < n_exp; base += 32) {
-        const int i = base + tid;
-        const int v = i < n_exp ? first[i] : 0;
-        int s = v;
-#pragma unroll
-        for (int d = 1; d < 32; d <<= 1) {
-          const int o = __shfl_up_sync(0xffffffffu, s, d);
-          if (tid >= d) s += o;
-        }
-        if (i < n_exp) first[i] = carry + s - v;
-        carry += __shfl_sync(0xffffffffu, s, 31);
-      }
-      if (tid == 0) {
-        first[n_exp] = carry;
-        work[0] = carry;
-      }
-    }
-    __syncthreads();
-    const int m_tiles = (C + tile_m - 1) / tile_m;
-    for (int e = tid; e < n_exp; e += blockDim.x)
-      for (int s = first[e]; s < first[e + 1]; ++s)
-        work[1 + s] = e * m_tiles + (s - first[e]);
-    return;
+constexpr int kGrLoads = 16;   // split partials a reducing thread has in flight
+
+// one unit of the walk: expert e's row tile t, column tile nt, K split z
+struct GrUnit {
+  int e, t, nt, z, live, k_lo, k_hi, n_kt;
+};
+
+// unit u: the items of one (column tile, split) side by side (a row
+// tile's neighbours are its expert's other row tiles, which share its
+// weights); item s is expert e's row tile s - first[e], e the last expert
+// whose first item is at most s (an empty expert's successor shares its
+// first item, so e has items)
+__device__ __forceinline__ GrUnit gr_unit(long long u, const int* first,
+                                          const int* live, int n_exp,
+                                          int count, int n_tiles,
+                                          int k_chunk, int K) {
+  GrUnit w;
+  const int s = (int)(u % count);
+  const int rest = (int)(u / count);
+  w.nt = rest % n_tiles;
+  w.z = rest / n_tiles;
+  int lo = 0, hi = n_exp - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (first[mid] <= s) lo = mid; else hi = mid - 1;
   }
-  const int e = blockIdx.x / C, r = blockIdx.x % C;
-  const size_t row = blockIdx.x;
-  if (r >= min(max(rows[e], 0), C)) {
-    if (out != nullptr)
-      for (int c = tid; c < N; c += blockDim.x) out[row * N + c] = 0.0f;
-    return;
-  }
-  if (vec) {
-    const float4* src = reinterpret_cast<const float4*>(a + row * K);
-    float4* h4 = reinterpret_cast<float4*>(hi + row * K);
-    float4* l4 = reinterpret_cast<float4*>(lo + row * K);
-    for (int i = tid; i < K / 4; i += blockDim.x) {
-      const float4 v = src[i];
-      float4 h, l;
-      split_tf32(v.x, h.x, l.x);
-      split_tf32(v.y, h.y, l.y);
-      split_tf32(v.z, h.z, l.z);
-      split_tf32(v.w, h.w, l.w);
-      h4[i] = h;
-      l4[i] = l;
-    }
-  } else {
-    for (int i = tid; i < K; i += blockDim.x)
-      split_tf32(a[row * K + i], hi[row * K + i], lo[row * K + i]);
+  w.e = lo;
+  w.t = s - first[lo];
+  w.live = live[lo];
+  w.k_lo = w.z * k_chunk;
+  w.k_hi = min(K, w.k_lo + k_chunk);
+  w.n_kt = (w.k_hi - w.k_lo + kTcBK - 1) / kTcBK;
+  return w;
+}
+
+// The first `rows` rows of a raw activation stage into their TF32 parts
+// (split_tf32, the function qmm_split_a applies): a_hi in place, a_lo into
+// `al`.  The rows past them are zero-filled in `as` and never stored, and
+// an mma row depends on its own A row alone, so their a_lo is not read
+// into any stored output.
+template <int BM>
+__device__ __forceinline__ void gr_split_rows(float* as, float* al,
+                                              int rows) {
+  for (int c = threadIdx.x; c < rows * kTcBK; c += TcShape<BM>::kThreads) {
+    const int i = (c / kTcBK) * kTcAStride + c % kTcBK;
+    float hi, lo;
+    split_tf32(as[i], hi, lo);
+    as[i] = hi;
+    al[i] = lo;
   }
 }
 
 template <typename TB, int E, int M, int BM>
 __global__ void __launch_bounds__(TcShape<BM>::kThreads,
                                   TcShape<BM>::kMinBlocks)
-qmm_tc_grouped(const float* __restrict__ a_hi,
-               const float* __restrict__ a_lo, const TB* __restrict__ b,
-               float* __restrict__ out, float* __restrict__ ws,
-               const int* __restrict__ rows, const int* __restrict__ work,
-               int n_exp, int C, int K, int N, int k_chunk, int splits,
-               int aligned) {
+qmm_tc_grouped(const float* __restrict__ a, const TB* __restrict__ b,
+               const TB* __restrict__ g, float* __restrict__ out,
+               float* __restrict__ ws, int* __restrict__ counts,
+               const int* __restrict__ rows, Epilogue ep, int n_exp, int C,
+               int K, int N, int k_chunk, int splits, int aligned) {
+  using S = TcShape<BM>;
+  constexpr int kMT = S::kMT, kThreads = S::kThreads;
+  constexpr int kStages = S::kStages;
+  constexpr int kItem = sizeof(TB);
+  constexpr int kAStage = BM * kTcAStride;                  // floats
+  constexpr int kBStage = kTcBK * (kTcBN * kItem + kTcBPad);  // bytes
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int count = work[0];
-  const int n_tiles = (N + kTcBN - 1) / kTcBN;
-  const int m_tiles = (C + BM - 1) / BM;
-  const long long units = (long long)count * n_tiles * splits;
-  const Epilogue ep{nullptr, kNone, 0, 0, false};
-  const size_t plane = (size_t)n_exp * C * N;
-  // the items of one (column tile, split) side by side: a row tile's
-  // neighbours are its expert's other row tiles, which share its weights
-  for (long long u = blockIdx.x; u < units; u += gridDim.x) {
-    const int item = work[1 + (int)(u % count)];
-    const int rest = (int)(u / count);
-    const int nt = rest % n_tiles, z = rest / n_tiles;
-    const int e = item / m_tiles, t = item % m_tiles;
-    const int live = min(max(rows[e], 0), C);
-    __syncthreads();   // the last unit's reads of the stages are done
-    tc_tile<TB, E, M, BM>(
-        smem_raw, a_hi + (size_t)e * C * K, a_lo + (size_t)e * C * K,
-        b + (size_t)e * K * N, nullptr, out + (size_t)e * C * N,
-        ws != nullptr ? ws + (size_t)e * C * N : nullptr, ep, live, K, N,
-        k_chunk, aligned, 1, t * BM, nt * kTcBN, z, splits, plane);
-  }
-}
+  __shared__ int last;
+  float* As = reinterpret_cast<float*>(smem_raw);   // [stage][BM][stride]
+  float* Al = As + kStages * kAStage;               // a_lo of one tile
+  unsigned char* Bs = reinterpret_cast<unsigned char*>(Al + kAStage);
+  int* first = reinterpret_cast<int*>(Bs + kStages * kBStage);
+  int* live = first + n_exp + 1;
 
-__global__ void qmm_grouped_splitk(const float* __restrict__ ws,
-                                   float* __restrict__ out,
-                                   const int* __restrict__ rows, int C,
-                                   int N, int splits, size_t plane,
-                                   int vec) {
-  const int e = blockIdx.x / C, r = blockIdx.x % C;
-  const bool live = r < min(max(rows[e], 0), C);
-  const size_t base = (size_t)blockIdx.x * N;
-  if (vec) {
-    float4* o4 = reinterpret_cast<float4*>(out + base);
-    for (int c = threadIdx.x; c < N / 4; c += blockDim.x) {
-      float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      for (int z = 0; live && z < splits; ++z) {
-        const float4 v =
-            reinterpret_cast<const float4*>(ws + z * plane + base)[c];
-        s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
+  const bool gated = g != nullptr;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int wm0 = (warp / 4) * 16 * kMT;
+  const int wn0 = (warp % 4) * (gated ? 16 : 32);   // warp's first output
+  const int boff = gated ? (wn0 + 2 * gid) * kItem : (wn0 + 4 * gid) * kItem;
+  const int bn = gated ? kTcBN / 2 : kTcBN;         // output columns a tile
+  const int n_tiles = (N + bn - 1) / bn;
+  const int m_tiles = (C + BM - 1) / BM;
+  const size_t plane = (size_t)n_exp * C * N;
+
+  // the work list: kept rows and row tiles an expert, scanned by warp 0
+  for (int e = tid; e < n_exp; e += kThreads) {
+    const int l = min(max(rows[e], 0), C);
+    live[e] = l;
+    first[e] = (l + BM - 1) / BM;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int carry = 0;
+    for (int base = 0; base < n_exp; base += 32) {
+      const int i = base + lane;
+      const int v = i < n_exp ? first[i] : 0;
+      int s = v;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int o = __shfl_up_sync(0xffffffffu, s, d);
+        if (lane >= d) s += o;
       }
-      o4[c] = s;
+      if (i < n_exp) first[i] = carry + s - v;
+      carry += __shfl_sync(0xffffffffu, s, 31);
     }
-  } else {
-    for (int c = threadIdx.x; c < N; c += blockDim.x) {
-      float s = 0.0f;
-      for (int z = 0; live && z < splits; ++z) s += ws[z * plane + base + c];
-      out[base + c] = s;
+    if (lane == 0) first[n_exp] = carry;
+  }
+  __syncthreads();
+  const int count = first[n_exp];
+  const long long units = (long long)count * n_tiles * splits;
+  auto unit = [&](long long u) {
+    return gr_unit(u, first, live, n_exp, count, n_tiles, k_chunk, K);
+  };
+
+  // stage `st` <- K tile `kt` of unit w (the activation as it is, rows
+  // past the expert's kept rows zero-filled)
+  auto load_tile = [&](const GrUnit& w, int kt, int st) {
+    const int k0 = w.k_lo + kt * kTcBK;
+    tc_load_a<BM>(As + st * kAStage, a + (size_t)w.e * C * K, w.live, K,
+                  w.t * BM, k0, w.k_hi, aligned);
+    tc_load_b<TB, BM>(Bs + st * kBStage, b + (size_t)w.e * K * N,
+                      gated ? g + (size_t)w.e * K * N : nullptr, N,
+                      w.nt * bn, k0, w.k_hi, aligned);
+  };
+
+  float acc[kMT][4][4], tot[kMT][4][4];
+  auto clear = [&]() {
+#pragma unroll
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) { acc[i][p][j] = 0.0f; tot[i][p][j] = 0.0f; }
+  };
+
+  // the sum of a tile's split partials in split order from 0.0f, then
+  // the epilogue (qmm_splitk's arithmetic), by the tile's last arrival;
+  // a thread issues kGrLoads partial loads before it adds the first, so
+  // their round trips to L2 overlap
+  auto reduce = [&](const GrUnit& w) {
+    const int m0 = w.t * BM, n0 = w.nt * bn;
+    float* outE = out + (size_t)w.e * C * N;
+    const float* wsE = ws + (size_t)w.e * C * N;
+    const int nr = min(BM, w.live - m0), nc = min(bn, N - n0);
+    auto in_order = [&](const float* p, size_t idx) {
+      float sum = 0.0f;
+      for (int z0 = 0; z0 < splits; z0 += kGrLoads) {
+        float v[kGrLoads];
+#pragma unroll
+        for (int j = 0; j < kGrLoads; ++j)
+          v[j] = z0 + j < splits ? __ldcg(p + (z0 + j) * plane + idx) : 0.0f;
+#pragma unroll
+        for (int j = 0; j < kGrLoads; ++j)
+          if (z0 + j < splits) sum += v[j];
+      }
+      return sum;
+    };
+    for (int o = tid; o < nr * nc; o += kThreads) {
+      const int r = o / nc, c = o % nc;
+      const size_t idx = (size_t)(m0 + r) * N + n0 + c;
+      const float sum = in_order(wsE, idx);
+      const float gsum = gated ? in_order(wsE + splits * plane, idx) : 0.0f;
+      outE[idx] = ep(sum, gsum, n0 + c);
+    }
+  };
+
+  // A unit's split arrives after its partials are stored: the barrier
+  // orders every thread's stores before thread 0's fence, whose gpu scope
+  // takes them along (a semaphore's release, as CUTLASS's serial split-K
+  // reduction does it), then thread 0 bumps the tile's counter.  The
+  // count it gets back is read one unit later (its round trip overlaps
+  // the next unit's work); the same fence then orders the other splits'
+  // partials before the block's reads of them, should this one be last.
+  GrUnit pend{};
+  bool pending = false;
+  int pend_count = 0;                  // thread 0's: the counter it saw
+  auto arrive = [&](const GrUnit* w) {
+    __syncthreads();
+    if (tid == 0) {
+      last = 0;
+      if (pending) {
+        last = pend_count == splits - 1;
+        if (last)                      // every split has arrived
+          counts[(pend.e * m_tiles + pend.t) * n_tiles + pend.nt] = 0;
+      }
+      __threadfence();
+      if (w != nullptr)
+        pend_count = atomicAdd(
+            counts + (w->e * m_tiles + w->t) * n_tiles + w->nt, 1);
+    }
+    __syncthreads();
+    if (last) reduce(pend);
+    pending = w != nullptr;
+    if (w != nullptr) pend = *w;
+  };
+
+  // unit w's outputs (qmm_tc's stores: the result, or the split's
+  // partials and their arrival)
+  auto finish = [&](const GrUnit& w) {
+    tc_store<BM>(tot, acc, out + (size_t)w.e * C * N,
+                 ws != nullptr ? ws + (size_t)w.e * C * N : nullptr, ep,
+                 gated, w.live, N, w.t * BM, w.nt * bn, wm0, wn0, gid, tig,
+                 w.z, splits, plane);
+    if (splits > 1) arrive(&w);
+  };
+
+  // the copy cursor runs kStages - 1 K tiles ahead of the compute
+  // cursor, across unit boundaries
+  long long ul = blockIdx.x;
+  GrUnit wl{};
+  int ktl = 0;
+  if (ul < units) wl = unit(ul);
+  auto issue = [&](int st) {
+    if (ul >= units) return;
+    load_tile(wl, ktl, st);
+    if (++ktl == wl.n_kt) {
+      ktl = 0;
+      ul += gridDim.x;
+      if (ul < units) wl = unit(ul);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    issue(s);
+    cp_async_commit();
+  }
+
+  // the dead rows' +0, while the first copies are in flight
+  for (int R = blockIdx.x; R < n_exp * C; R += gridDim.x) {
+    if (R % C < live[R / C]) continue;
+    float* o = out + (size_t)R * N;
+    if ((N & 3) == 0) {
+      for (int c = tid; c < N / 4; c += kThreads)
+        reinterpret_cast<float4*>(o)[c] = make_float4(0.0f, 0.0f, 0.0f,
+                                                      0.0f);
+    } else {
+      for (int c = tid; c < N; c += kThreads) o[c] = 0.0f;
     }
   }
+
+  long long uc = blockIdx.x;
+  GrUnit wc{};
+  if (uc < units) wc = unit(uc);
+  int ktc = 0, step = 0;
+  clear();
+  while (uc < units) {
+    cp_async_wait<kStages - 2>();      // this thread's copies of this tile
+    __syncthreads();                   // visible; the last tile consumed
+    issue((step + kStages - 1) % kStages);
+    cp_async_commit();
+    const int st = step % kStages;
+    // each kept activation value split once, for all four warps
+    gr_split_rows<BM>(As + st * kAStage, Al, min(BM, wc.live - wc.t * BM));
+    __syncthreads();
+    tc_mma_tile<TB, E, M, BM, false>(As + st * kAStage, Al,
+                                     Bs + st * kBStage + boff, gated, wm0,
+                                     gid, tig, acc);
+    tc_promote<BM>(tot, acc);
+    ++step;
+    if (++ktc == wc.n_kt) {
+      finish(wc);
+      clear();
+      ktc = 0;
+      uc += gridDim.x;
+      if (uc < units) wc = unit(uc);
+    }
+  }
+  cp_async_wait<0>();
+  if (pending) arrive(nullptr);        // the last unit's arrival
 }
 
 template <typename TB, int E, int M, int BM>
-cudaError_t launch_grouped_bm(const float* a_hi, const float* a_lo,
-                              const TB* b, float* out, float* ws,
-                              const int* rows, const int* work, int n_exp,
+cudaError_t launch_grouped_bm(const float* a, const TB* b, const TB* g,
+                              float* out, float* ws, int* counts,
+                              const int* rows, const Epilogue& ep, int n_exp,
                               int C, int K, int N, int splits, int k_chunk,
                               int aligned, int n_sm, cudaStream_t stream) {
   auto kern = qmm_tc_grouped<TB, E, M, BM>;
-  constexpr size_t smem = tc_smem_bytes<TB, BM>();
-  static int per_sm = 0;   // blocks an SM holds, asked once
-  if (per_sm == 0) {
+  const size_t smem =
+      gr_stage_bytes<TB, BM>() + (2 * (size_t)n_exp + 1) * sizeof(int);
+  static size_t sized = 0;   // the shared memory last asked for
+  static int per_sm = 0;     // blocks an SM holds with it
+  if (smem != sized) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
@@ -1045,58 +1277,43 @@ cudaError_t launch_grouped_bm(const float* a_hi, const float* a_lo,
         &held, kern, TcShape<BM>::kThreads, smem);
     if (e != cudaSuccess) return e;
     per_sm = held > 0 ? held : 1;
+    sized = smem;
   }
+  const int bn = g != nullptr ? kTcBN / 2 : kTcBN;
   const long long most = (long long)n_exp * ((C + BM - 1) / BM) *
-                         ((N + kTcBN - 1) / kTcBN) * splits;
+                         ((N + bn - 1) / bn) * splits;
   const long long held = (long long)per_sm * n_sm;
   const int grid = (int)(most < held ? most : held);
   kern<<<grid, TcShape<BM>::kThreads, smem, stream>>>(
-      a_hi, a_lo, b, out, ws, rows, work, n_exp, C, K, N, k_chunk, splits,
+      a, b, g, out, ws, counts, rows, ep, n_exp, C, K, N, k_chunk, splits,
       aligned);
   return cudaGetLastError();
 }
 
-// asplit: 2 * E * C * K floats; work: 1 + E * ceil(C / tile) ints; ws:
-// splits * E * C * N floats when splits > 1
+// ws: (g ? 2 : 1) * splits * E * C * N floats when splits > 1; counts: E *
+// ceil(C / tile) * ceil(N / (g ? 64 : 128)) ints, all 0 (left at 0)
 template <typename TB, int E, int M>
-cudaError_t launch_grouped(const float* a, float* asplit, const void* bv,
-                           float* out, float* ws, const int* rows, int* work,
-                           int n_exp, int C, int K, int N, int splits,
-                           int k_chunk, int n_sm, cudaStream_t stream) {
+cudaError_t launch_grouped(const float* a, const void* bv, const void* gv,
+                           float* out, float* ws, int* counts,
+                           const int* rows, const Epilogue& ep, int n_exp,
+                           int C, int K, int N, int splits, int k_chunk,
+                           int n_sm, cudaStream_t stream) {
   const TB* b = static_cast<const TB*>(bv);
-  const size_t n = (size_t)n_exp * C * K;
-  float* a_hi = asplit;
-  float* a_lo = asplit + n;
-  const int tile_m = C <= 16 ? 16 : C <= 32 ? 32 : 64;
-  const int vec = K % 4 == 0 &&
-      (((uintptr_t)a | (uintptr_t)a_hi | (uintptr_t)a_lo) & 15u) == 0;
-  qmm_grouped_prep<<<n_exp * C + 1, kGrThreads,
-                     (n_exp + 1) * sizeof(int), stream>>>(
-      a, a_hi, a_lo, rows, work, splits == 1 ? out : nullptr, n_exp, C, K,
-      N, tile_m, vec);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
+  const TB* g = static_cast<const TB*>(gv);
   const int aligned =
       K % 4 == 0 && (N * (int)sizeof(TB)) % 16 == 0 &&
-      (((uintptr_t)a_hi | (uintptr_t)a_lo | (uintptr_t)b) & 15u) == 0;
-  if (tile_m == 16)
-    e = launch_grouped_bm<TB, E, M, 16>(a_hi, a_lo, b, out, ws, rows, work,
-                                        n_exp, C, K, N, splits, k_chunk,
-                                        aligned, n_sm, stream);
-  else if (tile_m == 32)
-    e = launch_grouped_bm<TB, E, M, 32>(a_hi, a_lo, b, out, ws, rows, work,
-                                        n_exp, C, K, N, splits, k_chunk,
-                                        aligned, n_sm, stream);
-  else
-    e = launch_grouped_bm<TB, E, M, 64>(a_hi, a_lo, b, out, ws, rows, work,
-                                        n_exp, C, K, N, splits, k_chunk,
-                                        aligned, n_sm, stream);
-  if (e != cudaSuccess || splits == 1) return e;
-  const int vec_out = N % 4 == 0 &&
-      (((uintptr_t)out | (uintptr_t)ws) & 15u) == 0;
-  qmm_grouped_splitk<<<n_exp * C, kGrThreads, 0, stream>>>(
-      ws, out, rows, C, N, splits, (size_t)n_exp * C * N, vec_out);
-  return cudaGetLastError();
+      (((uintptr_t)a | (uintptr_t)b | (uintptr_t)g) & 15u) == 0;
+  if (C <= 16)
+    return launch_grouped_bm<TB, E, M, 16>(a, b, g, out, ws, counts, rows,
+                                           ep, n_exp, C, K, N, splits,
+                                           k_chunk, aligned, n_sm, stream);
+  if (C <= 32)
+    return launch_grouped_bm<TB, E, M, 32>(a, b, g, out, ws, counts, rows,
+                                           ep, n_exp, C, K, N, splits,
+                                           k_chunk, aligned, n_sm, stream);
+  return launch_grouped_bm<TB, E, M, 64>(a, b, g, out, ws, counts, rows, ep,
+                                         n_exp, C, K, N, splits, k_chunk,
+                                         aligned, n_sm, stream);
 }
 
 #endif  // QMM_TC_UNIT
@@ -1581,36 +1798,39 @@ extern "C" int qmm_tc_launch(const void* a, void* asplit, const void* b,
   }
 }
 
-// The MoE expert product (qmm_tc_grouped above): a (E, C, K) f32, b
-// (E, K, N) in fmt_code 1-4, rows (E,) int32, out (E, C, N).  asplit:
-// 2 * E * C * K floats; work: 1 + E * ceil(C / tile) ints (tile = 16, 32
-// or 64 by C); splits > 1 needs ws (splits * E * C * N floats), k_chunk a
-// multiple of 32 and (splits - 1) * k_chunk < K.  n_sm: the card's SMs.
-extern "C" int qmm_tc_grouped_launch(const void* a, void* asplit,
-                                     const void* b, void* out, void* ws,
-                                     const void* rows, void* work, int n_exp,
-                                     int C, int K, int N, int splits,
-                                     int k_chunk, int fmt_code, int n_sm,
+// The MoE expert product (qmm_tc_grouped above), one kernel a call: a
+// (E, C, K) f32, b and g (E, K, N) in fmt_code 1-4 (g NULL: ungated),
+// rows (E,) int32, out (E, C, N) f32; act, out_e, out_m: the epilogue as
+// qmm_tc_launch's.  splits > 1 needs ws ((g ? 2 : 1) * splits * E * C * N
+// floats), counts (E * ceil(C / tile) * ceil(N / (g ? 64 : 128)) ints,
+// all 0, which the kernel leaves at 0; tile = 16, 32 or 64 by C), k_chunk
+// a multiple of 32 and (splits - 1) * k_chunk < K.  n_sm: the card's SMs.
+extern "C" int qmm_tc_grouped_launch(const void* a, const void* b,
+                                     const void* g, void* out, void* ws,
+                                     void* counts, const void* rows,
+                                     int n_exp, int C, int K, int N,
+                                     int splits, int k_chunk, int fmt_code,
+                                     int act, int out_e, int out_m, int n_sm,
                                      void* stream) {
   if (n_exp < 1 || C < 1 || K < 1 || N < 1 || n_sm < 1 || a == nullptr ||
-      asplit == nullptr || rows == nullptr || work == nullptr ||
-      splits < 1 || k_chunk < 1 ||
-      (splits > 1 && (ws == nullptr || k_chunk % kTcBK != 0 ||
+      b == nullptr || out == nullptr || rows == nullptr || splits < 1 ||
+      k_chunk < 1 || act < 0 || act > 3 ||
+      (splits > 1 && (ws == nullptr || counts == nullptr ||
+                      k_chunk % kTcBK != 0 ||
                       (long long)(splits - 1) * k_chunk >= K)))
     return (int)cudaErrorInvalidValue;
   if (splits == 1) k_chunk = K;
   const float* A = static_cast<const float*>(a);
-  float* AS = static_cast<float*>(asplit);
   float* O = static_cast<float*>(out);
   float* W = static_cast<float*>(ws);
+  int* CN = static_cast<int*>(counts);
   const int* R = static_cast<const int*>(rows);
-  int* WK = static_cast<int*>(work);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (fmt_code) {
-    case 1: return qmm_tc_grouped_fmt1(A, AS, b, O, W, R, WK, n_exp, C, K, N, splits, k_chunk, n_sm, s);
-    case 2: return qmm_tc_grouped_fmt2(A, AS, b, O, W, R, WK, n_exp, C, K, N, splits, k_chunk, n_sm, s);
-    case 3: return qmm_tc_grouped_fmt3(A, AS, b, O, W, R, WK, n_exp, C, K, N, splits, k_chunk, n_sm, s);
-    case 4: return qmm_tc_grouped_fmt4(A, AS, b, O, W, R, WK, n_exp, C, K, N, splits, k_chunk, n_sm, s);
+    case 1: return qmm_tc_grouped_fmt1(A, b, g, O, W, CN, R, n_exp, C, K, N, splits, k_chunk, act, out_e, out_m, n_sm, s);
+    case 2: return qmm_tc_grouped_fmt2(A, b, g, O, W, CN, R, n_exp, C, K, N, splits, k_chunk, act, out_e, out_m, n_sm, s);
+    case 3: return qmm_tc_grouped_fmt3(A, b, g, O, W, CN, R, n_exp, C, K, N, splits, k_chunk, act, out_e, out_m, n_sm, s);
+    case 4: return qmm_tc_grouped_fmt4(A, b, g, O, W, CN, R, n_exp, C, K, N, splits, k_chunk, act, out_e, out_m, n_sm, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1643,7 +1863,8 @@ extern "C" int QMM_TC_FN(QMM_TC_PARAMS) {
 }
 
 extern "C" int QMM_GROUPED_FN(QMM_GROUPED_PARAMS) {
-  return (int)launch_grouped<QMM_TC_FMT>(a, asplit, b, out, ws, rows, work,
+  const Epilogue ep{nullptr, act, out_e, out_m, g != nullptr};
+  return (int)launch_grouped<QMM_TC_FMT>(a, b, g, out, ws, counts, rows, ep,
                                          n_exp, C, K, N, splits, k_chunk,
                                          n_sm, stream);
 }

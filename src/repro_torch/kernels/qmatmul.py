@@ -38,11 +38,14 @@ same order).
 
 The MoE expert product ``qmm_grouped(a, payload, fmt, rows)`` (a (E, C,
 K), packed (E, K, N), rows (E,) int32) is one ``qmm_tc_grouped_launch``
-for the four packed formats: expert e's rows below ``rows[e]`` get
-``a[e] @ B[e]``, the rest +0, and only experts with a kept row stream
-their weights.  Its K split is the per-expert product's
-(``grouped_plan``), so every row equals the per-expert ``qmm_tc`` loop
-(``qmm_grouped_loop``) bit for bit.
+(one device kernel) for the four packed formats: expert e's rows below
+``rows[e]`` get ``a[e] @ B[e]``, the rest +0, and only experts with a
+kept row stream their weights.  ``qmm_grouped_ffn(a, w_in, w_gate, fmt,
+rows, act=, out_fmt=)`` is its gated form, ``act(a[e] @ W_in[e]) * (a[e]
+@ W_gate[e])`` in the same one launch with ``qmm_ffn``'s epilogue.  Their
+K split is the per-expert product's (``grouped_plan``), so every row
+equals the per-expert loop (``qmm_grouped_loop``, ``qmm_grouped_ffn_loop``:
+one ``qmm_tc`` launch an expert) bit for bit.
 """
 from __future__ import annotations
 
@@ -63,7 +66,7 @@ ACTS = {None: 0, "silu": 1, "gelu": 2, "relu2": 3}
 LIB = _build.register(_build.KernelLib("qmm", {
     "qmm_launch": [_build.P] * 7 + [_build.I32] * 15 + [_build.P],
     "qmm_tc_launch": [_build.P] * 7 + [_build.I32] * 13 + [_build.P],
-    "qmm_tc_grouped_launch": [_build.P] * 7 + [_build.I32] * 8
+    "qmm_tc_grouped_launch": [_build.P] * 7 + [_build.I32] * 11
     + [_build.P],
 }, units=[(f"-DQMM_UNIT={i}",) for i in range(7)]))
 TC_FMT_CODES = (1, 2, 3, 4)   # binary8, binary8alt, binary16, binary16alt
@@ -323,24 +326,42 @@ def qmm_hbm_bytes(M: int, K: int, N: int, fmt_w, *, gated: bool = False,
     return total + (N * 4 if bias else 0)
 
 
-def grouped_plan(C: int, K: int, N: int, n_sm: int) -> tuple:
+def grouped_plan(C: int, K: int, N: int, n_sm: int,
+                 gated: bool = False) -> tuple:
     """(row tile, K splits, K rows a split) of the grouped expert
     product: the row tile follows the capacity C (``tc_tile_m``) and the
-    K split is ``tiled_splits(K, N)``, the per-expert product's, so an
-    expert's rows are summed in the order of its own qmm_tc launch."""
-    return (tc_tile_m(C),) + tiled_splits(K, N, n_sm)
+    K split is ``tiled_splits(K, N, gated)``, the per-expert product's,
+    so an expert's rows are summed in the order of its own qmm_tc
+    launch."""
+    return (tc_tile_m(C),) + tiled_splits(K, N, n_sm, gated)
+
+
+def _dead_rows_zero(out, rows):
+    C = out.shape[1]
+    keep = torch.arange(C, device=out.device)[None, :] \
+        < rows.to(out.device, torch.int64)[:, None]
+    return torch.where(keep[..., None], out, 0.0)
 
 
 def qmm_grouped_plain(a, payload, fmt, rows) -> torch.Tensor:
     """The plain version of :func:`qmm_grouped`: ``qmatmul_plain`` of
     each expert's block, rows past its count set to +0."""
     fmt = get_format(fmt)
-    E, C = a.shape[:2]
     out = torch.stack([qmatmul_plain(a[e], payload[e], None, fmt)
-                       for e in range(E)])
-    keep = torch.arange(C, device=a.device)[None, :] \
-        < rows.to(a.device, torch.int64)[:, None]
-    return torch.where(keep[..., None], out, 0.0)
+                       for e in range(a.shape[0])])
+    return _dead_rows_zero(out, rows)
+
+
+def qmm_grouped_ffn_plain(a, w_in, w_gate, fmt, rows, *, act="silu",
+                          out_fmt=None) -> torch.Tensor:
+    """The plain version of :func:`qmm_grouped_ffn`: ``qmatmul_plain``
+    with the gate of each expert's block, rows past its count +0."""
+    fmt = get_format(fmt)
+    out = torch.stack([qmatmul_plain(
+        a[e], w_in[e], None, fmt, out_fmt,
+        gate_payload=None if w_gate is None else w_gate[e], act=act)
+        for e in range(a.shape[0])])
+    return _dead_rows_zero(out, rows)
 
 
 def qmm_grouped_loop(a, payload, fmt) -> torch.Tensor:
@@ -353,33 +374,90 @@ def qmm_grouped_loop(a, payload, fmt) -> torch.Tensor:
                         for e in range(a.shape[0])])
 
 
+def qmm_grouped_ffn_loop(a, w_in, w_gate, fmt, *, act="silu",
+                         out_fmt=None) -> torch.Tensor:
+    """One ``qmm_ffn`` per expert, every row of every expert: on the card
+    the exact oracle of :func:`qmm_grouped_ffn` (its kept rows equal
+    these bit for bit, and its dead rows the +0 these give a zero row)."""
+    a = a.to(torch.float32)
+    return torch.stack([qmm_ffn(a[e].contiguous(), w_in[e],
+                                None if w_gate is None else w_gate[e], fmt,
+                                act=act, out_fmt=out_fmt)
+                        for e in range(a.shape[0])])
+
+
+def _grouped_args(what, a, payload, rows):
+    E, C, K = a.shape
+    if tuple(payload.shape[:2]) != (E, K) or tuple(rows.shape) != (E,):
+        raise ValueError(f"{what}: a {tuple(a.shape)}, weights "
+                         f"{tuple(payload.shape)}, rows {tuple(rows.shape)}")
+
+
 def qmm_grouped(a, payload, fmt, rows) -> torch.Tensor:
     """The MoE expert product: ``a`` (E, C, K) f32, ``payload`` (E, K, N)
     packed in ``fmt`` (binary8, binary8alt, binary16 or binary16alt),
     ``rows`` (E,) int32 kept rows an expert.  Expert e's rows below
     ``rows[e]`` get ``a[e] @ B[e]`` in f32, the rest +0.  On a CUDA tensor
-    one ``qmm_tc_grouped_launch`` that reads the counts on the device
-    (no host synchronisation) and streams only experts with a kept row;
-    on a CPU tensor the plain version."""
+    one ``qmm_tc_grouped_launch`` (one device kernel) that reads the
+    counts on the device (no host synchronisation) and streams only
+    experts with a kept row; on a CPU tensor the plain version."""
     fmt = get_format(fmt)
-    E, C, K = a.shape
-    if tuple(payload.shape[:2]) != (E, K) or tuple(rows.shape) != (E,):
-        raise ValueError(f"qmm_grouped: a {tuple(a.shape)}, weights "
-                         f"{tuple(payload.shape)}, rows {tuple(rows.shape)}")
+    _grouped_args("qmm_grouped", a, payload, rows)
     if a.device.type == "cpu":
         return qmm_grouped_plain(a, payload, fmt, rows)
     return _qmm_grouped_cuda(a, payload, fmt, rows)
 
 
-def _qmm_grouped_cuda(a, b, fmt: FpFormat, rows) -> torch.Tensor:
+def qmm_grouped_ffn(a, w_in, w_gate, fmt, rows, *, act: str = "silu",
+                    out_fmt: Optional[FpFormat] = None) -> torch.Tensor:
+    """The MoE gated pair in one launch, the grouped ``qmm_ffn``: expert
+    e's rows below ``rows[e]`` get ``quantize_{out_fmt}(act(a[e] @
+    W_in[e]) * (a[e] @ W_gate[e]))``, the rest +0 (``w_gate`` None: the
+    ungated ``act(a[e] @ W_in[e])``).  Arguments as :func:`qmm_grouped`;
+    on a CUDA tensor one ``qmm_tc_grouped_launch``, on a CPU tensor the
+    plain version."""
+    fmt = get_format(fmt)
+    out_fmt = get_format(out_fmt) if out_fmt is not None else None
+    _grouped_args("qmm_grouped_ffn", a, w_in, rows)
+    if w_gate is not None and w_gate.shape != w_in.shape:
+        raise ValueError(f"qmm_grouped_ffn: w_gate {tuple(w_gate.shape)} "
+                         f"!= w_in {tuple(w_in.shape)}")
+    if act not in ACTS:
+        raise ValueError(act)
+    if a.device.type == "cpu":
+        return qmm_grouped_ffn_plain(a, w_in, w_gate, fmt, rows, act=act,
+                                     out_fmt=out_fmt)
+    return _qmm_grouped_cuda(a, w_in, fmt, rows, w_gate, act, out_fmt)
+
+
+# per-tile arrival counters of the grouped kernel's split-K reduce, one
+# zeroed int32 buffer a (device, stream): the kernel leaves every counter
+# at 0, so calls in order on one stream share it, and calls on two
+# streams, which may run at once, never do
+_TILE_COUNTS: dict = {}
+
+
+def _tile_counts(device, n: int) -> torch.Tensor:
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    t = _TILE_COUNTS.get(key)
+    if t is None or t.numel() < n:
+        t = torch.zeros((max(n, 4096),), dtype=torch.int32, device=device)
+        _TILE_COUNTS[key] = t
+    return t
+
+
+def _qmm_grouped_cuda(a, b, fmt: FpFormat, rows, gate=None, act=None,
+                      out_fmt: Optional[FpFormat] = None) -> torch.Tensor:
     E, C, K = a.shape
     N = b.shape[2]
     code = _build.fmt_code(fmt)
     if code not in TC_FMT_CODES:
         raise ValueError(f"qmm_grouped: {fmt.name} weights take the "
                          f"per-expert loop (qmm_grouped_loop)")
-    _build.check_operands("qmm_grouped", a.device, a=a, b=b, rows=rows)
+    _build.check_operands("qmm_grouped", a.device, a=a, b=b, gate=gate,
+                          rows=rows)
     if a.dtype != torch.float32 or b.dtype != fmt.container_dtype \
+            or (gate is not None and gate.dtype != b.dtype) \
             or rows.dtype != torch.int32:
         raise ValueError(f"qmm_grouped: want f32 a, {fmt.container_dtype} "
                          f"weights, int32 rows; got {a.dtype}, {b.dtype}, "
@@ -388,25 +466,32 @@ def _qmm_grouped_cuda(a, b, fmt: FpFormat, rows) -> torch.Tensor:
     if out.numel() == 0:
         return out
     n_sm = _build.sm_count(a.device)
-    tile_m, splits, k_chunk = grouped_plan(C, K, N, n_sm)
-    asplit = torch.empty((2, E, C, K), dtype=torch.float32, device=a.device)
-    ws = torch.empty((splits, E, C, N), dtype=torch.float32,
-                     device=a.device) if splits > 1 else None
-    work = torch.empty((1 + E * -(-C // tile_m),), dtype=torch.int32,
-                       device=a.device)
+    gated = gate is not None
+    tile_m, splits, k_chunk = grouped_plan(C, K, N, n_sm, gated)
+    ws = counts = None
+    if splits > 1:
+        ws = torch.empty(((2 if gated else 1) * splits, E, C, N),
+                         dtype=torch.float32, device=a.device)
+        n_tiles = -(-N // (TC_BN // 2 if gated else TC_BN))
+        counts = _tile_counts(a.device, E * -(-C // tile_m) * n_tiles)
+    oe, om = (out_fmt.e, out_fmt.m) if out_fmt is not None else (0, 0)
     p = _build.ptr
-    LIB.launch("qmm_tc_grouped_launch", p(a), p(asplit), p(b), p(out),
-               p(ws), p(rows), p(work), E, C, K, N, splits, k_chunk, code,
-               n_sm, _build.stream_ptr(a.device), kernel="qmm_tc_grouped")
+    LIB.launch("qmm_tc_grouped_launch", p(a), p(b), p(gate), p(out), p(ws),
+               p(counts), p(rows), E, C, K, N, splits, k_chunk, code,
+               ACTS[act], oe, om, n_sm, _build.stream_ptr(a.device),
+               kernel="qmm_tc_grouped_ffn" if gated or act is not None
+               else "qmm_tc_grouped")
     return out
 
 
-def qmm_grouped_hbm_bytes(rows, K: int, N: int, fmt, C: int) -> int:
+def qmm_grouped_hbm_bytes(rows, K: int, N: int, fmt, C: int,
+                          gated: bool = False) -> int:
     """Bytes one grouped product of capacity ``C`` must move: the weights
-    of the experts with a kept row (each read once), the kept rows' f32
-    activations in, and the whole (E, C, N) f32 result out (the dead
-    rows' +0 included)."""
+    of the experts with a kept row (each read once; both of the pair when
+    ``gated``), the kept rows' f32 activations in, and the whole (E, C,
+    N) f32 result out (the dead rows' +0 included)."""
     rows = [int(r) for r in rows]
     item = get_format(fmt).container_bytes
     weights = sum(1 for r in rows if r > 0) * K * N * item
-    return weights + sum(rows) * K * 4 + len(rows) * C * N * 4
+    return weights * (2 if gated else 1) + sum(rows) * K * 4 \
+        + len(rows) * C * N * 4

@@ -1,5 +1,5 @@
-"""rmsnorm in one summation order fixed by d alone: the CUDA kernel
-(``csrc/rmsnorm.cu``) and its plain PyTorch twin.
+"""rmsnorm in one summation order fixed by d alone: the CUDA kernels
+(``csrc/rmsnorm.cu``) and their plain PyTorch twins.
 
 A port-only kernel: the reference computes rmsnorm in XLA.  The port
 needs a row's bits to be free of the rows beside it (a speculative verify
@@ -19,6 +19,12 @@ rounded to nearest:
 :func:`rmsnorm_f32` launches the kernel on a CUDA tensor and runs
 :func:`rmsnorm_plain` on a CPU one.  It returns f32; the caller applies
 the policy's activation cast.
+
+:func:`add_rmsnorm` is the decoder's norm in one launch: the residual
+add before it (``residual_add``), rmsnorm in the same order, and the
+cast to the reading layer's activation dtype, for f32, bf16 and f16
+tensors (``fused_norm_takes``).  Its plain version is those three steps
+(:func:`add_rmsnorm_plain`), and the kernel equals it bit for bit.
 """
 from __future__ import annotations
 
@@ -36,7 +42,12 @@ LIB = _build.register(_build.KernelLib("rmsnorm", {
                        _build.F32, _build.I32, _build.P],
     "layernorm_launch": [_build.P, _build.P, _build.P, _build.P, _build.I64,
                          _build.I32, _build.F32, _build.I32, _build.P],
+    "add_rmsnorm_launch": [_build.P] * 5 + [_build.I64, _build.I32,
+                                            _build.F32] + [_build.I32] * 4
+    + [_build.P],
 }))
+# the dtypes add_rmsnorm's kernel reads and writes (csrc/rmsnorm.cu, Dt)
+DT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def row_mean_plain(v: torch.Tensor) -> torch.Tensor:
@@ -110,3 +121,90 @@ def rmsnorm_hbm_bytes(rows: int, d: int, in_bytes: int) -> int:
     """Bytes one call must move: x read once, gamma (f32) read once, y
     (f32) written once."""
     return rows * d * (in_bytes + 4) + d * 4
+
+
+def residual_add(x, y):
+    """The decoder's residual add: a same-dtype pair adds in that dtype
+    (torch computes in f32 and rounds), else through f32.  torch float8
+    has no arithmetic, so an 8-bit pair adds in f32 and rounds back."""
+    if x.dtype == y.dtype:
+        if x.dtype == torch.float8_e5m2:
+            return (x.to(torch.float32) + y.to(torch.float32)).to(x.dtype)
+        return x + y
+    return x.to(torch.float32) + y.to(torch.float32)
+
+
+def residual_dtype(x_dtype, y_dtype):
+    """The dtype :func:`residual_add` gives (``y_dtype`` None: no add)."""
+    if y_dtype is None or x_dtype == y_dtype:
+        return x_dtype
+    return torch.float32
+
+
+def fused_norm_takes(x_dtype, y_dtype, out_dtype) -> bool:
+    """Whether :func:`add_rmsnorm`'s kernel takes these dtypes: f32, bf16
+    or f16 for x, y (None: no add) and the output.  Any other (an 8-bit
+    residual or activation) takes the three steps apart; the caller
+    chooses before it calls."""
+    return all(dt in DT_CODES for dt in (x_dtype, out_dtype)) \
+        and (y_dtype is None or y_dtype in DT_CODES)
+
+
+def add_rmsnorm_plain(x, y, gamma, out_dtype, eps: float = 1e-6):
+    """The plain version: ``s = residual_add(x, y)`` (``s = x`` when
+    ``y`` is None), then ``rmsnorm_plain(s)`` cast to ``out_dtype``.
+    Returns ``(s, normed)``."""
+    s = x if y is None else residual_add(x, y)
+    return s, rmsnorm_plain(s, gamma, eps).to(out_dtype)
+
+
+def add_rmsnorm(x, y, gamma, out_dtype, eps: float = 1e-6):
+    """The residual stream ``s = x + y`` and its rmsnorm in ``out_dtype``,
+    ``(s, normed)``: one kernel launch on a CUDA tensor (f32, bf16 or f16
+    operands, see :func:`fused_norm_takes`; others raise), the plain
+    version on a CPU one.  ``y`` None normalizes ``x`` alone (``s`` is
+    ``x``)."""
+    if x.device.type == "cpu":
+        return add_rmsnorm_plain(x, y, gamma, out_dtype, eps)
+    return _add_rmsnorm_cuda(x, y, gamma, out_dtype, eps)
+
+
+def _add_rmsnorm_cuda(x, y, gamma, out_dtype, eps):
+    y_dtype = None if y is None else y.dtype
+    if not fused_norm_takes(x.dtype, y_dtype, out_dtype):
+        raise ValueError(f"add_rmsnorm: no kernel for x {x.dtype}, y "
+                         f"{y_dtype}, out {out_dtype}")
+    if y is not None and y.shape != x.shape:
+        raise ValueError(f"add_rmsnorm: x {tuple(x.shape)} and y "
+                         f"{tuple(y.shape)} differ")
+    d = x.shape[-1]
+    x = x.contiguous()
+    y = None if y is None else y.contiguous()
+    g = gamma.to(torch.float32).contiguous()
+    _build.check_operands("add_rmsnorm", x.device, x=x, y=y, gamma=g)
+    if g.shape != (d,):
+        raise ValueError(f"add_rmsnorm: gamma must be ({d},), got "
+                         f"{tuple(g.shape)}")
+    res_dtype = residual_dtype(x.dtype, y_dtype)
+    s = x if y is None else torch.empty(x.shape, dtype=res_dtype,
+                                        device=x.device)
+    out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    rows = x.numel() // d if d else 0
+    if rows == 0:
+        return s, out
+    LIB.launch("add_rmsnorm_launch", _build.ptr(x), _build.ptr(y),
+               _build.ptr(g), _build.ptr(None if y is None else s),
+               _build.ptr(out), rows, d, float(eps), DT_CODES[x.dtype],
+               DT_CODES[y_dtype if y is not None else x.dtype],
+               DT_CODES[res_dtype], DT_CODES[out_dtype],
+               _build.stream_ptr(x.device), kernel="add_rmsnorm")
+    return s, out
+
+
+def add_rmsnorm_hbm_bytes(rows: int, d: int, x_bytes: int, y_bytes: int,
+                          res_bytes: int, out_bytes: int) -> int:
+    """Bytes one :func:`add_rmsnorm` must move: x and y read once, gamma
+    (f32) read once, s and the output written once (``y_bytes`` 0: no
+    add, so neither y nor s)."""
+    add = y_bytes + res_bytes if y_bytes else 0
+    return rows * d * (x_bytes + add + out_bytes) + d * 4

@@ -45,8 +45,9 @@ from repro_torch.kernels import dispatch
 from repro_torch.kernels.layernorm import layernorm_f32
 from repro_torch.kernels.qmatmul import (apply_act, qmatmul, qmm_entry,
                                          qmm_ffn, qmm_grouped,
-                                         qmm_grouped_loop)
-from repro_torch.kernels.rmsnorm import rmsnorm_f32
+                                         qmm_grouped_ffn, qmm_grouped_loop)
+from repro_torch.kernels.rmsnorm import (add_rmsnorm, fused_norm_takes,
+                                         residual_add, rmsnorm_f32)
 
 F32 = torch.float32
 
@@ -205,6 +206,22 @@ def apply_norm(x, p, policy, kind):
     return layernorm(x, p["gamma"], p["beta"], policy)
 
 
+def add_norm(x, y, p, policy, kind):
+    """The residual stream after the branch output ``y`` joins it (``y``
+    None: nothing joins, the first norm over the embedding) and its norm
+    for the layer that reads it, ``(residual_add(x, y), act_cast(norm))``.
+    rmsnorm in native mode over f32, bf16 or f16 is one
+    ``kernels/rmsnorm.add_rmsnorm`` launch (its plain version on the
+    CPU), bit for bit the three steps; layernorm, emulated mode (whose
+    cast is ``quantize``) and 8-bit dtypes take the three steps apart.
+    The route follows the norm kind, the policy and the dtypes alone."""
+    if kind == "rmsnorm" and policy.mode == "native" and fused_norm_takes(
+            x.dtype, None if y is None else y.dtype, policy.dtype("act")):
+        return add_rmsnorm(x, y, p["gamma"], policy.dtype("act"))
+    s = x if y is None else residual_add(x, y)
+    return s, apply_norm(s, p, policy, kind)
+
+
 def norm_init(d, kind, device=None):
     if kind == "rmsnorm":
         return {"gamma": torch.zeros((d,), dtype=F32, device=device)}
@@ -279,14 +296,31 @@ def _ffn_apply_fused(p, x, policy, cfg):
     return y
 
 
-def residual_add(x, y):
-    """Same-dtype add in that dtype, else through f32.  torch float8 has
-    no arithmetic, so an 8-bit pair adds in f32 and rounds back."""
-    if x.dtype == y.dtype:
-        if x.dtype == torch.float8_e5m2:
-            return (x.to(F32) + y.to(F32)).to(x.dtype)
-        return x + y
-    return x.to(F32) + y.to(F32)
+def grouped_ffn_in(xe, p, policy, act, rows):
+    """The MoE experts' activations ``act_cast(act(xe @ w_in) * (xe @
+    w_gate))`` (E, C, ff) of the dispatched tokens ``xe`` (E, C, d), the
+    rows past each expert's ``rows`` +0.  Under ``qmm_pallas`` over
+    packed experts in a tensor-core format (fixed by the weight format,
+    as ``qmm_entry`` is) one ``qmm_grouped_ffn`` launch with the output
+    cast in its epilogue, as ``ffn_apply`` takes ``_ffn_apply_fused``;
+    otherwise two grouped products (``pgrouped_dot``) and the torch ops
+    around them (binary32 and run-time formats, plain weights)."""
+    w_in, w_gate = p["w_in"], p.get("w_gate")
+    if _impl(policy) == "qmm_pallas" and isinstance(w_in, QTensor) \
+            and qmm_entry(w_in.fmt) == "qmm_tc_launch" \
+            and (w_gate is None or isinstance(w_gate, QTensor)):
+        assert w_gate is None or w_gate.fmt == w_in.fmt, \
+            (w_in.fmt, w_gate.fmt)
+        a = qmm_grouped_ffn(xe.to(F32).contiguous(), w_in.payload,
+                            None if w_gate is None else w_gate.payload,
+                            w_in.fmt, rows, act=act,
+                            out_fmt=_out_fmt(policy, True))
+        return a.to(policy.dtype("act")) if policy.mode == "native" else a
+    h = pgrouped_dot(xe, w_in, policy, "ffn_w", rows=rows)
+    a = apply_act(h.to(F32), act)
+    if w_gate is not None:
+        a = a * pgrouped_dot(xe, w_gate, policy, "ffn_w", rows=rows)
+    return act_cast(a, policy)
 
 
 def embed_lookup(table, tokens, policy, scale=False):

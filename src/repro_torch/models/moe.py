@@ -3,11 +3,13 @@
 
 Tokens are routed top-k, sorted by expert id, packed into (E, C, d) with
 capacity dropping, run through the grouped expert FFN
-(:func:`~repro_torch.models.layers.pgrouped_dot`: under ``qmm_pallas``
-on packed experts one grouped launch a weight, which reads each expert's
-kept-row count ``Routing.rows`` on the device and streams only the
-experts with a kept row; the reference unrolls one launch per expert)
-and combined back with the router weights.  Nothing here waits for the
+(:func:`~repro_torch.models.layers.grouped_ffn_in` and
+:func:`~repro_torch.models.layers.pgrouped_dot`: under ``qmm_pallas`` on
+packed experts two grouped launches a layer, the gated pair with its
+epilogue and w_out, each reading each expert's kept-row count
+``Routing.rows`` on the device and streaming only the experts with a
+kept row; the reference unrolls one launch per expert and weight) and
+combined back with the router weights.  Nothing here waits for the
 device: the counts stay there (no ``bincount``, whose CUDA version reads
 its maximum on the host).  The expert-parallel ``moe_apply_sharded`` waits
 for multi-device.
@@ -35,9 +37,9 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.policy import PrecisionPolicy
-from repro_torch.kernels.qmatmul import apply_act
 
-from .layers import F32, act_cast, dense_init, pdot, pgrouped_dot
+from .layers import (F32, act_cast, dense_init, grouped_ffn_in, pdot,
+                     pgrouped_dot)
 
 
 def moe_init(gen: torch.Generator, cfg, dtype, device=None):
@@ -120,11 +122,7 @@ def moe_apply(p, x, cfg, policy: PrecisionPolicy):
     xe[r.dest] = xt[st]
     xe = xe[:E * C].reshape(E, C, d)
 
-    h = pgrouped_dot(xe, p["w_in"], policy, "ffn_w", rows=r.rows)
-    a = apply_act(h.to(F32), cfg.act_fn)
-    if "w_gate" in p:
-        a = a * pgrouped_dot(xe, p["w_gate"], policy, "ffn_w", rows=r.rows)
-    a = act_cast(a, policy)
+    a = grouped_ffn_in(xe, p, policy, cfg.act_fn, r.rows)
     ye = pgrouped_dot(a, p["w_out"], policy, "ffn_w", rows=r.rows)
     ye = act_cast(ye, policy).reshape(E * C, d)
 

@@ -18,8 +18,8 @@ from repro_torch.kernels.paged_cache import PagedKVCache
 from . import attention as attn
 from . import moe as moe_mod
 from .base import ModelConfig
-from .layers import (apply_norm, dense_init, embed_lookup, ffn_apply,
-                     ffn_init, lm_logits, norm_init, residual_add)
+from .layers import (add_norm, dense_init, embed_lookup, ffn_apply,
+                     ffn_init, lm_logits, norm_init)
 
 
 class Model:
@@ -71,24 +71,29 @@ class Model:
             return params["embed"].T
         return params["head"]
 
-    def _block(self, layer, x, lp, attend):
-        """One decoder block around the attention call ``attend(h)``; the
-        MoE FFN's aux loss is dropped (serving), as the reference's
-        serving paths drop it."""
+    def _block(self, layer, x, f, lp, attend):
+        """One decoder block around the attention call ``attend(h)``.
+        ``x`` is the residual stream before the previous block's FFN
+        output ``f`` joins it (None before the first block), so each norm
+        takes its residual add with it (``add_norm``: one launch on the
+        kernel route).  Returns ``(x, f, state)`` with this block's FFN
+        output not yet added.  The MoE FFN's aux loss is dropped
+        (serving), as the reference's serving paths drop it."""
         cfg = self.cfg
-        h = apply_norm(x, layer["norm1"], lp, cfg.norm)
+        x, h = add_norm(x, f, layer["norm1"], lp, cfg.norm)
         a, st = attend(h)
-        x = residual_add(x, a)
-        h = apply_norm(x, layer["norm2"], lp, cfg.norm)
+        x, h = add_norm(x, a, layer["norm2"], lp, cfg.norm)
         if cfg.moe_experts:
             f, _ = moe_mod.moe_apply(layer["ffn"], h, cfg, lp)
         else:
             f = ffn_apply(layer["ffn"], h, lp, cfg)
-        return residual_add(x, f), st
+        return x, f, st
 
-    def _logits(self, params, x, policy):
-        x = apply_norm(x, params["final_norm"], policy, self.cfg.norm)
-        return lm_logits(x, self._head_w(params), policy)
+    def _logits(self, params, x, f, policy):
+        """The last block's FFN output ``f`` joins ``x``, the final norm,
+        the head."""
+        _, h = add_norm(x, f, params["final_norm"], policy, self.cfg.norm)
+        return lm_logits(h, self._head_w(params), policy)
 
     def init_state(self, batch_size, capacity, policy, device=None):
         """Contiguous per-layer KV caches (the synchronous loop's) on
@@ -116,14 +121,17 @@ class Model:
                          scale=cfg.embed_scale)
         chunk = cfg.attn_chunk if x.shape[1] > cfg.attn_chunk else None
         states = []
+        f = None
         for li, layer in enumerate(params["layers"]):
             lp = policy.at_layer(li)
-            x, st = self._block(layer, x, lp, lambda h, lp=lp, layer=layer:
-                                attn.prefill_to_cache(layer["mix"], h, cfg,
-                                                      lp, capacity,
-                                                      chunk=chunk))
+            x, f, st = self._block(layer, x, f, lp,
+                                   lambda h, lp=lp, layer=layer:
+                                   attn.prefill_to_cache(layer["mix"], h, cfg,
+                                                         lp, capacity,
+                                                         chunk=chunk))
             states.append(st)
-        return self._logits(params, x[:, -1:, :], policy), states
+        return self._logits(params, x[:, -1:, :], f[:, -1:, :],
+                            policy), states
 
     @torch.no_grad()
     def prefill_chunk(self, params, tokens, states, policy: PrecisionPolicy,
@@ -137,14 +145,16 @@ class Model:
                          scale=cfg.embed_scale)
         chunk = cfg.attn_chunk if tokens.shape[1] > cfg.attn_chunk else None
         new_states = list(states)
+        f = None
         for li, layer in enumerate(params["layers"]):
             lp = policy.at_layer(li)
-            x, new_states[li] = self._block(
-                layer, x, lp, lambda h, lp=lp, layer=layer, li=li:
+            x, f, new_states[li] = self._block(
+                layer, x, f, lp, lambda h, lp=lp, layer=layer, li=li:
                 attn.prefill_paged_chunk(layer["mix"], h, cfg, lp,
                                          states[li], slot, q_offset,
                                          chunk=chunk))
-        return self._logits(params, x[:, -1:, :], policy), new_states
+        return self._logits(params, x[:, -1:, :], f[:, -1:, :],
+                            policy), new_states
 
     @torch.no_grad()
     def verify_step(self, params, tokens, states, policy: PrecisionPolicy):
@@ -179,12 +189,13 @@ class Model:
         x = embed_lookup(params["embed"], tokens, policy,
                          scale=cfg.embed_scale)
         new_states = list(states)
+        f = None
         for li, layer in enumerate(params["layers"]):
             lp = policy.at_layer(li)
-            x, new_states[li] = self._block(
-                layer, x, lp, lambda h, lp=lp, layer=layer, li=li:
+            x, f, new_states[li] = self._block(
+                layer, x, f, lp, lambda h, lp=lp, layer=layer, li=li:
                 attn.verify_paged(layer["mix"], h, cfg, lp, states[li]))
-        return self._logits(params, x, policy), new_states
+        return self._logits(params, x, f, policy), new_states
 
     @torch.no_grad()
     def decode_step(self, params, tokens, states, policy: PrecisionPolicy):
@@ -194,9 +205,10 @@ class Model:
         x = embed_lookup(params["embed"], tokens, policy,
                          scale=cfg.embed_scale)
         new_states = list(states)
+        f = None
         for li, layer in enumerate(params["layers"]):
             lp = policy.at_layer(li)
-            x, new_states[li] = self._block(
-                layer, x, lp, lambda h, lp=lp, layer=layer, li=li:
+            x, f, new_states[li] = self._block(
+                layer, x, f, lp, lambda h, lp=lp, layer=layer, li=li:
                 attn.mha(layer["mix"], h, cfg, lp, cache=states[li]))
-        return self._logits(params, x, policy), new_states
+        return self._logits(params, x, f, policy), new_states

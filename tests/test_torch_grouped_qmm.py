@@ -195,17 +195,25 @@ def _moe_case(arch, pol_name, seed=0):
 def test_moe_layer_equals_the_per_expert_loop(arch, pol_name, monkeypatch):
     cfg, pol, p, x = _moe_case(arch, pol_name)
     calls = []
-    real = tq.qmm_grouped
+    real, real_ffn = tq.qmm_grouped, tq.qmm_grouped_ffn
 
     def grouped(a, payload, fmt, rows):
         calls.append(rows.clone())
         return real(a, payload, fmt, rows)
+
+    def grouped_ffn(a, w_in, w_gate, fmt, rows, **kw):
+        calls.append(rows.clone())
+        return real_ffn(a, w_in, w_gate, fmt, rows, **kw)
     monkeypatch.setattr(layers, "qmm_grouped", grouped)
+    monkeypatch.setattr(layers, "qmm_grouped_ffn", grouped_ffn)
     got, aux = moe.moe_apply(p, x, cfg, pol)
     impl = dispatch.resolve_matmul("qmm_pallas")
     monkeypatch.setattr(impl, "grouped", staticmethod(
         lambda a, w, policy, role, rows=None:
         tq.qmm_grouped_loop(a.to(torch.float32), w.payload, w.fmt)))
+    monkeypatch.setattr(layers, "qmm_grouped_ffn",
+                        lambda a, w_in, w_gate, fmt, rows, **kw:
+                        tq.qmm_grouped_ffn_loop(a, w_in, w_gate, fmt, **kw))
     want, waux = moe.moe_apply(p, x, cfg, pol)
     assert torch.equal(got.view(torch.int16) if got.dtype == torch.bfloat16
                        else got.view(torch.int32),
@@ -213,7 +221,8 @@ def test_moe_layer_equals_the_per_expert_loop(arch, pol_name, monkeypatch):
                        else want.view(torch.int32))
     assert torch.equal(aux, waux)
     packed = p["w_in"].fmt.name != "binary32"
-    assert len(calls) == (3 if packed else 0)     # w_in, w_gate, w_out
+    # the gated pair in one call, then w_out
+    assert len(calls) == (2 if packed else 0)
     r = moe.moe_route(p, x.reshape(-1, cfg.d_model), cfg, pol)
     assert all(torch.equal(c, r.rows) for c in calls)
 
@@ -237,3 +246,113 @@ def test_grouped_rejects_formats_without_a_tensor_core_route():
     rows = torch.empty((2,), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="per-expert loop"):
         tq.qmm_grouped(a, w, "binary32", rows)
+
+
+# ---------------------------------------------------------------------------
+# the gated pair in one call: qmm_grouped_ffn
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("fmt", PACKED)
+def test_gated_plain_matches_reference_gated_pair(fmt):
+    """``qmm_grouped_ffn_plain`` against the reference's MoE up-projection
+    ``silu(_grouped_qmm(w_in)) * _grouped_qmm(w_gate)`` (its Pallas
+    qmatmul in interpret mode) with an empty expert, one row, a full and
+    a partial count.  Each product is within 1e-6 x |x| @ |w| of its
+    exact value (the qmm contract, U below), silu's slope is below 1.1,
+    and the two libraries' silu and product roundings may differ by a few
+    ulps: the kept rows within 1e-6 (1.1 U_in |g| + U_g |h| + 1e-6 U_in
+    U_g) + 5e-7 |result|; the dead rows +0 (the reference's are silu(0) *
+    0 of its zero padding)."""
+    E, C, K, N = 5, 8, 64, 64
+    rng = np.random.default_rng(11 + len(fmt))
+    rows = _counts(E, C, rng)
+    a = _dispatched(E, C, K, rows, rng)
+    ws = [np.array(jqt.encode(jnp.asarray(rng.normal(size=(E, K, N)),
+                                          jnp.float32), fmt))
+          for _ in range(2)]
+    jpol = jget_policy("transprecision", matmul_impl="qmm_pallas")
+    h, g = (np.asarray(jlayers._grouped_qmm(
+        jnp.asarray(a), jqt.QTensor(jnp.asarray(w), jget_format(fmt)), jpol,
+        "ffn_w")) for w in ws)
+    want = np.asarray(jax.nn.silu(jnp.asarray(h)) * jnp.asarray(g))
+    got = tq.qmm_grouped_ffn(torch.from_numpy(a), torch.from_numpy(ws[0]),
+                             torch.from_numpy(ws[1]), fmt,
+                             torch.from_numpy(rows), act="silu").numpy()
+    u_in, u_g = (np.abs(a).astype(np.float64)
+                 @ np.abs(decode(torch.from_numpy(w), get_format(fmt))
+                          .double().numpy()) + 1.0 for w in ws)
+    tol = 1e-6 * (1.1 * u_in * np.abs(g) + u_g * np.abs(h)
+                  + 1e-6 * u_in * u_g) + 5e-7 * np.abs(want)
+    kept = np.arange(C)[None, :] < rows[:, None]
+    assert np.all(np.abs(got - want)[kept] <= tol[kept])
+    dead = got[~kept]
+    assert np.all(dead == 0.0) and not np.signbit(dead).any()
+    assert np.all(want[~kept] == 0.0)
+
+
+@pytest.mark.parametrize("act,gated,out_fmt", [("silu", True, None),
+                                               ("gelu", False, None),
+                                               ("silu", True, "binary8")])
+def test_gated_wrapper_ignores_dead_rows_and_equals_the_loop(act, gated,
+                                                             out_fmt):
+    """NaN past the counts changes no bit; the kept rows equal the
+    per-expert ``qmm_ffn`` loop (the oracle on the card) bit for bit, the
+    ungated form and a fused output format included."""
+    E, C, K, N, fmt = 6, 8, 64, 48, "binary16alt"
+    rng = np.random.default_rng(5)
+    rows = _counts(E, C, rng)
+    a = _dispatched(E, C, K, rows, rng)
+    w_in, w_gate = (torch.from_numpy(np.array(jqt.encode(jnp.asarray(
+        rng.normal(size=(E, K, N)), jnp.float32), fmt))) for _ in range(2))
+    w_gate = w_gate if gated else None
+    noisy = a.copy()
+    noisy[np.arange(C)[None, :] >= rows[:, None]] = np.nan
+    kw = dict(act=act, out_fmt=out_fmt)
+    rt = torch.from_numpy(rows)
+    got = tq.qmm_grouped_ffn(torch.from_numpy(noisy), w_in, w_gate, fmt, rt,
+                             **kw)
+    want = tq.qmm_grouped_ffn_plain(torch.from_numpy(a), w_in, w_gate, fmt,
+                                    rt, **kw)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    loop = tq.qmm_grouped_ffn_loop(torch.from_numpy(a), w_in, w_gate, fmt,
+                                   **kw)
+    kept = torch.arange(C)[None, :] < rt[:, None]
+    assert torch.equal(got[kept].view(torch.int32),
+                       loop[kept].view(torch.int32))
+    assert not torch.signbit(got[~kept]).any() and (got[~kept] == 0).all()
+
+
+@pytest.mark.parametrize("arch", sorted(SHAPES))
+def test_gated_grouped_plan_keeps_the_per_expert_gated_split(arch):
+    """The gated call splits K as the per-expert gated ``qmm_ffn`` launch
+    does (``tiled_splits(..., gated=True)``), so a loop of ``qmm_ffn``
+    over the experts is its exact oracle."""
+    E, K, N = SHAPES[arch][0]
+    for C in (8, 20):
+        tile, splits, k_chunk = tq.grouped_plan(C, K, N, 132, gated=True)
+        assert (splits, k_chunk) == tq.tiled_splits(K, N, 132, True)
+        assert (splits, k_chunk) == tq.qmm_plan(
+            K, N, get_format("binary16alt"), True, 132)[1:]
+        assert tile == tq.tc_tile_m(C)
+
+
+def test_gated_hbm_bytes_count_both_weights_of_live_experts():
+    K, N = 2048, 768
+    assert tq.qmm_grouped_hbm_bytes([0, 3, 8, 0, 1], K, N, "binary16alt", 8,
+                                    gated=True) \
+        == 2 * 3 * K * N * 2 + 12 * K * 4 + 5 * 8 * N * 4
+
+
+def test_gated_call_off_the_cpu_takes_the_kernel_dispatch(monkeypatch):
+    seen = []
+    monkeypatch.setattr(tq, "qmm_grouped_ffn_plain",
+                        lambda *a, **k: pytest.fail("plain version on meta"))
+    monkeypatch.setattr(tq, "_qmm_grouped_cuda",
+                        lambda a, b, fmt, rows, gate=None, act=None,
+                        out_fmt=None: seen.append((a.device, gate.device,
+                                                   act)))
+    a = torch.empty((4, 8, 64), device="meta")
+    w = torch.empty((4, 64, 32), dtype=torch.uint16, device="meta")
+    rows = torch.empty((4,), dtype=torch.int32, device="meta")
+    tq.qmm_grouped_ffn(a, w, w, "binary16alt", rows, act="silu")
+    assert seen == [(torch.device("meta"), torch.device("meta"), "silu")]
