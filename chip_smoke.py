@@ -34,7 +34,9 @@ Run from the root of a checkout.  Phases:
                   4-token routing beside torch.bmm; add_rmsnorm (the
                   residual add, rmsnorm and the cast in one launch) bit
                   for bit its plain version at 1-64 rows and every
-                  served rmsnorm width, NaN and Inf rows included.
+                  served rmsnorm width, NaN and Inf rows included;
+                  add_layernorm (the same for layernorm) bit for bit its
+                  plain version at 1-100 rows, d 384, 8192 and 8320.
 3. casts       -- torch's CUDA f32 -> float8_e5m2 / bfloat16 casts (the
                   KV write and the activation cast) against the plain
                   codec; the three flexfloat_cast kernels bit-identical to
@@ -78,8 +80,9 @@ Run from the root of a checkout.  Phases:
                   bit (logits, K/V pool bits, lengths), under binary32 and
                   transprecision, with paged and flash_pallas decode, for
                   llama3-8b and command-r-35b (layernorm, tied head);
-                  llama3-8b's logits on the fused norm route bit for bit
-                  those on the three-step route (add, norm, cast); a
+                  llama3-8b's and command-r-35b's logits on the fused
+                  norm route bit for bit those on the three-step route
+                  (add, norm, cast); a
                   2-layer qwen3-moe: kernel path against plain path, and
                   the qmm router's experts equal the plain product's;
                   2-layer qwen3-moe and granite-moe logits on the grouped
@@ -96,12 +99,14 @@ Run from the root of a checkout.  Phases:
                   its twin, and its times (add_rmsnorm's too); layernorm
                   bit-identical to its
                   twin, its rows at every row count at d 8192 and 384,
-                  and its times.
+                  and its times (add_layernorm's too).
 11. archs      -- ``serve.main`` on yi-9b, mistral-nemo-12b, command-r-35b,
                   granite-moe-1b-a400m and qwen3-moe-30b-a3b at full width
                   and depth (transprecision, qmm_pallas, flash_pallas, 2 x
                   (64 + 8)), mistral-nemo and granite also under paged:
-                  launches per decode step and prefill chunk by kernel,
+                  launches per decode step and prefill chunk by kernel
+                  (every norm one fused add_rmsnorm or add_layernorm, no
+                  standalone residual add),
                   the experts' launches (2 grouped calls a layer, one
                   device kernel each, no per-expert qmm_tc), one MoE
                   layer with no host synchronisation, tok/s, peak
@@ -127,6 +132,8 @@ Run from the root of a checkout.  Phases:
                   take the device time; one steady decode step's device
                   activities; the host syncs of a tiny serve.
 
+``--phases build,archs --archs command-r-35b`` serves one config alone
+(with ``--src``, another checkout's, for its tokens and launches).
 ``--phases build,timing --src OTHER/src`` times another checkout's
 qmm (decode step, prefill chunk, verify round, packed and binary32),
 flash_prefill, paged_decode, flash_decode and the three cast kernels
@@ -147,6 +154,7 @@ and the tuned artifact ``serve_tune.json``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -1870,6 +1878,31 @@ def _drive_serve(torch, libs, argv, hooks, params=None):
     return reqs, per, launches, wall, torch.cuda.max_memory_allocated()
 
 
+@contextlib.contextmanager
+def _counting(module, names):
+    """Count the calls of ``module``'s functions ``names`` made inside the
+    block: yields ``{name: calls}``."""
+    counts = dict.fromkeys(names, 0)
+    real = {k: getattr(module, k) for k in names}
+
+    def counted(name):
+        def fn(*a, **k):
+            counts[name] += 1
+            return real[name](*a, **k)
+        return fn
+    for k in names:
+        setattr(module, k, counted(k))
+    try:
+        yield counts
+    finally:
+        for k, fn in real.items():
+            setattr(module, k, fn)
+
+
+# the three-step norm route's standalone add and norm: none on a served path
+NORM_APART = ("residual_add", "apply_norm")
+
+
 def _serve_summary(args, stats):
     with open(os.path.join(args.out, stats)) as f:
         return [json.loads(line) for line in f][-1]
@@ -1909,23 +1942,10 @@ def run_serve(torch, report, libs, args, decode_impl="paged", key="serve",
     stats = f"{key}_stats.jsonl"
     argv = _serve_argv(args, decode_impl, requests, max_new, stats,
                        policy=policy)
-    apart = {"residual_add": 0, "apply_norm": 0}   # the three-step route
-    real = {k: getattr(layers, k) for k in apart}
-
-    def counted(name):
-        def fn(*a, **k):
-            apart[name] += 1
-            return real[name](*a, **k)
-        return fn
-    for k in apart:
-        setattr(layers, k, counted(k))
-    try:
+    with _counting(layers, NORM_APART) as apart:
         reqs, per, launches, wall, peak = _drive_serve(
             torch, libs, argv, {"decode": (worker.DecodeWorker, "step"),
                                 "prefill": (worker.PrefillWorker, "step")})
-    finally:
-        for k, fn in real.items():
-            setattr(layers, k, fn)
     want_dec = (193, 32, 0, 0, 0, NORMS) if decode_impl == "paged" \
         else (193, 0, 0, 32, 0, NORMS)
     want_pre = (193, 0, 32, 0, 0, NORMS)
@@ -1943,7 +1963,7 @@ def run_serve(torch, report, libs, args, decode_impl="paged", key="serve",
     calls = len(per["decode"]) + len(per["prefill"])
     want_norms = {"add_rmsnorm_launch": calls * NORMS}
     ok &= launches["norms_by_entry"] == want_norms
-    ok &= apart == {"residual_add": 0, "apply_norm": 0}
+    ok &= not any(apart.values())
     summary = _serve_summary(args, stats)
     tokens = sum(len(r.generated) for r in reqs)
     report[key] = dict(
@@ -2557,13 +2577,15 @@ def check_logits(torch, report, args, qmm_lib):
 
 
 def check_fused_norm_logits(torch, report, args, model, cfg):
-    """The 2-layer, full-width llama3-8b's prefill chunk and decode step
-    under binary32 and transprecision (``qmm_pallas``, paged and
-    flash_pallas): logits on the fused norm route (``add_norm``: one
-    ``add_rmsnorm`` launch a norm) bit for bit those on the three-step
-    route (torch's add, the rmsnorm kernel, the cast: the parent's
-    composition), with the norm launches of each route counted (2 x 2 + 1
-    a call, on ``add_rmsnorm_launch`` or ``rmsnorm_launch``)."""
+    """A 2-layer, full-width model's prefill chunk and decode step under
+    binary32 and transprecision (``qmm_pallas``, paged and flash_pallas):
+    logits on the fused norm route (``add_norm``: one ``add_rmsnorm`` or
+    ``add_layernorm`` launch a norm) bit for bit those on the three-step
+    route (torch's add, the norm kernel, the cast: the composition before
+    the fused kernels), with the norm launches of each route counted
+    (2 x 2 + 1 a call, on ``add_rmsnorm_launch`` or ``rmsnorm_launch``
+    for llama3-8b, ``add_layernorm_launch`` or ``layernorm_launch`` for
+    command-r-35b)."""
     from repro_torch.kernels import rmsnorm as rms
     from repro_torch.models import layers, transformer
 
@@ -2573,6 +2595,8 @@ def check_fused_norm_logits(torch, report, args, model, cfg):
 
     real = transformer.add_norm
     per_call = 2 * cfg.n_layers + 1
+    want = {"fused": {f"add_{cfg.norm}_launch": 2 * per_call},
+            "three steps": {f"{cfg.norm}_launch": 2 * per_call}}
     ok = True
     for pol in ("binary32", "transprecision"):
         for dec in ("paged", "flash_pallas"):
@@ -2592,9 +2616,7 @@ def check_fused_norm_logits(torch, report, args, model, cfg):
                                  if v != before.get(k, 0)}
             same = [torch.equal(_bits(a), _bits(b))
                     for a, b in zip(res["fused"], res["three steps"])]
-            good = all(same) \
-                and counts["fused"] == {"add_rmsnorm_launch": 2 * per_call} \
-                and counts["three steps"] == {"rmsnorm_launch": 2 * per_call}
+            good = all(same) and counts == want
             ok &= good
             report["logits"].append(dict(
                 arch=cfg.arch, policy=pol, decode_impl=dec,
@@ -2685,7 +2707,8 @@ def check_logits_archs(torch, report, args):
     8-row blocks) under binary32 and transprecision, kernel path against
     plain path, then verify against sequential decode bit for bit
     (:func:`check_verify_logits`) under both, with paged and
-    flash_pallas; qwen3-moe-30b-a3b (MoE) under transprecision, kernel
+    flash_pallas, and its fused ``add_layernorm`` route against the three
+    steps (:func:`check_fused_norm_logits`); qwen3-moe-30b-a3b (MoE) under transprecision, kernel
     path against plain path, and in every router call of the kernel path
     the experts the qmm router picks equal to those the plain product
     picks on the same rows.  The two paths' own picks (their inputs
@@ -2765,6 +2788,8 @@ def check_logits_archs(torch, report, args):
                 for dec in ("paged", "flash_pallas"):
                     ok &= check_verify_logits(torch, report, args, model,
                                               cfg, pol, dec)
+        if cfg.norm == "layernorm":
+            ok &= check_fused_norm_logits(torch, report, args, model, cfg)
         del model
         torch.cuda.empty_cache()
     return ok
@@ -2994,6 +3019,88 @@ def check_add_rmsnorm(torch, report, args):
     return ok
 
 
+# whisper-tiny's width (the register variant NPT 8), command-r-35b's (the
+# 16-byte variant, or on misaligned rows the register variant NPT 64) and
+# past 8192 (the re-reading variant)
+ADD_LN_DIMS = (384, 8192, 8320)
+ADD_LN_ROWS = (1, 4, 64, 100)
+
+
+def _misaligned(torch, t):
+    """``t``'s values in a contiguous tensor whose data starts one element
+    past a 16-byte boundary: ``add_layernorm_launch`` then takes its
+    register variants, not the 16-byte one."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    v = buf[1:].view(t.shape)
+    v.copy_(t)
+    return v
+
+
+def check_add_layernorm(torch, report, args):
+    """``add_layernorm`` (``add_layernorm_launch`` of ``csrc/rmsnorm.cu``)
+    on the card bit for bit its plain version (``residual_add``, then
+    ``layernorm_plain``, then the cast, run on the card) in both outputs,
+    the residual and the normed row, at 1, 4, 64 and 100 rows and d 384,
+    8192 and 8320, for bf16, f32 and f16 pairs, a mixed pair (f32 + bf16)
+    and no add (the first norm), with a NaN row, an Inf row and a row past
+    bf16's range in the inputs, on aligned rows and on misaligned ones
+    (at d 8192 the 16-byte variant, and the register variant); and a
+    row's bits free of
+    the rows beside it (each row count against the 100-row call)."""
+    from repro_torch.kernels import layernorm as ln
+
+    bf, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    combos = ((bf, bf, bf), (f32, f32, f32), (f16, f16, f16),
+              (f32, bf, bf), (bf, None, bf), (f32, None, f32))
+    g = torch.Generator(device="cuda").manual_seed(args.seed + 14)
+    n_rows = max(ADD_LN_ROWS)
+    res, worst = {}, 0.0
+    for d in ADD_LN_DIMS:
+        gamma = 1.0 + torch.randn((d,), generator=g, device="cuda") * 0.1
+        beta = torch.randn((d,), generator=g, device="cuda") * 0.1
+        for xdt, ydt, odt in combos:
+            x = torch.randn((n_rows, d), generator=g, device="cuda") * 3.0
+            x += 1.5
+            y = torch.randn((n_rows, d), generator=g, device="cuda") * 2.0
+            x[2, 7] = float("nan")
+            y[3, 100] = float("inf")
+            x[50, 3] = 3.0e38 if xdt != f16 else 6.0e4
+            x = x.to(xdt)
+            y = None if ydt is None else y.to(ydt)
+            s_all, n_all = ln.add_layernorm(x, y, gamma, beta, odt)
+            good = True
+            for m in ADD_LN_ROWS:
+                ym = None if y is None else y[:m]
+                s, n = ln.add_layernorm(x[:m], ym, gamma, beta, odt)
+                ps, pn = ln.add_layernorm_plain(x[:m], ym, gamma, beta, odt)
+                ms, mn = ln.add_layernorm(_misaligned(torch, x[:m]), ym,
+                                          gamma, beta, odt)
+                good &= torch.equal(_bits(s), _bits(ps)) \
+                    and torch.equal(_bits(n), _bits(pn)) \
+                    and torch.equal(_bits(ms), _bits(ps)) \
+                    and torch.equal(_bits(mn), _bits(pn)) \
+                    and torch.equal(_bits(s), _bits(s_all[:m])) \
+                    and torch.equal(_bits(n), _bits(n_all[:m]))
+                fin = torch.isfinite(pn)
+                if fin.any():
+                    worst = max(worst, float((n.float() - pn.float())
+                                             [fin].abs().max()))
+            key = f"{d}/{str(xdt)[6:]}+{str(ydt)[6:]}->{str(odt)[6:]}"
+            res[key] = good
+    ok = all(res.values())
+    report["add_layernorm_bits_equal_plain"] = res
+    report["add_layernorm_max_abs_err"] = worst
+    print(f"[kernels] add_layernorm: residual and normed rows bit for bit "
+          f"the plain version (add, layernorm_plain, cast) at {ADD_LN_ROWS} "
+          f"rows, d {ADD_LN_DIMS}, aligned and misaligned, with NaN / Inf "
+          f"/ 3e38 inputs, and free "
+          f"of the row count: {sum(res.values())} of {len(res)} "
+          f"(width, dtypes) cases {'ok' if ok else 'FAIL'}")
+    if not ok:
+        print(f"[kernels] add_layernorm cases: {res}")
+    return ok
+
+
 def check_layernorm_rows(torch, report, args):
     """layernorm (``models/layers.py``, ``layernorm_launch`` of
     ``csrc/rmsnorm.cu``) on the card: the kernel bit-identical to its
@@ -3045,16 +3152,23 @@ def time_layernorm(torch, report, timer):
     chunk's (64), d 8192 (command-r-35b), bf16 activations in, f32 out:
     beside its twin on the card, ``F.layer_norm`` (one PyTorch call for
     the same function, on the f32 of the input) and the byte bound
-    (``layernorm_hbm_bytes``)."""
+    (``layernorm_hbm_bytes``).  Then ``add_layernorm`` at the same rows,
+    bf16 + bf16 -> bf16 residual and bf16 normed rows (command-r's norm
+    under transprecision): beside its plain version, the three launches
+    it replaced (torch's add, the layernorm kernel, the bf16 cast), the
+    torch sequence ``x + y; F.layer_norm(s.float(), ...).to(bfloat16)``
+    and its byte bound (``add_layernorm_hbm_bytes``; no one PyTorch call
+    computes the three)."""
     from repro_torch.kernels import layernorm as ln
 
     g = torch.Generator(device="cuda").manual_seed(report["seed"] + 12)
     d = 8192
+    bf = torch.bfloat16
     gamma = 1.0 + torch.randn((d,), generator=g, device="cuda") * 0.1
     beta = torch.randn((d,), generator=g, device="cuda") * 0.1
     for rows in (4, 64):
-        x = (torch.randn((rows, d), generator=g, device="cuda") * 3.0).to(
-            torch.bfloat16)
+        x = (torch.randn((rows, d), generator=g, device="cuda") * 3.0).to(bf)
+        y = (torch.randn((rows, d), generator=g, device="cuda") * 2.0).to(bf)
         xf = x.float()
         t_k = timer(lambda: ln.layernorm_f32(x, gamma, beta))
         t_p = timer(lambda: ln.layernorm_plain(x, gamma, beta))
@@ -3070,6 +3184,33 @@ def time_layernorm(torch, report, timer):
         print(f"[timing] layernorm {rows:>3} x {d} bf16 -> f32: kernel "
               f"{t_k:.4f} ms  twin {t_p:.4f} ms  F.layer_norm {t_l:.4f} ms"
               f"  bound {bound:.5f} ms  host {host:.1f} us")
+
+        def three():
+            s = x + y
+            return s, ln.layernorm_f32(s, gamma, beta).to(bf)
+        t_f = timer(lambda: ln.add_layernorm(x, y, gamma, beta, bf))
+        xm = _misaligned(torch, x)
+        t_r = timer(lambda: ln.add_layernorm(xm, y, gamma, beta, bf))
+        t_fp = timer(lambda: ln.add_layernorm_plain(x, y, gamma, beta, bf))
+        t_3 = timer(three)
+        t_seq = timer(lambda: torch.nn.functional.layer_norm(
+            (x + y).float(), (d,), gamma, beta, 1e-5).to(bf))
+        host_f = timer.host_us(lambda: ln.add_layernorm(x, y, gamma, beta,
+                                                        bf))
+        host_3 = timer.host_us(three)
+        nbytes = ln.add_layernorm_hbm_bytes(rows, d, 2, 2, 2, 2)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        report["timings"].append(dict(
+            kernel="add_layernorm", rows=rows, d=d, ms=t_f, plain_ms=t_fp,
+            register_variant_ms=t_r, three_launches_ms=t_3, torch_sequence_ms=t_seq, library_ms=None,
+            bound_ms=bound, bound_by="bytes", bytes=nbytes, host_us=host_f,
+            three_launches_host_us=host_3))
+        print(f"[timing] add_layernorm {rows:>3} x {d} bf16 + bf16 -> bf16: "
+              f"kernel {t_f:.4f} ms (register variant, misaligned x: "
+              f"{t_r:.4f})  plain {t_fp:.4f} ms  add + layernorm "
+              f"kernel + cast {t_3:.4f} ms  x + y; F.layer_norm().to(bf16) "
+              f"{t_seq:.4f} ms  bound {bound:.6f} ms  host {host_f:.1f} us "
+              f"(the three: {host_3:.1f} us)")
 
 
 def _rmsnorm_torch_ops(torch, x, gamma, eps=1e-6):
@@ -3510,9 +3651,9 @@ def arch_launches(cfg, decode_impl):
     w_out (``qmm_tc_grouped``) (MoE), all packed bf16 on the tensor cores
     except the router (the GEMV at a decode step's 2 rows, qmm_tile in a
     64-row chunk); the untied head one qmm_tc, the tied one
-    ``torch.matmul``; two norms a layer and the final one (fused
-    ``add_rmsnorm`` for the rmsnorm configs, ``layernorm`` with a
-    separate add for command-r)."""
+    ``torch.matmul``; two norms a layer and the final one, each one
+    fused launch with its residual add and cast (``add_rmsnorm`` for the
+    rmsnorm configs, ``add_layernorm`` for command-r)."""
     L = cfg.n_layers
     head = 0 if cfg.tied_embeddings else 1
     tc = L * (4 if cfg.moe_experts else 6) + head
@@ -3530,7 +3671,7 @@ def _arch_serve(torch, report, libs, args, arch, decode_impl, params, cfg):
     """One counted serve of ``arch`` over ``params``; the checks of
     :func:`run_archs`.  Returns (ok, the report entry)."""
     from repro_torch.engine import worker
-    from repro_torch.models import moe
+    from repro_torch.models import layers, moe
 
     key = f"{arch}/{decode_impl}"
     stats = f"archs_{arch}_{decode_impl}_stats.jsonl"
@@ -3559,17 +3700,17 @@ def _arch_serve(torch, report, libs, args, arch, decode_impl, params, cfg):
     for k, fn in real.items():
         setattr(moe, k, counted(fn))
     try:
-        reqs, per, launches, wall, peak = _drive_serve(
-            torch, libs, argv, {"decode": (worker.DecodeWorker, "step"),
-                                "prefill": (worker.PrefillWorker, "step")},
-            params=params)
+        with _counting(layers, NORM_APART) as apart:
+            reqs, per, launches, wall, peak = _drive_serve(
+                torch, libs, argv,
+                {"decode": (worker.DecodeWorker, "step"),
+                 "prefill": (worker.PrefillWorker, "step")}, params=params)
     finally:
         for k, fn in real.items():
             setattr(moe, k, fn)
     want_dec, want_pre, want_dec_k, want_pre_k, want_grouped = \
         arch_launches(cfg, decode_impl)
-    norm_entry = "layernorm_launch" if cfg.norm == "layernorm" \
-        else "add_rmsnorm_launch"
+    norm_entry = f"add_{cfg.norm}_launch"
     calls = len(per["decode"]) + len(per["prefill"])
     ok = all(r.done and not r.failed for r in reqs)
     ok &= all(len(r.generated) == ARCH_MAX_NEW for r in reqs)
@@ -3579,6 +3720,7 @@ def _arch_serve(torch, report, libs, args, arch, decode_impl, params, cfg):
     ok &= _counts_ok(per["decode/kern"], want_dec_k)
     ok &= _counts_ok(per["prefill/kern"], want_pre_k)
     ok &= launches["norms_by_entry"] == {norm_entry: calls * want_dec[5]}
+    ok &= not any(apart.values())
     ok &= _counts_ok(per["decode/grouped"], want_grouped)
     ok &= _counts_ok(per["prefill/grouped"], want_grouped)
     ok &= experts[0] == calls * want_grouped and per_expert[0] == 0
@@ -3590,6 +3732,7 @@ def _arch_serve(torch, report, libs, args, arch, decode_impl, params, cfg):
         wall_s=wall, tok_per_s=summary["tokens_per_s"],
         ttft_mean_s=summary["ttft_mean_s"], decode_steps=len(per["decode"]),
         prefill_chunks=len(per["prefill"]), launches=launches,
+        norms_apart=apart,
         grouped_launches=experts[0], expert_qmm_tc_launches=per_expert[0],
         grouped_by_kernel={k: launches["qmm_by_kernel"].get(k, 0)
                            for k in GROUPED_KERNELS},
@@ -3617,7 +3760,9 @@ def _arch_serve(torch, report, libs, args, arch, decode_impl, params, cfg):
           f"{want_pre_k}); grouped per step / chunk "
           f"{entry['grouped_per_decode_step']} / "
           f"{entry['grouped_per_prefill_chunk']} (want {want_grouped}); "
-          f"norms {launches['norms_by_entry']}; per-expert qmm_tc launches "
+          f"norms {launches['norms_by_entry']} (want {norm_entry} x "
+          f"{want_dec[5]} a call), standalone residual adds and three-step "
+          f"norms {apart} (want 0); per-expert qmm_tc launches "
           f"{per_expert[0]} (want 0) {'ok' if ok else 'FAIL'}")
     return ok, entry
 
@@ -3666,8 +3811,9 @@ def run_archs(torch, report, libs, args):
     capacity 128; mistral-nemo-12b and granite-moe once more under
     ``paged``.  Asserted: every request gets its tokens; the launches of
     every decode step and every prefill chunk, by library and by qmm
-    kernel (``arch_launches``); the norm kind (layernorm only for
-    command-r, fused add_rmsnorm for the rest); the experts' launches
+    kernel (``arch_launches``); the norm kind (fused add_layernorm for
+    command-r, fused add_rmsnorm for the rest, and no standalone residual
+    add or three-step norm); the experts' launches
     (two grouped calls a layer a step or chunk, the gated pair and w_out,
     and no per-expert qmm_tc), one device kernel a grouped call in the
     profiled step; one MoE layer of each MoE config with no host
@@ -3685,7 +3831,7 @@ def run_archs(torch, report, libs, args):
     base = torch.cuda.memory_allocated()
     out = report["archs"] = {}
     ok = True
-    for arch in ARCHS:
+    for arch in args.archs.split(","):
         model, cfg = build(arch)
         policy = get_policy("transprecision", decode_impl="flash_pallas",
                             matmul_impl="qmm_pallas")
@@ -4072,12 +4218,14 @@ def kernel_rows(report):
     launches per prefill chunk), ``qmm_tc_decode_step`` (the same kernel,
     times and launches per decode step) and ``qmm_packed_a`` (the same
     kernel on binary8 activations, M = 64, the ops phase's launches).
-    ``add_rmsnorm``, ``rmsnorm`` and ``layernorm`` are port-only kernels
-    (their ``replaces`` names the reference's XLA norm): times at a
-    decode step's 4 rows; launches of the serve phase (every norm fused),
-    of the serve_reduced phase's tuned-artifact serve (binary8
+    ``add_rmsnorm``, ``rmsnorm`` and ``add_layernorm`` are port-only
+    kernels (their ``replaces`` names the reference's XLA norm): times at
+    a decode step's 4 rows; launches of the serve phase (every norm
+    fused), of the serve_reduced phase's tuned-artifact serve (binary8
     activations: the three-step route's ``rmsnorm_launch``) and of the
-    archs phase's command-r-35b serve.  The MoE expert product's two
+    archs phase's command-r-35b serve (every norm fused;
+    ``layernorm_launch``, the three-step route's, runs on no served path
+    and is held and timed in the resilience phase).  The MoE expert product's two
     calls, timed at qwen3-moe's 2-token routing (E 128, C 8) with the
     archs phase's qwen3-moe serve's launches: ``qmm_tc_grouped_ffn``,
     the gated pair (K 2048, N 768), and ``qmm_tc_grouped``, w_out (K
@@ -4159,11 +4307,12 @@ def kernel_rows(report):
          artifact.get("norms_by_entry", {}).get("rmsnorm_launch", 0),
          report.get("rmsnorm_max_abs_err"), timing("rmsnorm", rows=4)),
         # port-only, as rmsnorm: the reference's layernorm is XLA
-        ("layernorm", "src/repro_torch/csrc/rmsnorm.cu",
+        ("add_layernorm", "src/repro_torch/csrc/rmsnorm.cu",
          "src/repro/models/layers.py:228",
          archs.get("command-r-35b/flash_pallas", {}).get("launches", {})
-         .get("norms_by_entry", {}).get("layernorm_launch", 0),
-         report.get("layernorm_max_abs_err"), timing("layernorm", rows=4)),
+         .get("norms_by_entry", {}).get("add_layernorm_launch", 0),
+         report.get("add_layernorm_max_abs_err"),
+         timing("add_layernorm", rows=4)),
         ("qmm_tc_grouped_ffn", qmm_src, qmm_tpu, qwen3_grouped.get(
             "qmm_tc_grouped_ffn", 0),
          report.get("qmm_grouped_ffn_max_abs_err"),
@@ -4195,6 +4344,9 @@ def main() -> int:
                     help="the src/ directory whose repro_torch to drive "
                     "(another checkout's, to time its kernels beside "
                     "this one's with --phases build,timing)")
+    ap.add_argument("--archs", default=",".join(ARCHS),
+                    help="the configs the archs phase serves (a subset "
+                    "makes the run exit non-zero, as a subset of phases)")
     args = ap.parse_args()
     phases = args.phases.split(",")
     src = os.path.abspath(args.src)
@@ -4253,6 +4405,7 @@ def main() -> int:
                 ok &= check_qmm_archs(torch, report, timer)
                 ok &= check_qmm_grouped(torch, report)
                 ok &= check_add_rmsnorm(torch, report, args)
+                ok &= check_add_layernorm(torch, report, args)
                 time_kernels(torch, np, report, timer)
                 time_qmm_grouped(torch, report, timer)
             elif phase == "timing":
@@ -4315,7 +4468,7 @@ def main() -> int:
     with open(os.path.join(args.out, "chip_smoke_report.json"), "w") as f:
         json.dump(report, f, indent=1, default=str)
     if not all(results.values()) or set(ALL_PHASES) - {"profile"} \
-            - set(phases):
+            - set(phases) or set(ARCHS) - set(args.archs.split(",")):
         fail(f"phases: {results}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

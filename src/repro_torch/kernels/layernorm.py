@@ -19,13 +19,22 @@ in f32 with every op rounded to nearest, each row sum in rmsnorm's order
 :func:`layernorm_f32` launches the kernel on a CUDA tensor and runs
 :func:`layernorm_plain` on a CPU one.  It returns f32; the caller applies
 the policy's activation cast.
+
+:func:`add_layernorm` is the layernorm decoder's norm in one launch
+(``add_layernorm_launch``), as ``rmsnorm.add_rmsnorm`` is the rmsnorm
+decoder's: the residual add before it, layernorm in the order above over
+``s`` read from memory once (kept on chip between the sums and the
+scale), and the cast to the reading layer's activation dtype.  Its plain version is
+those three steps (:func:`add_layernorm_plain`), and the kernel equals it
+bit for bit.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
-from .rmsnorm import LIB, norm_operands, row_mean_plain
+from .rmsnorm import (LIB, add_rmsnorm_hbm_bytes, launch_fused,
+                      norm_operands, residual_add, row_mean_plain)
 
 
 def layernorm_plain(x, gamma, beta, eps: float = 1e-5) -> torch.Tensor:
@@ -56,3 +65,35 @@ def layernorm_hbm_bytes(rows: int, d: int, in_bytes: int) -> int:
     """Bytes one call must move: x read once, gamma and beta (f32) read
     once, y (f32) written once."""
     return rows * d * (in_bytes + 4) + 2 * d * 4
+
+
+def add_layernorm_plain(x, y, gamma, beta, out_dtype, eps: float = 1e-5):
+    """The plain version: ``s = residual_add(x, y)`` (``s = x`` when
+    ``y`` is None), then ``layernorm_plain(s)`` cast to ``out_dtype``.
+    Returns ``(s, normed)``."""
+    s = x if y is None else residual_add(x, y)
+    return s, layernorm_plain(s, gamma, beta, eps).to(out_dtype)
+
+
+def add_layernorm(x, y, gamma, beta, out_dtype, eps: float = 1e-5):
+    """The residual stream ``s = x + y`` and its layernorm in
+    ``out_dtype``, ``(s, normed)``: one kernel launch on a CUDA tensor
+    (f32, bf16 or f16 operands, ``rmsnorm.fused_norm_takes``; others
+    raise), the plain version on a CPU one.  ``y`` None normalizes ``x``
+    alone (``s`` is ``x``)."""
+    if x.device.type == "cpu":
+        return add_layernorm_plain(x, y, gamma, beta, out_dtype, eps)
+    return _add_layernorm_cuda(x, y, gamma, beta, out_dtype, eps)
+
+
+def _add_layernorm_cuda(x, y, gamma, beta, out_dtype, eps):
+    return launch_fused("add_layernorm", x, y, out_dtype, eps, gamma=gamma,
+                        beta=beta)
+
+
+def add_layernorm_hbm_bytes(rows: int, d: int, x_bytes: int, y_bytes: int,
+                            res_bytes: int, out_bytes: int) -> int:
+    """Bytes one :func:`add_layernorm` must move: ``add_rmsnorm``'s and
+    beta (f32) read once."""
+    return add_rmsnorm_hbm_bytes(rows, d, x_bytes, y_bytes, res_bytes,
+                                 out_bytes) + d * 4

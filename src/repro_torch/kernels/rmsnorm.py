@@ -25,6 +25,8 @@ add before it (``residual_add``), rmsnorm in the same order, and the
 cast to the reading layer's activation dtype, for f32, bf16 and f16
 tensors (``fused_norm_takes``).  Its plain version is those three steps
 (:func:`add_rmsnorm_plain`), and the kernel equals it bit for bit.
+``kernels/layernorm.add_layernorm`` does the same for layernorm through
+:func:`launch_fused`.
 """
 from __future__ import annotations
 
@@ -44,6 +46,9 @@ LIB = _build.register(_build.KernelLib("rmsnorm", {
                          _build.I32, _build.F32, _build.I32, _build.P],
     "add_rmsnorm_launch": [_build.P] * 5 + [_build.I64, _build.I32,
                                             _build.F32] + [_build.I32] * 4
+    + [_build.P],
+    "add_layernorm_launch": [_build.P] * 6 + [_build.I64, _build.I32,
+                                              _build.F32] + [_build.I32] * 4
     + [_build.P],
 }))
 # the dtypes add_rmsnorm's kernel reads and writes (csrc/rmsnorm.cu, Dt)
@@ -170,21 +175,30 @@ def add_rmsnorm(x, y, gamma, out_dtype, eps: float = 1e-6):
 
 
 def _add_rmsnorm_cuda(x, y, gamma, out_dtype, eps):
+    return launch_fused("add_rmsnorm", x, y, out_dtype, eps, gamma=gamma)
+
+
+def launch_fused(what, x, y, out_dtype, eps, **params):
+    """One ``{what}_launch`` of the fused add + norm + cast on the card:
+    checks the operands, makes ``s`` (a new tensor of ``residual_add``'s
+    dtype; ``x`` itself when ``y`` is None) and the output, and passes the
+    (d,) parameters as f32 in the order given.  Returns ``(s, normed)``."""
     y_dtype = None if y is None else y.dtype
     if not fused_norm_takes(x.dtype, y_dtype, out_dtype):
-        raise ValueError(f"add_rmsnorm: no kernel for x {x.dtype}, y "
+        raise ValueError(f"{what}: no kernel for x {x.dtype}, y "
                          f"{y_dtype}, out {out_dtype}")
     if y is not None and y.shape != x.shape:
-        raise ValueError(f"add_rmsnorm: x {tuple(x.shape)} and y "
+        raise ValueError(f"{what}: x {tuple(x.shape)} and y "
                          f"{tuple(y.shape)} differ")
     d = x.shape[-1]
     x = x.contiguous()
     y = None if y is None else y.contiguous()
-    g = gamma.to(torch.float32).contiguous()
-    _build.check_operands("add_rmsnorm", x.device, x=x, y=y, gamma=g)
-    if g.shape != (d,):
-        raise ValueError(f"add_rmsnorm: gamma must be ({d},), got "
-                         f"{tuple(g.shape)}")
+    ps = {k: p.to(torch.float32).contiguous() for k, p in params.items()}
+    _build.check_operands(what, x.device, x=x, y=y, **ps)
+    for k, p in ps.items():
+        if p.shape != (d,):
+            raise ValueError(f"{what}: {k} must be ({d},), got "
+                             f"{tuple(p.shape)}")
     res_dtype = residual_dtype(x.dtype, y_dtype)
     s = x if y is None else torch.empty(x.shape, dtype=res_dtype,
                                         device=x.device)
@@ -192,12 +206,13 @@ def _add_rmsnorm_cuda(x, y, gamma, out_dtype, eps):
     rows = x.numel() // d if d else 0
     if rows == 0:
         return s, out
-    LIB.launch("add_rmsnorm_launch", _build.ptr(x), _build.ptr(y),
-               _build.ptr(g), _build.ptr(None if y is None else s),
-               _build.ptr(out), rows, d, float(eps), DT_CODES[x.dtype],
+    LIB.launch(f"{what}_launch", _build.ptr(x), _build.ptr(y),
+               *(_build.ptr(p) for p in ps.values()),
+               _build.ptr(None if y is None else s), _build.ptr(out), rows,
+               d, float(eps), DT_CODES[x.dtype],
                DT_CODES[y_dtype if y is not None else x.dtype],
                DT_CODES[res_dtype], DT_CODES[out_dtype],
-               _build.stream_ptr(x.device), kernel="add_rmsnorm")
+               _build.stream_ptr(x.device), kernel=what)
     return s, out
 
 

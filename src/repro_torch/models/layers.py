@@ -42,7 +42,7 @@ from repro_torch.core.flexfloat import quantize
 from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.core.qtensor import QTensor
 from repro_torch.kernels import dispatch
-from repro_torch.kernels.layernorm import layernorm_f32
+from repro_torch.kernels.layernorm import add_layernorm, layernorm_f32
 from repro_torch.kernels.qmatmul import (apply_act, qmatmul, qmm_entry,
                                          qmm_ffn, qmm_grouped,
                                          qmm_grouped_ffn, qmm_grouped_loop)
@@ -210,14 +210,18 @@ def add_norm(x, y, p, policy, kind):
     """The residual stream after the branch output ``y`` joins it (``y``
     None: nothing joins, the first norm over the embedding) and its norm
     for the layer that reads it, ``(residual_add(x, y), act_cast(norm))``.
-    rmsnorm in native mode over f32, bf16 or f16 is one
-    ``kernels/rmsnorm.add_rmsnorm`` launch (its plain version on the
-    CPU), bit for bit the three steps; layernorm, emulated mode (whose
-    cast is ``quantize``) and 8-bit dtypes take the three steps apart.
-    The route follows the norm kind, the policy and the dtypes alone."""
-    if kind == "rmsnorm" and policy.mode == "native" and fused_norm_takes(
+    In native mode over f32, bf16 or f16 the three steps are one launch
+    (``kernels/rmsnorm.add_rmsnorm``, ``kernels/layernorm.add_layernorm``;
+    their plain versions on the CPU), bit for bit the three steps;
+    emulated mode (whose cast is ``quantize``) and 8-bit dtypes take the
+    three steps apart.  The route follows the norm kind, the policy and
+    the dtypes alone."""
+    if policy.mode == "native" and fused_norm_takes(
             x.dtype, None if y is None else y.dtype, policy.dtype("act")):
-        return add_rmsnorm(x, y, p["gamma"], policy.dtype("act"))
+        if kind == "rmsnorm":
+            return add_rmsnorm(x, y, p["gamma"], policy.dtype("act"))
+        return add_layernorm(x, y, p["gamma"], p["beta"],
+                             policy.dtype("act"))
     s = x if y is None else residual_add(x, y)
     return s, apply_norm(s, p, policy, kind)
 
