@@ -13,10 +13,14 @@ Run from the root of a checkout.  Phases:
                   flash_prefill and flash_decode against their plain
                   PyTorch versions on the card, at the serving path's
                   shapes, at ragged edge shapes and at the widened
-                  attention shapes (head_dim 8-256, G 1-16), qmm at every
-                  projection, expert block, router and untied head of
-                  yi-9b, mistral-nemo-12b, command-r-35b, granite-moe
-                  and qwen3-moe, with the stated tolerances; qmm on
+                  attention shapes (head_dim 8-256, G 1-16) and at
+                  paligemma-3b's (the 256-row bidirectional prefix, MQA
+                  decode: H 1, G 8, dh 256), qmm at every projection,
+                  expert block, router and untied head of yi-9b,
+                  mistral-nemo-12b, command-r-35b, granite-moe,
+                  qwen3-moe and paligemma-3b (each gated FFN with its
+                  config's activation: paligemma's gelu), with the
+                  stated tolerances; qmm on
                   packed activations bit-identical to qmm on the
                   decoded ones; qmm,
                   flash_decode and paged_decode rows bit-identical
@@ -87,7 +91,11 @@ Run from the root of a checkout.  Phases:
                   the qmm router's experts equal the plain product's;
                   2-layer qwen3-moe and granite-moe logits on the grouped
                   expert product bit for bit those on the per-expert
-                  loops.
+                  loops; 2-layer paligemma-3b on random prefix
+                  embeddings: kernel path against plain path, the
+                  engine's route (whole prefill, write_prefill, paged
+                  decode) bit for bit the contiguous route, and the
+                  random prefix's logits apart from the zero prefix's.
 10. resilience -- the engine's fault and recovery surface at full width
                   (``run_resilience``): the streamed handoff with the
                   router and two prefill workers, bit for bit the
@@ -101,12 +109,16 @@ Run from the root of a checkout.  Phases:
                   twin, its rows at every row count at d 8192 and 384,
                   and its times (add_layernorm's too).
 11. archs      -- ``serve.main`` on yi-9b, mistral-nemo-12b, command-r-35b,
-                  granite-moe-1b-a400m and qwen3-moe-30b-a3b at full width
-                  and depth (transprecision, qmm_pallas, flash_pallas, 2 x
-                  (64 + 8)), mistral-nemo and granite also under paged:
+                  granite-moe-1b-a400m, qwen3-moe-30b-a3b and
+                  paligemma-3b (after its 256 stub prefix rows, capacity
+                  384) at full width and depth (transprecision,
+                  qmm_pallas, flash_pallas, 2 x (64 + 8)), mistral-nemo,
+                  granite and paligemma also under paged:
                   launches per decode step and prefill chunk by kernel
                   (every norm one fused add_rmsnorm or add_layernorm, no
-                  standalone residual add),
+                  standalone residual add), the tied heads' torch.matmul
+                  pieces, the gated FFN's launches, every slot's rows
+                  when its prompt lands (prefix + prompt),
                   the experts' launches (2 grouped calls a layer, one
                   device kernel each, no per-expert qmm_tc), one MoE
                   layer with no host synchronisation, tok/s, peak
@@ -482,28 +494,31 @@ def check_qmm(torch, np, report):
 
 def arch_qmm_cases(cfg):
     """The packed products a full-width ``cfg`` serves, as ``(name,
-    M values, K, N, gated, binary32)``: the attention projections and
-    the dense fused gated FFN with w_out at a decode step's 4 rows and a
-    64-row chunk, or the MoE experts' blocks (M = capacity rows: 8 at a
-    decode step, 64 in a chunk's worth; w_in with w_gate as one gated
-    product, as ``qmm_ffn`` serves it) and the binary32 router; the
-    untied head at M 4 (a tied head is ``torch.matmul``).  Products of
-    one shape are one case."""
-    d, ff = cfg.d_model, cfg.d_ff
-    rows = [("wq", (4, 64), d, cfg.q_dim, False, False),
-            ("wk/wv", (4, 64), d, cfg.kv_dim, False, False),
-            ("wo", (4, 64), cfg.q_dim, d, False, False)]
+    M values, K, N, act of the gated epilogue or None, binary32)``: the
+    attention projections and the dense fused gated FFN (with the
+    config's own activation) with w_out at a decode step's 4 rows and a
+    64-row chunk (a prefix-LM: its whole prompt's prefix + 64 rows), or
+    the MoE experts' blocks (M = capacity rows: 8 at a decode step, 64
+    in a chunk's worth; w_in with w_gate as one gated product, as
+    ``qmm_ffn`` serves it) and the binary32 router; the untied head at
+    M 4 (a tied head is ``torch.matmul``).  Products of one shape are
+    one case."""
+    d, ff, act = cfg.d_model, cfg.d_ff, cfg.act_fn
+    Ms = (4, cfg.prefix_len + ARCH_PROMPT if cfg.prefix_len else 64)
+    gate = act if cfg.gated_ffn else None
+    rows = [("wq", Ms, d, cfg.q_dim, None, False),
+            ("wk/wv", Ms, d, cfg.kv_dim, None, False),
+            ("wo", Ms, cfg.q_dim, d, None, False)]
     if cfg.moe_experts:
-        rows += [("router", (4, 64), d, cfg.moe_experts, False, True),
-                 ("expert w_in/w_gate", (8, 64), d, ff, cfg.gated_ffn,
-                  False),
-                 ("expert w_out", (8, 64), ff, d, False, False)]
+        rows += [("router", Ms, d, cfg.moe_experts, None, True),
+                 ("expert w_in/w_gate", (8, 64), d, ff, gate, False),
+                 ("expert w_out", (8, 64), ff, d, None, False)]
     else:
-        rows += [("ffn gated silu" if cfg.gated_ffn else "ffn silu",
-                  (4, 64), d, ff, cfg.gated_ffn, False),
-                 ("w_out", (4, 64), ff, d, False, False)]
+        rows += [(f"ffn gated {act}" if cfg.gated_ffn else f"ffn {act}",
+                  Ms, d, ff, gate, False),
+                 ("w_out", Ms, ff, d, None, False)]
     if not cfg.tied_embeddings:
-        rows.append(("head", (4,), d, cfg.vocab, False, False))
+        rows.append(("head", (4,), d, cfg.vocab, None, False))
     cases = {}
     for name, Ms, K, N, gated, f32 in rows:
         key = (Ms, K, N, gated, f32)
@@ -512,14 +527,16 @@ def arch_qmm_cases(cfg):
 
 
 def check_qmm_archs(torch, report, timer):
-    """qmm at the ninth slice's shapes, taken from each full config by
+    """qmm at the served configs' shapes, taken from each full config by
     :func:`arch_qmm_cases`, against qmatmul_plain, within 1e-6 in units
     of |x| @ |w| + 1 (``check_qmm``'s tolerance): every packed product
-    of yi-9b, mistral-nemo-12b, command-r-35b, granite-moe and qwen3-moe
-    on the tensor cores (binary16alt), and the binary32 routers (K x E)
-    on the GEMV (M 4) and ``qmm_tile`` (M 64).  Then one qwen3 expert
-    launch (M 8, K 2048, N 768) timed against its bound and
-    torch.matmul."""
+    of yi-9b, mistral-nemo-12b, command-r-35b, granite-moe, qwen3-moe
+    and paligemma-3b on the tensor cores (binary16alt), each gated FFN
+    with its config's activation (paligemma's gelu epilogue at its
+    decode step's and whole prompt's rows), and the binary32 routers
+    (K x E) on the GEMV (M 4) and ``qmm_tile`` (M 64).  Then one qwen3
+    expert launch (M 8, K 2048, N 768) timed against its bound and
+    torch.matmul, and paligemma's gated gelu FFN (``time_qmm_gelu``)."""
     from repro_torch import configs
     from repro_torch.core.formats import BINARY16ALT, BINARY32
     from repro_torch.core.qtensor import decode
@@ -536,11 +553,11 @@ def check_qmm_archs(torch, report, timer):
              for name, Ms, K, N, gated, f32 in arch_qmm_cases(
                  configs.get(arch))
              for M in Ms]
-    for arch, name, M, K, N, gated, fmt in cases:
+    for arch, name, M, K, N, act, fmt in cases:
+        gated = act is not None
         x = rand(M, K)
         wp = _pack_weight(rand(K, N), fmt)
         gp = _pack_weight(rand(K, N), fmt) if gated else None
-        act = "silu" if gated else None
         got = Q.qmatmul(x, wp, None, fmt, gate_payload=gp, act=act)
         want = Q.qmatmul_plain(x, wp, None, fmt, gate_payload=gp, act=act)
         xa = x.abs()
@@ -551,23 +568,25 @@ def check_qmm_archs(torch, report, timer):
         norm = float((err / unit).max())
         good = norm <= 1e-6
         ok &= good
-        for k in ("all", "expert") if name.startswith("expert") \
-                else ("all",):
-            worst[k] = max(worst[k], float(err.max()))
+        for k in (("all", "expert") if name.startswith("expert")
+                  else ("all", "gelu") if act == "gelu" else ("all",)):
+            worst[k] = max(worst.get(k, 0.0), float(err.max()))
         key = f"{arch} {name} M={M} K={K} N={N} {fmt.name}"
         res[key] = norm
         report["cases"].append(dict(kernel="qmm", case=f"{arch} {name}",
                                     M=M, K=K, N=N, fmt=fmt.name,
-                                    gated=gated, path=Q.qmm_kernel(fmt, M),
+                                    gated=gated, act=act,
+                                    path=Q.qmm_kernel(fmt, M),
                                     max_abs_err=float(err.max()),
                                     max_err_in_acc_units=norm, ok=good))
-        print(f"[kernels] qmm {key:<58} {Q.qmm_kernel(fmt, M):<8} "
+        print(f"[kernels] qmm {key:<60} {Q.qmm_kernel(fmt, M):<8} "
               f"max|err|={float(err.max()):.3e} ({norm:.2e} x |x|@|w|, "
               f"tol 1e-6) {'ok' if good else 'FAIL'}")
         del x, wp, gp, got, want, xa, unit, err
     torch.cuda.empty_cache()
     report["qmm_archs_max_abs_err"] = worst["all"]
     report["qmm_expert_max_abs_err"] = worst["expert"]
+    report["qmm_gelu_max_abs_err"] = worst.get("gelu")
 
     qwen3 = configs.get("qwen3-moe-30b-a3b")   # one expert launch, M 8
     M, K, N = 8, qwen3.d_model, qwen3.d_ff
@@ -587,10 +606,55 @@ def check_qmm_archs(torch, report, timer):
     print(f"[timing] qmm_tc one qwen3 expert M={M} K={K} N={N} binary16alt: "
           f"kernel {t_k:.4f} ms  plain {t_p:.4f} ms  torch.matmul "
           f"{t_l:.4f} ms  bound {bound:.5f} ms ({by})  host {host:.1f} us")
-    print(f"[kernels] qmm at the ninth slice's shapes: {len(res)} cases, "
-          f"worst {max(res.values()):.2e} x |x|@|w| (tol 1e-6) "
+    print(f"[kernels] qmm at the served configs' shapes: {len(res)} "
+          f"cases, worst {max(res.values()):.2e} x |x|@|w| (tol 1e-6) "
           f"{'ok' if ok else 'FAIL'}")
+    time_qmm_gelu(torch, report, timer)
     return ok
+
+
+def time_qmm_gelu(torch, report, timer):
+    """paligemma-3b's fused gated gelu FFN (``qmm_ffn``: act(x @ w_in) *
+    (x @ w_gate) with the tanh-form gelu in ``qmm_tc``'s epilogue), K
+    2048, N 16384, binary16alt, at its decode step's 2 rows and its whole
+    prompt's 320 (256 prefix + 64 tokens): kernel, plain version, and
+    ``gelu(x @ w_in, approximate="tanh") * (x @ w_gate)`` on the widened
+    weights (three torch calls; no one call computes it), beside the
+    bound."""
+    from repro_torch import configs
+    from repro_torch.core.formats import BINARY16ALT as fmt
+    from repro_torch.kernels import qmatmul as Q
+
+    cfg = configs.get("paligemma-3b")
+    gen = torch.Generator(device="cuda").manual_seed(report["seed"] + 14)
+    K, N = cfg.d_model, cfg.d_ff
+    wp = _pack_weight(torch.randn((K, N), generator=gen, device="cuda"),
+                      fmt)
+    gp = _pack_weight(torch.randn((K, N), generator=gen, device="cuda"),
+                      fmt)
+    wf, gf = _unpack_weight(wp, fmt), _unpack_weight(gp, fmt)
+    gelu = torch.nn.functional.gelu
+    for M in (ARCH_SLOTS, cfg.prefix_len + ARCH_PROMPT):
+        x = torch.randn((M, K), generator=gen, device="cuda")
+        t_k = timer(lambda: Q.qmm_ffn(x, wp, gp, fmt, act="gelu"))
+        t_p = timer(lambda: Q.qmatmul_plain(x, wp, None, fmt,
+                                            gate_payload=gp, act="gelu"),
+                    iters=5)
+        t_l = timer(lambda: gelu(x @ wf, approximate="tanh") * (x @ gf))
+        nbytes = Q.qmm_hbm_bytes(M, K, N, fmt, gated=True)
+        flops = 4 * M * K * N
+        bound, by = qmm_bound(Q, fmt, nbytes, flops)
+        report["timings"].append(dict(
+            kernel="qmm_tc_gelu", M=M, K=K, N=N, fmt=fmt.name, ms=t_k,
+            plain_ms=t_p, library_ms=t_l, bound_ms=bound, bound_by=by,
+            bytes=nbytes, flops=flops))
+        print(f"[timing] qmm_tc gated gelu FFN (paligemma) M={M:<3} K={K} "
+              f"N={N} binary16alt: kernel {t_k:.4f} ms  plain {t_p:.4f} ms"
+              f"  gelu(x@w_in)*(x@w_gate) {t_l:.4f} ms  bound {bound:.5f} "
+              f"ms ({by})")
+        del x
+    del wp, gp, wf, gf
+    torch.cuda.empty_cache()
 
 
 MOE_ARCHS = ("qwen3-moe-30b-a3b", "granite-moe-1b-a400m")
@@ -1054,6 +1118,12 @@ def _paged_inputs(torch, np, fmt, seed, B=4, H=8, G=4, dh=128, page=64,
             dev(torch.tensor(tables)), page)
 
 
+# paligemma-3b's decode (MQA: one KV head of 256, 8 query heads) over
+# its 256 prefix rows and a 64-token prompt: lengths 320-336, ragged
+# across the 64-position pieces, in a 384-row slot
+MQA_SHAPE = dict(H=1, G=8, dh=256)
+MQA_S, MQA_LENGTHS = 384, (320, 323, 329, 336)
+
 # paged_decode cases: (fmt name, shape overrides, lengths); None = f32
 PAGED_SERVE = dict(B=4, H=8, G=4, dh=128, page=64, pps=8)
 PAGED_CASES = (
@@ -1065,7 +1135,9 @@ PAGED_CASES = (
        for f in ("binary8", "binary16alt", None)
        for G, dh in ((2, 16), (10, 256), (2, 256), (10, 16), (4, 8),
                      (1, 24))
-       for page, lens in ((16, (0, 17, 200, 511)), (64, (0, 64, 129, 600)))])
+       for page, lens in ((16, (0, 17, 200, 511)), (64, (0, 64, 129, 600)))]
+    + [(f, dict(MQA_SHAPE, page=64, pps=MQA_S // 64), MQA_LENGTHS)
+       for f in ("binary8", None)])
 
 
 def check_paged(torch, np, report, timer):
@@ -1079,7 +1151,9 @@ def check_paged(torch, np, report, timer):
     and 10 (and dh 8 and 24, rows narrower than or not a multiple of 16
     bytes in e5m2) at pages 16 and 64; every case with a zero-length
     unmapped row, a hole inside a length and a length above the
-    capacity.  Then a row's bits do not depend on B or on the table's
+    capacity, but paligemma-3b's MQA shape (H 1, G 8, dh 256, page 64,
+    lengths 320-336 in e5m2 and f32), which has the hole only.  Then a
+    row's bits do not depend on B or on the table's
     width: each row alone, and beside other rows in a wider table, equals
     its row in the batch."""
     from repro_torch.core.formats import get_format
@@ -1122,6 +1196,9 @@ def check_paged(torch, np, report, timer):
               f"{rerr:.1e} (tol 1e-5) zero-length rows zero: {zero_ok} "
               f"{'ok' if good else 'FAIL'}")
         worst = max(worst, err)
+        if kw["H"] == MQA_SHAPE["H"]:
+            report["paged_mqa_max_abs_err"] = max(
+                report.get("paged_mqa_max_abs_err", 0.0), err)
     report["paged_max_abs_err"] = worst
 
     from repro_torch.core.formats import BINARY8
@@ -1147,6 +1224,10 @@ def check_paged(torch, np, report, timer):
     return ok
 
 
+# paligemma-3b's whole-prompt prefill: 256 prefix + 64 tokens, MQA
+PREFIX_SERVE = dict(B=1, Sq=320, Skv=320, H=1, G=8, dh=256)
+
+
 def _prefill_inputs(torch, np, fmt, seed, Skv=256, B=1, Sq=64, H=8, G=4,
                     dh=128):
     from repro_torch.core.qtensor import encode
@@ -1167,7 +1248,9 @@ def check_prefill(torch, np, report, timer):
     divide), q_offset 192, G = 1 / 8 / 32 and dh = 64; then the widened
     shapes: head_dim 16 and 256 at G 2 and 10 in e5m2, bf16 and f32,
     head_dim 8 and 24 in e5m2 (rows narrower than, or not a multiple of,
-    16 bytes) and head_dim 40, 72 and 200 (padded widths)."""
+    16 bytes) and head_dim 40, 72 and 200 (padded widths); and
+    paligemma-3b's whole prompt (``PREFIX_SERVE``: H 1, G 8, dh 256, Sq =
+    Skv = 320, prefix 256) in e5m2 and f32."""
     from repro_torch.core.formats import BINARY8, BINARY16ALT
     from repro_torch.kernels import flash_attention as FA
 
@@ -1192,6 +1275,9 @@ def check_prefill(torch, np, report, timer):
     cases += [(fmt, 64, None, 0, dict(serve, G=G, dh=dh))
               for fmt in (BINARY8, BINARY16ALT, None)
               for G, dh in ((2, 16), (10, 256), (2, 256), (10, 16))]
+    # paligemma-3b's whole prompt: MQA (H 1, G 8, dh 256), 256
+    # bidirectional prefix rows before 64 causal ones
+    cases += [(fmt, 0, None, 256, PREFIX_SERVE) for fmt in (BINARY8, None)]
     cases += [(BINARY8, 100, 48, 0, dict(serve, Sq=17, G=10, dh=256)),
               (None, 30, None, 8, dict(serve, B=2, Sq=17, G=10, dh=16)),
               (BINARY8, 64, None, 0, dict(serve, G=2, dh=8)),
@@ -1215,11 +1301,15 @@ def check_prefill(torch, np, report, timer):
                                     prefix_len=prefix, **shp,
                                     max_abs_err=err, ok=good))
         print(f"[kernels] flash_prefill {name:<11} B={shp['B']} "
-              f"Sq={shp['Sq']:<3} G={shp['G']:<2} dh={shp['dh']:<3} Skv=256 "
+              f"Sq={shp['Sq']:<3} H={shp.get('H', 8)} G={shp['G']:<2} "
+              f"dh={shp['dh']:<3} Skv={shp.get('Skv', 256)} "
               f"q_offset={q_off:<3} window={window} prefix={prefix} "
               f"max|err|={err:.3e} (tol 1e-6) {'ok' if good else 'FAIL'}")
         if fmt == BINARY8:
             worst = max(worst, err)
+        if shp is PREFIX_SERVE:
+            report["prefill_prefix_max_abs_err"] = max(
+                report.get("prefill_prefix_max_abs_err", 0.0), err)
     report["prefill_max_abs_err"] = worst
     return ok
 
@@ -1298,13 +1388,13 @@ def time_attention(torch, np, report, timer, serve_len):
               f"us/call")
 
 
-def _decode_inputs(torch, np, fmt, seed, S, lengths, G=4, dh=128):
+def _decode_inputs(torch, np, fmt, seed, S, lengths, G=4, dh=128, H=8):
     """The serve shape's gathered cache: B = 4 sequences, H = 8 KV heads,
-    G = 4, dh = 128, K/V (4, S, 8, 128) packed or f32 (or another G and
-    dh)."""
+    G = 4, dh = 128, K/V (4, S, 8, 128) packed or f32 (or another G, dh
+    and H)."""
     from repro_torch.core.qtensor import encode
     rng = np.random.default_rng(seed)
-    B, H = len(lengths), 8
+    B = len(lengths)
     q = torch.tensor(rng.normal(size=(B, H, G, dh)), dtype=torch.float32)
     kf = torch.tensor(rng.normal(size=(B, S, H, dh)), dtype=torch.float32)
     vf = torch.tensor(rng.normal(size=(B, S, H, dh)), dtype=torch.float32)
@@ -1325,7 +1415,8 @@ def check_flash_decode(torch, np, report):
     (``flash_decode_split_plain``) beside it.  At the widened shapes the
     kernel is held to the split twin (whose scores are summed in f64) and
     its difference from the plain version, the sum of two f32 errors, is
-    measured.
+    measured; so at paligemma-3b's MQA shape (H 1, G 8, dh 256, lengths
+    320-336 ragged in a gathered 384) in e5m2 and f32.
     Tolerance 1e-6 absolute on the output, the reference's contract; 1e-5
     on m and relative 1e-5 on l.  Then a row's bits do not depend on the
     rows beside it: each row of the serve shape alone, and beside rows of
@@ -1349,6 +1440,9 @@ def check_flash_decode(torch, np, report):
     cases += [(BINARY8, 200, [0, 1, 65, 199], dict(G=4, dh=8)),
               (BINARY8, 256, [0, 64, 129, 256], dict(G=1, dh=24)),
               (BINARY16ALT, 256, [5, 63, 128, 256], dict(G=16, dh=200))]
+    # paligemma-3b's decode: MQA over the prefix and the prompt
+    cases += [(fmt, MQA_S, list(MQA_LENGTHS), MQA_SHAPE)
+              for fmt in (BINARY8, None)]
     for fmt, S, lengths, shp in cases:
         q, kp, vp, lens = _decode_inputs(torch, np, fmt, report["seed"] + 3,
                                          S, lengths, **shp)
@@ -1373,13 +1467,17 @@ def check_flash_decode(torch, np, report):
                                     lengths=lengths, **shp, max_abs_err=err,
                                     twin_err=terr, residual_err=rerr,
                                     ok=good))
-        print(f"[kernels] flash_decode {name:<11} B=4 H=8 G={shp['G']:<2} "
+        print(f"[kernels] flash_decode {name:<11} B=4 H={shp.get('H', 8)} "
+              f"G={shp['G']:<2} "
               f"dh={shp['dh']:<3} S={S} "
               f"lengths={lengths} max|err|={err:.3e} "
               f"({'tol 1e-6' if shp == serve else 'measured'}; against "
               f"the split twin {terr:.1e}, tol 1e-6) residuals {rerr:.1e} "
               f"(tol 1e-5) {'ok' if good else 'FAIL'}")
         worst = max(worst, terr)
+        if shp is MQA_SHAPE:
+            report["flash_decode_mqa_max_abs_err"] = max(
+                report.get("flash_decode_mqa_max_abs_err", 0.0), terr)
     report["flash_decode_max_abs_err"] = worst
 
     q, kp, vp, lens = _decode_inputs(torch, np, BINARY8, report["seed"] + 3,
@@ -1438,6 +1536,100 @@ def time_flash_decode(torch, np, report, timer, serve_len):
     print(f"[timing] flash_decode B=4 S=256 len={serve_len} kernel "
           f"{t_k:.4f} ms  plain {t_p:.4f} ms  SDPA {t_l:.4f} ms  bound "
           f"{max(b_bytes, b_ops):.6f} ms  host {host:.1f} us/call")
+
+
+def time_prefix_attention(torch, np, report, timer):
+    """The attention kernels at paligemma-3b's served shapes (MQA: H 1,
+    G 8, dh 256, e5m2): flash_prefill over its whole prompt (256
+    bidirectional prefix rows + 64 causal, ``PREFIX_SERVE``) beside SDPA
+    with the same prefix | causal mask; flash_decode of its 2 slots
+    holding 324 rows (the middle of a serve's 321-327) in a gathered
+    384-row cache beside SDPA; paged_decode of the same rows in pages of
+    64 (no library call takes block tables).  SDPA runs on the
+    dequantized K/V repeated to the 8 query heads (timed only, never
+    called by the port)."""
+    from repro_torch.core.formats import BINARY8
+    from repro_torch.core.qtensor import decode
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_attention as PA
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    H, G, dh = MQA_SHAPE["H"], MQA_SHAPE["G"], MQA_SHAPE["dh"]
+    shp = PREFIX_SERVE
+    Sq, Skv, P = shp["Sq"], shp["Skv"], 256
+    q, kp, vp = _prefill_inputs(torch, np, BINARY8, report["seed"] + 5,
+                                **shp)
+    kd, vd = decode(kp, BINARY8), decode(vp, BINARY8)
+    qs = q.reshape(1, Sq, H * G, dh).transpose(1, 2)
+    ks = kd.repeat_interleave(G, dim=2).transpose(1, 2)
+    vs = vd.repeat_interleave(G, dim=2).transpose(1, 2)
+    mask = FA.prefill_mask(Sq, Skv, 0, None, P, "cuda")
+    t_k = timer(lambda: FA.flash_prefill(q, kp, vp, BINARY8, prefix_len=P))
+    t_p = timer(lambda: FA.flash_prefill_plain(q, kp, vp, BINARY8,
+                                               prefix_len=P), iters=10)
+    t_l = timer(lambda: sdpa(qs, ks, vs, attn_mask=mask))
+    live = int(mask.sum())                    # keys each query needs
+    flops = 4 * dh * H * G * live
+    nbytes = FA.prefill_hbm_bytes(1, Sq, Skv, H, G, dh, BINARY8)
+    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    b_ops = flops / F32_PEAK_FLOPS * 1e3
+    report["timings"].append(dict(
+        kernel="flash_prefill_prefix", prefix_len=P, **shp, ms=t_k,
+        plain_ms=t_p, library_ms=t_l, bound_ms=max(b_bytes, b_ops),
+        bound_by="bytes" if b_bytes >= b_ops else "operations",
+        bytes=nbytes, flops=flops))
+    print(f"[timing] flash_prefill paligemma whole prompt Sq=Skv={Sq} H=1 "
+          f"G=8 dh=256 prefix={P}: kernel {t_k:.4f} ms  plain {t_p:.4f} ms "
+          f" SDPA {t_l:.4f} ms  bound {max(b_bytes, b_ops):.5f} ms")
+
+    B, S, n = ARCH_SLOTS, MQA_S, 324
+    q, kp, vp, lens = _decode_inputs(torch, np, BINARY8, report["seed"] + 6,
+                                     S, [n] * B, **MQA_SHAPE)
+    kd, vd = decode(kp, BINARY8), decode(vp, BINARY8)
+    qs = q.reshape(B, H * G, 1, dh)
+    ks = kd.repeat_interleave(G, dim=2).transpose(1, 2)
+    vs = vd.repeat_interleave(G, dim=2).transpose(1, 2)
+    mask = (torch.arange(S, device="cuda")[None, :] < lens[:, None])[
+        :, None, None, :]
+    flops = 4 * dh * H * G * n * B
+    b_ops = flops / F32_PEAK_FLOPS * 1e3
+    page = 64
+    # the same rows as B slots of S // page pages each (a permuted table)
+    kpg = kp.reshape(B * S // page, page, H, dh)
+    vpg = vp.reshape(B * S // page, page, H, dh)
+    perm = torch.randperm(B * S // page, generator=torch.Generator()
+                          .manual_seed(report["seed"]))
+    inv = torch.argsort(perm)
+    kpg, vpg = kpg[perm].contiguous(), vpg[perm].contiguous()
+    tables = inv.reshape(B, S // page).to(torch.int32).cuda()
+    for name, fn, plain, lib, nbytes in (
+            ("flash_decode_mqa",
+             lambda: FA.flash_decode(q, kp, vp, BINARY8, lens),
+             lambda: FA.flash_decode_plain(q, kp, vp, BINARY8, lens),
+             lambda: sdpa(qs, ks, vs, attn_mask=mask),
+             FA.decode_hbm_bytes([n] * B, S, H, dh, BINARY8, g=G)),
+            ("paged_decode_mqa",
+             lambda: PA.paged_decode(q, kpg, vpg, BINARY8, lens, tables),
+             lambda: PA.paged_decode_plain(q, kpg, vpg, BINARY8, lens,
+                                           tables),
+             None,
+             PA.paged_hbm_bytes([n] * B, H, dh, BINARY8, page_size=page,
+                                g=G))):
+        t_k = timer(fn)
+        t_p = timer(plain, iters=10)
+        t_l = timer(lib) if lib is not None else None
+        b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        report["timings"].append(dict(
+            kernel=name, B=B, S=S, length=n, **MQA_SHAPE, ms=t_k,
+            plain_ms=t_p, library_ms=t_l, bound_ms=max(b_bytes, b_ops),
+            bound_by="bytes" if b_bytes >= b_ops else "operations",
+            bytes=nbytes, flops=flops))
+        print(f"[timing] {name} paligemma B={B} len={n} H=1 G=8 dh=256: "
+              f"kernel {t_k:.4f} ms  plain {t_p:.4f} ms  "
+              + (f"SDPA {t_l:.4f} ms  " if t_l is not None else "")
+              + f"bound {max(b_bytes, b_ops):.6f} ms")
+    del q, kp, vp, kpg, vpg
+    torch.cuda.empty_cache()
 
 
 def time_kernels(torch, np, report, timer):
@@ -2573,6 +2765,164 @@ def check_logits(torch, report, args, qmm_lib):
     ok &= check_fused_norm_logits(torch, report, args, model, cfg)
     ok &= check_logits_archs(torch, report, args)
     ok &= check_grouped_logits(torch, report, args)
+    ok &= check_prefix_logits(torch, report, args)
+    return ok
+
+
+def _prefix_logits(torch, model, cfg, pol, dec, mm, seed, batch, route):
+    """The prefill and first decode step logits of ``batch`` (tokens and
+    prefix embeddings) under ``pol`` with decode ``dec`` and matmul
+    ``mm``, along one of two routes: ``"engine"`` (``prefill`` at its
+    default capacity, the prefix and prompt rows; ``write_prefill`` of
+    them into a one-slot paged cache of ``arch_capacity`` rows; a paged
+    ``decode_step``) or ``"contiguous"`` (``synchronous_generate``'s:
+    ``prefill`` into a contiguous cache of ``arch_capacity`` rows, a
+    contiguous ``decode_step``).  Returns ((prefill, decode) logits,
+    every layer's length after prefill, flash_prefill launches)."""
+    from repro_torch.core.policy import get_policy
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_cache
+    from repro_torch.models import qparams
+
+    policy = get_policy(pol, decode_impl=dec, matmul_impl=mm)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = model.init_params(gen, policy, device="cuda")
+    if mm == "qmm_pallas":
+        params = qparams.encode_params(params, policy)
+    cap = arch_capacity(cfg)
+    pps = cap // ARCH_PAGE
+    before = FA.LIB.launches
+    last = batch["tokens"][:, -1:]
+    if route == "engine":
+        lp, one = model.prefill(params, batch, policy, None)
+        states = [paged_cache.write_prefill(paged_cache.set_block_tables(
+            paged_cache.init_paged_cache(
+                1, pps, ARCH_PAGE, pps, cfg.n_kv, cfg.head_dim,
+                policy.dtype("kv_cache", layer=li), device="cuda"),
+            [list(range(pps))]), 0, c.k[0], c.v[0])
+            for li, c in enumerate(one)]
+        lens = [int(s.seq_lens[0]) for s in states]
+    else:
+        lp, states = model.prefill(params, batch, policy, cap)
+        lens = [int(s.pos) for s in states]
+    launches = FA.LIB.launches - before
+    ld, _ = model.decode_step(params, last, states, policy)
+    out = (lp.float(), ld.float())
+    del params, states
+    torch.cuda.empty_cache()
+    return out, lens, launches
+
+
+def check_prefix_logits(torch, report, args):
+    """paligemma-3b at 2 layers, full width, on random prefix embeddings
+    (seeded numpy; the served stub prefix is zeros, which stay zero
+    through every layer and so test the bidirectional mask only
+    trivially) before a 64-token prompt:
+
+    * kernel path (``paged``, ``qmm_pallas``) against plain path
+      (``xla``, ``xla``) along the engine's route, under binary32 and
+      transprecision, at ``LOGIT_TOL``: with the agreement on random
+      prefix rows this holds ``flash_prefill``'s prefix mask (one launch
+      a layer);
+    * the engine's route (whole prefill, ``write_prefill``, paged decode)
+      against the contiguous route (``synchronous_generate``'s) under one
+      decode spelling (``paged``, ``flash_pallas``), both policies, bit
+      for bit: both read 384 positions of one slot in pages of 64 (the
+      contiguous cache as its paged view), so every kernel sums alike;
+      every layer's length after prefill is prefix + prompt;
+    * under binary32, the logits on the random prefix differ from those
+      on the zero prefix by more than the kernel-path tolerance (and by
+      far more than the kernel and plain paths differ): the prefix
+      reaches the logits through every layer on the kernel route.  The
+      margin is modest: the sqrt(d)-scaled token embedding dominates its
+      own residual stream, so its tied logit (~d) dominates the row."""
+    import numpy as np
+    from repro_torch.models.registry import build
+    from repro_torch.models.transformer import Model
+
+    _, full = build("paligemma-3b")
+    cfg = dataclasses.replace(full, n_layers=2)
+    model = Model(cfg)
+    rng = np.random.default_rng(args.seed + 23)
+    prefix = torch.tensor(rng.normal(size=(1, cfg.prefix_len, cfg.d_model)),
+                          dtype=torch.float32, device="cuda")
+    toks = torch.tensor(rng.integers(0, cfg.vocab, (1, ARCH_PROMPT)),
+                        dtype=torch.int32, device="cuda")
+    batch = {"tokens": toks, "prefix_embeds": prefix}
+    rows = cfg.prefix_len + ARCH_PROMPT
+    ok = True
+    kernel = {}
+    for pol, rel in LOGIT_TOL.items():
+        res = {}
+        for path, (dec, mm) in (("kernel", ("paged", "qmm_pallas")),
+                                ("plain", ("xla", "xla"))):
+            res[path] = _prefix_logits(torch, model, cfg, pol, dec, mm,
+                                       args.seed, batch, "engine")
+        kernel[pol] = res["kernel"]
+        launches = res["kernel"][2]
+        for i, what in enumerate(("whole prefill", "decode step")):
+            a, b = res["kernel"][0][i], res["plain"][0][i]
+            err = float((a - b).abs().max())
+            scale = float(b.abs().max())
+            good = err <= rel * max(scale, 1.0) and bool(
+                torch.isfinite(a).all()) and launches == cfg.n_layers
+            ok &= good
+            report["logits"].append(dict(
+                arch=cfg.arch, policy=pol, what=f"{what}, random prefix",
+                max_abs_err=err, max_abs_logit=scale, tol_rel=rel,
+                flash_prefill_launches=launches,
+                argmax_equal=bool((a.argmax(-1) == b.argmax(-1)).all()),
+                ok=good))
+            print(f"[logits] {cfg.arch} {pol:<14} {what:<13} 2-layer full "
+                  f"width, random 256-row prefix: max|kernel - plain| = "
+                  f"{err:.3e} (max|logit| {scale:.3f}, tol {rel:.2e} x "
+                  f"that), flash_prefill launches {launches} (want "
+                  f"{cfg.n_layers}) {'ok' if good else 'FAIL'}")
+    for pol in LOGIT_TOL:
+        for dec in ("paged", "flash_pallas"):
+            eng = kernel[pol] if dec == "paged" else _prefix_logits(
+                torch, model, cfg, pol, dec, "qmm_pallas", args.seed, batch,
+                "engine")
+            con = _prefix_logits(torch, model, cfg, pol, dec, "qmm_pallas",
+                                 args.seed, batch, "contiguous")
+            same = [torch.equal(_bits(a), _bits(b))
+                    for a, b in zip(eng[0], con[0])]
+            err = float((eng[0][1] - con[0][1]).abs().max())
+            lens_ok = eng[1] == [rows] * cfg.n_layers == con[1]
+            good = all(same) and lens_ok
+            ok &= good
+            report["logits"].append(dict(
+                arch=cfg.arch, policy=pol, decode_impl=dec,
+                what="engine route vs contiguous route, random prefix",
+                bits_equal=dict(zip(("whole prefill", "decode step"), same)),
+                max_abs_err=err, lengths_after_prefill=eng[1], ok=good))
+            print(f"[logits] {cfg.arch} {pol:<14} {dec:<12} 2-layer full "
+                  f"width: the engine's route (whole prefill, write_prefill,"
+                  f" paged decode) bit for bit the contiguous route's "
+                  f"(prefill, decode step) {same} (max|diff| {err:.3e}); "
+                  f"lengths after prefill {eng[1]} / {con[1]} (want {rows}:"
+                  f" prefix + prompt) {'ok' if good else 'FAIL'}")
+    zero = _prefix_logits(torch, model, cfg, "binary32", "paged",
+                          "qmm_pallas", args.seed,
+                          dict(batch, prefix_embeds=torch.zeros_like(prefix)),
+                          "engine")
+    rel = LOGIT_TOL["binary32"]
+    for i, what in enumerate(("whole prefill", "decode step")):
+        a, b = kernel["binary32"][0][i], zero[0][i]
+        diff = float((a - b).abs().max())
+        tol = rel * max(float(b.abs().max()), 1.0)
+        good = diff > tol
+        ok &= good
+        report["logits"].append(dict(
+            arch=cfg.arch, policy="binary32",
+            what=f"{what}, random vs zero prefix", max_abs_diff=diff,
+            must_exceed=tol, ok=good))
+        print(f"[logits] {cfg.arch} binary32 {what:<13} kernel route: "
+              f"max|random prefix - zero prefix| = {diff:.3e} (must exceed "
+              f"the kernel-path tolerance {tol:.3e}) "
+              f"{'ok' if good else 'FAIL'}")
+    del model
+    torch.cuda.empty_cache()
     return ok
 
 
@@ -3629,14 +3979,40 @@ def run_resilience(torch, report, libs, args, timer):
 
 
 # ---------------------------------------------------------------------------
-# archs: the ninth slice's configs served at full width and depth
+# archs: the configs past llama3-8b served at full width and depth
 # ---------------------------------------------------------------------------
 
 ARCHS = ("yi-9b", "mistral-nemo-12b", "command-r-35b",
-         "granite-moe-1b-a400m", "qwen3-moe-30b-a3b")
-ARCHS_PAGED = ("mistral-nemo-12b", "granite-moe-1b-a400m")
+         "granite-moe-1b-a400m", "qwen3-moe-30b-a3b", "paligemma-3b")
+ARCHS_PAGED = ("mistral-nemo-12b", "granite-moe-1b-a400m", "paligemma-3b")
 ARCH_REQUESTS, ARCH_SLOTS, ARCH_PROMPT, ARCH_MAX_NEW = 2, 2, 64, 8
-ARCH_CAPACITY, ARCH_PAGE = 128, 64
+ARCH_PAGE = 64
+
+
+def arch_capacity(cfg) -> int:
+    """Each slot's KV capacity in the archs phase: a request's rows (a
+    prefix-LM's prefix, the prompt and the new tokens) in whole pages:
+    128 for the decoder-only configs, 384 for paligemma-3b's 256 + 64 +
+    8."""
+    rows = cfg.prefix_len + ARCH_PROMPT + ARCH_MAX_NEW
+    return -(-rows // ARCH_PAGE) * ARCH_PAGE
+
+
+# the tied heads' column pieces: (pieces, the last one's width)
+WANT_HEAD_PIECES = {"command-r-35b": (8, 26624),
+                    "granite-moe-1b-a400m": (2, 16387),
+                    "paligemma-3b": (8, 27840)}
+
+
+def head_pieces(cfg):
+    """The tied head's column pieces (``models/layers._head_plain``
+    widens ``HEAD_COLS`` columns at a time): (pieces, last piece's
+    width); (0, 0) for an untied head, which is one qmm."""
+    from repro_torch.models.layers import HEAD_COLS
+    if not cfg.tied_embeddings:
+        return 0, 0
+    n = -(-cfg.vocab // HEAD_COLS)
+    return n, cfg.vocab - (n - 1) * HEAD_COLS
 
 
 def arch_launches(cfg, decode_impl):
@@ -3653,7 +4029,9 @@ def arch_launches(cfg, decode_impl):
     64-row chunk); the untied head one qmm_tc, the tied one
     ``torch.matmul``; two norms a layer and the final one, each one
     fused launch with its residual add and cast (``add_rmsnorm`` for the
-    rmsnorm configs, ``add_layernorm`` for command-r)."""
+    rmsnorm configs, ``add_layernorm`` for command-r).  A prefix-LM's
+    "chunk" is its whole prompt (prefix and tokens in one call), which
+    launches what a chunk does."""
     L = cfg.n_layers
     head = 0 if cfg.tied_embeddings else 1
     tc = L * (4 if cfg.moe_experts else 6) + head
@@ -3680,8 +4058,27 @@ def _arch_serve(torch, report, libs, args, arch, decode_impl, params, cfg):
             "--page-size", str(ARCH_PAGE), "--requests", str(ARCH_REQUESTS),
             "--slots", str(ARCH_SLOTS), "--prompt-len", str(ARCH_PROMPT),
             "--max-new", str(ARCH_MAX_NEW), "--capacity",
-            str(ARCH_CAPACITY), "--seed", str(args.seed), "--stats-out",
+            str(arch_capacity(cfg)), "--seed", str(args.seed), "--stats-out",
             os.path.join(args.out, stats)]
+    # each slot's length when its prompt has landed: the prefix rows and
+    # the prompt's (read in the prefill call, before the hooks' counts
+    # close)
+    real_step = worker.PrefillWorker.step
+    landed = []
+
+    def step(self, task, view, slot):
+        view = real_step(self, task, view, slot)
+        if task.done:
+            landed.append(int(view[0].seq_lens[slot]))
+        return view
+    # the dense gated FFN's launches (one qmm_tc each) by the call's rows:
+    # a decode step's (at most ARCH_SLOTS) or a prefill call's
+    real_ffn = layers.qmm_ffn
+    ffn_rows = {"decode": 0, "prefill": 0}
+
+    def ffn(x, *a, **k):
+        ffn_rows["decode" if x.shape[0] <= ARCH_SLOTS else "prefill"] += 1
+        return real_ffn(x, *a, **k)
     # the experts' launches inside the grouped products (the gated pair's
     # and w_out's): qmm_tc_grouped_ffn and qmm_tc_grouped, and per-expert
     # qmm_tc (none)
@@ -3699,13 +4096,18 @@ def _arch_serve(torch, report, libs, args, arch, decode_impl, params, cfg):
         return wrapped
     for k, fn in real.items():
         setattr(moe, k, counted(fn))
+    worker.PrefillWorker.step = step
+    layers.qmm_ffn = ffn
     try:
-        with _counting(layers, NORM_APART) as apart:
+        with _counting(layers, NORM_APART) as apart, \
+                _counting(layers, ("_compute_operands",)) as head:
             reqs, per, launches, wall, peak = _drive_serve(
                 torch, libs, argv,
                 {"decode": (worker.DecodeWorker, "step"),
                  "prefill": (worker.PrefillWorker, "step")}, params=params)
     finally:
+        worker.PrefillWorker.step = real_step
+        layers.qmm_ffn = real_ffn
         for k, fn in real.items():
             setattr(moe, k, fn)
     want_dec, want_pre, want_dec_k, want_pre_k, want_grouped = \
@@ -3724,6 +4126,18 @@ def _arch_serve(torch, report, libs, args, arch, decode_impl, params, cfg):
     ok &= _counts_ok(per["decode/grouped"], want_grouped)
     ok &= _counts_ok(per["prefill/grouped"], want_grouped)
     ok &= experts[0] == calls * want_grouped and per_expert[0] == 0
+    # the tied head: one torch.matmul a column piece (a call's logits are
+    # at most 2 rows, one 8-row block); every other plain product is on
+    # a kernel.  The dense gated FFN: one qmm_ffn a layer a call
+    pieces, last = head_pieces(cfg)
+    ok &= (pieces, last) == WANT_HEAD_PIECES.get(arch, (0, 0))
+    ok &= head["_compute_operands"] == calls * pieces
+    L = 0 if cfg.moe_experts else cfg.n_layers
+    want_ffn = {"decode": len(per["decode"]) * L,
+                "prefill": len(per["prefill"]) * L}
+    ok &= ffn_rows == want_ffn
+    want_rows = cfg.prefix_len + ARCH_PROMPT
+    ok &= landed == [want_rows] * ARCH_REQUESTS
     summary = _serve_summary(args, stats)
     entry = dict(
         arch=arch, decode_impl=decode_impl, n_layers=cfg.n_layers,
@@ -3738,7 +4152,11 @@ def _arch_serve(torch, report, libs, args, arch, decode_impl, params, cfg):
                            for k in GROUPED_KERNELS},
         grouped_per_decode_step=sorted(set(per["decode/grouped"])),
         grouped_per_prefill_chunk=sorted(set(per["prefill/grouped"])),
-        peak_mem_bytes=peak,
+        peak_mem_bytes=peak, capacity=arch_capacity(cfg),
+        head_pieces=pieces, head_last_piece_cols=last,
+        head_matmul_pieces=head["_compute_operands"],
+        qmm_ffn_rows=ffn_rows, act=cfg.act_fn,
+        slot_rows_after_prefill=landed,
         per_decode_step=sorted(set(per["decode"])),
         per_prefill_chunk=sorted(set(per["prefill"])),
         qmm_kernels_per_decode_step=sorted(set(per["decode/kern"])),
@@ -3763,7 +4181,13 @@ def _arch_serve(torch, report, libs, args, arch, decode_impl, params, cfg):
           f"norms {launches['norms_by_entry']} (want {norm_entry} x "
           f"{want_dec[5]} a call), standalone residual adds and three-step "
           f"norms {apart} (want 0); per-expert qmm_tc launches "
-          f"{per_expert[0]} (want 0) {'ok' if ok else 'FAIL'}")
+          f"{per_expert[0]} (want 0); head torch.matmul pieces "
+          f"{head['_compute_operands']} (want {calls} calls x {pieces}"
+          f"{f', the last {last} columns wide' if pieces else ''}); gated "
+          f"{cfg.act_fn} qmm_ffn launches {ffn_rows} (want {want_ffn}); "
+          f"slot rows after prefill {landed} (want "
+          f"{want_rows} each{' = prefix + prompt' if cfg.prefix_len else ''})"
+          f" {'ok' if ok else 'FAIL'}")
     return ok, entry
 
 
@@ -3804,16 +4228,21 @@ def check_moe_no_sync(torch, report, arch, cfg, params, seed):
 
 
 def run_archs(torch, report, libs, args):
-    """``serve.main`` on each of the ninth slice's configs at full width
-    and full depth (random weights from ``--seed``, made once a config
-    and served as they are): transprecision, ``qmm_pallas``,
+    """``serve.main`` on each config past llama3-8b at full width and
+    full depth (random weights from ``--seed``, made once a config and
+    served as they are): transprecision, ``qmm_pallas``,
     ``flash_pallas``, 2 requests x (64 + 8) over 2 slots, page 64,
-    capacity 128; mistral-nemo-12b and granite-moe once more under
-    ``paged``.  Asserted: every request gets its tokens; the launches of
-    every decode step and every prefill chunk, by library and by qmm
-    kernel (``arch_launches``); the norm kind (fused add_layernorm for
+    capacity ``arch_capacity`` (128; paligemma-3b 384, after its 256
+    zero stub prefix rows); mistral-nemo-12b, granite-moe and
+    paligemma-3b once more under ``paged``.  Asserted: every request
+    gets its tokens; the launches of every decode step and every prefill
+    chunk (paligemma: every whole prompt), by library and by qmm kernel
+    (``arch_launches``); the norm kind (fused add_layernorm for
     command-r, fused add_rmsnorm for the rest, and no standalone residual
-    add or three-step norm); the experts' launches
+    add or three-step norm); the tied heads' ``torch.matmul`` pieces
+    (``head_pieces``); one ``qmm_ffn`` a dense layer a call; every
+    slot's length when its prompt lands (prefix + prompt); the experts'
+    launches
     (two grouped calls a layer a step or chunk, the gated pair and w_out,
     and no per-expert qmm_tc), one device kernel a grouped call in the
     profiled step; one MoE layer of each MoE config with no host
@@ -3857,7 +4286,8 @@ def run_archs(torch, report, libs, args):
                 "qmm_pallas", "--page-size", str(ARCH_PAGE), "--requests",
                 str(ARCH_REQUESTS), "--slots", str(ARCH_SLOTS),
                 "--prompt-len", str(ARCH_PROMPT), "--max-new", "4",
-                "--capacity", str(ARCH_CAPACITY), "--seed", str(args.seed)]
+                "--capacity", str(arch_capacity(cfg)), "--seed",
+                str(args.seed)]
         busy, wall, top, steps, rows = _profiled_serve(
             torch, argv, window=1, params=params, cpu=False)
         # device activities of the step; the grouped expert product's
@@ -4225,7 +4655,12 @@ def kernel_rows(report):
     activations: the three-step route's ``rmsnorm_launch``) and of the
     archs phase's command-r-35b serve (every norm fused;
     ``layernorm_launch``, the three-step route's, runs on no served path
-    and is held and timed in the resilience phase).  The MoE expert product's two
+    and is held and timed in the resilience phase).  paligemma-3b's
+    shapes have rows of their own, launches from its archs serves:
+    ``qmm_tc_gelu`` (the gated gelu FFN, its whole prompt's 320 rows)
+    and ``qmm_tc_gelu_decode_step`` (2 rows), ``flash_prefill_prefix``
+    (the 256-row prefix, MQA), ``flash_decode_mqa`` and
+    ``paged_decode_mqa`` (H 1, G 8, dh 256).  The MoE expert product's two
     calls, timed at qwen3-moe's 2-token routing (E 128, C 8) with the
     archs phase's qwen3-moe serve's launches: ``qmm_tc_grouped_ffn``,
     the gated pair (K 2048, N 768), and ``qmm_tc_grouped``, w_out (K
@@ -4259,6 +4694,9 @@ def kernel_rows(report):
         "qmm_by_kernel", {})
     qwen3_grouped = archs.get("qwen3-moe-30b-a3b/flash_pallas", {}).get(
         "grouped_by_kernel", {})
+    pali = archs.get("paligemma-3b/flash_pallas", {})
+    pali_paged = archs.get("paligemma-3b/paged", {})
+    pali_ffn = pali.get("qmm_ffn_rows", {})
     rows = [
         ("qmm_gemv", qmm_src, qmm_tpu, f32_all.get("qmm_gemv", 0),
          report.get("qmm_max_abs_err"), report.get("qmm_step_f32")),
@@ -4321,6 +4759,30 @@ def kernel_rows(report):
             "qmm_tc_grouped", 0),
          report.get("qmm_grouped_max_abs_err"),
          timing("qmm_tc_grouped", tokens=2, shape="w_out")),
+        # paligemma-3b's shapes: the gated gelu epilogue (its whole
+        # prompt's 320 rows and its decode step's 2), the bidirectional
+        # 256-row prefix and MQA decode (H 1, G 8, dh 256)
+        ("qmm_tc_gelu", qmm_src, qmm_tpu, pali_ffn.get("prefill", 0),
+         report.get("qmm_gelu_max_abs_err"),
+         timing("qmm_tc_gelu", M=PREFIX_SERVE["Sq"])),
+        ("qmm_tc_gelu_decode_step", qmm_src, qmm_tpu,
+         pali_ffn.get("decode", 0), report.get("qmm_gelu_max_abs_err"),
+         timing("qmm_tc_gelu", M=ARCH_SLOTS)),
+        ("flash_prefill_prefix", "src/repro_torch/csrc/flash_prefill.cu",
+         "src/repro/kernels/flash_attention.py:257",
+         pali.get("launches", {}).get("flash_prefill", 0),
+         report.get("prefill_prefix_max_abs_err"),
+         timing("flash_prefill_prefix")),
+        ("flash_decode_mqa", "src/repro_torch/csrc/flash_decode.cu",
+         "src/repro/kernels/flash_attention.py:112",
+         pali.get("launches", {}).get("flash_decode", 0),
+         report.get("flash_decode_mqa_max_abs_err"),
+         timing("flash_decode_mqa")),
+        ("paged_decode_mqa", "src/repro_torch/csrc/paged_decode.cu",
+         "src/repro/kernels/paged_attention.py:52",
+         pali_paged.get("launches", {}).get("paged_decode", 0),
+         report.get("paged_mqa_max_abs_err"),
+         timing("paged_decode_mqa")),
     ]
     kernels = []
     for name, source, replaces, launches, err, t in rows:
@@ -4407,6 +4869,7 @@ def main() -> int:
                 ok &= check_add_rmsnorm(torch, report, args)
                 ok &= check_add_layernorm(torch, report, args)
                 time_kernels(torch, np, report, timer)
+                time_prefix_attention(torch, np, report, timer)
                 time_qmm_grouped(torch, report, timer)
             elif phase == "timing":
                 # the kernels' times alone (for --src)

@@ -1,8 +1,9 @@
 """Synchronous single-request reference loop: the engine's oracle.
 
-Each prompt is prefilled whole into a contiguous KV cache and decoded
-greedily one request at a time.  Under binary32 the engine's greedy
-tokens must match this loop token for token.
+Each prompt (after a prefix-LM's zero stub patch embeddings) is
+prefilled whole into a contiguous KV cache of ``capacity`` rows and
+decoded greedily one request at a time.  Under binary32 the engine's
+greedy tokens must match this loop token for token.
 """
 from __future__ import annotations
 
@@ -12,6 +13,8 @@ import torch
 
 from repro_torch import resolve_device
 
+from .worker import make_batch
+
 
 def synchronous_generate(model, cfg, policy, params, prompts, *,
                          max_new: int, capacity: int,
@@ -20,13 +23,11 @@ def synchronous_generate(model, cfg, policy, params, prompts, *,
     ``cuda``; raises when no card is present unless ``device="cpu"``);
     returns the generated token lists (first token included, like
     ``Request.generated``)."""
-    del cfg
     device = resolve_device(device)
     outs: List[List[int]] = []
     for prompt in prompts:
-        batch = {"tokens": torch.tensor([list(prompt)], dtype=torch.int32,
-                                        device=device)}
-        logits, states = model.prefill(params, batch, policy, capacity)
+        logits, states = model.prefill(
+            params, make_batch(cfg, prompt, device), policy, capacity)
         toks = [int(torch.argmax(logits[0, -1]))]
         while len(toks) < max_new:
             t = torch.tensor([[toks[-1]]], dtype=torch.int32, device=device)

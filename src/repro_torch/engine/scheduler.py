@@ -16,7 +16,10 @@ Each engine step does, in order:
 3. **One prefill chunk per in-flight prompt** (default: one page of
    tokens; ``prefill_chunk=0`` prefills the whole prompt at once),
    landing in the decode pool through the worker's transport; the last
-   chunk's logits give the request's first token.
+   chunk's logits give the request's first token.  A prefix-LM request
+   occupies its prefix rows and its prompt's, always prefilled whole, so
+   its slot's length after prefill counts the prefix (the reference's
+   engine drops those rows; its ``synchronous_generate`` keeps them).
 4. **Growth / eviction** -- every decoding slot gets a mapped page for
    its next token(s); when the pool runs dry the most recently admitted
    sequence is evicted back to the queue head (LIFO) and its pages
@@ -272,12 +275,19 @@ class Engine:
         self.states = [paged_cache.set_block_tables(s, dev)
                        for s in self.states]
 
+    def _rows(self, r: Request) -> int:
+        """KV rows ``r``'s prefill lands: a prefix-LM's prefix rows and
+        the prompt's (the slot's length after prefill)."""
+        return self.cfg.prefix_len + len(r.prompt)
+
     def _check_feasible(self, r: Request) -> None:
-        worst = self.pool.pages_for(len(r.prompt) + r.max_new)
+        worst = self.pool.pages_for(self._rows(r) + r.max_new)
         total = worst * (2 if self.spec is not None else 1)
         if worst > self.pages_per_seq or total > self.num_pages:
+            prefix = (f"prefix {self.cfg.prefix_len} + "
+                      if self.cfg.prefix_len else "")
             raise ValueError(
-                f"a single request needs {total} pages (prompt "
+                f"a single request needs {total} pages ({prefix}prompt "
                 f"{len(r.prompt)} + max-new {r.max_new}, page size "
                 f"{self.page}"
                 + (", x2 for the draft namespace"
@@ -393,7 +403,7 @@ class Engine:
         out = synchronous_generate(
             self.model, self.cfg, self.policy, self.params,
             [r.prompt], max_new=r.max_new,
-            capacity=max(self.capacity, len(r.prompt) + r.max_new),
+            capacity=max(self.capacity, self._rows(r) + r.max_new),
             device=self.device)
         r.generated = list(out[0])
         r.done = True
@@ -458,7 +468,7 @@ class Engine:
             si = next((i for i in range(n) if self._slots[i] is None), None)
             if si is None:
                 break
-            need = len(self._queue[0].prompt)
+            need = self._rows(self._queue[0])
             needs = ((need + 1, need) if self.spec is not None
                      else (need + 1,))
             if not self.pool.can_admit(*needs):

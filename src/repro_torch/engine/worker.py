@@ -4,11 +4,12 @@ The prefill worker runs ``Model.prefill_chunk`` one chunk (default: one
 page) at a time, writing each chunk's K/V page by page into the view its
 transport hands it (the decode pool itself, or a streamed transport's
 private source pool), so the transient staging buffer is one chunk per
-layer.  ``chunk_tokens == 0`` is whole-prompt prefill: one
-``Model.prefill`` into a prompt-sized contiguous cache, then a bulk
-``write_prefill`` into the pages.  The decode worker runs one batched
-``decode_step`` and returns the argmax tokens and the NaN/Inf guard
-verdicts, computed on the device.
+layer.  ``chunk_tokens == 0``, or a prefix-LM config (whose prefix
+rows need the whole-sequence path), is whole-prompt prefill: one
+``Model.prefill`` into a contiguous cache of the prefix and prompt rows,
+then a bulk ``write_prefill`` of all of them into the pages.  The decode
+worker runs one batched ``decode_step`` and returns the argmax tokens
+and the NaN/Inf guard verdicts, computed on the device.
 """
 from __future__ import annotations
 
@@ -31,12 +32,26 @@ class PrefillTask:
         self.logits = None         # last-position logits once done
 
 
+def make_batch(cfg, prompt, device) -> dict:
+    """The prefill batch of one prompt: its tokens and, for a prefix-LM
+    config, ``cfg.prefix_len`` zero stub patch embeddings (f32), as the
+    reference serves them."""
+    batch = {"tokens": torch.tensor([list(prompt)], dtype=torch.int32,
+                                    device=device)}
+    if cfg.prefix_len:
+        batch["prefix_embeds"] = torch.zeros(
+            (1, cfg.prefix_len, cfg.d_model), dtype=torch.float32,
+            device=device)
+    return batch
+
+
 class PrefillWorker:
     """Runs prompts into the transport-provided page-pool view.
 
-    chunk_tokens > 0: page-granular chunked prefill (transient staging =
-    one chunk).  chunk_tokens == 0: one-shot ``Model.prefill`` followed by
-    a bulk ``write_prefill`` (transient staging = the whole prompt)."""
+    chunk_tokens > 0 on a decoder-only config: page-granular chunked
+    prefill (transient staging = one chunk).  chunk_tokens == 0, or a
+    prefix-LM config: one-shot ``Model.prefill`` followed by a bulk
+    ``write_prefill`` (transient staging = the prefix and the prompt)."""
 
     def __init__(self, model, cfg, policy, transport, stats, *,
                  chunk_tokens: int):
@@ -47,6 +62,7 @@ class PrefillWorker:
         self.transport = transport
         self.stats = stats
         self.chunk_tokens = int(chunk_tokens)
+        self.chunked = self.chunk_tokens > 0 and not cfg.prefix_len
 
     def _tokens(self, toks) -> torch.Tensor:
         return torch.tensor([list(toks)], dtype=torch.int32,
@@ -55,7 +71,7 @@ class PrefillWorker:
     def step(self, task: PrefillTask, view_states, slot: int):
         """Advance ``task`` by one chunk (or the whole prompt); returns
         the updated state view for the transport to absorb."""
-        if self.chunk_tokens == 0:
+        if not self.chunked:
             return self._whole_step(task, view_states, slot)
         C = min(self.chunk_tokens, task.n_tokens - task.offset)
         toks = task.request.prompt[task.offset:task.offset + C]
@@ -70,7 +86,8 @@ class PrefillWorker:
         return view_states
 
     def _whole_step(self, task: PrefillTask, view_states, slot: int):
-        batch = {"tokens": self._tokens(task.request.prompt)}
+        batch = make_batch(self.cfg, task.request.prompt,
+                           self.transport.device)
         logits, one = self.model.prefill(self.transport.params, batch,
                                          self.policy, None)
         view_states = [paged_cache.write_prefill(s, slot, c.k[0], c.v[0])

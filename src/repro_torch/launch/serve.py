@@ -19,6 +19,12 @@ lines where they apply); :func:`main` returns the ``Request`` list and
 :func:`cli_main` maps a classified engine error to its exit code (70-76)
 and one structured stderr line.
 
+A prefix-LM arch (``--arch paligemma-3b``) serves each prompt after
+its ``prefix_len`` zero stub patch embeddings, prefilled whole, with
+the prefix rows kept in the page pool: ``--capacity`` must hold prefix
++ prompt + ``--max-new`` rows (the engine's feasibility check counts
+them).
+
 ``--disaggregate`` streams finished KV pages from a private prefill pool
 into the decode pool (``StreamedTransport``, CRC-checked): with two or
 more cards worker i's pool sits on card 1 + i mod (cards - 1), on one

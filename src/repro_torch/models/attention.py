@@ -398,9 +398,12 @@ def _build_cache(k, v, cfg, policy, capacity: int, S: int) -> KVCache:
     return KVCache(k=ck, v=cv, pos=S)
 
 
-def prefill_to_cache(p, x, cfg, policy, capacity: int, chunk=None):
-    """Prefill attention AND the populated contiguous cache for decode."""
-    return mha(p, x, cfg, policy, chunk=chunk, cache_capacity=capacity)
+def prefill_to_cache(p, x, cfg, policy, capacity: int, prefix_len: int = 0,
+                     chunk=None):
+    """Prefill attention AND the populated contiguous cache for decode;
+    the first ``prefix_len`` rows attend bidirectionally."""
+    return mha(p, x, cfg, policy, prefix_len=prefix_len, chunk=chunk,
+               cache_capacity=capacity)
 
 
 def prefill_paged_chunk(p, x, cfg, policy, cache: PagedKVCache, slot: int,

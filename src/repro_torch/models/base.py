@@ -1,12 +1,13 @@
 """Model configuration: the port's copy of ``repro.models.base`` for the
-dense and MoE decoders (recurrent, prefix-LM and enc-dec fields wait
-with their architectures)."""
+dense and MoE decoders and the prefix-LM (``vlm``: a decoder over stub
+patch embeddings); recurrent and enc-dec fields wait with their
+architectures."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
 
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "vlm")
 NORMS = ("rmsnorm", "layernorm")
 
 
@@ -25,6 +26,9 @@ class ModelConfig:
     moe_experts: int = 0
     moe_topk: int = 0
     capacity_factor: float = 1.25
+
+    # vlm
+    prefix_len: int = 0                   # stub patch-embedding count
 
     head_dim: Optional[int] = None
     rope_theta: float = 10_000.0

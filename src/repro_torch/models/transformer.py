@@ -1,8 +1,9 @@
 """The decoder-only LM: the port of ``repro.models.transformer`` for the
-``dense`` and ``moe`` families, rmsnorm or layernorm (rwkv, rglru,
-prefix-LM and enc-dec wait).  Parameters are plain nested dicts of tensors,
-made on ``cuda`` unless the caller passes ``device="cpu"``; the forward
-entry points run on the device their parameters live on.
+``dense`` and ``moe`` families and the ``vlm`` prefix-LM, rmsnorm or
+layernorm (rwkv, rglru and enc-dec wait).  Parameters are plain nested
+dicts of tensors, made on ``cuda`` unless the caller passes
+``device="cpu"``; the forward entry points run on the device their
+parameters live on.
 """
 from __future__ import annotations
 
@@ -112,13 +113,29 @@ class Model:
     def prefill(self, params, batch, policy: PrecisionPolicy,
                 capacity: Optional[int] = None):
         """Full-sequence forward; returns (last-position logits (B, 1, V),
-        contiguous per-layer caches of ``capacity``)."""
+        contiguous per-layer caches of ``capacity``).
+
+        A prefix-LM config takes ``batch["prefix_embeds"]`` (B, P, d)
+        before the tokens, cast to the embedding's dtype (f32 under
+        ``embed_scale``), and attends over the P prefix rows
+        bidirectionally.  The default capacity is every row computed,
+        prefix and tokens, so the cache keeps the prefix and its ``pos``
+        counts it.  The reference's default is the tokens alone
+        (``src/repro/models/transformer.py:236``), which keeps only the
+        last ``S`` rows of the ring and so drops the prefix from decode;
+        its ``synchronous_generate`` passes a capacity that keeps them,
+        and the port follows that."""
         cfg = self.cfg
         policy = self._policy(policy)
         tokens = batch["tokens"]
-        capacity = capacity or tokens.shape[1]
         x = embed_lookup(params["embed"], tokens, policy,
                          scale=cfg.embed_scale)
+        prefix_len = 0
+        if cfg.prefix_len and "prefix_embeds" in batch:
+            pe = batch["prefix_embeds"].to(device=x.device, dtype=x.dtype)
+            x = torch.cat([pe, x], dim=1)
+            prefix_len = pe.shape[1]
+        capacity = capacity or x.shape[1]
         chunk = cfg.attn_chunk if x.shape[1] > cfg.attn_chunk else None
         states = []
         f = None
@@ -128,6 +145,7 @@ class Model:
                                    lambda h, lp=lp, layer=layer:
                                    attn.prefill_to_cache(layer["mix"], h, cfg,
                                                          lp, capacity,
+                                                         prefix_len=prefix_len,
                                                          chunk=chunk))
             states.append(st)
         return self._logits(params, x[:, -1:, :], f[:, -1:, :],
@@ -138,9 +156,14 @@ class Model:
                       *, slot: int, q_offset: int):
         """One chunked-prefill step for ONE sequence (tokens (1, C)) into
         ``slot`` of the per-layer paged caches.  Returns (last-position
-        logits, new_states)."""
+        logits, new_states).  Decoder-only: a prefix-LM prefills its
+        prefix and prompt whole (:meth:`prefill`)."""
         cfg = self.cfg
         policy = self._policy(policy)
+        if cfg.prefix_len:
+            raise ValueError(
+                "prefill_chunk is decoder-only; prefix-LM archs prefill "
+                "whole-prompt (Model.prefill)")
         x = embed_lookup(params["embed"], tokens, policy,
                          scale=cfg.embed_scale)
         chunk = cfg.attn_chunk if tokens.shape[1] > cfg.attn_chunk else None
@@ -174,11 +197,14 @@ class Model:
         an MoE config, in the reference neither: expert capacity depends
         on the row count, so verify may drop tokens a decode step keeps.
 
-        Needs an all-attention decoder over paged caches, as in the
-        reference: recurrent layer states cannot roll back rejected
-        positions."""
+        Needs an all-attention decoder-only config over paged caches, as
+        in the reference: recurrent layer states cannot roll back
+        rejected positions, and a prefix-LM never reaches speculation."""
         cfg = self.cfg
         policy = self._policy(policy)
+        if cfg.prefix_len:
+            raise ValueError(
+                "verify_step is decoder-only (no prefix context)")
         if any(kind != "attn" for kind in cfg.attn_pattern):
             raise ValueError(
                 f"arch {cfg.arch}: verify_step needs an all-attention "

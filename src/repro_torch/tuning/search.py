@@ -153,6 +153,14 @@ class ServeTuner:
                                                object]] = None):
         if not sets:
             raise ValueError("ServeTuner needs at least one calibration set")
+        if cfg.prefix_len:
+            # the reference sizes its capacity without the prefix
+            # (src/repro/tuning/search.py:169), so its KL references drop
+            # the prefix rows from decode; the port keeps them
+            raise ValueError(
+                f"ServeTuner does not tune the prefix-LM arch {cfg.arch} "
+                f"yet: its decode context would drop the "
+                f"{cfg.prefix_len} prefix rows")
         self.device = resolve_device(device)
         self.model, self.cfg = model, cfg
         self.sets = list(sets)

@@ -124,7 +124,7 @@ def _models(arch, pol, jmatmul="xla"):
 
 
 def test_configs_are_the_references():
-    assert configs.ARCHS[1:] == ARCHS
+    assert configs.ARCHS[1:6] == ARCHS
     for arch in ARCHS:
         for reduced in (False, True):
             want = jget_config(arch, reduced=reduced)
