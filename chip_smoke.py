@@ -15,12 +15,14 @@ Run from the root of a checkout.  Phases:
                   shapes, at ragged edge shapes and at the widened
                   attention shapes (head_dim 8-256, G 1-16) and at
                   paligemma-3b's (the 256-row bidirectional prefix, MQA
-                  decode: H 1, G 8, dh 256), qmm at every projection,
-                  expert block, router and untied head of yi-9b,
-                  mistral-nemo-12b, command-r-35b, granite-moe,
-                  qwen3-moe and paligemma-3b (each gated FFN with its
-                  config's activation: paligemma's gelu), with the
-                  stated tolerances; qmm on
+                  decode: H 1, G 8, dh 256) and recurrentgemma-2b's (H 1,
+                  G 10, dh 256, chunks of 64 and 36 under its window),
+                  qmm at every projection, expert block, router and
+                  untied head of yi-9b, mistral-nemo-12b, command-r-35b,
+                  granite-moe, qwen3-moe, paligemma-3b, rwkv6-1.6b and
+                  recurrentgemma-2b (each gated FFN with its config's
+                  activation: paligemma's and recurrentgemma's gelu),
+                  with the stated tolerances; qmm on
                   packed activations bit-identical to qmm on the
                   decoded ones; qmm,
                   flash_decode and paged_decode rows bit-identical
@@ -95,7 +97,12 @@ Run from the root of a checkout.  Phases:
                   embeddings: kernel path against plain path, the
                   engine's route (whole prefill, write_prefill, paged
                   decode) bit for bit the contiguous route, and the
-                  random prefix's logits apart from the zero prefix's.
+                  random prefix's logits apart from the zero prefix's;
+                  2-layer rwkv6-1.6b and 3-layer recurrentgemma-2b over
+                  a 100-token prompt chunked 64 + 36 with the recurrent
+                  states carried: kernel path against plain path, and
+                  under binary32 the chunked route against the whole
+                  prompt.
 10. resilience -- the engine's fault and recovery surface at full width
                   (``run_resilience``): the streamed handoff with the
                   router and two prefill workers, bit for bit the
@@ -109,16 +116,19 @@ Run from the root of a checkout.  Phases:
                   twin, its rows at every row count at d 8192 and 384,
                   and its times (add_layernorm's too).
 11. archs      -- ``serve.main`` on yi-9b, mistral-nemo-12b, command-r-35b,
-                  granite-moe-1b-a400m, qwen3-moe-30b-a3b and
+                  granite-moe-1b-a400m, qwen3-moe-30b-a3b,
                   paligemma-3b (after its 256 stub prefix rows, capacity
-                  384) at full width and depth (transprecision,
-                  qmm_pallas, flash_pallas, 2 x (64 + 8)), mistral-nemo,
-                  granite and paligemma also under paged:
+                  384), rwkv6-1.6b and recurrentgemma-2b (2 x (100 + 8),
+                  the prompt in chunks of 64 + 36) at full width and
+                  depth (transprecision, qmm_pallas, flash_pallas, 2 x
+                  (64 + 8)), mistral-nemo, granite, paligemma and
+                  recurrentgemma also under paged:
                   launches per decode step and prefill chunk by kernel
                   (every norm one fused add_rmsnorm or add_layernorm, no
                   standalone residual add), the tied heads' torch.matmul
                   pieces, the gated FFN's launches, every slot's rows
-                  when its prompt lands (prefix + prompt),
+                  when its prompt lands (prefix + prompt), the tokens of
+                  every prefill call,
                   the experts' launches (2 grouped calls a layer, one
                   device kernel each, no per-expert qmm_tc), one MoE
                   layer with no host synchronisation, tok/s, peak
@@ -492,33 +502,72 @@ def check_qmm(torch, np, report):
     return ok
 
 
+def arch_step_products(cfg):
+    """The products one decode step or prefill call of ``cfg`` launches
+    on ``qmm_tc``, by shape: ``[(names, K, N, gated act or None,
+    launches)]``.  A layer: its mixer's (attention wq, wk, wv, wo; rwkv's
+    time mix wr, wk, wv, wg, wo and channel mix cm_k, cm_v, cm_r; the
+    RG-LRU block's w_branch, w_gate, w_rec_gate, w_in_gate, w_out), then
+    but for rwkv the fused gated FFN (one ``qmm_ffn``) and w_out; an MoE
+    layer's experts are grouped launches and its router binary32, both
+    apart.  The untied head is apart too (its rows are the step's, 1 in
+    a prefill call: only the last position's logits)."""
+    d, ff, w = cfg.d_model, cfg.d_ff, cfg.rglru_width
+    gate = cfg.act_fn if cfg.gated_ffn else None
+    prods = {}
+
+    def add(name, K, N, act=None, n=1):
+        names, c = prods.get((K, N, act), ((), 0))
+        prods[(K, N, act)] = (names + ((name,) if name not in names
+                                       else ()), c + n)
+    for kind in cfg.attn_pattern:
+        if kind == "attn":
+            add("wq", d, cfg.q_dim)
+            add("wk/wv", d, cfg.kv_dim, n=2)
+            add("wo", cfg.q_dim, d)
+        elif kind == "rwkv":
+            add("wr/wk/wv/wg/wo/cm_r", d, d, n=6)
+            add("cm_k", d, ff)
+            add("cm_v", ff, d)
+        else:
+            add("w_branch/w_gate", d, w, n=2)
+            add("w_rec_gate/w_in_gate", w, w, n=2)
+            add("rglru w_out", w, d)
+        if kind != "rwkv" and not cfg.moe_experts:
+            add(f"ffn gated {cfg.act_fn}" if gate else f"ffn {cfg.act_fn}",
+                d, ff, gate)
+            add("w_out", ff, d)
+    return [("/".join(names), K, N, act, c)
+            for (K, N, act), (names, c) in prods.items()]
+
+
 def arch_qmm_cases(cfg):
     """The packed products a full-width ``cfg`` serves, as ``(name,
-    M values, K, N, act of the gated epilogue or None, binary32)``: the
-    attention projections and the dense fused gated FFN (with the
-    config's own activation) with w_out at a decode step's 4 rows and a
-    64-row chunk (a prefix-LM: its whole prompt's prefix + 64 rows), or
-    the MoE experts' blocks (M = capacity rows: 8 at a decode step, 64
-    in a chunk's worth; w_in with w_gate as one gated product, as
-    ``qmm_ffn`` serves it) and the binary32 router; the untied head at
-    M 4 (a tied head is ``torch.matmul``).  Products of one shape are
-    one case."""
-    d, ff, act = cfg.d_model, cfg.d_ff, cfg.act_fn
-    Ms = (4, cfg.prefix_len + ARCH_PROMPT if cfg.prefix_len else 64)
-    gate = act if cfg.gated_ffn else None
-    rows = [("wq", Ms, d, cfg.q_dim, None, False),
-            ("wk/wv", Ms, d, cfg.kv_dim, None, False),
-            ("wo", Ms, cfg.q_dim, d, None, False)]
+    M values, K, N, act of the gated epilogue or None, binary32)``, from
+    the kinds of its layers: the attention projections, rwkv's time mix
+    (wr, wk, wv, wg, wo) and channel mix (cm_k, cm_v, cm_r), the RG-LRU
+    block's w_branch, w_gate, w_rec_gate, w_in_gate and w_out, and the
+    dense fused gated FFN (with the config's own activation) with w_out,
+    at a decode step's rows (4; a recurrent config's 2) and its prefill
+    calls' (a 64-row chunk, a recurrent config's 64 and 36, a
+    prefix-LM's whole prompt), or the MoE experts' blocks (M = capacity
+    rows: 8 at a decode step, 64 in a chunk's worth; w_in with w_gate as
+    one gated product, as ``qmm_ffn`` serves it) and the binary32
+    router; the untied head at the decode rows (a tied head is
+    ``torch.matmul``).  Products of one shape are one case."""
+    d, ff = cfg.d_model, cfg.d_ff
+    Ms = ((ARCH_SLOTS if recurrent(cfg) else 4),) + (
+        (cfg.prefix_len + ARCH_PROMPT,) if cfg.prefix_len
+        else arch_chunks(cfg))
+    gate = cfg.act_fn if cfg.gated_ffn else None
+    rows = [(name, Ms, K, N, act, False)
+            for name, K, N, act, _ in arch_step_products(cfg)]
     if cfg.moe_experts:
         rows += [("router", Ms, d, cfg.moe_experts, None, True),
                  ("expert w_in/w_gate", (8, 64), d, ff, gate, False),
                  ("expert w_out", (8, 64), ff, d, None, False)]
-    else:
-        rows += [(f"ffn gated {act}" if cfg.gated_ffn else f"ffn {act}",
-                  Ms, d, ff, gate, False),
-                 ("w_out", Ms, ff, d, None, False)]
     if not cfg.tied_embeddings:
-        rows.append(("head", (4,), d, cfg.vocab, None, False))
+        rows.append(("head", Ms[:1], d, cfg.vocab, None, False))
     cases = {}
     for name, Ms, K, N, gated, f32 in rows:
         key = (Ms, K, N, gated, f32)
@@ -530,8 +579,9 @@ def check_qmm_archs(torch, report, timer):
     """qmm at the served configs' shapes, taken from each full config by
     :func:`arch_qmm_cases`, against qmatmul_plain, within 1e-6 in units
     of |x| @ |w| + 1 (``check_qmm``'s tolerance): every packed product
-    of yi-9b, mistral-nemo-12b, command-r-35b, granite-moe, qwen3-moe
-    and paligemma-3b on the tensor cores (binary16alt), each gated FFN
+    of yi-9b, mistral-nemo-12b, command-r-35b, granite-moe, qwen3-moe,
+    paligemma-3b, rwkv6-1.6b and recurrentgemma-2b on the tensor cores
+    (binary16alt), each gated FFN
     with its config's activation (paligemma's gelu epilogue at its
     decode step's and whole prompt's rows), and the binary32 routers
     (K x E) on the GEMV (M 4) and ``qmm_tile`` (M 64).  Then one qwen3
@@ -611,6 +661,123 @@ def check_qmm_archs(torch, report, timer):
           f"{'ok' if ok else 'FAIL'}")
     time_qmm_gelu(torch, report, timer)
     return ok
+
+
+RECURRENT_ARCHS = ("rwkv6-1.6b", "recurrentgemma-2b")
+
+
+def time_qmm_recurrent(torch, report, timer):
+    """qmm_tc at rwkv6-1.6b's and recurrentgemma-2b's widths, binary16alt:
+    every packed product of a decode step (M 2, the 2 slots; the untied
+    head at N 65,536 included) and of a 64-row prefill chunk (the head at
+    the last row), each shape timed once and counted as often as the
+    step launches it (``arch_step_products``): kernel, plain version and
+    ``torch.matmul`` on the dequantized f32 weights (the gated gelu FFN:
+    ``gelu(x @ w_in) * (x @ w_gate)``), and the bound of the step's bytes
+    and operations (``qmm_bound``).  Then the fused norms at their
+    decode rows: ``add_layernorm`` at 2 x 2048 (rwkv6: bf16 + bf16 ->
+    bf16) and ``add_rmsnorm`` at 2 x 2560 (recurrentgemma: the f32
+    residual of its scaled embedding + bf16 -> f32 residual, bf16
+    rows), beside their plain versions, the torch sequence that computes
+    the same and the byte bound."""
+    from repro_torch import configs
+    from repro_torch.core.formats import BINARY16ALT
+    from repro_torch.kernels import layernorm as ln
+    from repro_torch.kernels import qmatmul as Q
+    from repro_torch.kernels import rmsnorm as rms
+
+    fmt = BINARY16ALT
+    gen = torch.Generator(device="cuda").manual_seed(report["seed"] + 21)
+    for arch in RECURRENT_ARCHS:
+        cfg = configs.get(arch)
+        prods = arch_step_products(cfg)
+        head = [] if cfg.tied_embeddings else [
+            ("head", cfg.d_model, cfg.vocab, None, 1)]
+        for per, M in (("decode_step", ARCH_SLOTS), ("chunk", ARCH_PAGE)):
+            totals = dict(arch=arch, per=per, M=M, fmt=fmt.name,
+                          launches=0, ms=0.0, plain_ms=0.0, library_ms=0.0,
+                          bytes=0, flops=0)
+            for name, K, N, act, mult in prods + head:
+                rows = 1 if name == "head" and per == "chunk" else M
+                x = torch.randn((rows, K), generator=gen, device="cuda")
+                wp = _pack_weight(torch.randn((K, N), generator=gen,
+                                              device="cuda"), fmt)
+                gp = _pack_weight(torch.randn((K, N), generator=gen,
+                                              device="cuda"), fmt) \
+                    if act else None
+                wf = _unpack_weight(wp, fmt)
+                gf = _unpack_weight(gp, fmt) if act else None
+                t_k = timer(lambda: Q.qmatmul(x, wp, None, fmt,
+                                              gate_payload=gp, act=act))
+                t_p = timer(lambda: Q.qmatmul_plain(
+                    x, wp, None, fmt, gate_payload=gp, act=act), iters=5)
+                if act:
+                    t_l = timer(lambda: torch.nn.functional.gelu(
+                        x @ wf, approximate="tanh") * (x @ gf))
+                else:
+                    t_l = timer(lambda: torch.matmul(x, wf))
+                nbytes = Q.qmm_hbm_bytes(rows, K, N, fmt, gated=bool(act))
+                flops = 2 * rows * K * N * (2 if act else 1)
+                bound, by = qmm_bound(Q, fmt, nbytes, flops)
+                report["timings"].append(dict(
+                    kernel="qmm_recurrent", arch=arch, per=per, shape=name,
+                    M=rows, K=K, N=N, act=act, launches_per=mult, ms=t_k,
+                    plain_ms=t_p, library_ms=t_l, bound_ms=bound,
+                    bound_by=by, bytes=nbytes, flops=flops))
+                print(f"[timing] qmm {arch} {per:<11} {name[:24]:<24} "
+                      f"x{mult:<3} M={rows:<2} K={K:<5} N={N:<6} kernel "
+                      f"{t_k:.4f} ms  plain {t_p:.4f} ms  torch.matmul "
+                      f"{t_l:.4f} ms  bound {bound:.4f} ms ({by})")
+                for k, v in (("launches", mult), ("ms", mult * t_k),
+                             ("plain_ms", mult * t_p),
+                             ("library_ms", mult * t_l),
+                             ("bytes", mult * nbytes),
+                             ("flops", mult * flops)):
+                    totals[k] += v
+                del x, wp, gp, wf, gf
+                torch.cuda.empty_cache()
+            totals["bound_ms"], totals["bound_by"] = qmm_bound(
+                Q, fmt, totals["bytes"], totals["flops"])
+            report["timings"].append(dict(kernel=f"qmm_tc_{arch}_{per}",
+                                          **totals))
+            print(f"[timing] qmm {arch} per {per} (M = {M}, {fmt.name}, "
+                  f"{totals['launches']} launches): kernel "
+                  f"{totals['ms']:.3f} ms  plain {totals['plain_ms']:.2f} ms"
+                  f"  torch.matmul {totals['library_ms']:.3f} ms  bound "
+                  f"{totals['bound_ms']:.3f} ms ({totals['bound_by']})")
+
+    bf = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(report["seed"] + 22)
+    for name, d, xdt in (("add_layernorm", 2048, bf),
+                         ("add_rmsnorm", 2560, torch.float32)):
+        rows = ARCH_SLOTS
+        gamma = torch.randn((d,), generator=g, device="cuda") * 0.1
+        beta = torch.randn((d,), generator=g, device="cuda") * 0.1
+        x = (torch.randn((rows, d), generator=g, device="cuda") * 3.0).to(xdt)
+        y = (torch.randn((rows, d), generator=g, device="cuda") * 2.0).to(bf)
+        if name == "add_layernorm":
+            fn = lambda: ln.add_layernorm(x, y, gamma, beta, bf)  # noqa
+            plain = lambda: ln.add_layernorm_plain(  # noqa: E731
+                x, y, gamma, beta, bf)
+            seq = lambda: torch.nn.functional.layer_norm(  # noqa: E731
+                (x + y).float(), (d,), gamma, beta, 1e-5).to(bf)
+            nbytes = ln.add_layernorm_hbm_bytes(rows, d, 2, 2, 2, 2)
+        else:
+            fn = lambda: rms.add_rmsnorm(x, y, gamma, bf)  # noqa: E731
+            plain = lambda: rms.add_rmsnorm_plain(x, y, gamma, bf)  # noqa
+            seq = lambda: torch.nn.functional.rms_norm(  # noqa: E731
+                x + y.float(), (d,), weight=1.0 + gamma, eps=1e-6).to(bf)
+            nbytes = rms.add_rmsnorm_hbm_bytes(rows, d, 4, 2, 4, 2)
+        t_f, t_p, t_s = timer(fn), timer(plain), timer(seq)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        report["timings"].append(dict(
+            kernel=f"{name}_recurrent", rows=rows, d=d,
+            x_dtype=str(xdt), ms=t_f, plain_ms=t_p, torch_sequence_ms=t_s,
+            library_ms=None, bound_ms=bound, bound_by="bytes",
+            bytes=nbytes))
+        print(f"[timing] {name} {rows} x {d} ({xdt} + bf16): kernel "
+              f"{t_f:.4f} ms  plain {t_p:.4f} ms  torch sequence "
+              f"{t_s:.4f} ms  bound {bound:.6f} ms")
 
 
 def time_qmm_gelu(torch, report, timer):
@@ -1124,6 +1291,16 @@ def _paged_inputs(torch, np, fmt, seed, B=4, H=8, G=4, dh=128, page=64,
 MQA_SHAPE = dict(H=1, G=8, dh=256)
 MQA_S, MQA_LENGTHS = 384, (320, 323, 329, 336)
 
+# recurrentgemma-2b's local attention layers: one KV head of 256, 10
+# query heads (G 10 runs the group-tile-16 instantiations), a 128-row slot
+# (its 100-token prompt + 8 new, at most the 2048 window) at ragged
+# lengths around a serve's 101-108
+RG_SHAPE = dict(H=1, G=10, dh=256)
+RG_S, RG_LENGTHS = 128, (100, 103, 107, 110)
+# its prefill chunks: 64 rows at q_offset 0, then 36 at 64, over the
+# slot's 128 gathered rows, window 2048
+RG_CHUNK = dict(B=1, Sq=64, Skv=RG_S, **RG_SHAPE)
+
 # paged_decode cases: (fmt name, shape overrides, lengths); None = f32
 PAGED_SERVE = dict(B=4, H=8, G=4, dh=128, page=64, pps=8)
 PAGED_CASES = (
@@ -1137,6 +1314,8 @@ PAGED_CASES = (
                      (1, 24))
        for page, lens in ((16, (0, 17, 200, 511)), (64, (0, 64, 129, 600)))]
     + [(f, dict(MQA_SHAPE, page=64, pps=MQA_S // 64), MQA_LENGTHS)
+       for f in ("binary8", None)]
+    + [(f, dict(RG_SHAPE, page=64, pps=RG_S // 64), RG_LENGTHS)
        for f in ("binary8", None)])
 
 
@@ -1152,7 +1331,9 @@ def check_paged(torch, np, report, timer):
     bytes in e5m2) at pages 16 and 64; every case with a zero-length
     unmapped row, a hole inside a length and a length above the
     capacity, but paligemma-3b's MQA shape (H 1, G 8, dh 256, page 64,
-    lengths 320-336 in e5m2 and f32), which has the hole only.  Then a
+    lengths 320-336 in e5m2 and f32), which has the hole only, and
+    recurrentgemma-2b's (H 1, G 10, dh 256, page 64, lengths 100-110 in
+    a 128-row slot, e5m2 and f32), which has neither.  Then a
     row's bits do not depend on B or on the table's
     width: each row alone, and beside other rows in a wider table, equals
     its row in the batch."""
@@ -1196,9 +1377,10 @@ def check_paged(torch, np, report, timer):
               f"{rerr:.1e} (tol 1e-5) zero-length rows zero: {zero_ok} "
               f"{'ok' if good else 'FAIL'}")
         worst = max(worst, err)
-        if kw["H"] == MQA_SHAPE["H"]:
-            report["paged_mqa_max_abs_err"] = max(
-                report.get("paged_mqa_max_abs_err", 0.0), err)
+        for key, shape in (("paged_mqa_max_abs_err", MQA_SHAPE),
+                           ("paged_rg_max_abs_err", RG_SHAPE)):
+            if all(kw[k] == v for k, v in shape.items()):
+                report[key] = max(report.get(key, 0.0), err)
     report["paged_max_abs_err"] = worst
 
     from repro_torch.core.formats import BINARY8
@@ -1250,7 +1432,10 @@ def check_prefill(torch, np, report, timer):
     head_dim 8 and 24 in e5m2 (rows narrower than, or not a multiple of,
     16 bytes) and head_dim 40, 72 and 200 (padded widths); and
     paligemma-3b's whole prompt (``PREFIX_SERVE``: H 1, G 8, dh 256, Sq =
-    Skv = 320, prefix 256) in e5m2 and f32."""
+    Skv = 320, prefix 256) in e5m2 and f32; recurrentgemma-2b's chunks
+    (``RG_CHUNK``: H 1, G 10, dh 256 over the slot's 128 rows, window
+    2048): 64 rows at q_offset 0 and 36 at 64 in e5m2 and f32, and the
+    36 under a window of 48, which cuts keys."""
     from repro_torch.core.formats import BINARY8, BINARY16ALT
     from repro_torch.kernels import flash_attention as FA
 
@@ -1278,6 +1463,10 @@ def check_prefill(torch, np, report, timer):
     # paligemma-3b's whole prompt: MQA (H 1, G 8, dh 256), 256
     # bidirectional prefix rows before 64 causal ones
     cases += [(fmt, 0, None, 256, PREFIX_SERVE) for fmt in (BINARY8, None)]
+    # recurrentgemma-2b's chunks of its 100-token prompt
+    cases += [(fmt, q_off, 2048, 0, dict(RG_CHUNK, Sq=sq))
+              for fmt in (BINARY8, None) for q_off, sq in ((0, 64), (64, 36))]
+    cases += [(BINARY8, 64, 48, 0, dict(RG_CHUNK, Sq=36))]
     cases += [(BINARY8, 100, 48, 0, dict(serve, Sq=17, G=10, dh=256)),
               (None, 30, None, 8, dict(serve, B=2, Sq=17, G=10, dh=16)),
               (BINARY8, 64, None, 0, dict(serve, G=2, dh=8)),
@@ -1310,6 +1499,9 @@ def check_prefill(torch, np, report, timer):
         if shp is PREFIX_SERVE:
             report["prefill_prefix_max_abs_err"] = max(
                 report.get("prefill_prefix_max_abs_err", 0.0), err)
+        if shp.get("Skv") == RG_S and shp.get("G") == RG_SHAPE["G"]:
+            report["prefill_rg_max_abs_err"] = max(
+                report.get("prefill_rg_max_abs_err", 0.0), err)
     report["prefill_max_abs_err"] = worst
     return ok
 
@@ -1416,7 +1608,8 @@ def check_flash_decode(torch, np, report):
     kernel is held to the split twin (whose scores are summed in f64) and
     its difference from the plain version, the sum of two f32 errors, is
     measured; so at paligemma-3b's MQA shape (H 1, G 8, dh 256, lengths
-    320-336 ragged in a gathered 384) in e5m2 and f32.
+    320-336 ragged in a gathered 384) and recurrentgemma-2b's (H 1, G 10,
+    dh 256, lengths 100-110 in a gathered 128) in e5m2 and f32.
     Tolerance 1e-6 absolute on the output, the reference's contract; 1e-5
     on m and relative 1e-5 on l.  Then a row's bits do not depend on the
     rows beside it: each row of the serve shape alone, and beside rows of
@@ -1442,6 +1635,9 @@ def check_flash_decode(torch, np, report):
               (BINARY16ALT, 256, [5, 63, 128, 256], dict(G=16, dh=200))]
     # paligemma-3b's decode: MQA over the prefix and the prompt
     cases += [(fmt, MQA_S, list(MQA_LENGTHS), MQA_SHAPE)
+              for fmt in (BINARY8, None)]
+    # recurrentgemma-2b's local attention: G 10 over a 128-row slot
+    cases += [(fmt, RG_S, list(RG_LENGTHS), RG_SHAPE)
               for fmt in (BINARY8, None)]
     for fmt, S, lengths, shp in cases:
         q, kp, vp, lens = _decode_inputs(torch, np, fmt, report["seed"] + 3,
@@ -1478,6 +1674,9 @@ def check_flash_decode(torch, np, report):
         if shp is MQA_SHAPE:
             report["flash_decode_mqa_max_abs_err"] = max(
                 report.get("flash_decode_mqa_max_abs_err", 0.0), terr)
+        if shp is RG_SHAPE:
+            report["flash_decode_rg_max_abs_err"] = max(
+                report.get("flash_decode_rg_max_abs_err", 0.0), terr)
     report["flash_decode_max_abs_err"] = worst
 
     q, kp, vp, lens = _decode_inputs(torch, np, BINARY8, report["seed"] + 3,
@@ -1545,28 +1744,56 @@ def time_prefix_attention(torch, np, report, timer):
     with the same prefix | causal mask; flash_decode of its 2 slots
     holding 324 rows (the middle of a serve's 321-327) in a gathered
     384-row cache beside SDPA; paged_decode of the same rows in pages of
-    64 (no library call takes block tables).  SDPA runs on the
-    dequantized K/V repeated to the 8 query heads (timed only, never
-    called by the port)."""
+    64 (no library call takes block tables)."""
+    _time_served_attention(
+        torch, np, report, timer, label="paligemma", shape=MQA_SHAPE,
+        prefill=PREFIX_SERVE, q_offset=0, window=None, prefix=256,
+        S=MQA_S, n=324, seeds=(5, 6),
+        names=("flash_prefill_prefix", "flash_decode_mqa",
+               "paged_decode_mqa"))
+
+
+def time_recurrentgemma_attention(torch, np, report, timer):
+    """The attention kernels at recurrentgemma-2b's served shapes (H 1,
+    G 10, dh 256, e5m2, window 2048): flash_prefill over its first
+    64-row chunk (q_offset 0 over the slot's 128 gathered rows) beside
+    SDPA with the same causal mask; flash_decode of its 2 slots holding
+    104 rows (the middle of a serve's 101-108) in a gathered 128-row
+    cache beside SDPA; paged_decode of the same rows in pages of 64."""
+    _time_served_attention(
+        torch, np, report, timer, label="recurrentgemma", shape=RG_SHAPE,
+        prefill=RG_CHUNK, q_offset=0, window=2048, prefix=0, S=RG_S, n=104,
+        seeds=(14, 15),
+        names=("flash_prefill_rg", "flash_decode_rg", "paged_decode_rg"))
+
+
+def _time_served_attention(torch, np, report, timer, *, label, shape,
+                           prefill, q_offset, window, prefix, S, n, seeds,
+                           names):
+    """flash_prefill at ``prefill`` (e5m2) beside SDPA with the same
+    mask; flash_decode of ``ARCH_SLOTS`` slots holding ``n`` rows in a
+    gathered ``S``-row cache beside SDPA; paged_decode of the same rows
+    in pages of 64.  SDPA runs on the dequantized K/V repeated to the
+    query heads (timed only, never called by the port)."""
     from repro_torch.core.formats import BINARY8
     from repro_torch.core.qtensor import decode
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import paged_attention as PA
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    H, G, dh = MQA_SHAPE["H"], MQA_SHAPE["G"], MQA_SHAPE["dh"]
-    shp = PREFIX_SERVE
-    Sq, Skv, P = shp["Sq"], shp["Skv"], 256
-    q, kp, vp = _prefill_inputs(torch, np, BINARY8, report["seed"] + 5,
-                                **shp)
+    H, G, dh = shape["H"], shape["G"], shape["dh"]
+    Sq, Skv = prefill["Sq"], prefill["Skv"]
+    q, kp, vp = _prefill_inputs(torch, np, BINARY8, report["seed"]
+                                + seeds[0], **prefill)
     kd, vd = decode(kp, BINARY8), decode(vp, BINARY8)
     qs = q.reshape(1, Sq, H * G, dh).transpose(1, 2)
     ks = kd.repeat_interleave(G, dim=2).transpose(1, 2)
     vs = vd.repeat_interleave(G, dim=2).transpose(1, 2)
-    mask = FA.prefill_mask(Sq, Skv, 0, None, P, "cuda")
-    t_k = timer(lambda: FA.flash_prefill(q, kp, vp, BINARY8, prefix_len=P))
-    t_p = timer(lambda: FA.flash_prefill_plain(q, kp, vp, BINARY8,
-                                               prefix_len=P), iters=10)
+    mask = FA.prefill_mask(Sq, Skv, q_offset, window, prefix, "cuda")
+    kw = dict(window=window, prefix_len=prefix, q_offset=q_offset)
+    t_k = timer(lambda: FA.flash_prefill(q, kp, vp, BINARY8, **kw))
+    t_p = timer(lambda: FA.flash_prefill_plain(q, kp, vp, BINARY8, **kw),
+                iters=10)
     t_l = timer(lambda: sdpa(qs, ks, vs, attn_mask=mask))
     live = int(mask.sum())                    # keys each query needs
     flops = 4 * dh * H * G * live
@@ -1574,17 +1801,19 @@ def time_prefix_attention(torch, np, report, timer):
     b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     b_ops = flops / F32_PEAK_FLOPS * 1e3
     report["timings"].append(dict(
-        kernel="flash_prefill_prefix", prefix_len=P, **shp, ms=t_k,
-        plain_ms=t_p, library_ms=t_l, bound_ms=max(b_bytes, b_ops),
+        kernel=names[0], prefix_len=prefix, window=window,
+        q_offset=q_offset, **prefill, ms=t_k, plain_ms=t_p, library_ms=t_l,
+        bound_ms=max(b_bytes, b_ops),
         bound_by="bytes" if b_bytes >= b_ops else "operations",
         bytes=nbytes, flops=flops))
-    print(f"[timing] flash_prefill paligemma whole prompt Sq=Skv={Sq} H=1 "
-          f"G=8 dh=256 prefix={P}: kernel {t_k:.4f} ms  plain {t_p:.4f} ms "
-          f" SDPA {t_l:.4f} ms  bound {max(b_bytes, b_ops):.5f} ms")
+    print(f"[timing] flash_prefill {label} Sq={Sq} Skv={Skv} H={H} G={G} "
+          f"dh={dh} q_offset={q_offset} window={window} prefix={prefix}: "
+          f"kernel {t_k:.4f} ms  plain {t_p:.4f} ms  SDPA {t_l:.4f} ms  "
+          f"bound {max(b_bytes, b_ops):.5f} ms")
 
-    B, S, n = ARCH_SLOTS, MQA_S, 324
-    q, kp, vp, lens = _decode_inputs(torch, np, BINARY8, report["seed"] + 6,
-                                     S, [n] * B, **MQA_SHAPE)
+    B = ARCH_SLOTS
+    q, kp, vp, lens = _decode_inputs(torch, np, BINARY8, report["seed"]
+                                     + seeds[1], S, [n] * B, **shape)
     kd, vd = decode(kp, BINARY8), decode(vp, BINARY8)
     qs = q.reshape(B, H * G, 1, dh)
     ks = kd.repeat_interleave(G, dim=2).transpose(1, 2)
@@ -1603,12 +1832,12 @@ def time_prefix_attention(torch, np, report, timer):
     kpg, vpg = kpg[perm].contiguous(), vpg[perm].contiguous()
     tables = inv.reshape(B, S // page).to(torch.int32).cuda()
     for name, fn, plain, lib, nbytes in (
-            ("flash_decode_mqa",
+            (names[1],
              lambda: FA.flash_decode(q, kp, vp, BINARY8, lens),
              lambda: FA.flash_decode_plain(q, kp, vp, BINARY8, lens),
              lambda: sdpa(qs, ks, vs, attn_mask=mask),
              FA.decode_hbm_bytes([n] * B, S, H, dh, BINARY8, g=G)),
-            ("paged_decode_mqa",
+            (names[2],
              lambda: PA.paged_decode(q, kpg, vpg, BINARY8, lens, tables),
              lambda: PA.paged_decode_plain(q, kpg, vpg, BINARY8, lens,
                                            tables),
@@ -1620,11 +1849,11 @@ def time_prefix_attention(torch, np, report, timer):
         t_l = timer(lib) if lib is not None else None
         b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         report["timings"].append(dict(
-            kernel=name, B=B, S=S, length=n, **MQA_SHAPE, ms=t_k,
+            kernel=name, B=B, S=S, length=n, **shape, ms=t_k,
             plain_ms=t_p, library_ms=t_l, bound_ms=max(b_bytes, b_ops),
             bound_by="bytes" if b_bytes >= b_ops else "operations",
             bytes=nbytes, flops=flops))
-        print(f"[timing] {name} paligemma B={B} len={n} H=1 G=8 dh=256: "
+        print(f"[timing] {name} {label} B={B} len={n} H={H} G={G} dh={dh}: "
               f"kernel {t_k:.4f} ms  plain {t_p:.4f} ms  "
               + (f"SDPA {t_l:.4f} ms  " if t_l is not None else "")
               + f"bound {max(b_bytes, b_ops):.6f} ms")
@@ -2766,6 +2995,7 @@ def check_logits(torch, report, args, qmm_lib):
     ok &= check_logits_archs(torch, report, args)
     ok &= check_grouped_logits(torch, report, args)
     ok &= check_prefix_logits(torch, report, args)
+    ok &= check_recurrent_logits(torch, report, args)
     return ok
 
 
@@ -3145,6 +3375,114 @@ def check_logits_archs(torch, report, args):
     return ok
 
 
+# the chunked route's distance from the whole prompt under binary32, in
+# units of max|logit|: the reference's own tolerance for its chunked
+# against its recurrent forms (tests/test_recurrent.py: 2e-4, 3e-4)
+CHUNKED_TOL = 2e-4
+
+
+def _recurrent_logits(torch, model, cfg, params, policy, toks, route):
+    """The prefill and first decode step logits of ``toks`` (1, 100)
+    along ``route``: ``"chunked"`` (the engine's: ``prefill_chunk`` of 64
+    then 36 tokens with ``pstates`` into one slot of 2 pages of 64,
+    then ``decode_step`` over the pages and the carried states) or
+    ``"whole"`` (the synchronous loop's: ``prefill`` of the 100 at
+    capacity 128, then ``decode_step``)."""
+    from repro_torch.kernels import paged_cache
+
+    if route == "whole":
+        lp, states = model.prefill(params, {"tokens": toks}, policy,
+                                   RG_S)
+    else:
+        states = [paged_cache.set_block_tables(
+            paged_cache.init_paged_cache(
+                1, 2, ARCH_PAGE, 2, cfg.n_kv, cfg.head_dim,
+                policy.dtype("kv_cache"), device="cuda"), [[0, 1]])
+            if k == "attn" else None for k in cfg.attn_pattern]
+        ps = model.recurrent_state(1, policy, "cuda")
+        at = 0
+        for n in arch_chunks(cfg):
+            lp, states, ps = model.prefill_chunk(
+                params, toks[:, at:at + n], states, ps, policy, slot=0,
+                q_offset=at)
+            at += n
+        states = [p if k != "attn" else st for k, p, st in
+                  zip(cfg.attn_pattern, ps, states)]
+    ld, _ = model.decode_step(params, toks[:, -1:], states, policy)
+    return lp.float(), ld.float()
+
+
+def check_recurrent_logits(torch, report, args):
+    """rwkv6-1.6b at 2 layers and recurrentgemma-2b at 3 (one attention
+    layer), full width, seeded weights and a 100-token prompt: the
+    chunked route's (64 + 36 with ``pstates``, then a decode step)
+    kernel path (``qmm_pallas`` with ``paged``; recurrentgemma also
+    ``flash_pallas``) against the plain path (xla, xla) under binary32
+    and transprecision at ``LOGIT_TOL``; and under binary32 the chunked
+    route against the whole prompt (``prefill`` + ``decode_step``) on
+    the kernel path within ``CHUNKED_TOL`` x max|logit|.  Under
+    transprecision the recurrent states are rounded to e5m2 at every
+    chunk end, so the two routes are different computations (in the
+    reference too), and are not compared."""
+    from repro_torch.core.policy import get_policy
+    from repro_torch.models import qparams
+    from repro_torch.models.registry import build
+    from repro_torch.models.transformer import Model
+
+    ok = True
+    for arch, layers in (("rwkv6-1.6b", 2), ("recurrentgemma-2b", 3)):
+        _, full = build(arch)
+        cfg = dataclasses.replace(full, n_layers=layers)
+        model = Model(cfg)
+        g = torch.Generator().manual_seed(args.seed)
+        toks = torch.randint(0, cfg.vocab, (1, RECURRENT_PROMPT),
+                             generator=g).to(torch.int32).cuda()
+        kernels = [("paged", "qmm_pallas")] + (
+            [("flash_pallas", "qmm_pallas")]
+            if "attn" in cfg.attn_pattern else [])
+        for pol in LOGIT_TOL:
+            res = {}
+            for dec, mm in kernels + [("xla", "xla")]:
+                policy = get_policy(pol, decode_impl=dec, matmul_impl=mm)
+                gen = torch.Generator(device="cuda").manual_seed(args.seed)
+                params = model.init_params(gen, policy, device="cuda")
+                if mm == "qmm_pallas":
+                    params = qparams.encode_params(params, policy)
+                res[dec] = _recurrent_logits(torch, model, cfg, params,
+                                             policy, toks, "chunked")
+                if pol == "binary32" and dec == "paged":
+                    res["whole"] = _recurrent_logits(
+                        torch, model, cfg, params, policy, toks, "whole")
+                del params
+                torch.cuda.empty_cache()
+            pairs = [(dec, "xla", LOGIT_TOL[pol]) for dec, _ in kernels]
+            if pol == "binary32":
+                pairs.append(("paged", "whole", CHUNKED_TOL))
+            for a_key, b_key, rel in pairs:
+                for i, what in enumerate(("prefill", "decode step")):
+                    a, b = res[a_key][i], res[b_key][i]
+                    err = float((a - b).abs().max())
+                    scale = float(b.abs().max())
+                    good = err <= rel * max(scale, 1.0) and bool(
+                        torch.isfinite(a).all())
+                    ok &= good
+                    kind = ("chunked vs whole" if b_key == "whole" else
+                            f"kernel ({a_key}) vs plain")
+                    report["logits"].append(dict(
+                        arch=arch, policy=pol, what=f"{kind} {what}",
+                        layers=layers, max_abs_err=err,
+                        max_abs_logit=scale, tol_rel=rel,
+                        argmax_equal=bool((a.argmax(-1) == b.argmax(-1))
+                                          .all()), ok=good))
+                    print(f"[logits] {arch} {pol:<14} {kind} {what}, "
+                          f"{layers}-layer full width, 64 + 36: max|diff| "
+                          f"= {err:.3e} (max|logit| {scale:.3f}, tol "
+                          f"{rel:.2e} x that) {'ok' if good else 'FAIL'}")
+        del model
+        torch.cuda.empty_cache()
+    return ok
+
+
 def _first_step_logits(torch, model, cfg, pol, dec, mm, seed, *, prompt,
                        page):
     """Logits of one prefill chunk of ``prompt`` random tokens (seeded)
@@ -3168,8 +3506,9 @@ def _first_step_logits(torch, model, cfg, pol, dec, mm, seed, *, prompt,
         [[0, 1, 2, 3]]) for _ in range(cfg.n_layers)]
     g = torch.Generator().manual_seed(seed)
     toks = torch.randint(0, cfg.vocab, (1, prompt), generator=g)
-    lp, states = model.prefill_chunk(params, toks.cuda(), states, policy,
-                                     slot=0, q_offset=0)
+    lp, states, _ = model.prefill_chunk(params, toks.cuda(), states,
+                                        [None] * len(states), policy,
+                                        slot=0, q_offset=0)
     ld, _ = model.decode_step(params, toks[:, -1:].cuda(), states, policy)
     out = (lp.float(), ld.float())
     del params, states
@@ -3216,9 +3555,9 @@ def check_verify_logits(torch, report, args, model, cfg, pol, dec,
             policy.dtype("kv_cache"), device="cuda"), tables)
             for _ in range(cfg.n_layers)]
         for si in range(B):
-            _, states = model.prefill_chunk(
+            _, states, _ = model.prefill_chunk(
                 params, prompts[si:si + 1].to(torch.int32).cuda(), states,
-                policy, slot=si, q_offset=0)
+                [None] * len(states), policy, slot=si, q_offset=0)
         return states
 
     st = fresh()
@@ -3308,7 +3647,7 @@ def check_rmsnorm_rows(torch, report, args):
 # the served rmsnorm widths (1024-5120), then 8192 (the widest a thread
 # keeps in registers, gamma read from memory) and 8320 (past it: the
 # kernel's two-pass variant that reads the residual back)
-ADD_RMS_DIMS = RMS_DIMS + (8320,)
+ADD_RMS_DIMS = RMS_DIMS + (2560, 8320)     # 2560: recurrentgemma-2b
 ADD_RMS_ROWS = (1, 2, 3, 4, 8, 9, 16, 17, 33, 64)
 
 
@@ -3317,7 +3656,8 @@ def check_add_rmsnorm(torch, report, args):
     the card bit for bit its plain version (``residual_add``, then
     ``rmsnorm_plain``, then the cast, run on the card) in both outputs,
     the residual and the normed row, at 1-64 rows and every served
-    rmsnorm width (1024, 2048, 4096, 5120) and the kernel's two widest
+    rmsnorm width (1024, 2048, 2560, 4096, 5120) and the kernel's two
+    widest
     variants (8192, 8320), for bf16, f32 and f16 pairs,
     a mixed pair (f32 + bf16) and no add (the first norm), with a NaN
     row, an Inf row and a row past bf16's range in the inputs; and a
@@ -3369,10 +3709,10 @@ def check_add_rmsnorm(torch, report, args):
     return ok
 
 
-# whisper-tiny's width (the register variant NPT 8), command-r-35b's (the
-# 16-byte variant, or on misaligned rows the register variant NPT 64) and
-# past 8192 (the re-reading variant)
-ADD_LN_DIMS = (384, 8192, 8320)
+# whisper-tiny's width (the register variant NPT 8), rwkv6-1.6b's,
+# command-r-35b's (the 16-byte variant, or on misaligned rows the register
+# variant NPT 64) and past 8192 (the re-reading variant)
+ADD_LN_DIMS = (384, 2048, 8192, 8320)
 ADD_LN_ROWS = (1, 4, 64, 100)
 
 
@@ -3391,7 +3731,8 @@ def check_add_layernorm(torch, report, args):
     on the card bit for bit its plain version (``residual_add``, then
     ``layernorm_plain``, then the cast, run on the card) in both outputs,
     the residual and the normed row, at 1, 4, 64 and 100 rows and d 384,
-    8192 and 8320, for bf16, f32 and f16 pairs, a mixed pair (f32 + bf16)
+    2048, 8192 and 8320, for bf16, f32 and f16 pairs, a mixed pair (f32 +
+    bf16)
     and no add (the first norm), with a NaN row, an Inf row and a row past
     bf16's range in the inputs, on aligned rows and on misaligned ones
     (at d 8192 the 16-byte variant, and the register variant); and a
@@ -3983,25 +4324,53 @@ def run_resilience(torch, report, libs, args, timer):
 # ---------------------------------------------------------------------------
 
 ARCHS = ("yi-9b", "mistral-nemo-12b", "command-r-35b",
-         "granite-moe-1b-a400m", "qwen3-moe-30b-a3b", "paligemma-3b")
-ARCHS_PAGED = ("mistral-nemo-12b", "granite-moe-1b-a400m", "paligemma-3b")
+         "granite-moe-1b-a400m", "qwen3-moe-30b-a3b", "paligemma-3b",
+         "rwkv6-1.6b", "recurrentgemma-2b")
+ARCHS_PAGED = ("mistral-nemo-12b", "granite-moe-1b-a400m", "paligemma-3b",
+               "recurrentgemma-2b")
 ARCH_REQUESTS, ARCH_SLOTS, ARCH_PROMPT, ARCH_MAX_NEW = 2, 2, 64, 8
 ARCH_PAGE = 64
+# the recurrent configs' prompt: 100 tokens, chunked 64 + 36, so every
+# recurrent state crosses a chunk edge
+RECURRENT_PROMPT = 100
+
+
+def recurrent(cfg) -> bool:
+    return any(k != "attn" for k in cfg.attn_pattern)
+
+
+def arch_prompt(cfg) -> int:
+    """The archs phase's prompt length of ``cfg``: 64, or 100 for the
+    recurrent configs."""
+    return RECURRENT_PROMPT if recurrent(cfg) else ARCH_PROMPT
+
+
+def arch_chunks(cfg):
+    """The tokens of each prefill call of one prompt: pages of 64 (64 +
+    36 for a recurrent config's 100), or a prefix-LM's whole prompt
+    (prefix rows and tokens) in one call."""
+    n = arch_prompt(cfg)
+    if cfg.prefix_len:
+        return (cfg.prefix_len + n,)
+    return (ARCH_PAGE,) * (n // ARCH_PAGE) + ((n % ARCH_PAGE,)
+                                              if n % ARCH_PAGE else ())
 
 
 def arch_capacity(cfg) -> int:
     """Each slot's KV capacity in the archs phase: a request's rows (a
     prefix-LM's prefix, the prompt and the new tokens) in whole pages:
-    128 for the decoder-only configs, 384 for paligemma-3b's 256 + 64 +
-    8."""
-    rows = cfg.prefix_len + ARCH_PROMPT + ARCH_MAX_NEW
+    128 for the decoder-only configs (the recurrent ones' 100 + 8 too,
+    at most recurrentgemma's window of 2048), 384 for paligemma-3b's 256
+    + 64 + 8."""
+    rows = cfg.prefix_len + arch_prompt(cfg) + ARCH_MAX_NEW
     return -(-rows // ARCH_PAGE) * ARCH_PAGE
 
 
 # the tied heads' column pieces: (pieces, the last one's width)
 WANT_HEAD_PIECES = {"command-r-35b": (8, 26624),
                     "granite-moe-1b-a400m": (2, 16387),
-                    "paligemma-3b": (8, 27840)}
+                    "paligemma-3b": (8, 27840),
+                    "recurrentgemma-2b": (8, 26624)}
 
 
 def head_pieces(cfg):
@@ -4021,27 +4390,31 @@ def arch_launches(cfg, decode_impl):
     per chunk, qmm by kernel per decode step, per chunk, grouped
     launches per step or chunk)``, tuples in ``libs`` order (qmm,
     paged_decode, flash_prefill, flash_decode, flexfloat_cast, norms),
-    qmm by kernel (qmm_gemv, qmm_tile, qmm_tc).  A layer: wq, wk, wv, wo,
-    then the fused gated FFN and w_out (dense) or the binary32 router, one
-    grouped launch for the gated pair (``qmm_tc_grouped_ffn``) and one for
-    w_out (``qmm_tc_grouped``) (MoE), all packed bf16 on the tensor cores
-    except the router (the GEMV at a decode step's 2 rows, qmm_tile in a
-    64-row chunk); the untied head one qmm_tc, the tied one
-    ``torch.matmul``; two norms a layer and the final one, each one
-    fused launch with its residual add and cast (``add_rmsnorm`` for the
-    rmsnorm configs, ``add_layernorm`` for command-r).  A prefix-LM's
-    "chunk" is its whole prompt (prefix and tokens in one call), which
-    launches what a chunk does."""
+    qmm by kernel (qmm_gemv, qmm_tile, qmm_tc).  A layer: the products
+    of ``arch_step_products`` (attention 4, rwkv 8 with its channel mix,
+    RG-LRU 5, then but for rwkv the fused gated FFN and w_out), an MoE
+    layer also the binary32 router, one grouped launch for the gated
+    pair (``qmm_tc_grouped_ffn``) and one for w_out (``qmm_tc_grouped``),
+    all packed bf16 on the tensor cores except the router (the GEMV at a
+    decode step's 2 rows, qmm_tile in a 64-row chunk); one
+    attention call an attention layer; the untied head one qmm_tc, the
+    tied one ``torch.matmul``; two norms a layer and the final one, each
+    one fused launch with its residual add and cast (``add_rmsnorm`` for
+    the rmsnorm configs, ``add_layernorm`` for command-r and rwkv6).  A
+    prefix-LM's "chunk" is its whole prompt (prefix and tokens in one
+    call), which launches what a chunk does; a recurrent config's 36-row
+    chunk launches what its 64-row one does."""
     L = cfg.n_layers
+    A = cfg.attn_pattern.count("attn")
     head = 0 if cfg.tied_embeddings else 1
-    tc = L * (4 if cfg.moe_experts else 6) + head
+    tc = sum(p[-1] for p in arch_step_products(cfg)) + head
     router = L if cfg.moe_experts else 0
     grouped = 2 * L if cfg.moe_experts else 0
     norms = 2 * L + 1
     qmm = tc + router + grouped
-    dec = (qmm, L if decode_impl == "paged" else 0, 0,
-           0 if decode_impl == "paged" else L, 0, norms)
-    pre = (qmm, 0, L, 0, 0, norms)
+    dec = (qmm, A if decode_impl == "paged" else 0, 0,
+           0 if decode_impl == "paged" else A, 0, norms)
+    pre = (qmm, 0, A, 0, 0, norms)
     return dec, pre, (router, 0, tc), (0, router, tc), grouped
 
 
@@ -4056,20 +4429,27 @@ def _arch_serve(torch, report, libs, args, arch, decode_impl, params, cfg):
     argv = ["--arch", arch, "--policy", "transprecision",
             "--decode-impl", decode_impl, "--matmul-impl", "qmm_pallas",
             "--page-size", str(ARCH_PAGE), "--requests", str(ARCH_REQUESTS),
-            "--slots", str(ARCH_SLOTS), "--prompt-len", str(ARCH_PROMPT),
-            "--max-new", str(ARCH_MAX_NEW), "--capacity",
-            str(arch_capacity(cfg)), "--seed", str(args.seed), "--stats-out",
-            os.path.join(args.out, stats)]
+            "--slots", str(ARCH_SLOTS), "--prompt-len",
+            str(arch_prompt(cfg)), "--max-new", str(ARCH_MAX_NEW),
+            "--capacity", str(arch_capacity(cfg)), "--seed", str(args.seed),
+            "--stats-out", os.path.join(args.out, stats)]
     # each slot's length when its prompt has landed: the prefix rows and
-    # the prompt's (read in the prefill call, before the hooks' counts
-    # close)
+    # the prompt's (read from the first attention layer's pool in the
+    # prefill call, before the hooks' counts close; an attention-free
+    # config has no pool, and its prompt cursor is read), and the tokens
+    # of every prefill call
     real_step = worker.PrefillWorker.step
-    landed = []
+    landed, chunks = [], []
+    first_attn = next((li for li, k in enumerate(cfg.attn_pattern)
+                       if k == "attn"), None)
 
     def step(self, task, view, slot):
+        at = task.offset
         view = real_step(self, task, view, slot)
+        chunks.append(task.offset - at)
         if task.done:
-            landed.append(int(view[0].seq_lens[slot]))
+            landed.append(task.offset if first_attn is None
+                          else int(view[first_attn].seq_lens[slot]))
         return view
     # the dense gated FFN's launches (one qmm_tc each) by the call's rows:
     # a decode step's (at most ARCH_SLOTS) or a prefill call's
@@ -4132,12 +4512,14 @@ def _arch_serve(torch, report, libs, args, arch, decode_impl, params, cfg):
     pieces, last = head_pieces(cfg)
     ok &= (pieces, last) == WANT_HEAD_PIECES.get(arch, (0, 0))
     ok &= head["_compute_operands"] == calls * pieces
-    L = 0 if cfg.moe_experts else cfg.n_layers
+    L = 0 if cfg.moe_experts else sum(k != "rwkv" for k in cfg.attn_pattern)
     want_ffn = {"decode": len(per["decode"]) * L,
                 "prefill": len(per["prefill"]) * L}
     ok &= ffn_rows == want_ffn
-    want_rows = cfg.prefix_len + ARCH_PROMPT
+    want_rows = cfg.prefix_len + arch_prompt(cfg)
     ok &= landed == [want_rows] * ARCH_REQUESTS
+    want_chunks = list(arch_chunks(cfg)) * ARCH_REQUESTS
+    ok &= chunks == want_chunks
     summary = _serve_summary(args, stats)
     entry = dict(
         arch=arch, decode_impl=decode_impl, n_layers=cfg.n_layers,
@@ -4156,7 +4538,8 @@ def _arch_serve(torch, report, libs, args, arch, decode_impl, params, cfg):
         head_pieces=pieces, head_last_piece_cols=last,
         head_matmul_pieces=head["_compute_operands"],
         qmm_ffn_rows=ffn_rows, act=cfg.act_fn,
-        slot_rows_after_prefill=landed,
+        slot_rows_after_prefill=landed, prefill_call_tokens=chunks,
+        attention_layers=cfg.attn_pattern.count("attn"),
         per_decode_step=sorted(set(per["decode"])),
         per_prefill_chunk=sorted(set(per["prefill"])),
         qmm_kernels_per_decode_step=sorted(set(per["decode/kern"])),
@@ -4187,7 +4570,8 @@ def _arch_serve(torch, report, libs, args, arch, decode_impl, params, cfg):
           f"{cfg.act_fn} qmm_ffn launches {ffn_rows} (want {want_ffn}); "
           f"slot rows after prefill {landed} (want "
           f"{want_rows} each{' = prefix + prompt' if cfg.prefix_len else ''})"
-          f" {'ok' if ok else 'FAIL'}")
+          f"; tokens a prefill call {chunks} (want {want_chunks}) "
+          f"{'ok' if ok else 'FAIL'}")
     return ok, entry
 
 
@@ -4231,18 +4615,21 @@ def run_archs(torch, report, libs, args):
     """``serve.main`` on each config past llama3-8b at full width and
     full depth (random weights from ``--seed``, made once a config and
     served as they are): transprecision, ``qmm_pallas``,
-    ``flash_pallas``, 2 requests x (64 + 8) over 2 slots, page 64,
+    ``flash_pallas``, 2 requests x (64 + 8) over 2 slots (the recurrent
+    configs 2 x (100 + 8), the prompt in chunks of 64 + 36), page 64,
     capacity ``arch_capacity`` (128; paligemma-3b 384, after its 256
-    zero stub prefix rows); mistral-nemo-12b, granite-moe and
-    paligemma-3b once more under ``paged``.  Asserted: every request
-    gets its tokens; the launches of every decode step and every prefill
-    chunk (paligemma: every whole prompt), by library and by qmm kernel
-    (``arch_launches``); the norm kind (fused add_layernorm for
-    command-r, fused add_rmsnorm for the rest, and no standalone residual
-    add or three-step norm); the tied heads' ``torch.matmul`` pieces
-    (``head_pieces``); one ``qmm_ffn`` a dense layer a call; every
-    slot's length when its prompt lands (prefix + prompt); the experts'
-    launches
+    zero stub prefix rows); mistral-nemo-12b, granite-moe, paligemma-3b
+    and recurrentgemma-2b once more under ``paged``.  Asserted: every
+    request gets its tokens; the launches of every decode step and every
+    prefill chunk (paligemma: every whole prompt), by library and by qmm
+    kernel (``arch_launches``: rwkv6 193 ``qmm_tc`` and no attention,
+    recurrentgemma 174 ``qmm_tc`` and 8 attention calls); the norm kind
+    (fused add_layernorm for command-r and rwkv6, fused add_rmsnorm for
+    the rest, and no standalone residual add or three-step norm); the
+    tied heads' ``torch.matmul`` pieces (``head_pieces``); one
+    ``qmm_ffn`` a layer with an FFN a call; every slot's length when its
+    prompt lands (prefix + prompt) and the tokens of every prefill call
+    (``arch_chunks``); the experts' launches
     (two grouped calls a layer a step or chunk, the gated pair and w_out,
     and no per-expert qmm_tc), one device kernel a grouped call in the
     profiled step; one MoE layer of each MoE config with no host
@@ -4285,7 +4672,7 @@ def run_archs(torch, report, libs, args):
                 "--decode-impl", "flash_pallas", "--matmul-impl",
                 "qmm_pallas", "--page-size", str(ARCH_PAGE), "--requests",
                 str(ARCH_REQUESTS), "--slots", str(ARCH_SLOTS),
-                "--prompt-len", str(ARCH_PROMPT), "--max-new", "4",
+                "--prompt-len", str(arch_prompt(cfg)), "--max-new", "4",
                 "--capacity", str(arch_capacity(cfg)), "--seed",
                 str(args.seed)]
         busy, wall, top, steps, rows = _profiled_serve(
@@ -4694,6 +5081,22 @@ def kernel_rows(report):
         "qmm_by_kernel", {})
     qwen3_grouped = archs.get("qwen3-moe-30b-a3b/flash_pallas", {}).get(
         "grouped_by_kernel", {})
+    rwkv = archs.get("rwkv6-1.6b/flash_pallas", {})
+    rg = archs.get("recurrentgemma-2b/flash_pallas", {})
+    rg_paged = archs.get("recurrentgemma-2b/paged", {})
+
+    def tc_launches(entry, what):
+        """A config's archs serve's qmm_tc launches in its decode steps
+        or its prefill calls."""
+        per = entry.get(f"qmm_kernels_per_{what}", [])
+        calls = entry.get("decode_steps" if what == "decode_step"
+                          else "prefill_chunks", 0)
+        return per[0][QMM_KERNELS.index("qmm_tc")] * calls \
+            if len(per) == 1 else 0
+
+    def norm_launches(entry, entry_name):
+        return entry.get("launches", {}).get("norms_by_entry", {}).get(
+            entry_name, 0)
     pali = archs.get("paligemma-3b/flash_pallas", {})
     pali_paged = archs.get("paligemma-3b/paged", {})
     pali_ffn = pali.get("qmm_ffn_rows", {})
@@ -4783,6 +5186,51 @@ def kernel_rows(report):
          pali_paged.get("launches", {}).get("paged_decode", 0),
          report.get("paged_mqa_max_abs_err"),
          timing("paged_decode_mqa")),
+        # the recurrent configs' widths: qmm_tc per chunk and per decode
+        # step (rwkv6 d 2048 / ff 7168 and its 65,536-wide head,
+        # recurrentgemma d 2560 / ff 7680), the fused norms at their
+        # decode rows, and recurrentgemma's local attention (H 1, G 10,
+        # dh 256, window 2048)
+        ("qmm_tc_rwkv6", qmm_src, qmm_tpu, tc_launches(rwkv, "prefill_chunk"),
+         report.get("qmm_archs_max_abs_err"),
+         timing("qmm_tc_rwkv6-1.6b_chunk")),
+        ("qmm_tc_rwkv6_decode_step", qmm_src, qmm_tpu,
+         tc_launches(rwkv, "decode_step"),
+         report.get("qmm_archs_max_abs_err"),
+         timing("qmm_tc_rwkv6-1.6b_decode_step")),
+        ("qmm_tc_recurrentgemma", qmm_src, qmm_tpu,
+         tc_launches(rg, "prefill_chunk"),
+         report.get("qmm_archs_max_abs_err"),
+         timing("qmm_tc_recurrentgemma-2b_chunk")),
+        ("qmm_tc_recurrentgemma_decode_step", qmm_src, qmm_tpu,
+         tc_launches(rg, "decode_step"),
+         report.get("qmm_archs_max_abs_err"),
+         timing("qmm_tc_recurrentgemma-2b_decode_step")),
+        ("add_layernorm_d2048", "src/repro_torch/csrc/rmsnorm.cu",
+         "src/repro/models/layers.py:228",
+         norm_launches(rwkv, "add_layernorm_launch"),
+         report.get("add_layernorm_max_abs_err"),
+         timing("add_layernorm_recurrent")),
+        ("add_rmsnorm_d2560", "src/repro_torch/csrc/rmsnorm.cu",
+         "src/repro/models/layers.py:221",
+         norm_launches(rg, "add_rmsnorm_launch")
+         + norm_launches(rg_paged, "add_rmsnorm_launch"),
+         report.get("add_rmsnorm_max_abs_err"),
+         timing("add_rmsnorm_recurrent")),
+        ("flash_prefill_rg", "src/repro_torch/csrc/flash_prefill.cu",
+         "src/repro/kernels/flash_attention.py:257",
+         rg.get("launches", {}).get("flash_prefill", 0)
+         + rg_paged.get("launches", {}).get("flash_prefill", 0),
+         report.get("prefill_rg_max_abs_err"), timing("flash_prefill_rg")),
+        ("flash_decode_rg", "src/repro_torch/csrc/flash_decode.cu",
+         "src/repro/kernels/flash_attention.py:112",
+         rg.get("launches", {}).get("flash_decode", 0),
+         report.get("flash_decode_rg_max_abs_err"),
+         timing("flash_decode_rg")),
+        ("paged_decode_rg", "src/repro_torch/csrc/paged_decode.cu",
+         "src/repro/kernels/paged_attention.py:52",
+         rg_paged.get("launches", {}).get("paged_decode", 0),
+         report.get("paged_rg_max_abs_err"), timing("paged_decode_rg")),
     ]
     kernels = []
     for name, source, replaces, launches, err, t in rows:
@@ -4870,6 +5318,8 @@ def main() -> int:
                 ok &= check_add_layernorm(torch, report, args)
                 time_kernels(torch, np, report, timer)
                 time_prefix_attention(torch, np, report, timer)
+                time_recurrentgemma_attention(torch, np, report, timer)
+                time_qmm_recurrent(torch, report, timer)
                 time_qmm_grouped(torch, report, timer)
             elif phase == "timing":
                 # the kernels' times alone (for --src)

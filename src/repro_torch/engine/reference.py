@@ -1,7 +1,8 @@
 """Synchronous single-request reference loop: the engine's oracle.
 
 Each prompt (after a prefix-LM's zero stub patch embeddings) is
-prefilled whole into a contiguous KV cache of ``capacity`` rows and
+prefilled whole into contiguous KV caches of ``capacity`` rows (at most
+the window) and the recurrent layers' states after the prompt, and
 decoded greedily one request at a time.  Under binary32 the engine's
 greedy tokens must match this loop token for token.
 """

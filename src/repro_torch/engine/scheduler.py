@@ -20,6 +20,11 @@ Each engine step does, in order:
    occupies its prefix rows and its prompt's, always prefilled whole, so
    its slot's length after prefill counts the prefix (the reference's
    engine drops those rows; its ``synchronous_generate`` keeps them).
+   Recurrent layers (rwkv / rglru) have no pages: a prompt carries its
+   own B = 1 state through its chunks, and when the prompt completes
+   that state replaces its slot's row of the batched recurrent state
+   (``_insert_slot``), so a reused slot starts from the new prompt's
+   state, never from its last occupant's.
 4. **Growth / eviction** -- every decoding slot gets a mapped page for
    its next token(s); when the pool runs dry the most recently admitted
    sequence is evicted back to the queue head (LIFO) and its pages
@@ -87,6 +92,18 @@ def _host(*tensors) -> List[np.ndarray]:
         out.append(flat[at:at + t.numel()].reshape(t.shape))
         at += t.numel()
     return out
+
+
+def _insert_slot(batched, one, slot: int):
+    """A recurrent layer's batched state with row ``slot`` replaced by the
+    1-sequence state ``one`` (a new tensor per field: the decode step's
+    earlier states stay as they were)."""
+    fields = []
+    for all_f, one_f in zip(batched, one):
+        f = all_f.clone()
+        f[slot:slot + 1] = one_f.to(f.device)
+        fields.append(f)
+    return type(batched)(*fields)
 
 
 class Request:
@@ -161,10 +178,17 @@ class Engine:
         self.slots = slots
         self.capacity = capacity
         self.device = resolve_device(device)
-        if cfg.window is not None and capacity > cfg.window:
+        # only attention layers have pages; the others keep recurrent
+        # states, one row a slot
+        self.attn_layers = [li for li, k in enumerate(cfg.attn_pattern)
+                            if k == "attn"]
+        if (self.attn_layers and cfg.window is not None
+                and capacity > cfg.window):
             raise ValueError(
                 f"arch {cfg.arch}: --capacity {capacity} exceeds the "
-                f"sliding window {cfg.window}")
+                f"sliding window {cfg.window}; the paged engine keeps every "
+                f"cached token, which matches windowed attention only while "
+                f"capacity <= window -- lower --capacity")
         page = paged_cache.validate_page_size(page_size)
         self.page = page
         self.pages_per_seq = -(-capacity // page)
@@ -191,13 +215,14 @@ class Engine:
             # now, so no timed step ever waits for a build
             _build.build_all()
 
-        # each layer owns its pool, so the KV format may vary by layer
-        self.states = [
-            paged_cache.init_paged_cache(
+        # each attention layer owns its pool, so the KV format may vary
+        # by layer; recurrent layers hold one state row a slot
+        self.states = model.recurrent_state(slots, policy, self.device)
+        for li in self.attn_layers:
+            self.states[li] = paged_cache.init_paged_cache(
                 slots, self.num_pages, page, self.pages_per_seq, cfg.n_kv,
                 cfg.head_dim, policy.dtype("kv_cache", layer=li),
                 device=self.device)
-            for li in range(cfg.n_layers)]
 
         if transport is None:
             transports = [ColocatedTransport()]
@@ -231,7 +256,7 @@ class Engine:
         self.kv_bytes_per_token = sum(
             cfg.n_kv * cfg.head_dim * 2
             * policy.dtype("kv_cache", layer=li).itemsize
-            for li in range(cfg.n_layers))
+            for li in self.attn_layers)
         self.summary: Optional[dict] = None
 
         # serving-loop state: run() and the async router drive the same
@@ -272,8 +297,20 @@ class Engine:
             self.spec.push_tables(both[1])
         else:
             dev = torch.as_tensor(tables).to(self.device)
-        self.states = [paged_cache.set_block_tables(s, dev)
-                       for s in self.states]
+        for li in self.attn_layers:
+            self.states[li] = paged_cache.set_block_tables(self.states[li],
+                                                           dev)
+
+    def _init_pstates(self, transport):
+        """Zero B = 1 recurrent states for a fresh prompt on the prefill
+        worker's device (None at attention layers, whose KV goes
+        straight into the pages)."""
+        return self.model.recurrent_state(1, self.policy, transport.device)
+
+    def _release_pages(self, si: int) -> None:
+        """Reset ``si``'s device table row and length in every pool."""
+        for li in self.attn_layers:
+            self.states[li] = paged_cache.release_slot(self.states[li], si)
 
     def _rows(self, r: Request) -> int:
         """KV rows ``r``'s prefill lands: a prefix-LM's prefix rows and
@@ -346,7 +383,7 @@ class Engine:
         """Free ``si`` everywhere: pool pages (all namespaces), device
         table rows, draft rows, and any in-flight prefill."""
         self.pool.free_slot(si)        # every namespace at once
-        self.states = [paged_cache.release_slot(s, si) for s in self.states]
+        self._release_pages(si)
         if self.spec is not None:
             self.spec.release_slot(si)
         task = self._task_for_slot(si)
@@ -394,7 +431,7 @@ class Engine:
         the determinism contract.  -> tokens emitted now."""
         r = self._slots[si]
         pages = self.pool.quarantine_slot(si)
-        self.states = [paged_cache.release_slot(s, si) for s in self.states]
+        self._release_pages(si)
         if self.spec is not None:
             self.spec.release_slot(si)
         self._slots[si] = None
@@ -416,9 +453,15 @@ class Engine:
         return len(r.generated) - prev
 
     def _complete_prefill(self, task: PrefillTask) -> None:
-        """A prompt's last chunk just landed: read its first token (one
-        host transfer) and hand the slot to the decode batch."""
+        """A prompt's last chunk just landed: write its recurrent states
+        into the slot's rows, read its first token (one host transfer)
+        and hand the slot to the decode batch."""
         r, si = task.request, task.slot
+        tr = self.transports[task.worker]
+        for li, kind in enumerate(self.cfg.attn_pattern):
+            if kind != "attn":
+                self.states[li] = _insert_slot(
+                    self.states[li], tr.to_decode(task.pstates[li]), si)
         last = task.logits[0, -1]
         am, fin = _host(torch.argmax(last), torch.isfinite(last).all())
         if not bool(fin):
@@ -488,6 +531,7 @@ class Engine:
             wi = next(w for w in range(self.n_prefill_workers)
                       if w not in busy)
             task = PrefillTask(r, si, need, worker=wi)
+            task.pstates = self._init_pstates(self.transports[wi])
             self.transports[wi].begin(self, task)
             self._tasks.append(task)
         # ---- one prefill chunk per task (decode below still runs) -------

@@ -109,8 +109,9 @@ class SpeculativeDecoder:
         whole-prompt chunk (tables pushed by the caller)."""
         t = torch.tensor([list(prompt)], dtype=torch.int32,
                          device=self.states[0].seq_lens.device)
-        _, self.states = self.model.prefill_chunk(
-            self.params, t, self.states, self.policy, slot=slot, q_offset=0)
+        _, self.states, _ = self.model.prefill_chunk(
+            self.params, t, self.states, [None] * len(self.states),
+            self.policy, slot=slot, q_offset=0)
 
     def release_slot(self, slot: int) -> None:
         """Reset ``slot``'s draft device row (eviction or completion)."""

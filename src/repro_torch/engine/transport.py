@@ -20,7 +20,10 @@ batch is a set of page copies.  Two transports implement one contract:
 
 Scheduler-facing contract (driven once per prefill chunk):
 ``begin`` -> [``prefill_view`` -> worker chunk -> ``absorb``]* ->
-``finish`` (or ``abort`` on mid-flight eviction).
+``finish`` (or ``abort`` on mid-flight eviction).  Only attention layers
+have pools; a recurrent layer's B = 1 prompt state crosses through
+``to_decode`` when the prompt completes (the streamed transport's
+recurrent states live on its prefill device until then).
 
 **Checksummed handoff.**  A per-page CRC32 over the packed payload bytes
 is taken from the *source pool* before the copy and recomputed from the
@@ -52,9 +55,12 @@ def _device_transfer(x, device):
 
 
 def _tree_to(tree, device):
-    """A param tree (dicts, lists, tensors, QTensors) on ``device``."""
+    """A param tree (dicts, lists, tensors, QTensors) or a recurrent layer
+    state (a NamedTuple of tensors) on ``device``."""
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_tree_to(v, device) for v in tree))
     if isinstance(tree, (list, tuple)):
         return [_tree_to(v, device) for v in tree]
     if isinstance(tree, QTensor):
@@ -73,6 +79,9 @@ class ColocatedTransport:
 
     def begin(self, engine, task) -> None:
         pass
+
+    def to_decode(self, state):
+        return state
 
     def prefill_view(self, engine, task):
         return engine.states, task.slot
@@ -114,18 +123,21 @@ class StreamedTransport:
                        or self.device.index != same)
         self.params = (_tree_to(engine.params, self.device)
                        if self._cross else engine.params)
+        self._decode_device = engine.device
         cfg, policy = engine.cfg, engine.policy
         # single-slot source pool, identity block table: logical page p
         # of the in-flight prompt is physical page p -- sized for the
         # longest admissible sequence, reused across requests (stale
         # bytes are overwritten; lengths reset in begin())
         ident = np.arange(engine.pages_per_seq, dtype=np.int32)[None, :]
-        self.src_states = [
-            paged_cache.set_block_tables(paged_cache.init_paged_cache(
-                1, engine.pages_per_seq, engine.page, engine.pages_per_seq,
-                cfg.n_kv, cfg.head_dim, policy.dtype("kv_cache", layer=li),
-                device=self.device), ident)
-            for li in range(cfg.n_layers)]
+        self.src_states = [None] * cfg.n_layers
+        for li in engine.attn_layers:
+            self.src_states[li] = paged_cache.set_block_tables(
+                paged_cache.init_paged_cache(
+                    1, engine.pages_per_seq, engine.page,
+                    engine.pages_per_seq, cfg.n_kv, cfg.head_dim,
+                    policy.dtype("kv_cache", layer=li), device=self.device),
+                ident)
 
     def begin(self, engine, task) -> None:
         if self._task is not None:
@@ -135,8 +147,13 @@ class StreamedTransport:
                 "its own transport "
                 "(Engine(transport=[StreamedTransport(), ...]))")
         self._task = task
-        self.src_states = [paged_cache.set_seq_len(s, 0, 0)
-                           for s in self.src_states]
+        for li in engine.attn_layers:
+            self.src_states[li] = paged_cache.set_seq_len(
+                self.src_states[li], 0, 0)
+
+    def to_decode(self, state):
+        return _tree_to(state, self._decode_device) if self._cross \
+            else state
 
     def prefill_view(self, engine, task):
         return self.src_states, 0
@@ -152,8 +169,9 @@ class StreamedTransport:
         # the decode side (pages arrived by copy, not write_chunk)
         self._copy_pages(engine, task, task.streamed,
                          engine.pool.pages_for(task.n_tokens))
-        engine.states = [paged_cache.set_seq_len(s, task.slot, task.n_tokens)
-                         for s in engine.states]
+        for li in engine.attn_layers:
+            engine.states[li] = paged_cache.set_seq_len(
+                engine.states[li], task.slot, task.n_tokens)
         self._task = None
 
     def abort(self, engine, task) -> None:
@@ -166,7 +184,8 @@ class StreamedTransport:
         retry = engine.retry_policy
         dst_ids = torch.as_tensor(engine.pool.tables[task.slot, lo:hi]
                                   .astype(np.int64)).to(engine.device)
-        for li, src in enumerate(self.src_states):
+        for li in engine.attn_layers:
+            src = self.src_states[li]
             # the source pool's pages lo..hi-1 (identity table), copied
             # out so a later chunk cannot change them under the CRC
             src_k = src.k_pool[lo:hi].clone()

@@ -7,9 +7,13 @@ private source pool), so the transient staging buffer is one chunk per
 layer.  ``chunk_tokens == 0``, or a prefix-LM config (whose prefix
 rows need the whole-sequence path), is whole-prompt prefill: one
 ``Model.prefill`` into a contiguous cache of the prefix and prompt rows,
-then a bulk ``write_prefill`` of all of them into the pages.  The decode
-worker runs one batched ``decode_step`` and returns the argmax tokens
-and the NaN/Inf guard verdicts, computed on the device.
+then a bulk ``write_prefill`` of all of them into the pages.  Recurrent
+layers (rwkv / rglru) keep a B = 1 state per prompt in the task's
+``pstates``, threaded through every chunk (or set by the whole-prompt
+step); the scheduler writes it into the slot's row of the batched state
+when the prompt completes.  The decode worker runs one batched
+``decode_step`` and returns the argmax tokens and the NaN/Inf guard
+verdicts, computed on the device.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ class PrefillTask:
         self.streamed = 0          # pages already handed to the decode pool
         self.done = False
         self.logits = None         # last-position logits once done
+        self.pstates = None        # B=1 recurrent-layer states (rwkv/rglru)
 
 
 def make_batch(cfg, prompt, device) -> dict:
@@ -75,9 +80,9 @@ class PrefillWorker:
             return self._whole_step(task, view_states, slot)
         C = min(self.chunk_tokens, task.n_tokens - task.offset)
         toks = task.request.prompt[task.offset:task.offset + C]
-        logits, view_states = self.model.prefill_chunk(
+        logits, view_states, task.pstates = self.model.prefill_chunk(
             self.transport.params, self._tokens(toks), view_states,
-            self.policy, slot=slot, q_offset=task.offset)
+            task.pstates, self.policy, slot=slot, q_offset=task.offset)
         self.stats.note_prefill_transient(C)
         task.offset += C
         if task.offset >= task.n_tokens:
@@ -90,8 +95,13 @@ class PrefillWorker:
                            self.transport.device)
         logits, one = self.model.prefill(self.transport.params, batch,
                                          self.policy, None)
-        view_states = [paged_cache.write_prefill(s, slot, c.k[0], c.v[0])
-                       for s, c in zip(view_states, one)]
+        view_states = list(view_states)
+        for li, kind in enumerate(self.cfg.attn_pattern):
+            if kind == "attn":
+                view_states[li] = paged_cache.write_prefill(
+                    view_states[li], slot, one[li].k[0], one[li].v[0])
+            else:
+                task.pstates[li] = one[li]
         self.stats.note_prefill_transient(task.n_tokens)
         task.offset = task.n_tokens
         task.done = True

@@ -1,13 +1,14 @@
 """Model configuration: the port's copy of ``repro.models.base`` for the
-dense and MoE decoders and the prefix-LM (``vlm``: a decoder over stub
-patch embeddings); recurrent and enc-dec fields wait with their
-architectures."""
+dense and MoE decoders, the prefix-LM (``vlm``: a decoder over stub
+patch embeddings), the attention-free ``ssm`` (rwkv6) and the ``hybrid``
+(RG-LRU blocks and local attention); enc-dec fields wait with their
+architecture."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
 
-FAMILIES = ("dense", "moe", "vlm")
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
 NORMS = ("rmsnorm", "layernorm")
 
 
@@ -33,13 +34,22 @@ class ModelConfig:
     head_dim: Optional[int] = None
     rope_theta: float = 10_000.0
     window: Optional[int] = None          # sliding-window size (local attn)
-    attn_pattern: Tuple[str, ...] = ()    # per-layer kind; all "attn"
+    attn_pattern: Tuple[str, ...] = ()    # per-layer kind: attn|rwkv|rglru
     use_bias: bool = False
     norm: str = "rmsnorm"                 # "rmsnorm" | "layernorm"
     act_fn: str = "silu"
     gated_ffn: bool = True
     tied_embeddings: bool = False
     embed_scale: bool = False
+
+    # ssm (rwkv6)
+    rwkv_head_dim: int = 64
+    rwkv_chunk: int = 128
+    rwkv_fused: int = 0                   # the reference's experiment knob
+
+    # hybrid (recurrentgemma)
+    rglru_width: Optional[int] = None     # recurrent branch width (d_model)
+    conv_width: int = 4
 
     moe_impl: str = "dense"               # the global dispatch only
     decode_impl: str = "xla"              # attention backend spelling
@@ -64,12 +74,32 @@ class ModelConfig:
             raise ValueError(f"repro_torch ports the global MoE dispatch "
                              f"(moe_impl 'dense') only, got "
                              f"{self.moe_impl!r}")
+        if self.rwkv_fused:
+            raise ValueError("repro_torch does not port the reference's "
+                             "rwkv_fused token-shift experiment")
         if self.head_dim is None:
             object.__setattr__(self, "head_dim",
                                self.d_model // max(self.n_heads, 1))
         if not self.attn_pattern:
+            if self.family == "ssm":
+                pat = ("rwkv",) * self.n_layers
+            elif self.family == "hybrid":
+                # recurrentgemma: 2 recurrent blocks then 1 local attention
+                pat = tuple("attn" if (i % 3) == 2 else "rglru"
+                            for i in range(self.n_layers))
+            else:
+                pat = ("attn",) * self.n_layers
+            object.__setattr__(self, "attn_pattern", pat)
+        elif len(self.attn_pattern) > self.n_layers:
+            # a config cut in depth by dataclasses.replace keeps its
+            # first layers' kinds
             object.__setattr__(self, "attn_pattern",
-                               ("attn",) * self.n_layers)
+                               tuple(self.attn_pattern[:self.n_layers]))
+        elif len(self.attn_pattern) < self.n_layers:
+            raise ValueError(f"attn_pattern names {len(self.attn_pattern)} "
+                             f"layers, n_layers is {self.n_layers}")
+        if self.rglru_width is None and self.family == "hybrid":
+            object.__setattr__(self, "rglru_width", self.d_model)
 
     @property
     def q_dim(self) -> int:
@@ -84,8 +114,8 @@ class ModelConfig:
         return (2 * d * ff + ff * d) if self.gated_ffn else 2 * d * ff
 
     def param_count(self) -> int:
-        """Exact parameter count of the decoder (the reference's formula
-        for its all-attention families)."""
+        """Exact parameter count of the decoder (the reference's
+        formula)."""
         d, ff, v = self.d_model, self.d_ff, self.vocab
         nrm = d if self.norm == "rmsnorm" else 2 * d  # gamma (+beta)
         attn_p = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
@@ -96,8 +126,22 @@ class ModelConfig:
         n = v * d  # embedding
         if not self.tied_embeddings:
             n += v * d
-        for _ in self.attn_pattern:
-            n += 2 * nrm + attn_p
+        for kind in self.attn_pattern:
+            n += 2 * nrm  # norm1 + norm2
+            if kind == "attn":
+                n += attn_p
+            elif kind == "rwkv":
+                # time-mix: 5 square proj + mu(5d) + w0/u (2d) + rank-64
+                # decay lora (128d) + per-head groupnorm (2d);
+                # channel-mix: cm_mu(2d) + k/v (2*d*ff) + receptance (d^2)
+                n += 5 * d * d + 137 * d
+                n += 2 * d + 2 * d * ff + d * d
+                continue
+            else:
+                w = self.rglru_width
+                n += 2 * d * w + w * d            # branch, gate, out
+                n += w * self.conv_width + w      # conv + bias
+                n += 2 * w * w + w                # rec/in gates + lambda
             if self.moe_experts:
                 n += d * self.moe_experts + self.moe_experts \
                     * self._per_expert()

@@ -3,8 +3,10 @@
 The port of ``repro.models.qparams``: every matmul-weight leaf
 (``embed_w`` / ``attn_w`` / ``ffn_w`` / ``router_w`` roles, ``head``
 included) becomes a :class:`~repro_torch.core.qtensor.QTensor` in the
-policy's format for its role and layer; norm scales, biases and the
-embedding *table* (consumed by a gather) stay plain tensors.
+policy's format for its role and layer; norm scales, biases, the
+recurrent layers' f32 leaves (token-shift mixers, decay LoRA, bonus,
+group norm, conv filter, lambda) and the embedding *table* (consumed by
+a gather) stay plain tensors.
 """
 from __future__ import annotations
 
@@ -15,8 +17,11 @@ import torch
 from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.core.qtensor import QTensor
 
-_ATTN_W = ("wq", "wk", "wv", "wo")
-_FFN_W = ("w_in", "w_gate", "w_out")
+# the role each call site passes: "wk"/"wv"/"wo" are shared by attention
+# and rwkv's time mix, both under "attn_w"; rglru's gates pack under
+# "attn_w" although the reference makes them in the ffn_w dtype
+_ATTN_W = ("wq", "wk", "wv", "wo", "wr", "wg", "w_rec_gate", "w_in_gate")
+_FFN_W = ("w_in", "w_gate", "w_out", "cm_k", "cm_v", "cm_r", "w_branch")
 ROLE_BY_NAME = {
     **{n: "attn_w" for n in _ATTN_W},
     **{n: "ffn_w" for n in _FFN_W},

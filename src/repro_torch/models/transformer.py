@@ -1,14 +1,18 @@
 """The decoder-only LM: the port of ``repro.models.transformer`` for the
-``dense`` and ``moe`` families and the ``vlm`` prefix-LM, rmsnorm or
-layernorm (rwkv, rglru and enc-dec wait).  Parameters are plain nested
-dicts of tensors, made on ``cuda`` unless the caller passes
-``device="cpu"``; the forward entry points run on the device their
-parameters live on.
+``dense`` and ``moe`` families, the ``vlm`` prefix-LM, the attention-free
+``ssm`` (rwkv6) and the ``hybrid`` (RG-LRU blocks and local attention),
+rmsnorm or layernorm (enc-dec waits).  Per-layer kinds (attn | rwkv |
+rglru) come from ``cfg.attn_pattern``.  Attention layers keep their KV
+in caches (contiguous, or the engine's page pool); recurrent layers keep
+a per-sequence state (``RwkvState`` / ``RglruState``), which chunked
+prefill threads through ``pstates``.  Parameters are plain nested dicts
+of tensors, made on ``cuda`` unless the caller passes ``device="cpu"``;
+the forward entry points run on the device their parameters live on.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -18,6 +22,8 @@ from repro_torch.kernels.paged_cache import PagedKVCache
 
 from . import attention as attn
 from . import moe as moe_mod
+from . import rglru as rglru_mod
+from . import rwkv6 as rwkv_mod
 from .base import ModelConfig
 from .layers import (add_norm, dense_init, embed_lookup, ffn_apply,
                      ffn_init, lm_logits, norm_init)
@@ -53,18 +59,28 @@ class Model:
         if not cfg.tied_embeddings:
             params["head"] = dense_init(gen, (cfg.d_model, cfg.vocab),
                                         dtype=edt, device=device)
-        for li in range(cfg.n_layers):
+        for li, kind in enumerate(cfg.attn_pattern):
             lp = policy.at_layer(li)
             fdt = lp.dtype("ffn_w")
-            params["layers"].append({
-                "norm1": norm_init(cfg.d_model, cfg.norm, device),
-                "mix": attn.attn_init(gen, cfg, lp.dtype("attn_w"), device),
-                "norm2": norm_init(cfg.d_model, cfg.norm, device),
-                "ffn": (moe_mod.moe_init(gen, cfg, fdt, device)
-                        if cfg.moe_experts else
-                        ffn_init(gen, cfg.d_model, cfg.d_ff, cfg.gated_ffn,
-                                 cfg.use_bias, fdt, device)),
-            })
+            layer: Dict[str, Any] = {
+                "norm1": norm_init(cfg.d_model, cfg.norm, device)}
+            if kind == "attn":
+                layer["mix"] = attn.attn_init(gen, cfg, lp.dtype("attn_w"),
+                                              device)
+            elif kind == "rwkv":
+                layer["mix"] = rwkv_mod.rwkv_init(gen, cfg,
+                                                  lp.dtype("attn_w"), device)
+            else:
+                # the reference makes rglru's weights in the ffn_w dtype
+                layer["mix"] = rglru_mod.rglru_init(gen, cfg, fdt, device)
+            layer["norm2"] = norm_init(cfg.d_model, cfg.norm, device)
+            if kind != "rwkv":  # rwkv's channel mix lives in its "mix"
+                layer["ffn"] = (moe_mod.moe_init(gen, cfg, fdt, device)
+                                if cfg.moe_experts else
+                                ffn_init(gen, cfg.d_model, cfg.d_ff,
+                                         cfg.gated_ffn, cfg.use_bias, fdt,
+                                         device))
+            params["layers"].append(layer)
         return params
 
     def _head_w(self, params):
@@ -72,19 +88,29 @@ class Model:
             return params["embed"].T
         return params["head"]
 
-    def _block(self, layer, x, f, lp, attend):
-        """One decoder block around the attention call ``attend(h)``.
-        ``x`` is the residual stream before the previous block's FFN
-        output ``f`` joins it (None before the first block), so each norm
-        takes its residual add with it (``add_norm``: one launch on the
-        kernel route).  Returns ``(x, f, state)`` with this block's FFN
-        output not yet added.  The MoE FFN's aux loss is dropped
-        (serving), as the reference's serving paths drop it."""
+    def _block(self, layer, kind, x, f, lp, attend, state=None):
+        """One decoder block of kind ``kind``.  ``x`` is the residual
+        stream before the previous block's FFN output ``f`` joins it
+        (None before the first block), so each norm takes its residual
+        add with it (``add_norm``: one launch on the kernel route).  An
+        attention block calls ``attend(h)``; a recurrent block carries
+        ``state`` (an rwkv block's channel mix takes the FFN's place).
+        Returns ``(x, f, state)`` with this block's FFN output not yet
+        added.  The MoE FFN's aux loss is dropped (serving), as the
+        reference's serving paths drop it."""
         cfg = self.cfg
         x, h = add_norm(x, f, layer["norm1"], lp, cfg.norm)
-        a, st = attend(h)
+        if kind == "attn":
+            a, st = attend(h)
+        elif kind == "rwkv":
+            a, st = rwkv_mod.time_mix(layer["mix"], h, cfg, lp, state=state)
+        else:
+            a, st = rglru_mod.rglru_block(layer["mix"], h, cfg, lp,
+                                          state=state)
         x, h = add_norm(x, a, layer["norm2"], lp, cfg.norm)
-        if cfg.moe_experts:
+        if kind == "rwkv":
+            f, st = rwkv_mod.channel_mix(layer["mix"], h, cfg, lp, state=st)
+        elif cfg.moe_experts:
             f, _ = moe_mod.moe_apply(layer["ffn"], h, cfg, lp)
         else:
             f = ffn_apply(layer["ffn"], h, lp, cfg)
@@ -96,24 +122,49 @@ class Model:
         _, h = add_norm(x, f, params["final_norm"], policy, self.cfg.norm)
         return lm_logits(h, self._head_w(params), policy)
 
+    def recurrent_state(self, batch_size, policy, device=None) -> List:
+        """Zero states of the recurrent layers for ``batch_size``
+        sequences, None at the attention layers (whose KV the caller
+        keeps)."""
+        cfg = self.cfg
+        out: List[Any] = []
+        for li, kind in enumerate(cfg.attn_pattern):
+            lp = policy.at_layer(li)
+            if kind == "rwkv":
+                out.append(rwkv_mod.rwkv_init_state(cfg, batch_size, lp,
+                                                    device))
+            elif kind == "rglru":
+                out.append(rglru_mod.rglru_init_state(cfg, batch_size, lp,
+                                                      device))
+            else:
+                out.append(None)
+        return out
+
     def init_state(self, batch_size, capacity, policy, device=None):
-        """Contiguous per-layer KV caches (the synchronous loop's) on
-        ``device`` (default ``cuda``, as :meth:`init_params`)."""
+        """Per-layer decode states on ``device`` (default ``cuda``, as
+        :meth:`init_params`): contiguous KV caches of ``capacity`` rows
+        (at most the window) for attention layers, zero recurrent states
+        for the others (the synchronous loop's)."""
         cfg = self.cfg
         device = resolve_device(device)
-        shape = (batch_size, capacity, cfg.n_kv, cfg.head_dim)
-        return [attn.KVCache(
-            k=torch.zeros(shape, dtype=policy.dtype("kv_cache", li),
-                          device=device),
-            v=torch.zeros(shape, dtype=policy.dtype("kv_cache", li),
-                          device=device), pos=0)
-            for li in range(cfg.n_layers)]
+        cap = capacity if cfg.window is None else min(capacity, cfg.window)
+        shape = (batch_size, cap, cfg.n_kv, cfg.head_dim)
+        states = self.recurrent_state(batch_size, policy, device)
+        for li, kind in enumerate(cfg.attn_pattern):
+            if kind == "attn":
+                dt = policy.dtype("kv_cache", li)
+                states[li] = attn.KVCache(
+                    k=torch.zeros(shape, dtype=dt, device=device),
+                    v=torch.zeros(shape, dtype=dt, device=device), pos=0)
+        return states
 
     @torch.no_grad()
     def prefill(self, params, batch, policy: PrecisionPolicy,
                 capacity: Optional[int] = None):
         """Full-sequence forward; returns (last-position logits (B, 1, V),
-        contiguous per-layer caches of ``capacity``).
+        per-layer decode states: contiguous caches of ``capacity`` (at
+        most the window) for attention layers, the recurrent states after
+        the prompt for the others).
 
         A prefix-LM config takes ``batch["prefix_embeds"]`` (B, P, d)
         before the tokens, cast to the embedding's dtype (f32 under
@@ -137,27 +188,32 @@ class Model:
             prefix_len = pe.shape[1]
         capacity = capacity or x.shape[1]
         chunk = cfg.attn_chunk if x.shape[1] > cfg.attn_chunk else None
-        states = []
+        states = self.recurrent_state(x.shape[0], policy, x.device)
         f = None
-        for li, layer in enumerate(params["layers"]):
+        for li, (kind, layer) in enumerate(zip(cfg.attn_pattern,
+                                               params["layers"])):
             lp = policy.at_layer(li)
-            x, f, st = self._block(layer, x, f, lp,
-                                   lambda h, lp=lp, layer=layer:
-                                   attn.prefill_to_cache(layer["mix"], h, cfg,
-                                                         lp, capacity,
-                                                         prefix_len=prefix_len,
-                                                         chunk=chunk))
-            states.append(st)
+            x, f, states[li] = self._block(
+                layer, kind, x, f, lp, lambda h, lp=lp, layer=layer:
+                attn.prefill_to_cache(layer["mix"], h, cfg, lp, capacity,
+                                      prefix_len=prefix_len, chunk=chunk),
+                state=states[li])
         return self._logits(params, x[:, -1:, :], f[:, -1:, :],
                             policy), states
 
     @torch.no_grad()
-    def prefill_chunk(self, params, tokens, states, policy: PrecisionPolicy,
-                      *, slot: int, q_offset: int):
-        """One chunked-prefill step for ONE sequence (tokens (1, C)) into
-        ``slot`` of the per-layer paged caches.  Returns (last-position
-        logits, new_states).  Decoder-only: a prefix-LM prefills its
-        prefix and prompt whole (:meth:`prefill`)."""
+    def prefill_chunk(self, params, tokens, states, pstates,
+                      policy: PrecisionPolicy, *, slot: int, q_offset: int):
+        """One chunked-prefill step for ONE sequence (tokens (1, C)).
+
+        Attention layers write the chunk's K/V into ``slot`` of the
+        per-layer paged caches in ``states``; recurrent layers carry
+        their own B = 1 state through ``pstates`` (None at attention
+        layers), and their entries of ``states`` pass through untouched:
+        the scheduler writes ``pstates`` into the batched state when the
+        prompt completes.  Returns (last-position logits, new_states,
+        new_pstates).  Decoder-only: a prefix-LM prefills its prefix and
+        prompt whole (:meth:`prefill`)."""
         cfg = self.cfg
         policy = self._policy(policy)
         if cfg.prefix_len:
@@ -167,17 +223,23 @@ class Model:
         x = embed_lookup(params["embed"], tokens, policy,
                          scale=cfg.embed_scale)
         chunk = cfg.attn_chunk if tokens.shape[1] > cfg.attn_chunk else None
-        new_states = list(states)
+        new_states, new_pstates = list(states), list(pstates)
         f = None
-        for li, layer in enumerate(params["layers"]):
+        for li, (kind, layer) in enumerate(zip(cfg.attn_pattern,
+                                               params["layers"])):
             lp = policy.at_layer(li)
-            x, f, new_states[li] = self._block(
-                layer, x, f, lp, lambda h, lp=lp, layer=layer, li=li:
+            x, f, st = self._block(
+                layer, kind, x, f, lp, lambda h, lp=lp, layer=layer, li=li:
                 attn.prefill_paged_chunk(layer["mix"], h, cfg, lp,
                                          states[li], slot, q_offset,
-                                         chunk=chunk))
+                                         chunk=chunk),
+                state=pstates[li])
+            if kind == "attn":
+                new_states[li] = st
+            else:
+                new_pstates[li] = st
         return self._logits(params, x[:, -1:, :], f[:, -1:, :],
-                            policy), new_states
+                            policy), new_states, new_pstates
 
     @torch.no_grad()
     def verify_step(self, params, tokens, states, policy: PrecisionPolicy):
@@ -219,22 +281,26 @@ class Model:
         for li, layer in enumerate(params["layers"]):
             lp = policy.at_layer(li)
             x, f, new_states[li] = self._block(
-                layer, x, f, lp, lambda h, lp=lp, layer=layer, li=li:
+                layer, "attn", x, f, lp, lambda h, lp=lp, layer=layer, li=li:
                 attn.verify_paged(layer["mix"], h, cfg, lp, states[li]))
         return self._logits(params, x, f, policy), new_states
 
     @torch.no_grad()
     def decode_step(self, params, tokens, states, policy: PrecisionPolicy):
-        """tokens: (B, 1).  Returns (logits (B, 1, V), new states)."""
+        """tokens: (B, 1).  Returns (logits (B, 1, V), new states):
+        attention layers append to their caches (contiguous or paged),
+        recurrent layers take one recurrent step of every row."""
         cfg = self.cfg
         policy = self._policy(policy)
         x = embed_lookup(params["embed"], tokens, policy,
                          scale=cfg.embed_scale)
         new_states = list(states)
         f = None
-        for li, layer in enumerate(params["layers"]):
+        for li, (kind, layer) in enumerate(zip(cfg.attn_pattern,
+                                               params["layers"])):
             lp = policy.at_layer(li)
             x, f, new_states[li] = self._block(
-                layer, x, f, lp, lambda h, lp=lp, layer=layer, li=li:
-                attn.mha(layer["mix"], h, cfg, lp, cache=states[li]))
+                layer, kind, x, f, lp, lambda h, lp=lp, layer=layer, li=li:
+                attn.mha(layer["mix"], h, cfg, lp, cache=states[li]),
+                state=states[li])
         return self._logits(params, x, f, policy), new_states

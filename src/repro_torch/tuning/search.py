@@ -161,6 +161,12 @@ class ServeTuner:
                 f"ServeTuner does not tune the prefix-LM arch {cfg.arch} "
                 f"yet: its decode context would drop the "
                 f"{cfg.prefix_len} prefix rows")
+        if cfg.family in ("ssm", "hybrid"):
+            # the reference tunes them with the recurrent state under the
+            # kv_cache role (src/repro/tuning/search.py:129); not ported
+            raise ValueError(
+                f"ServeTuner does not tune the recurrent {cfg.family} arch "
+                f"{cfg.arch} yet: its recurrent states have no binding")
         self.device = resolve_device(device)
         self.model, self.cfg = model, cfg
         self.sets = list(sets)

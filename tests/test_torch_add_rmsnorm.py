@@ -176,8 +176,8 @@ def _logits(arch, pol_name):
     out = []
     st = caches()
     for slot in (0, 1):
-        lc, st = model.prefill_chunk(params, toks, st, pol, slot=slot,
-                                     q_offset=0)
+        lc, st, _ = model.prefill_chunk(params, toks, st, [None] * len(st),
+                                        pol, slot=slot, q_offset=0)
         out.append(lc)
     nxt = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 2))
                            .astype(np.int32))

@@ -119,10 +119,11 @@ def _run_port(m, cfg, pol, params, whole=True):
         2, 4, PAGE, PPS, cfg.n_kv, cfg.head_dim, pol.dtype("kv_cache")),
         np.array([[-1, -1, -1], [2, 0, 3]], np.int32))
         for _ in range(cfg.n_layers)]
-    c1, caches = m.prefill_chunk(params, toks[:, :8], caches, pol, slot=1,
-                                 q_offset=0)
-    c2, caches = m.prefill_chunk(params, toks[:, 8:], caches, pol, slot=1,
-                                 q_offset=8)
+    none = [None] * cfg.n_layers
+    c1, caches, _ = m.prefill_chunk(params, toks[:, :8], caches, none, pol,
+                                    slot=1, q_offset=0)
+    c2, caches, _ = m.prefill_chunk(params, toks[:, 8:], caches, none, pol,
+                                    slot=1, q_offset=8)
     lpd, _ = m.decode_step(params, torch.tensor([[0], [PROMPT[-1]]]),
                            caches, pol)
     return out + [c1, c2, lpd[1]]

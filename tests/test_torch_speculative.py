@@ -201,9 +201,9 @@ def _paged_setup(model, cfg, pol, params, prompts, K):
         assert pool.allocate(si, len(p) + K)
     states = [tpc.set_block_tables(s, pool.tables) for s in states]
     for si, p in enumerate(prompts):
-        _, states = model.prefill_chunk(
-            params, torch.tensor([p], dtype=torch.int32), states, pol,
-            slot=si, q_offset=0)
+        _, states, _ = model.prefill_chunk(
+            params, torch.tensor([p], dtype=torch.int32), states,
+            [None] * len(states), pol, slot=si, q_offset=0)
     return states
 
 

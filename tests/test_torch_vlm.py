@@ -116,7 +116,7 @@ def test_config_is_the_references(reduced):
     """Field for field the reference's config, the same ``param_count``
     (2,508,662,784 at full size), and the reduced init holds exactly that
     many parameters."""
-    assert configs.ARCHS[6:] == (ARCH,)
+    assert configs.ARCHS[6] == ARCH
     want = jget_config(ARCH, reduced=reduced)
     got = configs.get(ARCH, reduced=reduced)
     for f in FIELDS:
@@ -303,8 +303,8 @@ def _refuse_speculative(model, cfg, policy, params):
 
 def _refuse_chunk(model, cfg, policy, params):
     model.prefill_chunk(params, torch.tensor([PROMPT], dtype=torch.int32),
-                        _paged_states(cfg, policy), policy, slot=0,
-                        q_offset=0)
+                        _paged_states(cfg, policy), [None] * cfg.n_layers,
+                        policy, slot=0, q_offset=0)
 
 
 def _refuse_verify(model, cfg, policy, params):
