@@ -134,6 +134,31 @@ Run from the root of a checkout.  Phases:
                   layer with no host synchronisation, tok/s, peak
                   memory, the device busy share and device activities of
                   a decode step, each model freed before the next.
+    encdec     -- whisper-tiny, the encoder-decoder, at full width and
+                  depth (4 + 4 layers, d 384, 1500 frames, vocab
+                  51,865; transprecision, qmm_pallas): (a) on random
+                  frame embeddings and random biases, gammas and betas,
+                  a 64-token prefill and 8 decode steps that re-encode,
+                  kernel route (flash_pallas, paged) against plain route
+                  within LOGIT_TOL under binary32 and transprecision,
+                  ``enc_out=`` bit for bit ``encoder_embeds=``, and the
+                  random frames' logits apart from the zero frames'; (b)
+                  ``synchronous_generate`` of 2 x (64 + 8) at capacity
+                  128 under flash_pallas and paged, the launches of
+                  every prefill and decode step asserted (65 qmm_tc, 4
+                  attention kernels, 21 add_layernorm), TTFT, tok/s, peak
+                  memory and one profiled decode step; (c) ``python -m
+                  repro_torch.tuning --arch whisper-tiny`` (KL within
+                  eps, fewer bytes than binary32, the artifact
+                  round-trips, 4 flash_prefill a prefill and 4
+                  flash_decode a decode step); (d) flash_prefill,
+                  flash_decode, paged_decode (H 6, G 1, dh 64) and
+                  add_layernorm (d 384, 1 and 1500 rows) against their
+                  plain versions, and every kernel at its shapes timed
+                  beside its bound and a library call, the plain torch
+                  encoder and cross attention cores beside SDPA.  Its
+                  qmm products (M 1, 64, 1500; the FFN's bias in the
+                  epilogue) are held in the kernels phase.
 12. paper      -- the six paper apps on ``TPContext(device="cuda")``:
                   each binary32 baseline, ``tune`` at eps 1e-1, 1e-2 and
                   1e-3 (V2, 2 input sets) with the tuned runs' stats and
@@ -584,7 +609,9 @@ def check_qmm_archs(torch, report, timer):
     (binary16alt), each gated FFN
     with its config's activation (paligemma's gelu epilogue at its
     decode step's and whole prompt's rows), and the binary32 routers
-    (K x E) on the GEMV (M 4) and ``qmm_tile`` (M 64).  Then one qwen3
+    (K x E) on the GEMV (M 4) and ``qmm_tile`` (M 64); and whisper-tiny's
+    (``encdec_qmm_cases``: M 1, 64 and 1500, the ungated gelu FFN with
+    its bias in the epilogue, the head's ragged N 51,865).  Then one qwen3
     expert launch (M 8, K 2048, N 768) timed against its bound and
     torch.matmul, and paligemma's gated gelu FFN (``time_qmm_gelu``)."""
     from repro_torch import configs
@@ -598,18 +625,24 @@ def check_qmm_archs(torch, report, timer):
         return torch.randn(shape, generator=gen, device="cuda")
 
     ok, worst, res = True, {"all": 0.0, "expert": 0.0}, {}
-    cases = [(arch, name, M, K, N, gated, BINARY32 if f32 else BINARY16ALT)
+    cases = [(arch, name, M, K, N, act, act is not None,
+              BINARY32 if f32 else BINARY16ALT, False)
              for arch in ARCHS
-             for name, Ms, K, N, gated, f32 in arch_qmm_cases(
+             for name, Ms, K, N, act, f32 in arch_qmm_cases(
                  configs.get(arch))
              for M in Ms]
-    for arch, name, M, K, N, act, fmt in cases:
-        gated = act is not None
+    # whisper-tiny's ungated gelu FFN, the bias in the epilogue
+    cases += [(ENCDEC_ARCH, name, M, K, N, act, False, BINARY16ALT, bias)
+              for name, M, K, N, act, bias in encdec_qmm_cases(
+                  configs.get(ENCDEC_ARCH))]
+    for arch, name, M, K, N, act, gated, fmt, bias in cases:
         x = rand(M, K)
         wp = _pack_weight(rand(K, N), fmt)
         gp = _pack_weight(rand(K, N), fmt) if gated else None
-        got = Q.qmatmul(x, wp, None, fmt, gate_payload=gp, act=act)
-        want = Q.qmatmul_plain(x, wp, None, fmt, gate_payload=gp, act=act)
+        b = rand(N) * 0.1 if bias else None
+        got = Q.qmatmul(x, wp, None, fmt, gate_payload=gp, bias=b, act=act)
+        want = Q.qmatmul_plain(x, wp, None, fmt, gate_payload=gp, bias=b,
+                               act=act)
         xa = x.abs()
         unit = xa @ decode(wp, fmt).abs() + 1.0
         if gated:
@@ -619,24 +652,27 @@ def check_qmm_archs(torch, report, timer):
         good = norm <= 1e-6
         ok &= good
         for k in (("all", "expert") if name.startswith("expert")
+                  else ("all", "whisper") if arch == ENCDEC_ARCH
                   else ("all", "gelu") if act == "gelu" else ("all",)):
             worst[k] = max(worst.get(k, 0.0), float(err.max()))
-        key = f"{arch} {name} M={M} K={K} N={N} {fmt.name}"
+        key = f"{arch} {name[:28]} M={M} K={K} N={N} {fmt.name}" \
+            + (" +bias" if bias else "")
         res[key] = norm
         report["cases"].append(dict(kernel="qmm", case=f"{arch} {name}",
                                     M=M, K=K, N=N, fmt=fmt.name,
-                                    gated=gated, act=act,
+                                    gated=gated, act=act, bias=bias,
                                     path=Q.qmm_kernel(fmt, M),
                                     max_abs_err=float(err.max()),
                                     max_err_in_acc_units=norm, ok=good))
         print(f"[kernels] qmm {key:<60} {Q.qmm_kernel(fmt, M):<8} "
               f"max|err|={float(err.max()):.3e} ({norm:.2e} x |x|@|w|, "
               f"tol 1e-6) {'ok' if good else 'FAIL'}")
-        del x, wp, gp, got, want, xa, unit, err
+        del x, wp, gp, b, got, want, xa, unit, err
     torch.cuda.empty_cache()
     report["qmm_archs_max_abs_err"] = worst["all"]
     report["qmm_expert_max_abs_err"] = worst["expert"]
     report["qmm_gelu_max_abs_err"] = worst.get("gelu")
+    report["qmm_whisper_max_abs_err"] = worst.get("whisper")
 
     qwen3 = configs.get("qwen3-moe-30b-a3b")   # one expert launch, M 8
     M, K, N = 8, qwen3.d_model, qwen3.d_ff
@@ -1769,12 +1805,15 @@ def time_recurrentgemma_attention(torch, np, report, timer):
 
 def _time_served_attention(torch, np, report, timer, *, label, shape,
                            prefill, q_offset, window, prefix, S, n, seeds,
-                           names):
-    """flash_prefill at ``prefill`` (e5m2) beside SDPA with the same
-    mask; flash_decode of ``ARCH_SLOTS`` slots holding ``n`` rows in a
-    gathered ``S``-row cache beside SDPA; paged_decode of the same rows
-    in pages of 64.  SDPA runs on the dequantized K/V repeated to the
-    query heads (timed only, never called by the port)."""
+                           names, B=None, prefill_f32=False):
+    """flash_prefill at ``prefill`` (e5m2; f32 K/V with ``prefill_f32``,
+    as a whole-prompt prefill attends) beside SDPA with the same mask;
+    flash_decode of ``B`` slots (default ``ARCH_SLOTS``) holding ``n``
+    rows in a gathered
+    ``S``-row cache beside SDPA; paged_decode of the same rows in pages
+    of 64 (the decode kernels only when ``names`` names them).  SDPA runs
+    on the dequantized K/V repeated to the query heads (timed only, never
+    called by the port)."""
     from repro_torch.core.formats import BINARY8
     from repro_torch.core.qtensor import decode
     from repro_torch.kernels import flash_attention as FA
@@ -1783,35 +1822,40 @@ def _time_served_attention(torch, np, report, timer, *, label, shape,
     sdpa = torch.nn.functional.scaled_dot_product_attention
     H, G, dh = shape["H"], shape["G"], shape["dh"]
     Sq, Skv = prefill["Sq"], prefill["Skv"]
-    q, kp, vp = _prefill_inputs(torch, np, BINARY8, report["seed"]
-                                + seeds[0], **prefill)
-    kd, vd = decode(kp, BINARY8), decode(vp, BINARY8)
+    pf = None if prefill_f32 else BINARY8
+    q, kp, vp = _prefill_inputs(torch, np, pf, report["seed"] + seeds[0],
+                                **prefill)
+    kd, vd = (kp, vp) if pf is None else (decode(kp, pf), decode(vp, pf))
     qs = q.reshape(1, Sq, H * G, dh).transpose(1, 2)
     ks = kd.repeat_interleave(G, dim=2).transpose(1, 2)
     vs = vd.repeat_interleave(G, dim=2).transpose(1, 2)
     mask = FA.prefill_mask(Sq, Skv, q_offset, window, prefix, "cuda")
     kw = dict(window=window, prefix_len=prefix, q_offset=q_offset)
-    t_k = timer(lambda: FA.flash_prefill(q, kp, vp, BINARY8, **kw))
-    t_p = timer(lambda: FA.flash_prefill_plain(q, kp, vp, BINARY8, **kw),
+    t_k = timer(lambda: FA.flash_prefill(q, kp, vp, pf, **kw))
+    t_p = timer(lambda: FA.flash_prefill_plain(q, kp, vp, pf, **kw),
                 iters=10)
     t_l = timer(lambda: sdpa(qs, ks, vs, attn_mask=mask))
     live = int(mask.sum())                    # keys each query needs
     flops = 4 * dh * H * G * live
-    nbytes = FA.prefill_hbm_bytes(1, Sq, Skv, H, G, dh, BINARY8)
+    nbytes = FA.prefill_hbm_bytes(1, Sq, Skv, H, G, dh, pf)
     b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     b_ops = flops / F32_PEAK_FLOPS * 1e3
     report["timings"].append(dict(
-        kernel=names[0], prefix_len=prefix, window=window,
+        kernel=names[0], fmt="f32" if pf is None else pf.name,
+        prefix_len=prefix, window=window,
         q_offset=q_offset, **prefill, ms=t_k, plain_ms=t_p, library_ms=t_l,
         bound_ms=max(b_bytes, b_ops),
         bound_by="bytes" if b_bytes >= b_ops else "operations",
         bytes=nbytes, flops=flops))
     print(f"[timing] flash_prefill {label} Sq={Sq} Skv={Skv} H={H} G={G} "
-          f"dh={dh} q_offset={q_offset} window={window} prefix={prefix}: "
+          f"dh={dh} {'f32' if pf is None else pf.name} q_offset={q_offset} "
+          f"window={window} prefix={prefix}: "
           f"kernel {t_k:.4f} ms  plain {t_p:.4f} ms  SDPA {t_l:.4f} ms  "
           f"bound {max(b_bytes, b_ops):.5f} ms")
+    if len(names) == 1:
+        return
+    B = ARCH_SLOTS if B is None else B
 
-    B = ARCH_SLOTS
     q, kp, vp, lens = _decode_inputs(torch, np, BINARY8, report["seed"]
                                      + seeds[1], S, [n] * B, **shape)
     kd, vd = decode(kp, BINARY8), decode(vp, BINARY8)
@@ -2736,20 +2780,19 @@ def run_speculative(torch, report, libs, args):
 # phase 9: where the serve time goes (torch.profiler over Engine.run)
 # ---------------------------------------------------------------------------
 
-def _profiled_serve(torch, argv, window=None, params=None, cpu=True):
+def _profiled_serve(torch, argv, window=None, params=None):
     """``serve.main(argv, params=params)`` under torch.profiler: the
     whole of ``Engine.run``, or with ``window = n`` only n engine steps
-    taken once every prompt is prefilled (a steady decode window);
-    ``cpu=False`` traces the device activity alone (a qwen3-moe step
-    launches ~19k kernels).  Returns (device busy seconds from the CUDA
+    taken once every prompt is prefilled (a steady decode window).  It
+    traces the device activity alone: the CPU ops' rows of a long run
+    take minutes to sum.  Returns (device busy seconds from the CUDA
     rows, wall seconds, the top ten CUDA rows, decode steps or rounds in
     the profile, the key_averages rows)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.engine import scheduler
     from repro_torch.launch import serve
 
-    prof = profile(activities=([ProfilerActivity.CPU] if cpu else [])
-                   + [ProfilerActivity.CUDA])
+    prof = profile(activities=[ProfilerActivity.CUDA])
     box = {"left": window}
     cls, attr = (scheduler.Engine, "run") if window is None \
         else (scheduler.Engine, "step")
@@ -2836,7 +2879,7 @@ def run_steps(torch, report, args):
                 "--slots", "2", "--prompt-len", "64", "--max-new", "4",
                 "--capacity", "128", "--seed", str(args.seed)]
         busy, wall, top, steps, rows = _profiled_serve(
-            torch, argv, window=1, cpu=False)
+            torch, argv, window=1)
         # "rmsnorm_kernel" also names add_rmsnorm_kernel
         acts, grouped, old, norms, rms = device_counts(
             rows, "qmm_tc_grouped", "qmm_grouped_", "add_rmsnorm",
@@ -2869,9 +2912,10 @@ def run_profile(torch, report, args):
             "--capacity", "256", "--seed", str(args.seed)]
     # the speculative run is profiled over a window of 3 rounds: a round
     # traces some 20000 events, and summing a long trace takes minutes
-    # and one steady decode step of the paged serve, device activity
-    # only: the device activities a step (kernels, copies, sets), the
-    # fused norms among them
+    # and one steady decode step of the paged serve: the device
+    # activities a step (kernels, copies, sets), the fused norms among
+    # them.  Every run traces the device activity alone (the CPU ops'
+    # rows took most of the phase's time to sum)
     runs = (("serve", ["--decode-impl", "paged", "--max-new", "8"], None),
             ("speculative", ["--decode-impl", "flash_pallas", "--max-new",
                              "16", "--speculate-k", str(SPEC_K),
@@ -2881,7 +2925,7 @@ def run_profile(torch, report, args):
     report["profile"] = {}
     for name, extra, window in runs:
         busy, wall, top, steps, rows = _profiled_serve(
-            torch, base + extra, window, cpu=name != "decode_step")
+            torch, base + extra, window)
         acts, norms = device_counts(rows, "add_rmsnorm")
         report["profile"][name] = dict(
             wall_s=wall, device_busy_s=busy, busy_share=busy / wall,
@@ -4676,7 +4720,7 @@ def run_archs(torch, report, libs, args):
                 "--capacity", str(arch_capacity(cfg)), "--seed",
                 str(args.seed)]
         busy, wall, top, steps, rows = _profiled_serve(
-            torch, argv, window=1, params=params, cpu=False)
+            torch, argv, window=1, params=params)
         # device activities of the step; the grouped expert product's
         # device kernels: one a call, two a MoE layer (the split and
         # reduce kernels of the three-launch design are gone)
@@ -4926,31 +4970,16 @@ def run_serve_tune(torch, report, libs, args):
     ``serve.main(["--policy", path, ...])`` with packed weights."""
     from repro_torch import configs
     from repro_torch.core.policy import PrecisionPolicy
-    from repro_torch.models.transformer import Model
     from repro_torch.tuning import __main__ as tune_cli
 
     path = os.path.join(args.out, "serve_tune.json")
     argv = list(TUNE_ARGV) + ["--seed", str(args.seed), "--out", path]
-    calls = {"prefill": 0, "decode": 0}
-    saved = {k: getattr(Model, a) for k, a in (("prefill", "prefill"),
-                                               ("decode", "decode_step"))}
-
-    def counting(kind):
-        def fn(self, *a, **k):
-            calls[kind] += 1
-            return saved[kind](self, *a, **k)
-        return fn
-    Model.prefill, Model.decode_step = counting("prefill"), \
-        counting("decode")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    for lib in libs:
-        lib.reset_counts()               # counts of the tuner's path only
     t0 = time.perf_counter()
-    try:
+    with _model_calls(torch, libs) as per:   # the tuner's path only
         res = tune_cli.main(argv)
-    finally:
-        Model.prefill, Model.decode_step = saved["prefill"], saved["decode"]
+    calls = {k: len(per[k]) for k in ("prefill", "decode")}
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
@@ -5012,12 +5041,709 @@ def run_serve_tune(torch, report, libs, args):
 
 
 # ---------------------------------------------------------------------------
+# phase encdec: whisper-tiny, the encoder-decoder, through prefill/decode,
+# synchronous_generate and the serve-time tuner
+# ---------------------------------------------------------------------------
+
+ENCDEC_ARCH = "whisper-tiny"
+# the synchronous serve: 2 prompts x (64 + 8) at capacity 128
+ENC_PROMPTS, ENC_PROMPT, ENC_MAX_NEW, ENC_CAPACITY = 2, 64, 8, 128
+ENC_STEPS = 8              # decode steps of the logits checks
+ENC_DECODE_LEN = 72        # rows a decode step reads in the kernel rows
+WHISPER_SHAPE = dict(H=6, G=1, dh=64)
+WHISPER_PREFILL = dict(B=1, Sq=ENC_PROMPT, Skv=ENC_PROMPT, **WHISPER_SHAPE)
+WHISPER_LN_ROWS = (1, 1500)
+ENC_TUNE_ARGV = ("--arch", ENCDEC_ARCH, "--sets", "1", "--prompts", "2",
+                 "--prompt-len", "16", "--decode-steps", "2", "--kv-groups",
+                 "2", "--max-rounds", "1", "--eps", str(TUNE_EPS))
+AFFINE = {"b_in": 0.0, "b_out": 0.0, "gamma": 1.0, "beta": 0.0}
+
+
+def encdec_products(cfg, M):
+    """The packed products one call of an enc-dec ``cfg`` launches on
+    ``qmm_tc`` when it encodes (every prefill, and every decode step
+    given ``encoder_embeds``), by shape: ``[(names, rows, K, N, act,
+    bias, launches)]``.  The encoder's blocks at its ``encoder_len`` rows
+    (wq, wk, wv, wo, the ungated FFN with its bias and activation in one
+    ``qmm_ffn``, w_out), each decoder layer's self-attention projections,
+    cross-attention wq and wo and FFN at the call's ``M`` rows, its cross
+    wk and wv at the encoder's rows, and the untied head at one row (a
+    prefill's last position, or the decode row).  w_out's bias is a torch
+    add after the product (the reference rounds before and after it)."""
+    d, ff, T = cfg.d_model, cfg.d_ff, cfg.encoder_len
+    q, kv, act, bias = cfg.q_dim, cfg.kv_dim, cfg.act_fn, cfg.use_bias
+    prods = {}
+
+    def add(name, rows, K, N, a=None, b=False, n=1):
+        names, c = prods.get((rows, K, N, a, b), ((), 0))
+        prods[(rows, K, N, a, b)] = (
+            names + ((name,) if name not in names else ()), c + n)
+    for _ in range(cfg.encoder_layers):
+        add("enc wq", T, d, q)
+        add("enc wk/wv", T, d, kv, n=2)
+        add("enc wo", T, q, d)
+        add(f"enc ffn {act}", T, d, ff, act, bias)
+        add("enc w_out", T, ff, d)
+    for _ in range(cfg.n_layers):
+        add("wq", M, d, q)
+        add("wk/wv", M, d, kv, n=2)
+        add("wo", M, q, d)
+        add("xattn wq", M, d, q)
+        add("xattn wk/wv", T, d, kv, n=2)
+        add("xattn wo", M, q, d)
+        add(f"ffn {act}", M, d, ff, act, bias)
+        add("w_out", M, ff, d)
+    add("head", 1, d, cfg.vocab)
+    return [("/".join(names),) + key + (c,)
+            for key, (names, c) in prods.items()]
+
+
+def encdec_qmm_cases(cfg):
+    """The distinct packed products of an enc-dec ``cfg``'s decode steps
+    (M 1) and whole-prompt prefills (M 64), as ``(name, M, K, N, act,
+    bias)``: M 1, 64 and the encoder's 1500."""
+    cases = {}
+    for M in (1, ENC_PROMPT):
+        for name, rows, K, N, act, bias, _ in encdec_products(cfg, M):
+            cases.setdefault((rows, K, N, act, bias), name)
+    return [(name,) + key for key, name in cases.items()]
+
+
+def encdec_launches(cfg, decode_impl):
+    """What a whole-prompt prefill and a decode step (with
+    ``encoder_embeds``) of an enc-dec ``cfg`` launch under transprecision
+    with packed weights: ``(tuple per decode step, tuple per prefill,
+    qmm launches a call)``, tuples in ``libs`` order (qmm, paged_decode,
+    flash_prefill, flash_decode, flexfloat_cast, norms).  Every product
+    of ``encdec_products`` on ``qmm_tc`` (whisper-tiny: encoder 4 x 6,
+    decoder 4 x 10, the head: 65, 32 of them at 1500 rows); one attention
+    kernel a decoder layer, its self-attention (the encoder's and the
+    cross attention are plain torch, as in the reference); two norms an
+    encoder layer, three a decoder layer and the final one, each one
+    fused ``add_layernorm`` (21)."""
+    E, L = cfg.encoder_layers, cfg.n_layers
+    qmm = sum(p[-1] for p in encdec_products(cfg, 1))
+    norms = 2 * E + 3 * L + 1
+    paged = decode_impl == "paged"
+    dec = (qmm, L if paged else 0, 0, 0 if paged else L, 0, norms)
+    pre = (qmm, 0, L, 0, 0, norms)
+    return dec, pre, qmm
+
+
+def _random_affine(torch, params, seed):
+    """``params`` with every bias, gamma and beta drawn anew (normal, 0.1
+    scale about 0 or 1, in the leaf's dtype): at init they are 0 and 1,
+    and a served run cannot show a fault in them."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: ((AFFINE[k] + 0.1 * torch.randn(
+                v.shape, generator=g, device=v.device)).to(v.dtype)
+                if k in AFFINE else walk(v)) for k, v in t.items()}
+        if isinstance(t, list):
+            return [walk(v) for v in t]
+        return t
+    return walk(params)
+
+
+def _encdec_logits(torch, model, cfg, pol, dec, mm, seed, toks, nxt, emb):
+    """Logits of ``prefill`` at capacity ``ENC_CAPACITY`` and of the
+    decode steps feeding ``nxt`` (teacher-forced) with
+    ``encoder_embeds=emb``, on random weights, biases, gammas and betas
+    from ``seed``; beside every step the same step with ``enc_out=`` the
+    encoder output of ``emb``.  Returns (logits, each step's two logits
+    bit for bit equal, attention launches)."""
+    from repro_torch.core.policy import get_policy
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.models import qparams
+
+    policy = get_policy(pol, decode_impl=dec, matmul_impl=mm)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = _random_affine(torch, model.init_params(gen, policy,
+                                                     device="cuda"),
+                            seed + 1)
+    if mm == "qmm_pallas":
+        params = qparams.encode_params(params, policy)
+    libs = (FA.LIB, FA.DECODE_LIB, PA.LIB)
+    before = [lib.launches for lib in libs]
+    lp, st = model.prefill(params, {"tokens": toks, "encoder_embeds": emb},
+                           policy, ENC_CAPACITY)
+    dt = policy.dtype("act") if policy.mode == "native" else torch.float32
+    enc = model._enc_out(params, emb, dt, model._policy(policy))
+    out, same, st_e = [lp.float()], [], st
+    for t in nxt:
+        tok = torch.tensor([[t]], dtype=torch.int32, device="cuda")
+        ld, st = model.decode_step(params, tok, st, policy,
+                                   encoder_embeds=emb)
+        le, st_e = model.decode_step(params, tok, st_e, policy, enc_out=enc)
+        same.append(torch.equal(_bits(ld), _bits(le)))
+        out.append(ld.float())
+    launches = [lib.launches - b for lib, b in zip(libs, before)]
+    del params, st, st_e, enc
+    torch.cuda.empty_cache()
+    return out, same, launches
+
+
+def check_encdec_logits(torch, report, args, model, cfg):
+    """whisper-tiny at full width and depth on random frame embeddings
+    (normal, 0.02 scale) and random biases, gammas and betas (the served
+    zero frames give a zero encoder output, and the init's zero biases
+    and betas hide faults in them): a 64-token prompt's prefill at
+    capacity 128 and 8 teacher-forced decode steps with
+    ``encoder_embeds=`` (the whole encoder a step).  Kernel route
+    (``qmm_pallas`` under ``flash_pallas`` and under ``paged``) against
+    the plain route (``xla``, ``xla``) within ``LOGIT_TOL`` x max|logit|,
+    under binary32 and transprecision; every step's logits with
+    ``enc_out=`` bit for bit those with ``encoder_embeds=``; the kernel
+    route's attention launches (one flash_prefill a decoder layer in the
+    prefill, one decode kernel a layer in each of the two decode calls a
+    step); and under binary32 the random frames' logits apart from the
+    zero frames' by more than the tolerance."""
+    import numpy as np
+
+    rng = np.random.default_rng(args.seed + 41)
+    emb = torch.tensor(rng.normal(size=(1, cfg.encoder_len, cfg.d_model))
+                       * 0.02, dtype=torch.float32, device="cuda")
+    toks = torch.tensor(rng.integers(0, cfg.vocab, (1, ENC_PROMPT)),
+                        dtype=torch.int32, device="cuda")
+    nxt = rng.integers(0, cfg.vocab, ENC_STEPS).tolist()
+    L = cfg.n_layers
+    ok, kernel = True, {}
+    for pol, rel in LOGIT_TOL.items():
+        plain, psame, _ = _encdec_logits(torch, model, cfg, pol, "xla",
+                                         "xla", args.seed, toks, nxt, emb)
+        for dec in ("flash_pallas", "paged"):
+            got, same, launches = _encdec_logits(
+                torch, model, cfg, pol, dec, "qmm_pallas", args.seed, toks,
+                nxt, emb)
+            kernel[(pol, dec)] = got
+            want_l = [L, 2 * L * ENC_STEPS if dec == "flash_pallas" else 0,
+                      2 * L * ENC_STEPS if dec == "paged" else 0]
+            errs = [float((a - b).abs().max()) for a, b in zip(got, plain)]
+            scale = max(float(b.abs().max()) for b in plain)
+            good = (max(errs) <= rel * max(scale, 1.0)
+                    and all(bool(torch.isfinite(a).all()) for a in got)
+                    and all(same) and all(psame) and launches == want_l)
+            ok &= good
+            report["logits"].append(dict(
+                arch=cfg.arch, policy=pol, decode_impl=dec,
+                what="prefill and 8 decode steps, random frames and "
+                     "affine", max_abs_err=max(errs), errs=errs,
+                max_abs_logit=scale, tol_rel=rel,
+                enc_out_bits_equal=all(same) and all(psame),
+                attention_launches=launches, ok=good))
+            print(f"[encdec] logits {pol:<14} {dec:<12} full width and "
+                  f"depth, random frames: max|kernel - plain| over the "
+                  f"prefill and {ENC_STEPS} decode steps = {max(errs):.3e} "
+                  f"(max|logit| {scale:.3f}, tol {rel:.2e} x that); "
+                  f"enc_out= bit for bit encoder_embeds= {all(same)} / "
+                  f"plain {all(psame)}; (flash_prefill, flash_decode, "
+                  f"paged_decode) launches {launches} (want {want_l}) "
+                  f"{'ok' if good else 'FAIL'}")
+    zero, _, _ = _encdec_logits(torch, model, cfg, "binary32",
+                                "flash_pallas", "qmm_pallas", args.seed,
+                                toks, nxt, torch.zeros_like(emb))
+    rand = kernel[("binary32", "flash_pallas")]
+    diff = min(float((a - b).abs().max()) for a, b in zip(rand, zero))
+    tol = LOGIT_TOL["binary32"] * max(float(b.abs().max()) for b in zero)
+    good = diff > tol
+    ok &= good
+    report["logits"].append(dict(
+        arch=cfg.arch, policy="binary32",
+        what="random vs zero frames, kernel route", min_max_abs_diff=diff,
+        must_exceed=tol, ok=good))
+    print(f"[encdec] logits binary32 kernel route: random frames against "
+          f"zero frames, the least over the {ENC_STEPS + 1} calls of "
+          f"max|diff| = {diff:.3e} (must exceed {tol:.3e}) "
+          f"{'ok' if good else 'FAIL'}")
+    return ok
+
+
+@contextlib.contextmanager
+def _model_calls(torch, libs):
+    """Every launch count set to 0, then for each ``Model.prefill`` and
+    ``Model.decode_step`` call made inside the block its launches (a
+    tuple in ``libs`` order) under ``per["prefill"]`` /
+    ``per["decode"]``, its qmm launches by kernel under ``per[kind +
+    "/kern"]``, and each prefill's time to its logits under
+    ``per["ttft"]``: yields ``per``."""
+    from repro_torch.models.transformer import Model
+
+    per = {"prefill": [], "decode": [], "prefill/kern": [],
+           "decode/kern": [], "ttft": []}
+    saved = {k: getattr(Model, a) for k, a in (("prefill", "prefill"),
+                                               ("decode", "decode_step"))}
+
+    def counted(kind):
+        def fn(self, *a, **k):
+            before = [lib.launches for lib in libs]
+            kern = _qmm_kernels(libs[0])
+            t0 = time.perf_counter()
+            out = saved[kind](self, *a, **k)
+            if kind == "prefill":
+                torch.cuda.synchronize()
+                per["ttft"].append(time.perf_counter() - t0)
+            per[kind].append(tuple(lib.launches - b for lib, b
+                                   in zip(libs, before)))
+            per[kind + "/kern"].append(_qmm_kernels(libs[0], kern))
+            return out
+        return fn
+    Model.prefill, Model.decode_step = counted("prefill"), \
+        counted("decode")
+    for lib in libs:
+        lib.reset_counts()               # counts of the main path only
+    try:
+        yield per
+    finally:
+        Model.prefill, Model.decode_step = saved["prefill"], \
+            saved["decode"]
+
+
+def _encdec_serve(torch, libs, args, model, cfg, params, policy, prompts):
+    """``synchronous_generate`` of ``prompts`` on the card, its calls'
+    launches recorded (``_model_calls``), the encoder's final residual
+    adds and the three-step norms counted."""
+    from repro_torch.engine import synchronous_generate
+    from repro_torch.models import layers, transformer
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _model_calls(torch, libs) as per, \
+            _counting(layers, NORM_APART) as apart, \
+            _counting(transformer, ("residual_add",)) as enc_add:
+        toks = synchronous_generate(model, cfg, policy, params, prompts,
+                                    max_new=ENC_MAX_NEW,
+                                    capacity=ENC_CAPACITY, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {lib.name: lib.launches for lib in libs}
+    launches["qmm_by_kernel"] = dict(libs[0].by_kernel)
+    launches["norms_by_entry"] = dict(libs[5].by_symbol)
+    return (toks, per, launches, wall, torch.cuda.max_memory_allocated(),
+            apart, enc_add["residual_add"])
+
+
+def _profile_encdec_step(torch, model, cfg, params, policy, prompt):
+    """One steady decode step (after a prefill and one step) under
+    torch.profiler, device activity only: (wall s, device busy s, device
+    activities, top rows, the median wall s of five unprofiled runs of
+    the same step)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.engine.worker import make_batch
+
+    batch = make_batch(cfg, prompt, "cuda")
+    emb = batch["encoder_embeds"]
+    _, st = model.prefill(params, batch, policy, ENC_CAPACITY)
+    tok = torch.tensor([[prompt[-1]]], dtype=torch.int32, device="cuda")
+    _, st = model.decode_step(params, tok, st, policy, encoder_embeds=emb)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        model.decode_step(params, tok, st, policy, encoder_embeds=emb)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.decode_step(params, tok, st, policy, encoder_embeds=emb)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = prof.key_averages()
+    events = device_rows(rows)
+    busy = sum(_dev_us(e) for e in events) / 1e6
+    top = [dict(name=e.key[:80], count=e.count, device_ms=_dev_us(e) / 1e3)
+           for e in sorted(events, key=_dev_us, reverse=True)[:8]]
+    return wall, busy, sum(e.count for e in events), top, \
+        sorted(walls)[2]
+
+
+def run_encdec_serve(torch, report, libs, args, model, cfg):
+    """``synchronous_generate`` of 2 prompts x (64 + 8) at capacity 128
+    on full-width, full-depth whisper-tiny (transprecision, ``qmm_pallas``,
+    random weights from ``--seed``, the served zero frames to the
+    prefill and to every decode step) under ``flash_pallas`` and
+    ``paged``: each prefill and each decode step launches what
+    ``encdec_launches`` says (65 qmm_tc, 4 attention kernels, 21 fused
+    add_layernorm, no three-step norm), the encoder's one plain residual
+    add a call; every prompt gets its tokens.  Measured: TTFT (each
+    prefill to its logits), tok/s, peak memory, and under flash_pallas
+    one steady decode step's wall, device busy share and top device
+    rows."""
+    import numpy as np
+    from repro_torch.core.policy import get_policy
+    from repro_torch.models import qparams
+
+    rng = np.random.default_rng(args.seed)
+    prompts = [rng.integers(0, min(cfg.vocab, 97), ENC_PROMPT).tolist()
+               for _ in range(ENC_PROMPTS)]
+    out = report["encdec"]["serve"] = {}
+    ok = True
+    for dec in ("flash_pallas", "paged"):
+        policy = get_policy("transprecision", decode_impl=dec,
+                            matmul_impl="qmm_pallas")
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        params = qparams.encode_params(
+            model.init_params(gen, policy, device="cuda"), policy)
+        toks, per, launches, wall, peak, apart, enc_add = _encdec_serve(
+            torch, libs, args, model, cfg, params, policy, prompts)
+        want_dec, want_pre, qmm = encdec_launches(cfg, dec)
+        calls = len(per["prefill"]) + len(per["decode"])
+        good = (len(toks) == ENC_PROMPTS
+                and all(len(t) == ENC_MAX_NEW for t in toks)
+                and all(0 <= t < cfg.vocab for r in toks for t in r)
+                and len(per["prefill"]) == ENC_PROMPTS
+                and len(per["decode"]) == ENC_PROMPTS * (ENC_MAX_NEW - 1)
+                and _counts_ok(per["decode"], want_dec)
+                and _counts_ok(per["prefill"], want_pre)
+                and _counts_ok(per["decode/kern"], (0, 0, qmm))
+                and _counts_ok(per["prefill/kern"], (0, 0, qmm))
+                and launches["norms_by_entry"]
+                == {"add_layernorm_launch": calls * want_dec[5]}
+                and not any(apart.values()) and enc_add == calls)
+        ok &= good
+        tokens = sum(len(t) for t in toks)
+        entry = out[dec] = dict(
+            prompts=ENC_PROMPTS, prompt_len=ENC_PROMPT, max_new=ENC_MAX_NEW,
+            capacity=ENC_CAPACITY, tokens=tokens, wall_s=wall,
+            tok_per_s=tokens / wall, ttft_s=per["ttft"],
+            ttft_mean_s=sum(per["ttft"]) / len(per["ttft"]),
+            peak_mem_bytes=peak, prefills=len(per["prefill"]),
+            decode_steps=len(per["decode"]), launches=launches,
+            per_decode_step=sorted(set(per["decode"])),
+            per_prefill=sorted(set(per["prefill"])),
+            qmm_tc_decode=sum(k[2] for k in per["decode/kern"]),
+            qmm_tc_prefill=sum(k[2] for k in per["prefill/kern"]),
+            norms_apart=apart, encoder_residual_adds=enc_add,
+            want=dict(decode=want_dec, prefill=want_pre), generated=toks,
+            ok=good)
+        print(f"[encdec] synchronous_generate {ENC_PROMPTS} x "
+              f"({ENC_PROMPT} + {ENC_MAX_NEW}) full width and depth, "
+              f"transprecision, qmm_pallas, {dec}: {tokens} tokens in "
+              f"{wall:.3f} s, {tokens / wall:.2f} tok/s, TTFT mean "
+              f"{entry['ttft_mean_s']:.4f} s, peak memory "
+              f"{peak / 1e9:.3f} GB ({report['nvidia_smi']})")
+        print(f"[encdec] {dec}: per decode step {entry['per_decode_step']} "
+              f"(want {want_dec}), per prefill {entry['per_prefill']} (want "
+              f"{want_pre}); qmm_tc {entry['qmm_tc_decode']} in decode "
+              f"steps, {entry['qmm_tc_prefill']} in prefills ({qmm} a "
+              f"call); norms {launches['norms_by_entry']}, three-step "
+              f"{apart} (want 0), the encoder's plain residual adds "
+              f"{enc_add} (want {calls}) {'ok' if good else 'FAIL'}")
+        if dec == "flash_pallas":
+            swall, busy, acts, top, bare = _profile_encdec_step(
+                torch, model, cfg, params, policy, prompts[0])
+            entry.update(step_wall_s=swall, step_device_busy_s=busy,
+                         step_busy_share=busy / swall,
+                         step_device_activities=acts, step_top=top,
+                         step_wall_unprofiled_s=bare)
+            print(f"[encdec] one steady decode step (the encoder included):"
+                  f" {swall * 1e3:.2f} ms wall under the profiler "
+                  f"({bare * 1e3:.2f} ms without), device busy "
+                  f"{busy * 1e3:.3f} ms ({100 * busy / swall:.1f} % of the "
+                  f"profiled wall), {acts} device activities; top: "
+                  + ", ".join(f"{e['name'][:40]} {e['device_ms']:.3f} ms "
+                              f"x{e['count']}" for e in top[:4]))
+        del params
+        torch.cuda.empty_cache()
+    return ok
+
+
+def run_encdec_tune(torch, report, libs, args):
+    """``python -m repro_torch.tuning --arch whisper-tiny`` at full width
+    and depth on the card (``flash_pallas``, the card's default): 1
+    calibration set x 2 prompts of 16 tokens, 2 decode positions, 2 KV
+    depth groups, 1 round, eps 0.1, zero frames to every prefill and
+    decode.  Holds: KL <= eps; tuned bytes below the binary32 bytes; the
+    artifact round-trips to ``to_policy()``; every prefill launches 4
+    flash_prefill and every decode step 4 flash_decode (no attention of
+    the decoder ran plain on the card)."""
+    from repro_torch import configs
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.tuning import __main__ as tune_cli
+
+    L = configs.get(ENCDEC_ARCH).n_layers
+    path = os.path.join(args.out, "encdec_tune.json")
+    argv = list(ENC_TUNE_ARGV) + ["--seed", str(args.seed), "--out", path]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _model_calls(torch, libs) as calls:
+        res = tune_cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    # (flash_prefill, flash_decode) launches of each call
+    per = {k: [c[2:4] for c in calls[k]] for k in ("prefill", "decode")}
+    total = res.weight_bytes + res.kv_bytes_per_token
+    total32 = res.weight_bytes_f32 + res.kv_bytes_per_token_f32
+    checks = dict(
+        kl_within_eps=res.final_kl <= TUNE_EPS,
+        bytes_below_f32=total < total32,
+        artifact_round_trips=PrecisionPolicy.from_artifact(
+            res.to_artifact()) == res.to_policy(),
+        prefills_on_flash_prefill=_counts_ok(per["prefill"], (L, 0)),
+        decodes_on_flash_decode=_counts_ok(per["decode"], (0, L)),
+        decode_is_flash=res.decode_impl == "flash_pallas")
+    ok = all(checks.values())
+    report["encdec"]["tune"] = dict(
+        argv=argv, final_kl=res.final_kl, n_evals=res.n_evals,
+        formats={k: f.name for k, f in res.formats.items()},
+        fmt_histogram=res.fmt_histogram(), bytes=total, bytes_f32=total32,
+        prefills=len(per["prefill"]), decode_steps=len(per["decode"]),
+        wall_s=wall, peak_mem_bytes=torch.cuda.max_memory_allocated(),
+        checks=checks, ok=ok)
+    print(f"[encdec] python -m repro_torch.tuning --arch {ENCDEC_ARCH} "
+          f"(full width and depth): KL {res.final_kl:.4g} (eps {TUNE_EPS}),"
+          f" {res.n_evals} evals, formats {res.fmt_histogram()}, bytes "
+          f"{total}/{total32} ({total / total32:.3f}x f32), "
+          f"{len(per['prefill'])} prefills and {len(per['decode'])} decode "
+          f"steps, (flash_prefill, flash_decode) a call "
+          f"{sorted(set(per['prefill']))} / {sorted(set(per['decode']))} "
+          f"(want ({L}, 0) / (0, {L})); {wall:.1f} s; checks {checks} "
+          f"{'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def check_encdec_kernels(torch, np, report, timer):
+    """The attention kernels and add_layernorm at whisper-tiny's shapes
+    (H 6, G 1, dh 64; d 384): flash_prefill over the 64-row prompt (Sq =
+    Skv = 64, q_offset 0) on f32 K/V (a whole-prompt prefill's) and e5m2,
+    flash_decode and paged_decode of one slot holding 72 of 128 rows
+    (e5m2, pages of 64), each within 1e-6 of its plain version;
+    add_layernorm at 1 and 1500 rows (bf16 + bf16 -> bf16, f32 + f32 ->
+    f32, no add) bit for bit its plain version."""
+    from repro_torch.core.formats import BINARY8
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import layernorm as ln
+    from repro_torch.kernels import paged_attention as PA
+
+    ok, errs = True, {}
+    for fmt in (None, BINARY8):
+        q, kp, vp = _prefill_inputs(torch, np, fmt, report["seed"] + 42,
+                                    **WHISPER_PREFILL)
+        got = FA.flash_prefill(q, kp, vp, fmt)
+        want = FA.flash_prefill_plain(q, kp, vp, fmt)
+        errs[f"flash_prefill {'f32' if fmt is None else fmt.name}"] = \
+            float((got - want).abs().max())
+    S, B, page = ENC_CAPACITY, 1, 64
+    q, kp, vp, lens = _decode_inputs(torch, np, BINARY8, report["seed"] + 43,
+                                     S, [ENC_DECODE_LEN] * B,
+                                     **WHISPER_SHAPE)
+    got = FA.flash_decode(q, kp, vp, BINARY8, lens)
+    want = FA.flash_decode_plain(q, kp, vp, BINARY8, lens)
+    errs["flash_decode e5m2"] = float((got - want).abs().max())
+    H, dh = WHISPER_SHAPE["H"], WHISPER_SHAPE["dh"]
+    kpg = kp.reshape(B * S // page, page, H, dh).flip(0).contiguous()
+    vpg = vp.reshape(B * S // page, page, H, dh).flip(0).contiguous()
+    tables = torch.arange(B * S // page - 1, -1, -1, dtype=torch.int32,
+                          device="cuda").reshape(B, S // page)
+    got = PA.paged_decode(q, kpg, vpg, BINARY8, lens, tables)
+    want = PA.paged_decode_plain(q, kpg, vpg, BINARY8, lens, tables)
+    errs["paged_decode e5m2"] = float((got - want).abs().max())
+    torch.cuda.synchronize()
+    for k, e in errs.items():
+        good = e <= 1e-6
+        ok &= good
+        print(f"[encdec] {k} at whisper-tiny's H 6, G 1, dh 64: max|kernel "
+              f"- plain| = {e:.3e} (tol 1e-6) {'ok' if good else 'FAIL'}")
+    report["prefill_whisper_max_abs_err"] = max(
+        errs["flash_prefill f32"], errs["flash_prefill binary8"])
+    report["flash_decode_whisper_max_abs_err"] = errs["flash_decode e5m2"]
+    report["paged_whisper_max_abs_err"] = errs["paged_decode e5m2"]
+
+    bf, f32 = torch.bfloat16, torch.float32
+    g = torch.Generator(device="cuda").manual_seed(report["seed"] + 44)
+    d = 384
+    gamma = 1.0 + torch.randn((d,), generator=g, device="cuda") * 0.1
+    beta = torch.randn((d,), generator=g, device="cuda") * 0.1
+    res = {}
+    for rows in WHISPER_LN_ROWS:
+        for xdt, ydt in ((bf, bf), (f32, f32), (bf, None), (f32, None)):
+            x = (torch.randn((rows, d), generator=g, device="cuda") * 3.0
+                 ).to(xdt)
+            y = None if ydt is None else (torch.randn(
+                (rows, d), generator=g, device="cuda") * 2.0).to(ydt)
+            s, n = ln.add_layernorm(x, y, gamma, beta, xdt)
+            ps, pn = ln.add_layernorm_plain(x, y, gamma, beta, xdt)
+            res[f"{rows}/{str(xdt)[6:]}+{str(ydt)[6:]}"] = torch.equal(
+                _bits(s), _bits(ps)) and torch.equal(_bits(n), _bits(pn))
+    good = all(res.values())
+    ok &= good
+    report["add_layernorm_d384_bits_equal_plain"] = res
+    report["add_layernorm_d384_max_abs_err"] = 0.0 if good else None
+    print(f"[encdec] add_layernorm d 384 at {WHISPER_LN_ROWS} rows bit for "
+          f"bit its plain version: {res} {'ok' if good else 'FAIL'}")
+    return ok
+
+
+def time_encdec_kernels(torch, np, report, timer):
+    """Times at whisper-tiny's shapes (CUDA events, L2 flushed): every
+    packed product of a decode step (M 1, the encoder's and the cross
+    K/V's 1500 rows) and of a whole-prompt prefill (M 64), each shape
+    timed once and counted as often as the call launches it
+    (``encdec_products``), binary16alt: kernel, plain version and
+    ``torch.matmul`` on the dequantized weights (the biased gelu FFN:
+    ``gelu(x @ w_in + b_in)``, two calls), and the bound of the call's
+    bytes and operations; the attention kernels (``_time_served_attention``:
+    flash_prefill over the 64-row prompt on f32 K/V, then e5m2;
+    flash_decode and paged_decode of one slot at 72 of 128 rows);
+    add_layernorm at 1 and 1500 rows; and the plain torch attention cores
+    the path runs beside the kernels (the encoder's self-attention, 1500
+    x 1500, and the cross attention of one decode row and of the 64-row
+    prompt over 1500 encoder rows: scores, f32 softmax, probabilities
+    rounded to bf16, weighted sum), beside SDPA."""
+    from repro_torch import configs
+    from repro_torch.core.formats import BINARY16ALT as fmt
+    from repro_torch.core.policy import get_policy
+    from repro_torch.kernels import layernorm as ln
+    from repro_torch.kernels import qmatmul as Q
+    from repro_torch.models import attention as A
+
+    cfg = configs.get(ENCDEC_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(report["seed"] + 45)
+    gelu = torch.nn.functional.gelu
+    for per, M in (("decode_step", 1), ("prefill", ENC_PROMPT)):
+        totals = dict(arch=ENCDEC_ARCH, per=per, M=M, fmt=fmt.name,
+                      launches=0, ms=0.0, plain_ms=0.0, library_ms=0.0,
+                      bytes=0, flops=0)
+        for name, rows, K, N, act, bias, mult in encdec_products(cfg, M):
+            x = torch.randn((rows, K), generator=gen, device="cuda")
+            wp = _pack_weight(torch.randn((K, N), generator=gen,
+                                          device="cuda"), fmt)
+            wf = _unpack_weight(wp, fmt)
+            b = torch.randn((N,), generator=gen, device="cuda") * 0.1 \
+                if bias else None
+            t_k = timer(lambda: Q.qmatmul(x, wp, None, fmt, bias=b,
+                                          act=act))
+            t_p = timer(lambda: Q.qmatmul_plain(x, wp, None, fmt, bias=b,
+                                                act=act), iters=5)
+            if act:
+                t_l = timer(lambda: gelu(torch.addmm(b, x, wf),
+                                         approximate="tanh"))
+            else:
+                t_l = timer(lambda: torch.matmul(x, wf))
+            nbytes = Q.qmm_hbm_bytes(rows, K, N, fmt, bias=bias)
+            flops = 2 * rows * K * N
+            bound, by = qmm_bound(Q, fmt, nbytes, flops)
+            report["timings"].append(dict(
+                kernel="qmm_whisper", per=per, shape=name, M=rows, K=K, N=N,
+                act=act, bias=bias, launches_per=mult, ms=t_k, plain_ms=t_p,
+                library_ms=t_l, bound_ms=bound, bound_by=by, bytes=nbytes,
+                flops=flops))
+            print(f"[timing] qmm whisper {per:<11} {name[:26]:<26} "
+                  f"x{mult:<2} M={rows:<4} K={K:<4} N={N:<5} kernel "
+                  f"{t_k:.4f} ms  plain {t_p:.4f} ms  torch {t_l:.4f} ms"
+                  f"  bound {bound:.5f} ms ({by})")
+            for k, v in (("launches", mult), ("ms", mult * t_k),
+                         ("plain_ms", mult * t_p),
+                         ("library_ms", mult * t_l),
+                         ("bytes", mult * nbytes), ("flops", mult * flops)):
+                totals[k] += v
+            del x, wp, wf, b
+        totals["bound_ms"], totals["bound_by"] = qmm_bound(
+            Q, fmt, totals["bytes"], totals["flops"])
+        report["timings"].append(dict(kernel=f"qmm_tc_whisper_{per}",
+                                      **totals))
+        print(f"[timing] qmm whisper per {per} ({fmt.name}, "
+              f"{totals['launches']} launches): kernel {totals['ms']:.3f} ms"
+              f"  plain {totals['plain_ms']:.2f} ms  torch "
+              f"{totals['library_ms']:.3f} ms  bound "
+              f"{totals['bound_ms']:.4f} ms ({totals['bound_by']})")
+    torch.cuda.empty_cache()
+
+    for f32_kv, names in ((True, ("flash_prefill_whisper",
+                                  "flash_decode_whisper",
+                                  "paged_decode_whisper")),
+                          (False, ("flash_prefill_whisper_e5m2",))):
+        _time_served_attention(
+            torch, np, report, timer, label="whisper", shape=WHISPER_SHAPE,
+            prefill=WHISPER_PREFILL, q_offset=0, window=None, prefix=0,
+            S=ENC_CAPACITY, n=ENC_DECODE_LEN, seeds=(46, 47), names=names,
+            B=1, prefill_f32=f32_kv)
+
+    bf = torch.bfloat16
+    d = cfg.d_model
+    gamma = 1.0 + torch.randn((d,), generator=gen, device="cuda") * 0.1
+    beta = torch.randn((d,), generator=gen, device="cuda") * 0.1
+    for rows in WHISPER_LN_ROWS:
+        x = (torch.randn((rows, d), generator=gen, device="cuda") * 3.0
+             ).to(bf)
+        y = (torch.randn((rows, d), generator=gen, device="cuda") * 2.0
+             ).to(bf)
+        t_f = timer(lambda: ln.add_layernorm(x, y, gamma, beta, bf))
+        t_p = timer(lambda: ln.add_layernorm_plain(x, y, gamma, beta, bf))
+        t_s = timer(lambda: torch.nn.functional.layer_norm(
+            (x + y).float(), (d,), gamma, beta, 1e-5).to(bf))
+        nbytes = ln.add_layernorm_hbm_bytes(rows, d, 2, 2, 2, 2)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        report["timings"].append(dict(
+            kernel="add_layernorm_whisper", rows=rows, d=d, ms=t_f,
+            plain_ms=t_p, torch_sequence_ms=t_s, library_ms=None,
+            bound_ms=bound, bound_by="bytes", bytes=nbytes))
+        print(f"[timing] add_layernorm whisper {rows:>4} x {d} bf16 + bf16 "
+              f"-> bf16: kernel {t_f:.4f} ms  plain {t_p:.4f} ms  x + y; "
+              f"F.layer_norm().to(bf16) {t_s:.4f} ms  bound {bound:.6f} ms")
+
+    # the plain attention cores the path runs (no TPU kernel: XLA in the
+    # reference), per call and per layer
+    policy = get_policy("transprecision")
+    H, dh, T = cfg.n_kv, cfg.head_dim, cfg.encoder_len
+    scale = np.float32(1.0 / np.sqrt(dh))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kk = torch.randn((1, T, H, dh), generator=gen, device="cuda").to(bf)
+    vv = torch.randn((1, T, H, dh), generator=gen, device="cuda").to(bf)
+    for what, Sq in (("encoder self-attention", T),
+                     ("cross attention, decode row", 1),
+                     ("cross attention, prompt", ENC_PROMPT)):
+        qg = torch.randn((1, Sq, H, 1, dh), generator=gen,
+                         device="cuda").to(bf)
+
+        def core():
+            s = A._gqa_scores(qg, kk, policy).to(torch.float32) * scale
+            return A._softmax_weighted(s, vv, policy)
+        qs, ks, vs = (qg[:, :, :, 0].transpose(1, 2),
+                      kk.transpose(1, 2), vv.transpose(1, 2))
+        t_c = timer(core)
+        t_l = timer(lambda: sdpa(qs, ks, vs))
+        report["timings"].append(dict(
+            kernel="whisper_plain_attention", what=what, Sq=Sq, Skv=T, H=H,
+            dh=dh, ms=t_c, sdpa_ms=t_l, layers_per_call=cfg.n_layers))
+        print(f"[timing] plain torch attention core, whisper {what} (Sq "
+              f"{Sq}, Skv {T}, H {H}, dh {dh}, bf16): {t_c:.4f} ms a layer"
+              f" ({cfg.n_layers} a call)  SDPA {t_l:.4f} ms")
+
+
+def run_encdec(torch, np, report, libs, args, timer):
+    """whisper-tiny, the encoder-decoder, at full width and full depth
+    (4 + 4 layers, d 384, 1500 frames, vocab 51,865): (a) logits on
+    random frames and affine parameters (``check_encdec_logits``); (b)
+    ``synchronous_generate`` with its launch counts
+    (``run_encdec_serve``); (c) the serve-time tuner's CLI
+    (``run_encdec_tune``); (d) the kernels at its shapes against their
+    plain versions (``check_encdec_kernels``; its qmm products are in
+    ``check_qmm_archs``) and timed (``time_encdec_kernels``)."""
+    from repro_torch.models.registry import build
+
+    report["encdec"] = {}
+    model, cfg = build(ENCDEC_ARCH)
+    ok = check_encdec_logits(torch, report, args, model, cfg)
+    ok &= run_encdec_serve(torch, report, libs, args, model, cfg)
+    ok &= run_encdec_tune(torch, report, libs, args)
+    ok &= check_encdec_kernels(torch, np, report, timer)
+    time_encdec_kernels(torch, np, report, timer)
+    return ok
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
 ALL_PHASES = ("build", "kernels", "casts", "ops", "serve", "serve_flash",
               "speculative", "serve_f32", "serve_reduced", "logits",
-              "resilience", "archs", "paper", "serve_tune", "profile")
+              "resilience", "archs", "encdec", "paper", "serve_tune",
+              "profile")
 
 
 def kernel_rows(report):
@@ -5047,7 +5773,14 @@ def kernel_rows(report):
     ``qmm_tc_gelu`` (the gated gelu FFN, its whole prompt's 320 rows)
     and ``qmm_tc_gelu_decode_step`` (2 rows), ``flash_prefill_prefix``
     (the 256-row prefix, MQA), ``flash_decode_mqa`` and
-    ``paged_decode_mqa`` (H 1, G 8, dh 256).  The MoE expert product's two
+    ``paged_decode_mqa`` (H 1, G 8, dh 256).  whisper-tiny's shapes have
+    rows of their own, launches from the encdec phase's
+    ``synchronous_generate`` runs under flash_pallas and paged:
+    ``qmm_tc_whisper`` (a whole-prompt prefill's 65 products) and
+    ``qmm_tc_whisper_decode_step``, ``flash_prefill_whisper`` (the 64-row
+    prompt on f32 K/V), ``flash_decode_whisper``, ``paged_decode_whisper``
+    (one slot, 72 of 128 rows) and ``add_layernorm_d384`` (one row).  The
+    MoE expert product's two
     calls, timed at qwen3-moe's 2-token routing (E 128, C 8) with the
     archs phase's qwen3-moe serve's launches: ``qmm_tc_grouped_ffn``,
     the gated pair (K 2048, N 768), and ``qmm_tc_grouped``, w_out (K
@@ -5099,6 +5832,7 @@ def kernel_rows(report):
             entry_name, 0)
     pali = archs.get("paligemma-3b/flash_pallas", {})
     pali_paged = archs.get("paligemma-3b/paged", {})
+    whisper = list(report.get("encdec", {}).get("serve", {}).values())
     pali_ffn = pali.get("qmm_ffn_rows", {})
     rows = [
         ("qmm_gemv", qmm_src, qmm_tpu, f32_all.get("qmm_gemv", 0),
@@ -5231,6 +5965,38 @@ def kernel_rows(report):
          "src/repro/kernels/paged_attention.py:52",
          rg_paged.get("launches", {}).get("paged_decode", 0),
          report.get("paged_rg_max_abs_err"), timing("paged_decode_rg")),
+        # whisper-tiny's shapes: qmm_tc per whole-prompt prefill and per
+        # decode step (the encoder and the cross K/V at 1500 rows, the
+        # biased gelu FFN, the head's N 51,865), the attention kernels at
+        # H 6, G 1, dh 64, add_layernorm at d 384
+        ("qmm_tc_whisper", qmm_src, qmm_tpu,
+         sum(e.get("qmm_tc_prefill", 0) for e in whisper),
+         report.get("qmm_whisper_max_abs_err"),
+         timing("qmm_tc_whisper_prefill")),
+        ("qmm_tc_whisper_decode_step", qmm_src, qmm_tpu,
+         sum(e.get("qmm_tc_decode", 0) for e in whisper),
+         report.get("qmm_whisper_max_abs_err"),
+         timing("qmm_tc_whisper_decode_step")),
+        ("flash_prefill_whisper", "src/repro_torch/csrc/flash_prefill.cu",
+         "src/repro/kernels/flash_attention.py:257",
+         sum(e.get("launches", {}).get("flash_prefill", 0) for e in whisper),
+         report.get("prefill_whisper_max_abs_err"),
+         timing("flash_prefill_whisper")),
+        ("flash_decode_whisper", "src/repro_torch/csrc/flash_decode.cu",
+         "src/repro/kernels/flash_attention.py:112",
+         sum(e.get("launches", {}).get("flash_decode", 0) for e in whisper),
+         report.get("flash_decode_whisper_max_abs_err"),
+         timing("flash_decode_whisper")),
+        ("paged_decode_whisper", "src/repro_torch/csrc/paged_decode.cu",
+         "src/repro/kernels/paged_attention.py:52",
+         sum(e.get("launches", {}).get("paged_decode", 0) for e in whisper),
+         report.get("paged_whisper_max_abs_err"),
+         timing("paged_decode_whisper")),
+        ("add_layernorm_d384", "src/repro_torch/csrc/rmsnorm.cu",
+         "src/repro/models/layers.py:228",
+         sum(norm_launches(e, "add_layernorm_launch") for e in whisper),
+         report.get("add_layernorm_d384_max_abs_err"),
+         timing("add_layernorm_whisper", rows=1)),
     ]
     kernels = []
     for name, source, replaces, launches, err, t in rows:
@@ -5354,6 +6120,9 @@ def main() -> int:
                 ok = run_resilience(torch, report, libs, args, timer)
             elif phase == "archs":
                 ok = run_archs(torch, report, libs, args)
+            elif phase == "encdec":
+                timer = timer or Timer(torch)
+                ok = run_encdec(torch, np, report, libs, args, timer)
             elif phase == "paper":
                 ok = run_paper(torch, report, libs)
             elif phase == "serve_tune":

@@ -4,7 +4,7 @@ from importlib import import_module
 
 ARCHS = ("llama3-8b", "yi-9b", "mistral-nemo-12b", "command-r-35b",
          "granite-moe-1b-a400m", "qwen3-moe-30b-a3b", "paligemma-3b",
-         "rwkv6-1.6b", "recurrentgemma-2b")
+         "rwkv6-1.6b", "recurrentgemma-2b", "whisper-tiny")
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCHS}
 

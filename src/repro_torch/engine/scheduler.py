@@ -177,6 +177,10 @@ class Engine:
         self.params = params
         self.slots = slots
         self.capacity = capacity
+        if cfg.encoder_layers:
+            raise ValueError(
+                f"arch {cfg.arch}: the serving engine is decoder-only "
+                f"(enc-dec decode needs per-step encoder context)")
         self.device = resolve_device(device)
         # only attention layers have pages; the others keep recurrent
         # states, one row a slot

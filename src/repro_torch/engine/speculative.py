@@ -71,10 +71,11 @@ class SpeculativeDecoder:
         caches over the engine's pool geometry and device, and bind the
         target model the rounds verify with."""
         for name, cfg in (("target", engine.cfg), ("draft", self.cfg)):
-            if cfg.prefix_len:
+            if cfg.encoder_layers or cfg.prefix_len:
                 raise ValueError(
                     f"speculative decoding: {name} arch {cfg.arch} is not "
-                    f"decoder-only (prefix-LM context cannot roll back)")
+                    f"decoder-only (enc-dec / prefix-LM context cannot "
+                    f"roll back)")
             if any(kind != "attn" for kind in cfg.attn_pattern):
                 raise ValueError(
                     f"speculative decoding: {name} arch {cfg.arch} has "

@@ -39,13 +39,18 @@ class PrefillTask:
 
 def make_batch(cfg, prompt, device) -> dict:
     """The prefill batch of one prompt: its tokens and, for a prefix-LM
-    config, ``cfg.prefix_len`` zero stub patch embeddings (f32), as the
-    reference serves them."""
+    config, ``cfg.prefix_len`` zero stub patch embeddings (f32), for an
+    enc-dec config ``cfg.encoder_len`` zero stub frame embeddings (f32),
+    as the reference serves them."""
     batch = {"tokens": torch.tensor([list(prompt)], dtype=torch.int32,
                                     device=device)}
     if cfg.prefix_len:
         batch["prefix_embeds"] = torch.zeros(
             (1, cfg.prefix_len, cfg.d_model), dtype=torch.float32,
+            device=device)
+    if cfg.encoder_layers:
+        batch["encoder_embeds"] = torch.zeros(
+            (1, cfg.encoder_len, cfg.d_model), dtype=torch.float32,
             device=device)
     return batch
 

@@ -3,9 +3,11 @@
 
 Paths: prefill through the prefill registry, decode against a contiguous
 :class:`KVCache` (the synchronous reference loop) or against a paged
-:class:`~repro_torch.kernels.paged_cache.PagedKVCache` (the engine), and
+:class:`~repro_torch.kernels.paged_cache.PagedKVCache` (the engine),
 :func:`prefill_paged_chunk`, the engine's chunked prefill straight into
-one slot's pages.
+one slot's pages, and the non-causal attention of an encoder and of a
+decoder's cross attention (``mha(causal=False)``, ``mha(kv_source=)``),
+plain torch over unrounded K/V as the reference's XLA branch is.
 
 Registered backends (``kernels/dispatch.py`` says what each spelling maps
 to): decode ``xla`` / ``flash_pallas`` / ``paged``; prefill ``xla`` /
@@ -44,7 +46,11 @@ class KVCache(NamedTuple):
         return self.k.shape[1]
 
 
-def attn_init(gen, cfg, dtype, device=None):
+def attn_init(gen, cfg, dtype, device=None, cross: bool = False):
+    """wq, wk, wv, wo; a cross attention's (``cross``) are the same four,
+    its K/V projected from the encoder output (:func:`mha`'s
+    ``kv_source``)."""
+    del cross
     d = cfg.d_model
     return {
         "wq": dense_init(gen, (d, cfg.q_dim), dtype=dtype, device=device),
@@ -228,20 +234,52 @@ def decode_impl(cfg, policy: PrecisionPolicy) -> str:
     return policy.decode_impl or cfg.decode_impl
 
 
-def _qkv(p, x, cfg, policy):
+def _qkv(p, x, cfg, policy, kv_source=None):
+    """q from ``x``; k and v from ``kv_source`` (cross attention) or
+    ``x``."""
     n_kv, dh = cfg.n_kv, cfg.head_dim
+    src = x if kv_source is None else kv_source
     q = _split_heads(pdot(x, p["wq"], policy, "attn_w"), cfg.n_heads, dh)
-    k = _split_heads(pdot(x, p["wk"], policy, "attn_w"), n_kv, dh)
-    v = _split_heads(pdot(x, p["wv"], policy, "attn_w"), n_kv, dh)
+    k = _split_heads(pdot(src, p["wk"], policy, "attn_w"), n_kv, dh)
+    v = _split_heads(pdot(src, p["wv"], policy, "attn_w"), n_kv, dh)
     return q, k, v
 
 
-def mha(p, x, cfg, policy: PrecisionPolicy, *, prefix_len: int = 0,
-        cache=None, chunk: Optional[int] = None,
-        cache_capacity: Optional[int] = None):
+def _full_attention(p, x, cfg, policy, kv_source):
+    """Non-causal attention with no cache, the reference's plain branch
+    (``_gqa_scores`` + ``_softmax_weighted``): an encoder's
+    self-attention (``kv_source`` None, rope at positions 0..S-1 when the
+    config ropes) or a decoder's cross attention, K/V projected from
+    ``kv_source`` (no rope).  K/V stay the projections' activations: no
+    KV-cache format rounds them."""
+    B, S, _ = x.shape
+    n_kv, dh = cfg.n_kv, cfg.head_dim
+    q, k, v = _qkv(p, x, cfg, policy, kv_source)
+    if kv_source is None and cfg.rope_theta > 0:
+        positions = torch.arange(S, device=x.device)[None, :]
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    scale = np.float32(1.0 / np.sqrt(dh))
+    qg = q.reshape(B, S, n_kv, cfg.n_heads // n_kv, dh)
+    scores = _gqa_scores(qg, k, policy).to(F32) * scale
+    out = _softmax_weighted(scores, v, policy).reshape(B, S, cfg.q_dim)
+    return pdot(out, p["wo"], policy, "attn_w"), None
+
+
+def mha(p, x, cfg, policy: PrecisionPolicy, *, causal: bool = True,
+        prefix_len: int = 0, cache=None, kv_source=None,
+        chunk: Optional[int] = None, cache_capacity: Optional[int] = None):
     """Causal self-attention: prefill (``cache`` None), or one decode
     token against a contiguous ``KVCache`` or a ``PagedKVCache``.
-    Returns (out, new_cache)."""
+    ``causal=False`` (an encoder) or a ``kv_source`` (cross attention
+    over the encoder output, which disables causality) attends over
+    every position with no cache (:func:`_full_attention`).  Returns
+    (out, new_cache)."""
+    if kv_source is not None or not causal:
+        if cache is not None or cache_capacity is not None:
+            raise ValueError("non-causal and cross attention keep no "
+                             "KV cache")
+        return _full_attention(p, x, cfg, policy, kv_source)
     B, S, _ = x.shape
     n_kv, dh = cfg.n_kv, cfg.head_dim
     G = cfg.n_heads // n_kv

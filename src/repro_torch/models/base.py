@@ -1,14 +1,15 @@
 """Model configuration: the port's copy of ``repro.models.base`` for the
 dense and MoE decoders, the prefix-LM (``vlm``: a decoder over stub
-patch embeddings), the attention-free ``ssm`` (rwkv6) and the ``hybrid``
-(RG-LRU blocks and local attention); enc-dec fields wait with their
-architecture."""
+patch embeddings), the attention-free ``ssm`` (rwkv6), the ``hybrid``
+(RG-LRU blocks and local attention) and the encoder-decoder ``audio``
+(whisper: a decoder with cross attention over an encoder of stub frame
+embeddings)."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
 
-FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
 NORMS = ("rmsnorm", "layernorm")
 
 
@@ -27,6 +28,10 @@ class ModelConfig:
     moe_experts: int = 0
     moe_topk: int = 0
     capacity_factor: float = 1.25
+
+    # enc-dec (whisper)
+    encoder_layers: int = 0
+    encoder_len: int = 1500               # stub frame-embedding count
 
     # vlm
     prefix_len: int = 0                   # stub patch-embedding count
@@ -114,8 +119,9 @@ class ModelConfig:
         return (2 * d * ff + ff * d) if self.gated_ffn else 2 * d * ff
 
     def param_count(self) -> int:
-        """Exact parameter count of the decoder (the reference's
-        formula)."""
+        """Exact parameter count (the reference's formula): the decoder,
+        and an enc-dec config's encoder blocks and per-layer cross
+        attention."""
         d, ff, v = self.d_model, self.d_ff, self.vocab
         nrm = d if self.norm == "rmsnorm" else 2 * d  # gamma (+beta)
         attn_p = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
@@ -147,7 +153,11 @@ class ModelConfig:
                     * self._per_expert()
             else:
                 n += ffn_p
-        return n + nrm  # final norm
+        n += nrm  # final norm
+        if self.encoder_layers:
+            n += self.encoder_layers * (attn_p + 2 * nrm + ffn_p)
+            n += len(self.attn_pattern) * (attn_p + nrm)  # cross attention
+        return n
 
     def active_param_count(self) -> int:
         """Params touched per token (MoE: top-k experts only)."""

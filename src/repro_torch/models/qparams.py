@@ -6,7 +6,11 @@ included) becomes a :class:`~repro_torch.core.qtensor.QTensor` in the
 policy's format for its role and layer; norm scales, biases, the
 recurrent layers' f32 leaves (token-shift mixers, decay LoRA, bonus,
 group norm, conv filter, lambda) and the embedding *table* (consumed by
-a gather) stay plain tensors.
+a gather) stay plain tensors.  A leaf under ``params["layers"][li]``
+(a decoder layer's, its cross attention ``xattn`` included) resolves its
+format at layer ``li``; any other leaf (the embedding, the head, an
+enc-dec config's ``params["encoder"]``) at the policy's global binding,
+as :func:`param_layer` gives None for it.
 """
 from __future__ import annotations
 

@@ -1,8 +1,10 @@
-"""The decoder-only LM: the port of ``repro.models.transformer`` for the
-``dense`` and ``moe`` families, the ``vlm`` prefix-LM, the attention-free
-``ssm`` (rwkv6) and the ``hybrid`` (RG-LRU blocks and local attention),
-rmsnorm or layernorm (enc-dec waits).  Per-layer kinds (attn | rwkv |
-rglru) come from ``cfg.attn_pattern``.  Attention layers keep their KV
+"""The LM: the port of ``repro.models.transformer`` for the ``dense`` and
+``moe`` families, the ``vlm`` prefix-LM, the attention-free ``ssm``
+(rwkv6), the ``hybrid`` (RG-LRU blocks and local attention) and the
+``audio`` encoder-decoder (whisper: an encoder over stub frame
+embeddings, with no final norm, and a cross attention after every
+decoder block's self-attention), rmsnorm or layernorm.  Per-layer kinds
+(attn | rwkv | rglru) come from ``cfg.attn_pattern``.  Attention layers keep their KV
 in caches (contiguous, or the engine's page pool); recurrent layers keep
 a per-sequence state (``RwkvState`` / ``RglruState``), which chunked
 prefill threads through ``pstates``.  Parameters are plain nested dicts
@@ -26,7 +28,7 @@ from . import rglru as rglru_mod
 from . import rwkv6 as rwkv_mod
 from .base import ModelConfig
 from .layers import (add_norm, dense_init, embed_lookup, ffn_apply,
-                     ffn_init, lm_logits, norm_init)
+                     ffn_init, lm_logits, norm_init, residual_add)
 
 
 class Model:
@@ -46,7 +48,11 @@ class Model:
         """Random weights from ``gen`` (normal, 1/sqrt(fan_in) scale, the
         embedding at unit scale), stored in the policy's dtypes on
         ``device`` (default ``cuda``; raises when no card is present
-        unless ``device="cpu"``).  ``gen`` must live on that device."""
+        unless ``device="cpu"``).  ``gen`` must live on that device.  An
+        enc-dec config's decoder layers also hold ``norm_x`` and
+        ``xattn`` (in their layer's dtypes), and ``params["encoder"]``
+        its encoder blocks, drawn after the decoder's in the global
+        dtypes, as the reference's are."""
         cfg = self.cfg
         device = resolve_device(device)
         edt = policy.dtype("embed_w")
@@ -80,7 +86,20 @@ class Model:
                                 ffn_init(gen, cfg.d_model, cfg.d_ff,
                                          cfg.gated_ffn, cfg.use_bias, fdt,
                                          device))
+            if cfg.encoder_layers:  # the decoder's cross attention
+                layer["norm_x"] = norm_init(cfg.d_model, cfg.norm, device)
+                layer["xattn"] = attn.attn_init(gen, cfg, lp.dtype("attn_w"),
+                                                device, cross=True)
             params["layers"].append(layer)
+        if cfg.encoder_layers:
+            params["encoder"] = [{
+                "norm1": norm_init(cfg.d_model, cfg.norm, device),
+                "mix": attn.attn_init(gen, cfg, policy.dtype("attn_w"),
+                                      device),
+                "norm2": norm_init(cfg.d_model, cfg.norm, device),
+                "ffn": ffn_init(gen, cfg.d_model, cfg.d_ff, cfg.gated_ffn,
+                                cfg.use_bias, policy.dtype("ffn_w"), device),
+            } for _ in range(cfg.encoder_layers)]
         return params
 
     def _head_w(self, params):
@@ -88,16 +107,19 @@ class Model:
             return params["embed"].T
         return params["head"]
 
-    def _block(self, layer, kind, x, f, lp, attend, state=None):
+    def _block(self, layer, kind, x, f, lp, attend, state=None,
+               enc_out=None):
         """One decoder block of kind ``kind``.  ``x`` is the residual
         stream before the previous block's FFN output ``f`` joins it
         (None before the first block), so each norm takes its residual
         add with it (``add_norm``: one launch on the kernel route).  An
         attention block calls ``attend(h)``; a recurrent block carries
         ``state`` (an rwkv block's channel mix takes the FFN's place).
-        Returns ``(x, f, state)`` with this block's FFN output not yet
-        added.  The MoE FFN's aux loss is dropped (serving), as the
-        reference's serving paths drop it."""
+        With ``enc_out`` (an enc-dec config) the ``norm_x`` -> cross
+        attention step runs between the mixer and ``norm2``.  Returns
+        ``(x, f, state)`` with this block's FFN output not yet added.
+        The MoE FFN's aux loss is dropped (serving), as the reference's
+        serving paths drop it."""
         cfg = self.cfg
         x, h = add_norm(x, f, layer["norm1"], lp, cfg.norm)
         if kind == "attn":
@@ -107,6 +129,9 @@ class Model:
         else:
             a, st = rglru_mod.rglru_block(layer["mix"], h, cfg, lp,
                                           state=state)
+        if enc_out is not None:
+            x, h = add_norm(x, a, layer["norm_x"], lp, cfg.norm)
+            a, _ = attn.mha(layer["xattn"], h, cfg, lp, kv_source=enc_out)
         x, h = add_norm(x, a, layer["norm2"], lp, cfg.norm)
         if kind == "rwkv":
             f, st = rwkv_mod.channel_mix(layer["mix"], h, cfg, lp, state=st)
@@ -115,6 +140,30 @@ class Model:
         else:
             f = ffn_apply(layer["ffn"], h, lp, cfg)
         return x, f, st
+
+    def _encode(self, params, embeds, policy):
+        """The encoder over ``embeds`` (B, T, d): pre-norm blocks of
+        non-causal self-attention and the FFN, and no final norm, so the
+        last block's FFN output joins the stream in a plain residual add
+        (the one add outside ``add_norm``)."""
+        cfg = self.cfg
+        x, f = embeds, None
+        for layer in params["encoder"]:
+            x, h = add_norm(x, f, layer["norm1"], policy, cfg.norm)
+            a, _ = attn.mha(layer["mix"], h, cfg, policy, causal=False)
+            x, h = add_norm(x, a, layer["norm2"], policy, cfg.norm)
+            f = ffn_apply(layer["ffn"], h, policy, cfg)
+        return residual_add(x, f)
+
+    def _enc_out(self, params, embeds, dtype, policy):
+        """The encoder output of ``embeds``, cast to ``dtype`` (the
+        embedding output's) first, as the reference casts it."""
+        if embeds is None:
+            raise ValueError(
+                f"arch {self.cfg.arch} is enc-dec: pass encoder_embeds "
+                f"(B, {self.cfg.encoder_len}, {self.cfg.d_model}) or "
+                f"enc_out")
+        return self._encode(params, embeds.to(dtype), policy)
 
     def _logits(self, params, x, f, policy):
         """The last block's FFN output ``f`` joins ``x``, the final norm,
@@ -175,7 +224,12 @@ class Model:
         (``src/repro/models/transformer.py:236``), which keeps only the
         last ``S`` rows of the ring and so drops the prefix from decode;
         its ``synchronous_generate`` passes a capacity that keeps them,
-        and the port follows that."""
+        and the port follows that.
+
+        An enc-dec config takes ``batch["encoder_embeds"]`` (B, T, d),
+        cast to the embedding output's dtype and encoded once; every
+        decoder block attends over the encoder output after its
+        self-attention."""
         cfg = self.cfg
         policy = self._policy(policy)
         tokens = batch["tokens"]
@@ -186,6 +240,10 @@ class Model:
             pe = batch["prefix_embeds"].to(device=x.device, dtype=x.dtype)
             x = torch.cat([pe, x], dim=1)
             prefix_len = pe.shape[1]
+        enc_out = None
+        if cfg.encoder_layers:
+            enc_out = self._enc_out(params, batch.get("encoder_embeds"),
+                                    x.dtype, policy)
         capacity = capacity or x.shape[1]
         chunk = cfg.attn_chunk if x.shape[1] > cfg.attn_chunk else None
         states = self.recurrent_state(x.shape[0], policy, x.device)
@@ -197,7 +255,7 @@ class Model:
                 layer, kind, x, f, lp, lambda h, lp=lp, layer=layer:
                 attn.prefill_to_cache(layer["mix"], h, cfg, lp, capacity,
                                       prefix_len=prefix_len, chunk=chunk),
-                state=states[li])
+                state=states[li], enc_out=enc_out)
         return self._logits(params, x[:, -1:, :], f[:, -1:, :],
                             policy), states
 
@@ -213,13 +271,13 @@ class Model:
         the scheduler writes ``pstates`` into the batched state when the
         prompt completes.  Returns (last-position logits, new_states,
         new_pstates).  Decoder-only: a prefix-LM prefills its prefix and
-        prompt whole (:meth:`prefill`)."""
+        prompt whole (:meth:`prefill`), and so does an enc-dec config."""
         cfg = self.cfg
         policy = self._policy(policy)
-        if cfg.prefix_len:
+        if cfg.prefix_len or cfg.encoder_layers:
             raise ValueError(
-                "prefill_chunk is decoder-only; prefix-LM archs prefill "
-                "whole-prompt (Model.prefill)")
+                "prefill_chunk is decoder-only; prefix-LM / enc-dec archs "
+                "prefill whole-prompt (Model.prefill)")
         x = embed_lookup(params["embed"], tokens, policy,
                          scale=cfg.embed_scale)
         chunk = cfg.attn_chunk if tokens.shape[1] > cfg.attn_chunk else None
@@ -261,12 +319,13 @@ class Model:
 
         Needs an all-attention decoder-only config over paged caches, as
         in the reference: recurrent layer states cannot roll back
-        rejected positions, and a prefix-LM never reaches speculation."""
+        rejected positions, and neither a prefix-LM nor an enc-dec
+        config reaches speculation."""
         cfg = self.cfg
         policy = self._policy(policy)
-        if cfg.prefix_len:
+        if cfg.encoder_layers or cfg.prefix_len:
             raise ValueError(
-                "verify_step is decoder-only (no prefix context)")
+                "verify_step is decoder-only (no prefix / encoder context)")
         if any(kind != "attn" for kind in cfg.attn_pattern):
             raise ValueError(
                 f"arch {cfg.arch}: verify_step needs an all-attention "
@@ -286,14 +345,21 @@ class Model:
         return self._logits(params, x, f, policy), new_states
 
     @torch.no_grad()
-    def decode_step(self, params, tokens, states, policy: PrecisionPolicy):
+    def decode_step(self, params, tokens, states, policy: PrecisionPolicy,
+                    enc_out=None, encoder_embeds=None):
         """tokens: (B, 1).  Returns (logits (B, 1, V), new states):
         attention layers append to their caches (contiguous or paged),
-        recurrent layers take one recurrent step of every row."""
+        recurrent layers take one recurrent step of every row.  An
+        enc-dec config attends over ``enc_out``, or encodes
+        ``encoder_embeds`` anew when ``enc_out`` is None (the whole
+        encoder a step, as the reference does): the same computation on
+        the same input, so the two give the same bits."""
         cfg = self.cfg
         policy = self._policy(policy)
         x = embed_lookup(params["embed"], tokens, policy,
                          scale=cfg.embed_scale)
+        if cfg.encoder_layers and enc_out is None:
+            enc_out = self._enc_out(params, encoder_embeds, x.dtype, policy)
         new_states = list(states)
         f = None
         for li, (kind, layer) in enumerate(zip(cfg.attn_pattern,
@@ -302,5 +368,5 @@ class Model:
             x, f, new_states[li] = self._block(
                 layer, kind, x, f, lp, lambda h, lp=lp, layer=layer, li=li:
                 attn.mha(layer["mix"], h, cfg, lp, cache=states[li]),
-                state=states[li])
+                state=states[li], enc_out=enc_out)
         return self._logits(params, x, f, policy), new_states

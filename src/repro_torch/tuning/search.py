@@ -34,7 +34,8 @@ log-probabilities are taken on the device; the KL is summed on the host
 in f64.  A candidate's weights are drawn from a ``torch.Generator``
 seeded with ``seed`` (or handed over by ``params_for(policy)``), and at
 most one weight set is kept between candidates: at full width one set is
-8-32 GB.
+8-32 GB.  An enc-dec config's prefills and decode steps all get zero stub
+frame embeddings, as the reference's do.
 """
 from __future__ import annotations
 
@@ -49,6 +50,7 @@ from repro_torch.core import energy
 from repro_torch.core.formats import (BINARY8, BINARY16, BINARY16ALT,
                                       BINARY32, FpFormat)
 from repro_torch.core.policy import PrecisionPolicy
+from repro_torch.engine.worker import make_batch
 from repro_torch.kernels import dispatch
 from repro_torch.models import qparams
 
@@ -183,7 +185,7 @@ class ServeTuner:
         # searched variables: name -> the policy keys the binding writes
         self.variables: Dict[str, Tuple[str, ...]] = {
             r: (r,) for r in WEIGHT_ROLES}
-        if any(k == "attn" for k in cfg.attn_pattern):
+        if any(k == "attn" for k in cfg.attn_pattern) or cfg.encoder_layers:
             self.variables["attn_probs"] = ("attn_probs",)
         self.variables["act"] = ("act",)
         for group in kv_layer_groups(cfg, kv_groups):
@@ -244,14 +246,17 @@ class ServeTuner:
         ``decode_steps - 1`` decode positions; returns (logp (T, V),
         greedy tokens)."""
         params = self._params(policy)
-        logits, states = self.model.prefill(
-            params, {"tokens": self._tokens(prompt)}, policy, self._capacity)
+        batch = make_batch(self.cfg, prompt, self.device)
+        # an enc-dec config's zero frames go to every decode step too
+        extra = {k: batch[k] for k in ("encoder_embeds",) if k in batch}
+        logits, states = self.model.prefill(params, batch, policy,
+                                            self._capacity)
         logp = [self._logp(logits)]
         toks = [int(np.argmax(logp[0]))]
         for step in range(self.decode_steps - 1):
             t = forced[step] if forced is not None else toks[-1]
             logits, states = self.model.decode_step(
-                params, self._tokens([t]), states, policy)
+                params, self._tokens([t]), states, policy, **extra)
             logp.append(self._logp(logits))
             toks.append(int(np.argmax(logp[-1])))
         return np.stack(logp), toks

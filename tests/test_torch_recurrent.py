@@ -140,8 +140,9 @@ def test_config_is_the_references(arch, reduced):
     """Field for field the reference's config and its ``param_count``
     (1,584,091,136 and 2,894,481,920 at full size; recurrentgemma's 26
     layers hold 8 attention layers at i % 3 == 2); the reduced init holds
-    exactly that many parameters, and both configs close ``ARCHS``."""
-    assert configs.ARCHS[7:] == (RWKV, RG)
+    exactly that many parameters, and both configs follow paligemma-3b
+    in ``ARCHS``."""
+    assert configs.ARCHS[7:9] == (RWKV, RG)
     want = jget_config(arch, reduced=reduced)
     got = configs.get(arch, reduced=reduced)
     for f in FIELDS:
