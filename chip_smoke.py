@@ -159,6 +159,29 @@ Run from the root of a checkout.  Phases:
                   encoder and cross attention cores beside SDPA.  Its
                   qmm products (M 1, 64, 1500; the FFN's bias in the
                   epilogue) are held in the kernels phase.
+    train      -- training at full width (``run_train``): llama3-8b (d
+                  4096, 32 H, 8 KV, d_ff 14,336, vocab 128,256) cut to 4
+                  layers by ``dataclasses.replace``: ``flash_prefill_diff``
+                  at its attention shape (B 8, S 128, H 8, G 4, dh 128)
+                  against an eager autograd of the plain version, timed
+                  with the plain recompute backward; step 0's loss and
+                  grads on flash_pallas against xla (binary32 and
+                  transprecision); the train forward's last logits
+                  against ``Model.prefill``; 8 transprecision steps
+                  (batch 8 x 128, lr 1e-3): finite, decreasing losses,
+                  each step's wall and device time, 8 ``flash_prefill``
+                  and 17 ``add_rmsnorm`` launches a step (the remat
+                  recompute included) and nothing else, the peak memory;
+                  a checkpoint at step 3 restored and resumed bit for
+                  bit; whisper-tiny at full depth for 4 steps (its
+                  encoder's grads non-zero); ``launch.train.main`` on
+                  four reduced configs.
+    prefill_cont -- ``attention.prefill_from_cache`` at llama3-8b's full
+                  width, one layer: a 64-row chunk at q_offset 64 over a
+                  64-row e5m2 cache through one ``flash_prefill`` launch,
+                  within 1e-6 of the plain version; under binary32
+                  within 1e-5 x max|out| of one whole prefill; the ring
+                  and overflow ``ValueError``s; the kernel timed.
 12. paper      -- the six paper apps on ``TPContext(device="cuda")``:
                   each binary32 baseline, ``tune`` at eps 1e-1, 1e-2 and
                   1e-3 (V2, 2 input sets) with the tuned runs' stats and
@@ -5737,13 +5760,687 @@ def run_encdec(torch, np, report, libs, args, timer):
 
 
 # ---------------------------------------------------------------------------
+# train: training at full width on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH, TRAIN_LAYERS = "llama3-8b", 4
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 8, 128, 8, 1e-3
+TRAIN_CKPT = 3                 # the step checkpointed, restored, resumed
+TRAIN_SHAPE = dict(B=TRAIN_BATCH, Sq=TRAIN_SEQ, Skv=TRAIN_SEQ, H=8, G=4,
+                   dh=128)     # llama3-8b's attention at the train batch
+TRAIN_CLI_ARCHS = ("granite-moe-1b-a400m", "rwkv6-1.6b", "recurrentgemma-2b",
+                   "paligemma-3b")
+WHISPER_TRAIN = dict(batch=2, seq=64, steps=4)
+# step 0 on the flash_pallas spelling against the xla spelling: loss
+# (relative) and every grad leaf (max |diff| over its max |g|).  Under
+# binary32 both are f32 math; under transprecision the xla spelling
+# rounds the probabilities to bf16 (attn_probs) where the kernel keeps
+# them f32, as in the reference.
+TRAIN_ROUTE_TOL = {"binary32": (1e-5, 1e-4),
+                   "transprecision": (1e-3, 5e-2)}
+PREFILL_DIFF_TOL = 1e-5        # grads, over max |g| of the eager autograd
+LAST_LOGITS_TOL = 1e-5         # over max |logit|
+
+
+def _train_model(cfg_arch=TRAIN_ARCH, layers=TRAIN_LAYERS):
+    """llama3-8b at full width, cut to ``layers`` layers in depth."""
+    from repro_torch import configs
+    from repro_torch.models.transformer import Model
+    cfg = dataclasses.replace(configs.get(cfg_arch), n_layers=layers)
+    return Model(cfg), cfg
+
+
+def _leaf_errs(torch, got, want):
+    """Per leaf max |got - want| / max |want| (0 when both are 0)."""
+    from repro_torch.core.tree import leaves
+    out = []
+    for a, b in zip(leaves(got), leaves(want)):
+        a, b = a.float(), b.float()
+        m = float(b.abs().max())
+        d = float((a - b).abs().max())
+        out.append(d / m if m else d)
+    return out
+
+
+def check_prefill_diff(torch, np, report, timer):
+    """``flash_prefill_diff`` at the train shape (B 8, Sq = Skv 128, H 8,
+    G 4, dh 128, f32 K/V, causal): one ``flash_prefill`` launch forward,
+    within 1e-6 x max(1, max |out|) of ``flash_prefill_plain``; its q, k,
+    v grads against an
+    eager autograd of ``flash_prefill_plain`` within 1e-5 x max |g|;
+    timed (row 7e) beside its plain version, its bound and SDPA, with the
+    backward's plain recompute timed beside."""
+    from repro_torch.kernels import flash_attention as FA
+
+    s = TRAIN_SHAPE
+    B, Sq, H, G, dh = s["B"], s["Sq"], s["H"], s["G"], s["dh"]
+    scale = float(1.0 / np.sqrt(dh))
+    q, k, v = _prefill_inputs(torch, np, None, report["seed"] + 31, **s)
+    qkv = [t.requires_grad_() for t in (q, k, v)]
+    FA.LIB.reset_counts()
+    out = FA.flash_prefill_diff(*qkv, scale=scale)
+    launches = FA.LIB.launches
+    g = torch.randn(out.shape, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(
+                        report["seed"] + 32))
+    got = torch.autograd.grad(out, qkv, g)
+    ref_in = [t.detach().clone().requires_grad_() for t in qkv]
+    ref = FA.flash_prefill_plain(*ref_in, None, scale=scale)
+    want = torch.autograd.grad(ref, ref_in, g)
+    fwd_err = float((out.detach() - ref.detach()).abs().max())
+    fwd_tol = 1e-6 * max(1.0, float(ref.detach().abs().max()))
+    errs = [float((a - b).abs().max()) / float(b.abs().max())
+            for a, b in zip(got, want)]
+    ok = launches == 1 and fwd_err <= fwd_tol \
+        and max(errs) <= PREFILL_DIFF_TOL and out.grad_fn is not None
+    report["prefill_diff"] = dict(launches=launches, fwd_max_abs_err=fwd_err,
+                                  grad_rel_errs=errs, ok=ok)
+    report["prefill_train_max_abs_err"] = fwd_err
+    print(f"[train] flash_prefill_diff B={B} S={Sq} H={H} G={G} dh={dh}: "
+          f"{launches} launch forward, max|fwd - plain| {fwd_err:.3e} (tol "
+          f"{fwd_tol:.3e}), dq/dk/dv max|diff|/max|g| "
+          f"{', '.join(f'{e:.2e}' for e in errs)} (tol {PREFILL_DIFF_TOL:g}) "
+          f"{'ok' if ok else 'FAIL'}")
+
+    qd, kd, vd = (t.detach() for t in qkv)
+    t_k = timer(lambda: FA.flash_prefill(qd, kd, vd))
+    t_p = timer(lambda: FA.flash_prefill_plain(qd, kd, vd), iters=10)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qs = qd.reshape(B, Sq, H * G, dh).transpose(1, 2)
+    ks = kd.repeat_interleave(G, dim=2).transpose(1, 2)
+    vs = vd.repeat_interleave(G, dim=2).transpose(1, 2)
+    t_l = timer(lambda: sdpa(qs, ks, vs, is_causal=True))
+
+    def backward():
+        xs = [t.detach().requires_grad_() for t in (qd, kd, vd)]
+        torch.autograd.grad(FA.flash_prefill_plain(*xs, None, scale=scale),
+                            xs, g)
+    t_b = timer(backward, iters=10)
+    live = B * Sq * (Sq + 1) // 2                # keys the queries need
+    flops = 4 * dh * H * G * live
+    nbytes = FA.prefill_hbm_bytes(B, Sq, Sq, H, G, dh, None)
+    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    b_ops = flops / F32_PEAK_FLOPS * 1e3
+    report["timings"].append(dict(
+        kernel="flash_prefill_train", fmt="f32", **s, ms=t_k, plain_ms=t_p,
+        library_ms=t_l, bound_ms=max(b_bytes, b_ops),
+        bound_by="bytes" if b_bytes >= b_ops else "operations",
+        bytes=nbytes, flops=flops, backward_plain_ms=t_b))
+    print(f"[timing] flash_prefill train B={B} Sq=Skv={Sq} H={H} G={G} "
+          f"dh={dh} f32 causal: kernel {t_k:.4f} ms  plain {t_p:.4f} ms  "
+          f"SDPA {t_l:.4f} ms  bound {max(b_bytes, b_ops):.5f} ms  "
+          f"backward (plain recompute) {t_b:.4f} ms")
+    return ok
+
+
+def check_train_norm(torch, report, timer):
+    """add_rmsnorm at the train step's rows (B x S = 1024, d 4096, bf16
+    residual and output, f32 gamma) on the route the train step takes:
+    x, y and gamma need a gradient, so the launch goes through
+    ``FusedNormFn``.  Both outputs bit for bit ``add_rmsnorm_plain``'s,
+    and the grads of x, y and gamma (from random bf16 output grads) bit
+    for bit an eager autograd of the plain version.  Then timed beside
+    its plain version and ``x + y; F.rms_norm`` (row 9e)."""
+    from repro_torch.kernels import rmsnorm as RN
+    rows, d = TRAIN_BATCH * TRAIN_SEQ, 4096
+    bf = torch.bfloat16
+    gen = torch.Generator("cuda").manual_seed(report["seed"] + 33)
+    x, y, g_s, g_n = (torch.randn((rows, d), device="cuda", generator=gen)
+                      .to(bf) for _ in range(4))
+    gamma = 0.1 * torch.randn((d,), device="cuda", generator=gen)
+
+    got_in = [t.clone().requires_grad_() for t in (x, y, gamma)]
+    RN.LIB.reset_counts()
+    got = RN.add_rmsnorm(*got_in, bf)
+    launches = RN.LIB.launches
+    routed = all(t.grad_fn is not None
+                 and type(t.grad_fn).__name__ == "FusedNormFnBackward"
+                 for t in got)
+    got_g = torch.autograd.grad(got, got_in, (g_s, g_n))
+    want_in = [t.clone().requires_grad_() for t in (x, y, gamma)]
+    want = RN.add_rmsnorm_plain(*want_in, bf)
+    want_g = torch.autograd.grad(want, want_in, (g_s, g_n))
+    pairs = list(zip(got, want)) + list(zip(got_g, want_g))
+    errs = [float((a.detach().float() - b.detach().float()).abs().max())
+            for a, b in pairs]
+    bits = all(torch.equal(a.detach(), b.detach()) for a, b in pairs)
+    ok = launches == 1 and routed and bits
+    report["train_norm"] = dict(launches=launches, routed=routed,
+                                max_abs_errs=dict(zip(
+                                    ("s", "normed", "dx", "dy", "dgamma"),
+                                    errs)), bit_for_bit=bits, ok=ok)
+    report["add_rmsnorm_train_max_abs_err"] = max(errs)
+    print(f"[train] add_rmsnorm rows={rows} d={d} bf16 through FusedNormFn: "
+          f"{launches} launch, s/normed/dx/dy/dgamma max|diff| vs the plain "
+          f"version's autograd {', '.join(f'{e:.3e}' for e in errs)} (bit "
+          f"for bit: {bits}) {'ok' if ok else 'FAIL'}")
+    del got_in, got, got_g, want_in, want, want_g
+
+    t_k = timer(lambda: RN.add_rmsnorm(x, y, gamma, bf))
+    t_p = timer(lambda: RN.add_rmsnorm_plain(x, y, gamma, bf), iters=10)
+    t_l = timer(lambda: torch.nn.functional.rms_norm(
+        (x + y).float(), (d,), 1.0 + gamma, 1e-6).to(bf))
+    nbytes = RN.add_rmsnorm_hbm_bytes(rows, d, 2, 2, 2, 2)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    report["timings"].append(dict(
+        kernel="add_rmsnorm_train", rows=rows, d=d, ms=t_k, plain_ms=t_p,
+        library_ms=t_l, bound_ms=bound, bound_by="bytes", bytes=nbytes))
+    print(f"[timing] add_rmsnorm train rows={rows} d={d} bf16: kernel "
+          f"{t_k:.4f} ms  plain {t_p:.4f} ms  torch {t_l:.4f} ms  bound "
+          f"{bound:.5f} ms")
+    return ok
+
+
+def _route_check(torch, report, model, data, pol_name):
+    """Step 0's loss and grads on the flash_pallas spelling (the kernels)
+    against the xla spelling (plain torch attention), same params and
+    batch, within ``TRAIN_ROUTE_TOL``."""
+    from repro_torch.core.policy import get_policy
+    from repro_torch.launch.train import loss_and_grads
+
+    gen = torch.Generator("cuda").manual_seed(report["seed"] + 34)
+    pol = get_policy(pol_name, decode_impl="flash_pallas")
+    params = model.init_params(gen, pol, device="cuda")
+    batch = data.batch_at(0, device="cuda")
+    lf, gf = loss_and_grads(model, params, batch, pol)
+    lx, gx = loss_and_grads(model, params, batch,
+                            get_policy(pol_name, decode_impl="xla"))
+    l_err = abs(float(lf) - float(lx)) / abs(float(lx))
+    g_errs = _leaf_errs(torch, gf, gx)
+    lt, gt = TRAIN_ROUTE_TOL[pol_name]
+    ok = l_err <= lt and max(g_errs) <= gt
+    report["train"][f"route_{pol_name}"] = dict(
+        loss_flash=float(lf), loss_xla=float(lx), loss_rel_err=l_err,
+        grad_rel_err_max=max(g_errs), grad_rel_err_median=float(
+            sorted(g_errs)[len(g_errs) // 2]), tol=[lt, gt], ok=ok)
+    print(f"[train] step 0 {pol_name}: loss flash_pallas {float(lf):.6f} "
+          f"xla {float(lx):.6f} (rel {l_err:.2e}, tol {lt:g}); grads "
+          f"max|diff|/max|g| worst leaf {max(g_errs):.2e} (tol {gt:g}) "
+          f"{'ok' if ok else 'FAIL'}")
+    del params, gf, gx
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok
+
+
+def _last_logits_check(torch, report, model, params, batch, pol):
+    """The train forward's last-position logits (its final-norm output
+    through the head) against ``Model.prefill``'s on the same params,
+    batch and route.  The forward runs as the train step's does, every
+    param leaf requiring grad, so its attention and norms go through
+    ``flash_prefill_diff`` and ``FusedNormFn``: ``L`` flash_prefill and
+    ``2 L + 1`` add_rmsnorm launches (no backward, so no recompute), and
+    the final hidden state carries a ``grad_fn``."""
+    from repro_torch.core.tree import leaves, unflatten
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rmsnorm as RN
+    from repro_torch.models import layers, transformer
+
+    seen = {}
+    real = transformer.lm_head_loss
+
+    def spy(h, head_w, labels, policy, **kw):
+        seen["h"] = h.detach()
+        seen["grad_fn"] = h.grad_fn is not None
+        return real(h, head_w, labels, policy, **kw)
+    live = unflatten(params, [p.detach().requires_grad_(True)
+                              for p in leaves(params)])
+    transformer.lm_head_loss = spy
+    FA.LIB.reset_counts()
+    RN.LIB.reset_counts()
+    try:
+        loss = model.train_loss(live, batch, pol)
+    finally:
+        transformer.lm_head_loss = real
+    launches = (FA.LIB.launches, RN.LIB.by_symbol.get("add_rmsnorm_launch",
+                                                        0))
+    L = model.cfg.n_layers
+    routed = seen["grad_fn"] and loss.grad_fn is not None \
+        and launches == (L, 2 * L + 1)
+    del loss, live
+    with torch.no_grad():
+        got = layers.lm_logits(seen["h"][:, -1:], model._head_w(params), pol)
+    want, _ = model.prefill(params, {"tokens": batch["tokens"]}, pol)
+    err = float((got - want).abs().max()) / float(want.abs().max())
+    ok = err <= LAST_LOGITS_TOL and routed
+    report["train"]["last_logits"] = dict(
+        rel_err=err, bitwise=bool(torch.equal(got, want)),
+        grad_fn=seen["grad_fn"], launches=list(launches), ok=ok)
+    print(f"[train] train forward (grad on: {launches[0]} flash_prefill, "
+          f"{launches[1]} add_rmsnorm launches, want {L}, {2 * L + 1}; "
+          f"grad_fn {seen['grad_fn']}) last-position logits vs "
+          f"Model.prefill: max|diff|/max|logit| {err:.3e} (tol "
+          f"{LAST_LOGITS_TOL:g}, bit for bit: {torch.equal(got, want)}) "
+          f"{'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def _meta_like(torch, tree):
+    """``tree`` with every tensor leaf replaced by an empty ``meta``
+    tensor of its shape and dtype: the structure to restore into."""
+    from repro_torch.core.tree import leaves, unflatten
+    return unflatten(tree, [torch.empty(t.shape, dtype=t.dtype,
+                                        device="meta")
+                            for t in leaves(tree)])
+
+
+def _train_steps(torch, step_fn, params, opt, data, steps, libs, *,
+                 want=None, on_step=None):
+    """Run ``steps`` (an iterable of step numbers): per step the loss,
+    the wall and device milliseconds and the kernel launches (every
+    count set to 0 just before the step, read just after)."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rmsnorm as RN
+    rows = []
+    ok = True
+    for step in steps:
+        batch = data.batch_at(step, device="cuda")
+        for lib in libs:
+            lib.reset_counts()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        loss, params, opt = step_fn(params, opt, batch)
+        b.record()
+        loss = float(loss)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = dict(flash_prefill=FA.LIB.launches,
+                      norms=dict(RN.LIB.by_symbol),
+                      others=sum(lib.launches for lib in libs
+                                 if lib not in (FA.LIB, RN.LIB)))
+        row = dict(step=step, loss=loss, wall_ms=wall,
+                   device_ms=a.elapsed_time(b), launches=counts)
+        if want is not None:
+            good = counts["flash_prefill"] == want[0] and counts["norms"] \
+                == {"add_rmsnorm_launch": want[1]} and counts["others"] == 0
+            row["launches_ok"] = good
+            ok &= good
+        rows.append(row)
+        if on_step is not None:
+            on_step(step, params, opt)
+        print(f"[train] step {step} loss {loss:.6f} wall {wall:.1f} ms "
+              f"device {row['device_ms']:.1f} ms launches "
+              f"flash_prefill {counts['flash_prefill']} add_rmsnorm "
+              f"{counts['norms'].get('add_rmsnorm_launch', 0)} others "
+              f"{counts['others']}"
+              + ("" if want is None else
+                 f" (want {want[0]}, {want[1]}, 0: "
+                 f"{'ok' if row['launches_ok'] else 'FAIL'})"))
+    return rows, params, opt, ok
+
+
+def run_train(torch, np, report, libs, args, timer):
+    """Training at full width on one card.  llama3-8b (d 4096, 32 H, 8
+    KV, d_ff 14,336, vocab 128,256) cut to ``TRAIN_LAYERS`` layers by
+    ``dataclasses.replace``: (a) ``flash_prefill_diff`` at its attention
+    shape and ``add_rmsnorm`` through ``FusedNormFn`` at the step's rows,
+    each against an eager autograd of its plain version, timed; (b) step
+    0's loss and grads on the kernel spelling against the xla spelling,
+    binary32 and transprecision; (c) the train forward's last-position
+    logits (a forward with grad on) against ``Model.prefill``; (d) ``TRAIN_STEPS`` transprecision
+    steps (batch 8, seq 128, lr 1e-3, flash_pallas): finite losses, the
+    last below the first, per step the wall and device time and the
+    launches (flash_prefill layers x 2 with the remat recompute,
+    add_rmsnorm 4 L + 1, nothing else), the peak memory; (e) a checkpoint
+    at step ``TRAIN_CKPT``, restored and resumed: steps 4-7's losses and
+    the final params and master bit for bit the uninterrupted run's; (f)
+    whisper-tiny at full depth (4 + 4 layers, 1500 frames, batch 2) for 4
+    steps, its encoder's grads non-zero; (g) ``launch.train.main`` on
+    four reduced configs."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core.policy import get_policy
+    from repro_torch.core.tree import leaves
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import train as train_cli
+    from repro_torch.optim import adamw
+
+    report["train"] = {}
+    secs = report["train"]["seconds"] = {}
+    t_lap = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        secs[name] = now - t_lap[0]
+        t_lap[0] = now
+    ok = check_prefill_diff(torch, np, report, timer)
+    ok &= check_train_norm(torch, report, timer)
+    lap("kernels")
+    model, cfg = _train_model()
+    L = cfg.n_layers
+    print(f"[train] {TRAIN_ARCH} d {cfg.d_model} H {cfg.n_heads} KV "
+          f"{cfg.n_kv} d_ff {cfg.d_ff} vocab {cfg.vocab}, depth cut to "
+          f"{L} of 32 layers (dataclasses.replace), "
+          f"{cfg.param_count():,} params; batch {TRAIN_BATCH} x seq "
+          f"{TRAIN_SEQ}")
+    report["train"]["config"] = dict(arch=TRAIN_ARCH, n_layers=L,
+                                     reduced=f"n_layers 32 -> {L}",
+                                     params=cfg.param_count())
+    data = SyntheticLM(DataConfig(seed=args.seed, global_batch=TRAIN_BATCH,
+                                  seq_len=TRAIN_SEQ), cfg)
+    for pol_name in ("binary32", "transprecision"):
+        ok &= _route_check(torch, report, model, data, pol_name)
+    lap("routes")
+
+    pol = get_policy("transprecision", decode_impl="flash_pallas")
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator("cuda").manual_seed(report["seed"])
+    params = model.init_params(gen, pol, device="cuda")
+    opt = adamw.init(params, pol)
+    ok &= _last_logits_check(torch, report, model, params,
+                             data.batch_at(0, device="cuda"), pol)
+    step_fn = train_cli.make_train_step(model, pol, TRAIN_LR)
+    want = (2 * L, 4 * L + 1)
+    ckpt_dir = tempfile.mkdtemp(prefix="train_ckpt_")
+    mgr = CheckpointManager(ckpt_dir, keep=1)
+    saved = {}
+
+    def on_step(step, p, o):
+        if step == TRAIN_CKPT:
+            t0 = time.perf_counter()
+            mgr.save(step, (p, o), extra={"data": data.state(step)})
+            saved["host_copy_s"] = time.perf_counter() - t0
+    try:
+        rows, params, opt, good = _train_steps(
+            torch, step_fn, params, opt, data, range(TRAIN_STEPS), libs,
+            want=want, on_step=on_step)
+        ok &= good
+        lap("steps")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        losses = [r["loss"] for r in rows]
+        fin = all(np.isfinite(losses)) and losses[-1] < losses[0]
+        ok &= fin
+        print(f"[train] {TRAIN_STEPS} steps: loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f} (finite and decreasing: {fin}); peak "
+              f"{peak:.2f} GB allocated")
+        t0 = time.perf_counter()
+        mgr.wait()
+        saved["write_wait_s"] = time.perf_counter() - t0
+        # the uninterrupted run's end state to the host, the card freed
+        # for the resumed run
+        like = (params, opt)
+        final_params = [t.cpu() for t in leaves(params)]
+        final_master = [t.cpu() for t in leaves(opt.master)]
+        like = tuple(_meta_like(torch, t) for t in like)
+        del params, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        (p2, o2), meta = mgr.restore(TRAIN_CKPT, like, device="cuda")
+        saved["restore_s"] = time.perf_counter() - t0
+        start = meta["extra"]["data"]["step"] + 1
+        rows2, p2, o2, good = _train_steps(
+            torch, step_fn, p2, o2, data, range(start, TRAIN_STEPS), libs,
+            want=want)
+        ok &= good
+        lap("resume")
+        same_loss = [r["loss"] for r in rows2] == losses[start:]
+        same_params = all(torch.equal(a, b.cpu()) for a, b in zip(
+            final_params, leaves(p2)))
+        same_master = all(torch.equal(a, b.cpu()) for a, b in zip(
+            final_master, leaves(o2.master)))
+        resume_ok = same_loss and same_params and same_master
+        ok &= resume_ok
+        print(f"[train] checkpoint at step {TRAIN_CKPT} (host copy "
+              f"{saved['host_copy_s']:.1f} s, write wait "
+              f"{saved['write_wait_s']:.1f} s, restore "
+              f"{saved['restore_s']:.1f} s), resumed steps {start}-"
+              f"{TRAIN_STEPS - 1}: losses {same_loss}, params {same_params}, "
+              f"master {same_master} bit for bit "
+              f"{'ok' if resume_ok else 'FAIL'}")
+        report["train"].update(
+            steps=rows, resumed=rows2, peak_gb=peak, losses=losses,
+            finite_decreasing=fin, checkpoint=saved,
+            resume_bit_exact=dict(losses=same_loss, params=same_params,
+                                  master=same_master),
+            launches_per_step=dict(flash_prefill=want[0],
+                                   add_rmsnorm=want[1]),
+            flash_prefill_launches=sum(r["launches"]["flash_prefill"]
+                                       for r in rows),
+            add_rmsnorm_launches=sum(r["launches"]["norms"].get(
+                "add_rmsnorm_launch", 0) for r in rows))
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    del p2, o2, final_params, final_master
+    gc.collect()
+    torch.cuda.empty_cache()
+    ok &= _train_whisper(torch, np, report, args)
+    lap("whisper")
+    ok &= _train_cli(torch, report)
+    lap("cli")
+    print("[train] seconds: " + ", ".join(f"{k} {v:.1f}"
+                                           for k, v in secs.items()))
+    return ok
+
+
+def _train_whisper(torch, np, report, args):
+    """whisper-tiny at full depth (4 encoder + 4 decoder layers, 1500
+    frames of 0.02 N(0, 1), batch 2, 64 tokens), transprecision,
+    flash_pallas: the encoder's grads non-zero at step 0, then 4 steps
+    with finite, decreasing losses."""
+    from repro_torch.core.policy import get_policy
+    from repro_torch.core.tree import flatten_with_path
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.registry import build
+    from repro_torch.optim import adamw
+
+    model, cfg = build(ENCDEC_ARCH)
+    w = WHISPER_TRAIN
+    pol = get_policy("transprecision", decode_impl="flash_pallas")
+    gen = torch.Generator("cuda").manual_seed(report["seed"] + 35)
+    params = model.init_params(gen, pol, device="cuda")
+    data = SyntheticLM(DataConfig(seed=args.seed, global_batch=w["batch"],
+                                  seq_len=w["seq"]), cfg)
+    _, grads = train_cli.loss_and_grads(model, params,
+                                        data.batch_at(0, device="cuda"), pol)
+    enc = [float(g.abs().max()) for p, g in flatten_with_path(grads)
+           if p[0] == ("k", "encoder")]
+    enc_ok = len(enc) > 0 and min(enc) > 0
+    step_fn = train_cli.make_train_step(model, pol, TRAIN_LR)
+    opt = adamw.init(params, pol)
+    losses = []
+    for step in range(w["steps"]):
+        loss, params, opt = step_fn(params, opt,
+                                    data.batch_at(step, device="cuda"))
+        losses.append(float(loss))
+    fin = all(np.isfinite(losses)) and losses[-1] < losses[0]
+    ok = enc_ok and fin
+    report["train"]["whisper"] = dict(losses=losses, encoder_leaves=len(enc),
+                                      encoder_min_max_abs_grad=min(enc),
+                                      ok=ok)
+    print(f"[train] {ENCDEC_ARCH} {cfg.encoder_layers} + {cfg.n_layers} "
+          f"layers, {cfg.encoder_len} frames, batch {w['batch']}: "
+          f"{len(enc)} encoder leaves, smallest max|grad| {min(enc):.3e}; "
+          f"losses {', '.join(f'{x:.4f}' for x in losses)} "
+          f"{'ok' if ok else 'FAIL'}")
+    del params, opt, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok
+
+
+def _train_cli(torch, report):
+    """``python -m repro_torch.launch.train --reduced --steps 3 --batch 2
+    --seq 32 --ckpt-every 0`` on ``TRAIN_CLI_ARCHS`` (its ``main``, in
+    this process): 3 finite losses each."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.launch import train as train_cli
+
+    ok = True
+    report["train"]["cli"] = {}
+    for arch in TRAIN_CLI_ARCHS:
+        with tempfile.TemporaryDirectory(prefix="train_cli_") as d:
+            losses = train_cli.main(["--arch", arch, "--reduced", "--steps",
+                                     "3", "--batch", "2", "--seq", "32",
+                                     "--ckpt-every", "0", "--ckpt-dir", d])
+        good = len(losses) == 3 and all(np.isfinite(x) for x in losses)
+        ok &= good
+        report["train"]["cli"][arch] = losses
+        print(f"[train] launch.train --arch {arch} --reduced: losses "
+              f"{', '.join(f'{x:.4f}' for x in losses)} "
+              f"{'ok' if good else 'FAIL'}")
+    return ok
+
+
+# ---------------------------------------------------------------------------
+# prefill_cont: continuation prefill into a contiguous cache
+# ---------------------------------------------------------------------------
+
+CONT_ROWS = 64                 # the cached rows, and the chunk after them
+CONT_CAPACITY = 128
+
+
+def run_prefill_cont(torch, np, report, libs, args, timer):
+    """``attention.prefill_from_cache`` at llama3-8b's full width, one
+    layer: the first 64 rows prefilled into a 128-row cache, then a
+    64-row chunk at q_offset 64.  Transprecision (e5m2 cache,
+    flash_pallas): one ``flash_prefill`` launch over the cache's bytes,
+    its output within 1e-6 of ``flash_prefill_plain`` on the same
+    payload, the new rows equal to the cast of the chunk's K/V;
+    binary32: the chunk's output within 1e-5 x max |out| of one whole
+    prefill of the 128 rows; the ring-cache and overflow ``ValueError``s;
+    the kernel timed at this shape."""
+    from repro_torch.core.formats import BINARY8
+    from repro_torch.core.policy import get_policy
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import attention as attn
+
+    _, cfg = _train_model(layers=1)
+    rep = report["prefill_cont"] = {}
+    ok = True
+    gen = torch.Generator("cuda").manual_seed(report["seed"] + 36)
+    x = torch.randn((1, 2 * CONT_ROWS, cfg.d_model), device="cuda",
+                    generator=gen)
+    for pol_name in ("transprecision", "binary32"):
+        pol = get_policy(pol_name, decode_impl="flash_pallas")
+        p = attn.attn_init(gen, cfg, pol.dtype("attn_w"), "cuda")
+        xa = x.to(pol.dtype("act"))
+        with torch.no_grad():
+            _, cache = attn.prefill_to_cache(p, xa[:, :CONT_ROWS], cfg, pol,
+                                             CONT_CAPACITY)
+        seen = []
+        real = attn.flash_prefill
+
+        def spy(q, k, v, fmt=None, **kw):
+            out = real(q, k, v, fmt, **kw)
+            seen.append((out, FA.flash_prefill_plain(q, k, v, fmt, **kw)))
+            return out
+        for lib in libs:
+            lib.reset_counts()
+        attn.flash_prefill = spy
+        try:
+            out, new = attn.prefill_from_cache(p, xa[:, CONT_ROWS:], cfg,
+                                               pol, cache, CONT_ROWS)
+        finally:
+            attn.flash_prefill = real
+        torch.cuda.synchronize()
+        launches = FA.LIB.launches
+        others = sum(lib.launches for lib in libs) - launches
+        err = float((seen[0][0] - seen[0][1]).abs().max())
+        good = launches == 1 and others == 0 and err <= 1e-6 \
+            and new.pos == 2 * CONT_ROWS
+        entry = dict(flash_prefill_launches=launches, other_launches=others,
+                     core_max_abs_err=err)
+        if pol_name == "transprecision":
+            good &= cache.k.dtype == torch.float8_e5m2
+            report["prefill_cont_max_abs_err"] = err
+            rep["launches"] = launches
+        else:
+            with torch.no_grad():
+                whole, _ = attn.prefill_to_cache(p, xa, cfg, pol,
+                                                 CONT_CAPACITY)
+            rel = float((out - whole[:, CONT_ROWS:]).abs().max()) / float(
+                whole.abs().max())
+            entry["vs_whole_rel_err"] = rel
+            good &= rel <= 1e-5
+        # the cached rows stay; the chunk's K/V (after rope) land at
+        # [64, 128) in the cache format
+        with torch.no_grad():
+            _, k, v = attn._qkv(p, xa[:, CONT_ROWS:], cfg, pol)
+            pos = torch.arange(CONT_ROWS, 2 * CONT_ROWS, device="cuda")
+            k = attn.rope(k, pos[None, :], cfg.rope_theta)
+        good &= torch.equal(new.k[:, :CONT_ROWS], cache.k[:, :CONT_ROWS]) \
+            and torch.equal(new.k[:, CONT_ROWS:], k.to(new.k.dtype)) \
+            and torch.equal(new.v[:, CONT_ROWS:], v.to(new.v.dtype))
+        entry["ok"] = good
+        rep[pol_name] = entry
+        ok &= good
+        print(f"[prefill_cont] {pol_name}: {launches} flash_prefill, "
+              f"{others} other launches, core max|kernel - plain| "
+              f"{err:.3e} (tol 1e-6)"
+              + (f", vs one whole prefill max|diff|/max|out| "
+                 f"{entry['vs_whole_rel_err']:.3e} (tol 1e-5)"
+                 if "vs_whole_rel_err" in entry else "")
+              + f" {'ok' if good else 'FAIL'}")
+    # the reference's refusals
+    raised = []
+    for what, c, cap, off in (("ring", dataclasses.replace(cfg, window=64),
+                               64, 0),
+                              ("overflow", cfg, CONT_CAPACITY, 100)):
+        shape = (1, cap, c.n_kv, c.head_dim)
+        cache = attn.KVCache(k=torch.zeros(shape, device="cuda"),
+                             v=torch.zeros(shape, device="cuda"), pos=off)
+        try:
+            attn.prefill_from_cache(p, xa[:, :CONT_ROWS], c, pol, cache, off)
+        except ValueError as e:
+            raised.append(what)
+            print(f"[prefill_cont] {what}: ValueError({e})")
+    ok &= raised == ["ring", "overflow"]
+    rep["refusals"] = raised
+    # the kernel at this shape: Sq 64 at q_offset 64 over the 128-row e5m2
+    # cache (rows past 127 masked)
+    s = dict(B=1, Sq=CONT_ROWS, Skv=CONT_CAPACITY, H=cfg.n_kv,
+             G=cfg.n_heads // cfg.n_kv, dh=cfg.head_dim)
+    q, kp, vp = _prefill_inputs(torch, np, BINARY8, report["seed"] + 37, **s)
+    from repro_torch.core.qtensor import decode
+    kd, vd = decode(kp, BINARY8), decode(vp, BINARY8)
+    H, G, dh = s["H"], s["G"], s["dh"]
+    qs = q.reshape(1, CONT_ROWS, H * G, dh).transpose(1, 2)
+    ks = kd.repeat_interleave(G, dim=2).transpose(1, 2)
+    vs = vd.repeat_interleave(G, dim=2).transpose(1, 2)
+    mask = FA.prefill_mask(CONT_ROWS, CONT_CAPACITY, CONT_ROWS, None, 0,
+                           "cuda")
+    t_k = timer(lambda: FA.flash_prefill(q, kp, vp, BINARY8,
+                                         q_offset=CONT_ROWS))
+    t_p = timer(lambda: FA.flash_prefill_plain(q, kp, vp, BINARY8,
+                                               q_offset=CONT_ROWS), iters=10)
+    t_l = timer(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=mask))
+    live = int(mask.sum())
+    flops = 4 * dh * H * G * live
+    nbytes = FA.prefill_hbm_bytes(1, CONT_ROWS, CONT_CAPACITY, H, G, dh,
+                                  BINARY8)
+    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    b_ops = flops / F32_PEAK_FLOPS * 1e3
+    report["timings"].append(dict(
+        kernel="flash_prefill_cont", fmt="binary8", q_offset=CONT_ROWS, **s,
+        ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=max(b_bytes, b_ops),
+        bound_by="bytes" if b_bytes >= b_ops else "operations",
+        bytes=nbytes, flops=flops))
+    print(f"[timing] flash_prefill cont Sq={CONT_ROWS} Skv={CONT_CAPACITY} "
+          f"q_offset={CONT_ROWS} e5m2: kernel {t_k:.4f} ms  plain "
+          f"{t_p:.4f} ms  SDPA {t_l:.4f} ms  bound "
+          f"{max(b_bytes, b_ops):.5f} ms")
+    return ok
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
 ALL_PHASES = ("build", "kernels", "casts", "ops", "serve", "serve_flash",
               "speculative", "serve_f32", "serve_reduced", "logits",
-              "resilience", "archs", "encdec", "paper", "serve_tune",
-              "profile")
+              "resilience", "archs", "encdec", "train", "prefill_cont",
+              "paper", "serve_tune", "profile")
 
 
 def kernel_rows(report):
@@ -5779,7 +6476,13 @@ def kernel_rows(report):
     ``qmm_tc_whisper`` (a whole-prompt prefill's 65 products) and
     ``qmm_tc_whisper_decode_step``, ``flash_prefill_whisper`` (the 64-row
     prompt on f32 K/V), ``flash_decode_whisper``, ``paged_decode_whisper``
-    (one slot, 72 of 128 rows) and ``add_layernorm_d384`` (one row).  The
+    (one slot, 72 of 128 rows) and ``add_layernorm_d384`` (one row).
+    Training's shapes, launches from the train phase's 8 steps:
+    ``flash_prefill_train`` (B 8, Sq = Skv 128, H 8, G 4, dh 128, f32
+    K/V, causal; its forward and the remat recompute) and
+    ``add_rmsnorm_train`` (1024 rows, d 4096); and ``flash_prefill_cont``
+    (64 rows at q_offset 64 over a 128-row e5m2 cache), the prefill_cont
+    phase's launch.  The
     MoE expert product's two
     calls, timed at qwen3-moe's 2-token routing (E 128, C 8) with the
     archs phase's qwen3-moe serve's launches: ``qmm_tc_grouped_ffn``,
@@ -5997,6 +6700,25 @@ def kernel_rows(report):
          sum(norm_launches(e, "add_layernorm_launch") for e in whisper),
          report.get("add_layernorm_d384_max_abs_err"),
          timing("add_layernorm_whisper", rows=1)),
+        # training (the train phase, llama3-8b at 4 layers, batch 8 x
+        # seq 128): flash_prefill on f32 K/V, causal, its launches with
+        # the remat recompute; add_rmsnorm at the step's 1024 rows; and
+        # prefill_from_cache's launch over the e5m2 cache (prefill_cont)
+        ("flash_prefill_train", "src/repro_torch/csrc/flash_prefill.cu",
+         "src/repro/kernels/flash_attention.py:257",
+         report.get("train", {}).get("flash_prefill_launches", 0),
+         report.get("prefill_train_max_abs_err"),
+         timing("flash_prefill_train")),
+        ("add_rmsnorm_train", "src/repro_torch/csrc/rmsnorm.cu",
+         "src/repro/models/layers.py:221",
+         report.get("train", {}).get("add_rmsnorm_launches", 0),
+         report.get("add_rmsnorm_train_max_abs_err"),
+         timing("add_rmsnorm_train")),
+        ("flash_prefill_cont", "src/repro_torch/csrc/flash_prefill.cu",
+         "src/repro/kernels/flash_attention.py:257",
+         report.get("prefill_cont", {}).get("launches", 0),
+         report.get("prefill_cont_max_abs_err"),
+         timing("flash_prefill_cont")),
     ]
     kernels = []
     for name, source, replaces, launches, err, t in rows:
@@ -6123,6 +6845,12 @@ def main() -> int:
             elif phase == "encdec":
                 timer = timer or Timer(torch)
                 ok = run_encdec(torch, np, report, libs, args, timer)
+            elif phase == "train":
+                timer = timer or Timer(torch)
+                ok = run_train(torch, np, report, libs, args, timer)
+            elif phase == "prefill_cont":
+                timer = timer or Timer(torch)
+                ok = run_prefill_cont(torch, np, report, libs, args, timer)
             elif phase == "paper":
                 ok = run_paper(torch, report, libs)
             elif phase == "serve_tune":

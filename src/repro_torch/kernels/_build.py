@@ -28,6 +28,8 @@ import time
 from pathlib import Path
 from typing import Dict, List, Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_ROOT = REPO_ROOT / "build" / "kernels"
@@ -196,13 +198,11 @@ def build_all() -> float:
 
 
 def stream_ptr(device) -> ctypes.c_void_p:
-    import torch
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
 @functools.lru_cache(maxsize=None)
 def sm_count(device) -> int:
-    import torch
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
@@ -227,8 +227,32 @@ def fmt_code(fmt) -> int:
 
 
 def check_operands(what: str, device, **tensors) -> None:
-    """Every operand a contiguous tensor on ``device`` (None skipped)."""
+    """Every operand a contiguous tensor on ``device`` (None skipped),
+    and none that autograd would need a gradient of (``check_no_grad``)."""
     for name, t in tensors.items():
         if t is not None and (t.device != device or not t.is_contiguous()):
             raise ValueError(f"{what}: {name} must be a contiguous tensor "
                              f"on {device}, got {t.device}")
+    check_no_grad(what, **tensors)
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd records a call on these operands (None skipped):
+    grad mode on and one of them requiring grad."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def check_no_grad(what: str, **tensors) -> None:
+    """Raise when grad mode is on and an operand requires grad: a kernel
+    launch records nothing for autograd, so its output would silently
+    drop the gradient.  A differentiable call goes through the kernel's
+    ``torch.autograd.Function`` (whose forward runs with grad mode off)."""
+    if not torch.is_grad_enabled():
+        return
+    for name, t in tensors.items():
+        if t is not None and t.requires_grad:
+            raise RuntimeError(
+                f"{what}: {name} requires grad, and a kernel launch "
+                f"records no gradient; call it through its "
+                f"torch.autograd.Function, or under torch.no_grad()")

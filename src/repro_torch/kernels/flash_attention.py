@@ -1,8 +1,9 @@
 """Fused GQA attention over packed K/V: one-token decode and chunked
 causal prefill, the CUDA kernels and their plain PyTorch versions.
 
-The port of ``repro.kernels.flash_attention`` (``flash_prefill_diff``, the
-training backward, is not ported yet).
+The port of ``repro.kernels.flash_attention``, with
+``flash_prefill_diff``, the differentiable prefill of training: the
+kernel's forward and a backward that recomputes the plain version.
 
 ``flash_decode(q, k, v, fmt, lengths)`` attends one query token per
 sequence, q (B, H, G, dh), over a contiguous cache K/V (B, S, H, dh) --
@@ -324,6 +325,40 @@ def flash_prefill(q, k_payload, v_payload, fmt=None, *,
                                    q_offset=q_offset)
     return _prefill_cuda(q, k_payload, v_payload, fmt, scale, window,
                          prefix_len, q_offset)
+
+
+class PrefillDiffFn(torch.autograd.Function):
+    """``flash_prefill`` on float K/V with a gradient: the forward is the
+    kernel (its plain version on a CPU tensor), the backward recomputes
+    :func:`flash_prefill_plain` under autograd and returns its gradients
+    of q, k and v -- the reference's recompute backward through
+    ``_prefill_xla_reference`` (``repro/kernels/flash_attention.py:
+    408-414``).  Nothing but q, k and v is kept for the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, window, prefix_len, q_offset):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = dict(scale=scale, window=window, prefix_len=prefix_len,
+                        q_offset=q_offset)
+        return flash_prefill(q, k, v, None, **ctx.args)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            out = flash_prefill_plain(*qkv, None, **ctx.args)
+        return (*torch.autograd.grad(out, qkv, g), None, None, None, None)
+
+
+def flash_prefill_diff(q, k, v, *, scale: float,
+                       window: Optional[int] = None, prefix_len: int = 0,
+                       q_offset: int = 0) -> torch.Tensor:
+    """Differentiable :func:`flash_prefill` on float32 q (B, Sq, H, G, dh)
+    and K/V (B, Skv, H, dh) (:class:`PrefillDiffFn`).  This is what
+    ``models/attention.py`` sends training-time causal attention through
+    under ``decode_impl="flash_pallas"``."""
+    return PrefillDiffFn.apply(q, k, v, float(scale), window, prefix_len,
+                               q_offset)
 
 
 def prefill_hbm_bytes(B: int, Sq: int, Skv: int, H: int, G: int, dh: int,

@@ -48,6 +48,7 @@ def dequantize_decode_plain(payload, fmt) -> torch.Tensor:
 
 def _launch(symbol: str, x, out, fmt, third: int) -> torch.Tensor:
     """One flat launch over ``x`` into ``out`` (same shape, contiguous)."""
+    _build.check_no_grad(symbol, x=x)
     n = x.numel()
     if n == 0:
         return out
@@ -82,6 +83,7 @@ def quantize_encode(x, fmt) -> torch.Tensor:
     if x.device.type == "cpu":
         return quantize_encode_plain(x, fmt)
     x = x.contiguous()
+    _build.check_no_grad("quantize_encode", x=x)
     out = torch.empty(x.shape, dtype=fmt.container_dtype, device=x.device)
     n = x.numel()
     if n == 0:

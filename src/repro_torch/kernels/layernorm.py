@@ -33,8 +33,9 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .rmsnorm import (LIB, add_rmsnorm_hbm_bytes, launch_fused,
-                      norm_operands, residual_add, row_mean_plain)
+from .rmsnorm import (LIB, add_rmsnorm_hbm_bytes, fused_norm_diff,
+                      launch_fused, norm_operands, residual_add,
+                      row_mean_plain)
 
 
 def layernorm_plain(x, gamma, beta, eps: float = 1e-5) -> torch.Tensor:
@@ -80,9 +81,16 @@ def add_layernorm(x, y, gamma, beta, out_dtype, eps: float = 1e-5):
     ``out_dtype``, ``(s, normed)``: one kernel launch on a CUDA tensor
     (f32, bf16 or f16 operands, ``rmsnorm.fused_norm_takes``; others
     raise), the plain version on a CPU one.  ``y`` None normalizes ``x``
-    alone (``s`` is ``x``)."""
+    alone (``s`` is ``x``).  When an operand needs a gradient the launch
+    goes through ``rmsnorm.FusedNormFn`` (the same launch; the backward
+    recomputes the plain version)."""
     if x.device.type == "cpu":
         return add_layernorm_plain(x, y, gamma, beta, out_dtype, eps)
+    if _build.needs_grad(x, y, gamma, beta):
+        return fused_norm_diff(
+            lambda *a: _add_layernorm_cuda(*a, out_dtype, eps),
+            lambda *a: add_layernorm_plain(*a, out_dtype, eps), x, y, gamma,
+            beta)
     return _add_layernorm_cuda(x, y, gamma, beta, out_dtype, eps)
 
 

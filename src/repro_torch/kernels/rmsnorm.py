@@ -27,6 +27,11 @@ tensors (``fused_norm_takes``).  Its plain version is those three steps
 (:func:`add_rmsnorm_plain`), and the kernel equals it bit for bit.
 ``kernels/layernorm.add_layernorm`` does the same for layernorm through
 :func:`launch_fused`.
+
+Training differentiates the fused norms through :class:`FusedNormFn`: its
+forward is the kernel launch, its backward the plain version recomputed
+under autograd.  A launch on an operand that needs a gradient outside
+it raises (``_build.check_no_grad``), so no gradient is dropped.
 """
 from __future__ import annotations
 
@@ -168,10 +173,56 @@ def add_rmsnorm(x, y, gamma, out_dtype, eps: float = 1e-6):
     ``(s, normed)``: one kernel launch on a CUDA tensor (f32, bf16 or f16
     operands, see :func:`fused_norm_takes`; others raise), the plain
     version on a CPU one.  ``y`` None normalizes ``x`` alone (``s`` is
-    ``x``)."""
+    ``x``).  When an operand needs a gradient the launch goes through
+    :class:`FusedNormFn` (the same launch; the backward recomputes the
+    plain version)."""
     if x.device.type == "cpu":
         return add_rmsnorm_plain(x, y, gamma, out_dtype, eps)
+    if _build.needs_grad(x, y, gamma):
+        return fused_norm_diff(
+            lambda *a: _add_rmsnorm_cuda(*a, out_dtype, eps),
+            lambda *a: add_rmsnorm_plain(*a, out_dtype, eps), x, y, gamma)
     return _add_rmsnorm_cuda(x, y, gamma, out_dtype, eps)
+
+
+class FusedNormFn(torch.autograd.Function):
+    """A fused add + norm + cast whose forward is ``launch(x, y,
+    *params)`` (the kernel: ``(s, normed)``) and whose backward
+    recomputes ``plain(x, y, *params)``, the kernel's plain version, under
+    autograd and returns its gradients of ``x``, ``y`` and the (d,)
+    parameters, the recompute backward of ``flash_prefill_diff``.  The
+    kernel equals its plain version bit for bit, so the gradients are
+    those of the forward that ran.  With ``y`` None the output is
+    ``normed`` alone (``s`` is ``x``; :func:`fused_norm_diff` returns it
+    beside)."""
+
+    @staticmethod
+    def forward(ctx, launch, plain, x, y, *params):
+        s, out = launch(x, y, *params)
+        ctx.plain = plain
+        ctx.has_y = y is not None
+        ctx.save_for_backward(x, y, *params)
+        return (s, out) if ctx.has_y else out
+
+    @staticmethod
+    def backward(ctx, *grads):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [None if t is None else t.detach().requires_grad_()
+                      for t in saved]
+            s, out = ctx.plain(*leaves)
+        outs = (s, out) if ctx.has_y else (out,)
+        want = [t for t in leaves if t is not None]
+        got = iter(torch.autograd.grad(outs, want, grads, allow_unused=True))
+        return (None, None) + tuple(None if t is None else next(got)
+                                    for t in leaves)
+
+
+def fused_norm_diff(launch, plain, x, y, *params):
+    """``(s, normed)`` through :class:`FusedNormFn`."""
+    if y is None:
+        return x, FusedNormFn.apply(launch, plain, x, y, *params)
+    return FusedNormFn.apply(launch, plain, x, y, *params)
 
 
 def _add_rmsnorm_cuda(x, y, gamma, out_dtype, eps):

@@ -5,8 +5,9 @@ Paths: prefill through the prefill registry, decode against a contiguous
 :class:`KVCache` (the synchronous reference loop) or against a paged
 :class:`~repro_torch.kernels.paged_cache.PagedKVCache` (the engine),
 :func:`prefill_paged_chunk`, the engine's chunked prefill straight into
-one slot's pages, and the non-causal attention of an encoder and of a
-decoder's cross attention (``mha(causal=False)``, ``mha(kv_source=)``),
+one slot's pages, :func:`prefill_from_cache`, a continuation prefill
+into a contiguous cache, and the non-causal attention of an encoder and
+of a decoder's cross attention (``mha(causal=False)``, ``mha(kv_source=)``),
 plain torch over unrounded K/V as the reference's XLA branch is.
 
 Registered backends (``kernels/dispatch.py`` says what each spelling maps
@@ -25,9 +26,10 @@ import torch
 
 from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.core.qtensor import decode as _qdecode
-from repro_torch.kernels import dispatch, paged_cache
+from repro_torch.kernels import _build, dispatch, paged_cache
 from repro_torch.kernels.flash_attention import (NEG_INF, flash_decode,
-                                                 flash_prefill)
+                                                 flash_prefill,
+                                                 flash_prefill_diff)
 from repro_torch.kernels.paged_attention import paged_decode
 from repro_torch.kernels.paged_cache import PagedKVCache
 
@@ -205,13 +207,21 @@ def _prefill_xla(qg, k, v, *, scale, policy, window, prefix_len, chunk,
 def _prefill_flash(qg, k, v, *, scale, policy, window, prefix_len, chunk,
                    q_offset: int = 0, fmt=None):
     """Fused chunked-causal prefill: ``kernels/flash_attention`` (the
-    CUDA kernel on a card), reading packed K/V when ``fmt`` is set."""
+    CUDA kernel on a card), reading packed K/V when ``fmt`` is set.  Float
+    K/V that autograd records (training) go through
+    ``flash_prefill_diff``: the same kernel forward, a recompute
+    backward."""
     del chunk  # the kernel tiles the queries itself
+    qg = qg.to(F32).contiguous()
     if fmt is None:
         k, v = k.to(F32).contiguous(), v.to(F32).contiguous()
-    out = flash_prefill(qg.to(F32).contiguous(), k.contiguous(),
-                        v.contiguous(), fmt, scale=scale, window=window,
-                        prefix_len=prefix_len, q_offset=q_offset)
+        if _build.needs_grad(qg, k, v):
+            return act_cast(flash_prefill_diff(
+                qg, k, v, scale=scale, window=window, prefix_len=prefix_len,
+                q_offset=q_offset), policy)
+    out = flash_prefill(qg, k.contiguous(), v.contiguous(), fmt,
+                        scale=scale, window=window, prefix_len=prefix_len,
+                        q_offset=q_offset)
     return act_cast(out, policy)
 
 
@@ -442,6 +452,49 @@ def prefill_to_cache(p, x, cfg, policy, capacity: int, prefix_len: int = 0,
     the first ``prefix_len`` rows attend bidirectionally."""
     return mha(p, x, cfg, policy, prefix_len=prefix_len, chunk=chunk,
                cache_capacity=capacity)
+
+
+@torch.no_grad()
+def prefill_from_cache(p, x, cfg, policy, cache: KVCache, q_offset: int,
+                       prefix_len: int = 0, chunk=None):
+    """Continuation prefill against a contiguous cache: write the chunk's
+    K/V (x: (B, S, d)) at rows [q_offset, q_offset + S) in the cache
+    format, then attend the chunk's queries causally over the whole cache
+    through the prefill registry, reading the cache's payload
+    (``_cache_payload``: on a card under ``flash_pallas`` the
+    ``flash_prefill`` kernel over the e5m2 bytes at ``q_offset``; rows at
+    or past ``q_offset + S`` are masked).  The first ``prefix_len`` rows
+    attend bidirectionally.  Raises ``ValueError`` on a ring cache (a
+    sliding window's, capacity == window) and on a chunk past the
+    capacity, as the reference does.  Returns (out, new cache with pos =
+    q_offset + S); ``cache`` is not written."""
+    B, S, _ = x.shape
+    n_kv, dh = cfg.n_kv, cfg.head_dim
+    G = cfg.n_heads // n_kv
+    if cfg.window is not None and cache.capacity == cfg.window:
+        raise ValueError("prefill_from_cache does not support ring-buffer "
+                         "(sliding-window) caches; decode step-by-step")
+    if q_offset + S > cache.capacity:
+        raise ValueError(f"chunk [{q_offset}, {q_offset + S}) exceeds cache "
+                         f"capacity {cache.capacity}")
+    q, k, v = _qkv(p, x, cfg, policy)
+    if cfg.rope_theta > 0:
+        positions = torch.arange(S, device=x.device)[None, :] + q_offset
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    ck, cv = cache.k.clone(), cache.v.clone()
+    ck[:, q_offset:q_offset + S] = k.to(ck.dtype)
+    cv[:, q_offset:q_offset + S] = v.to(cv.dtype)
+    new_cache = KVCache(k=ck, v=cv, pos=q_offset + S)
+
+    scale = np.float32(1.0 / np.sqrt(dh))
+    qg = q.reshape(B, S, n_kv, G, dh)
+    fn = dispatch.resolve_prefill(decode_impl(cfg, policy))
+    kp, vp, fmt = _cache_payload(ck, cv, policy)
+    out = fn(qg, kp, vp, scale=scale, policy=policy, window=cfg.window,
+             prefix_len=prefix_len, chunk=chunk, q_offset=q_offset, fmt=fmt)
+    out = out.reshape(B, S, cfg.q_dim)
+    return pdot(out, p["wo"], policy, "attn_w"), new_cache
 
 
 def prefill_paged_chunk(p, x, cfg, policy, cache: PagedKVCache, slot: int,

@@ -61,6 +61,8 @@ class ModelConfig:
     matmul_impl: str = "xla"              # matmul backend spelling
     attn_chunk: int = 4096
     loss_chunks: int = 4                  # chunked cross-entropy
+    remat: bool = True                    # recompute each block in the
+    #                                       training backward
 
     def __post_init__(self):
         from repro_torch.kernels.dispatch import (validate_impl,

@@ -364,6 +364,41 @@ def _head_plain(x, w, policy):
     return out[:M].reshape(*lead, N)
 
 
+def lm_head_loss(x, head_w, labels, policy, n_chunks: int = 4,
+                 label_mask=None):
+    """Mean cross-entropy of ``x`` (B, S, d) against ``labels`` (B, S),
+    computed over ``n_chunks`` sequence chunks (fewer when S does not
+    divide) so the (B, S, V) logits are never whole.  The logits are
+    ``pdot(..., "embed_w", out_act=False)`` in f32, as the reference's
+    (a tied head's too: no :data:`HEAD_ROWS` blocks here).  The label's
+    logit is picked by ``torch.gather``, one index a row, so its backward
+    adds each gradient to a place of its own.  ``label_mask`` (B, S)
+    weights each position's loss and counts the positions."""
+    B, S, _ = x.shape
+    n_chunks = max(1, min(n_chunks, S))
+    while S % n_chunks:
+        n_chunks -= 1
+    C = S // n_chunks
+    total = torch.zeros((), dtype=F32, device=x.device)
+    count = torch.zeros((), dtype=F32, device=x.device)
+    for i in range(n_chunks):
+        lo, hi = i * C, (i + 1) * C
+        logits = pdot(x[:, lo:hi], head_w, policy, "embed_w",
+                      out_act=False).to(F32)
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, -1,
+                              labels[:, lo:hi, None].long())[..., 0]
+        nll = lse - picked
+        if label_mask is not None:
+            ms = label_mask[:, lo:hi].to(F32)
+            nll = nll * ms
+            count = count + torch.sum(ms)
+        else:
+            count = count + np.float32(B * C)
+        total = total + torch.sum(nll)
+    return total / torch.clamp_min(count, 1.0)
+
+
 def lm_logits(x, head_w, policy):
     if isinstance(head_w, QTensor):
         y = pdot(x, head_w, policy, "embed_w", out_act=False)

@@ -109,8 +109,12 @@ def time_mix(p, x, cfg, policy: PrecisionPolicy, state=None):
     k = pdot(mixed(1), p["wk"], policy, "attn_w")
     v = pdot(mixed(2), p["wv"], policy, "attn_w")
     g = _silu(pdot(mixed(3), p["wg"], policy, "attn_w").to(F32))
+    # the decay LoRA in f32 (wd1 / wd2 are f32 at init, bf16 once
+    # ``optim.adamw.materialize_params`` stores them as attn_w: JAX
+    # promotes them to f32 here)
     lora = torch.matmul(torch.tanh(torch.matmul(mixed(4).to(F32),
-                                                p["wd1"])), p["wd2"])
+                                                p["wd1"].to(F32))),
+                        p["wd2"].to(F32))
     lw = -torch.exp(p["w0"] + lora)                     # (B, S, d) <= 0
 
     rh = r.reshape(B, S, H, dh).to(F32)

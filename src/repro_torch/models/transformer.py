@@ -10,6 +10,8 @@ a per-sequence state (``RwkvState`` / ``RglruState``), which chunked
 prefill threads through ``pstates``.  Parameters are plain nested dicts
 of tensors, made on ``cuda`` unless the caller passes ``device="cpu"``;
 the forward entry points run on the device their parameters live on.
+:meth:`Model.train_loss` is the training forward (the others run under
+``torch.no_grad``).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import dataclasses
 from typing import Any, Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.core.policy import PrecisionPolicy
@@ -28,7 +31,8 @@ from . import rglru as rglru_mod
 from . import rwkv6 as rwkv_mod
 from .base import ModelConfig
 from .layers import (add_norm, dense_init, embed_lookup, ffn_apply,
-                     ffn_init, lm_logits, norm_init, residual_add)
+                     ffn_init, lm_head_loss, lm_logits, norm_init,
+                     residual_add)
 
 
 class Model:
@@ -117,9 +121,10 @@ class Model:
         ``state`` (an rwkv block's channel mix takes the FFN's place).
         With ``enc_out`` (an enc-dec config) the ``norm_x`` -> cross
         attention step runs between the mixer and ``norm2``.  Returns
-        ``(x, f, state)`` with this block's FFN output not yet added.
-        The MoE FFN's aux loss is dropped (serving), as the reference's
-        serving paths drop it."""
+        ``(x, f, state, aux)`` with this block's FFN output not yet
+        added; ``aux`` is the MoE FFN's load-balancing loss (None for
+        another FFN), which :meth:`train_loss` adds up and the serving
+        paths drop, as the reference's do."""
         cfg = self.cfg
         x, h = add_norm(x, f, layer["norm1"], lp, cfg.norm)
         if kind == "attn":
@@ -133,13 +138,14 @@ class Model:
             x, h = add_norm(x, a, layer["norm_x"], lp, cfg.norm)
             a, _ = attn.mha(layer["xattn"], h, cfg, lp, kv_source=enc_out)
         x, h = add_norm(x, a, layer["norm2"], lp, cfg.norm)
+        aux = None
         if kind == "rwkv":
             f, st = rwkv_mod.channel_mix(layer["mix"], h, cfg, lp, state=st)
         elif cfg.moe_experts:
-            f, _ = moe_mod.moe_apply(layer["ffn"], h, cfg, lp)
+            f, aux = moe_mod.moe_apply(layer["ffn"], h, cfg, lp)
         else:
             f = ffn_apply(layer["ffn"], h, lp, cfg)
-        return x, f, st
+        return x, f, st, aux
 
     def _encode(self, params, embeds, policy):
         """The encoder over ``embeds`` (B, T, d): pre-norm blocks of
@@ -170,6 +176,61 @@ class Model:
         the head."""
         _, h = add_norm(x, f, params["final_norm"], policy, self.cfg.norm)
         return lm_logits(h, self._head_w(params), policy)
+
+    def train_loss(self, params, batch, policy: PrecisionPolicy):
+        """The training loss of ``batch`` (``tokens``, ``labels`` (B, S);
+        optionally ``label_mask``, a prefix-LM's ``prefix_embeds`` and an
+        enc-dec config's ``encoder_embeds``): the whole-sequence causal
+        forward, each block under ``torch.utils.checkpoint`` when
+        ``cfg.remat`` (its activations recomputed in the backward, the
+        reference's ``jax.checkpoint``), the chunked cross-entropy of the
+        token positions (a prefix's rows are sliced off before it), and
+        an MoE config's ``0.01 * aux / n_layers``.  Attention follows
+        ``decode_impl``: under ``flash_pallas`` the ``flash_prefill``
+        kernel with a recompute backward.  Not under ``torch.no_grad``:
+        the caller differentiates it."""
+        cfg = self.cfg
+        policy = self._policy(policy)
+        x = embed_lookup(params["embed"], batch["tokens"], policy,
+                         scale=cfg.embed_scale)
+        prefix_len = 0
+        if cfg.prefix_len and "prefix_embeds" in batch:
+            pe = batch["prefix_embeds"].to(device=x.device, dtype=x.dtype)
+            x = torch.cat([pe, x], dim=1)
+            prefix_len = pe.shape[1]
+        enc_out = None
+        if cfg.encoder_layers:
+            enc_out = self._enc_out(params, batch.get("encoder_embeds"),
+                                    x.dtype, policy)
+        chunk = cfg.attn_chunk if x.shape[1] > cfg.attn_chunk else None
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        f = None
+        for li, (kind, layer) in enumerate(zip(cfg.attn_pattern,
+                                               params["layers"])):
+            lp = policy.at_layer(li)
+
+            def run(x, f, layer=layer, kind=kind, lp=lp):
+                x, f, _, aux = self._block(
+                    layer, kind, x, f, lp, lambda h: attn.mha(
+                        layer["mix"], h, cfg, lp, prefix_len=prefix_len,
+                        chunk=chunk), enc_out=enc_out)
+                return x, f, aux
+
+            if cfg.remat:
+                x, f, aux = checkpoint(run, x, f, use_reentrant=False)
+            else:
+                x, f, aux = run(x, f)
+            if aux is not None:
+                aux_total = aux_total + aux
+        _, h = add_norm(x, f, params["final_norm"], policy, cfg.norm)
+        if prefix_len:
+            h = h[:, prefix_len:]
+        loss = lm_head_loss(h, self._head_w(params), batch["labels"], policy,
+                            n_chunks=cfg.loss_chunks,
+                            label_mask=batch.get("label_mask"))
+        if cfg.moe_experts:
+            loss = loss + 0.01 * aux_total / max(cfg.n_layers, 1)
+        return loss
 
     def recurrent_state(self, batch_size, policy, device=None) -> List:
         """Zero states of the recurrent layers for ``batch_size``
@@ -251,7 +312,7 @@ class Model:
         for li, (kind, layer) in enumerate(zip(cfg.attn_pattern,
                                                params["layers"])):
             lp = policy.at_layer(li)
-            x, f, states[li] = self._block(
+            x, f, states[li], _ = self._block(
                 layer, kind, x, f, lp, lambda h, lp=lp, layer=layer:
                 attn.prefill_to_cache(layer["mix"], h, cfg, lp, capacity,
                                       prefix_len=prefix_len, chunk=chunk),
@@ -286,7 +347,7 @@ class Model:
         for li, (kind, layer) in enumerate(zip(cfg.attn_pattern,
                                                params["layers"])):
             lp = policy.at_layer(li)
-            x, f, st = self._block(
+            x, f, st, _ = self._block(
                 layer, kind, x, f, lp, lambda h, lp=lp, layer=layer, li=li:
                 attn.prefill_paged_chunk(layer["mix"], h, cfg, lp,
                                          states[li], slot, q_offset,
@@ -339,7 +400,7 @@ class Model:
         f = None
         for li, layer in enumerate(params["layers"]):
             lp = policy.at_layer(li)
-            x, f, new_states[li] = self._block(
+            x, f, new_states[li], _ = self._block(
                 layer, "attn", x, f, lp, lambda h, lp=lp, layer=layer, li=li:
                 attn.verify_paged(layer["mix"], h, cfg, lp, states[li]))
         return self._logits(params, x, f, policy), new_states
@@ -365,7 +426,7 @@ class Model:
         for li, (kind, layer) in enumerate(zip(cfg.attn_pattern,
                                                params["layers"])):
             lp = policy.at_layer(li)
-            x, f, new_states[li] = self._block(
+            x, f, new_states[li], _ = self._block(
                 layer, kind, x, f, lp, lambda h, lp=lp, layer=layer, li=li:
                 attn.mha(layer["mix"], h, cfg, lp, cache=states[li]),
                 state=states[li], enc_out=enc_out)
