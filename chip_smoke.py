@@ -197,6 +197,41 @@ Run from the root of a checkout.  Phases:
                   round-trips, 32 flash_prefill a prefill and 32
                   flash_decode a decode step; then the artifact serves 2
                   requests x (16 + 8) with packed weights.
+    tune_archs -- the same tuner run on rwkv6-1.6b, recurrentgemma-2b
+                  and paligemma-3b at full width and depth (the
+                  recurrent states bound through the kv_cache groups;
+                  paligemma's 256 zero prefix rows prefilled and counted
+                  in the capacity): KL within eps, fewer bytes, the
+                  artifact round-trips, one flash_prefill a prefill and
+                  one flash_decode a decode step per attention layer
+                  (recurrentgemma 8, paligemma 18, rwkv6 none); checks
+                  that do not saturate as the KL does on random weights:
+                  every candidate prefill's recurrent states and caches
+                  in their layer's kv_cache binding's dtype (a candidate
+                  with two among them seen), the capacity counting the
+                  prefix rows, every decode step reading them; each
+                  artifact serves 2 requests x (16 + 8).
+    mesh       -- (a) a 1-rank NCCL process group and the (1, 1)
+                  ("data", "model") mesh made ambient: the serving
+                  default under it is flash_shmap+flash_pallas, and
+                  llama3-8b at full width serves 2 x (64 + 8) through
+                  flash_shmap+flash_pallas, flash_shmap+paged,
+                  ring+flash_pallas and ring+paged under binary32 and
+                  transprecision: the sharded branch taken once a layer
+                  a decode step, 32 launches of the base's kernel a
+                  step, tokens equal the base spelling's and logits
+                  within 1e-6 x max|logit|; one steady transprecision
+                  decode step of flash_pallas and its two wrapped
+                  spellings profiled with its host ops; (b)
+                  flash_decode and paged_decode at shard-local inputs
+                  split on the host
+                  (2, 4 and 8 shards of the serve shape and paligemma's
+                  MQA shape, rows with nothing live in a shard and
+                  all -1 tables among them): (o, m, l) against the
+                  split twins, empty rows exactly (0, NEG_INF, 0), and
+                  the port's merge and ring fold of the shards within
+                  1e-6 of the unsharded kernel; the byte models at each
+                  split.
 14. profile    -- short paged and speculative serve runs under
                   torch.profiler: device busy share and the kernels that
                   take the device time; one steady decode step's device
@@ -2803,19 +2838,21 @@ def run_speculative(torch, report, libs, args):
 # phase 9: where the serve time goes (torch.profiler over Engine.run)
 # ---------------------------------------------------------------------------
 
-def _profiled_serve(torch, argv, window=None, params=None):
+def _profiled_serve(torch, argv, window=None, params=None, cpu=False):
     """``serve.main(argv, params=params)`` under torch.profiler: the
     whole of ``Engine.run``, or with ``window = n`` only n engine steps
     taken once every prompt is prefilled (a steady decode window).  It
-    traces the device activity alone: the CPU ops' rows of a long run
-    take minutes to sum.  Returns (device busy seconds from the CUDA
-    rows, wall seconds, the top ten CUDA rows, decode steps or rounds in
-    the profile, the key_averages rows)."""
+    traces the device activity alone unless ``cpu`` (the CPU ops' rows of
+    a long run take minutes to sum; a window of one step is cheap).
+    Returns (device busy seconds from the CUDA rows, wall seconds, the
+    top ten CUDA rows, decode steps or rounds in the profile, the
+    key_averages rows)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.engine import scheduler
     from repro_torch.launch import serve
 
-    prof = profile(activities=[ProfilerActivity.CUDA])
+    prof = profile(activities=[ProfilerActivity.CUDA]
+                   + ([ProfilerActivity.CPU] if cpu else []))
     box = {"left": window}
     cls, attr = (scheduler.Engine, "run") if window is None \
         else (scheduler.Engine, "step")
@@ -6434,13 +6471,633 @@ def run_prefill_cont(torch, np, report, libs, args, timer):
 
 
 # ---------------------------------------------------------------------------
+# phase tune_archs: the serve-time tuner on the recurrent and prefix-LM
+# configs at full width and depth, then serving each artifact
+# ---------------------------------------------------------------------------
+
+TUNE_ARCHS = ("rwkv6-1.6b", "recurrentgemma-2b", "paligemma-3b")
+TUNE_PROMPT, TUNE_DECODE = 16, 2  # TUNE_ARGV's --prompt-len, --decode-steps
+# the storage dtype of each format of the tuner's ladder, written out here
+# so that the binding check does not read the port's own mapping
+LADDER_DTYPES = {"binary8": "float8_e5m2", "binary16alt": "bfloat16",
+                 "binary16": "float16", "binary32": "float32"}
+
+
+@contextlib.contextmanager
+def _tune_bindings(torch, cfg):
+    """Inside the block: every ``Model.prefill`` call's capacity, its
+    attention caches' rows and write position, and for each recurrent
+    layer whether the state it returns is stored in the dtype of that
+    layer's ``layers.{li}.kv_cache`` binding in the candidate's policy
+    (rwkv6's wkv state ``s``, the RG-LRU's conv history ``conv``; an
+    attention cache's K likewise); every ``flash_decode`` call's cache
+    rows and fewest valid rows.  These do not saturate as the KL can: a
+    candidate whose two KV groups differ must give two dtypes.  Yields
+    ``seen``."""
+    import inspect
+    from repro_torch.models import attention
+    from repro_torch.models.transformer import Model
+
+    seen = dict(capacities=set(), cache_rows=set(), cache_pos=set(),
+                states_checked=0, states_wrong=[], mixed_calls=0,
+                decode_rows=set(), decode_min_valid=None)
+    real_prefill, real_fd = Model.prefill, attention.flash_decode
+    sig = inspect.signature(real_prefill)
+
+    def prefill(self, *a, **k):
+        arg = sig.bind(self, *a, **k).arguments
+        logits, states = real_prefill(self, *a, **k)
+        seen["capacities"].add(arg.get("capacity"))
+        dts = set()
+        for li, (kind, st) in enumerate(zip(cfg.attn_pattern, states)):
+            if kind == "attn":
+                seen["cache_rows"].add(int(st.k.shape[1]))
+                seen["cache_pos"].add(int(st.pos))
+                t = st.k
+            else:
+                t = st.s if kind == "rwkv" else st.conv
+            fmt = arg["policy"].formats[f"layers.{li}.kv_cache"]
+            want = getattr(torch, LADDER_DTYPES[fmt.name])
+            seen["states_checked"] += kind != "attn"
+            dts.add(t.dtype)
+            if t.dtype != want:
+                seen["states_wrong"].append((li, str(t.dtype), str(want)))
+        seen["mixed_calls"] += len(dts) > 1
+        return logits, states
+
+    def flash_decode(q, kp, vp, fmt, n_valid, *a, **k):
+        seen["decode_rows"].add(int(kp.shape[1]))
+        lo = int(n_valid.min())
+        old = seen["decode_min_valid"]
+        seen["decode_min_valid"] = lo if old is None else min(old, lo)
+        return real_fd(q, kp, vp, fmt, n_valid, *a, **k)
+
+    Model.prefill, attention.flash_decode = prefill, flash_decode
+    try:
+        yield seen
+    finally:
+        Model.prefill, attention.flash_decode = real_prefill, real_fd
+
+
+def _binding_checks(cfg, seen) -> dict:
+    """What ``_tune_bindings`` saw, held: every layer's state or cache in
+    its ``kv_cache`` binding's dtype, and a candidate with two dtypes
+    among them; the capacity, prefix rows included, within the window;
+    the decode steps reading every cached row, paligemma's prefix
+    too."""
+    cap = cfg.prefix_len + TUNE_PROMPT + TUNE_DECODE
+    rows = cap if cfg.window is None else min(cap, cfg.window)
+    checks = dict(capacity_counts_prefix=seen["capacities"] == {cap},
+                  capacity_within_window=cfg.window is None
+                  or cap <= cfg.window)
+    if any(k != "attn" for k in cfg.attn_pattern):
+        checks.update(
+            recurrent_states_take_kv_binding=seen["states_checked"] > 0
+            and not seen["states_wrong"])
+    checks.update(mixed_kv_bindings_seen=seen["mixed_calls"] > 0)
+    if "attn" in cfg.attn_pattern:
+        checks.update(
+            caches_hold_prefix=seen["cache_rows"] == {rows}
+            and seen["cache_pos"] == {cfg.prefix_len + TUNE_PROMPT},
+            decode_reads_prefix=seen["decode_rows"] == {rows}
+            and seen["decode_min_valid"] is not None
+            and seen["decode_min_valid"] >= cfg.prefix_len + TUNE_PROMPT + 1)
+    return checks
+
+
+def run_tune_archs(torch, report, libs, args):
+    """``python -m repro_torch.tuning`` (``__main__.main``) on rwkv6-1.6b,
+    recurrentgemma-2b and paligemma-3b at full width and depth with
+    llama3-8b's arguments (``TUNE_ARGV``: 1 set x 2 prompts x 16 tokens,
+    2 decode positions, 2 KV groups, 1 round, eps 0.1) and the card's
+    default decode (``flash_pallas``).  Holds, for each: KL <= eps; tuned
+    bytes below the binary32 bytes; the artifact round-trips to
+    ``to_policy()``; every prefill launches one ``flash_prefill`` and
+    every decode step one ``flash_decode`` per attention layer and no
+    ``paged_decode`` (recurrentgemma 8, paligemma 18, rwkv6 none), so no
+    attention ran the plain path on the card.  Then each artifact serves
+    2 requests x (16 + 8) through ``serve.main(["--policy", path, ...])``
+    with packed weights (paligemma's capacity holds its 256 prefix
+    rows)."""
+    from repro_torch import configs
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.tuning import __main__ as tune_cli
+
+    rep = report["tune_archs"] = {}
+    ok = True
+    for arch in TUNE_ARCHS:
+        cfg = configs.get(arch)
+        n_attn = sum(k == "attn" for k in cfg.attn_pattern)
+        path = os.path.join(args.out, f"tune_{arch}.json")
+        argv = list(TUNE_ARGV) + ["--seed", str(args.seed), "--out", path]
+        argv[argv.index("--arch") + 1] = arch
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        # the binding spy wraps Model.prefill first, so that it binds the
+        # arguments against the method's own signature
+        with _tune_bindings(torch, cfg) as seen, \
+                _model_calls(torch, libs) as calls:
+            res = tune_cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        # (paged_decode, flash_prefill, flash_decode) launches of each call
+        per = {k: [c[1:4] for c in calls[k]] for k in ("prefill", "decode")}
+        total = res.weight_bytes + res.kv_bytes_per_token
+        total32 = res.weight_bytes_f32 + res.kv_bytes_per_token_f32
+        bindings = _binding_checks(cfg, seen)
+        checks = dict(
+            **bindings,
+            kl_within_eps=res.final_kl <= TUNE_EPS,
+            bytes_below_f32=total < total32,
+            artifact_round_trips=PrecisionPolicy.from_artifact(
+                res.to_artifact()) == res.to_policy(),
+            prefills_on_flash_prefill=_counts_ok(per["prefill"],
+                                                 (0, n_attn, 0)),
+            decodes_on_flash_decode=_counts_ok(per["decode"],
+                                               (0, 0, n_attn)),
+            decode_is_flash=res.decode_impl == "flash_pallas")
+        print(f"[tune_archs] {arch} full ({cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}): KL {res.final_kl:.4g} (eps {TUNE_EPS}), "
+              f"{res.n_evals} evals, formats {res.fmt_histogram()}, bytes "
+              f"{total}/{total32} ({total / total32:.3f}x f32), "
+              f"{len(per['prefill'])} prefills and {len(per['decode'])} "
+              f"decode steps, (paged_decode, flash_prefill, flash_decode) a "
+              f"call {sorted(set(per['prefill']))} / "
+              f"{sorted(set(per['decode']))} (want (0, {n_attn}, 0) / "
+              f"(0, 0, {n_attn})); peak {peak / 1e9:.2f} GB; {wall:.1f} s")
+        print(f"[tune_archs] {arch} bindings: prefill capacities "
+              f"{sorted(seen['capacities'])}, cache rows "
+              f"{sorted(seen['cache_rows'])} at pos "
+              f"{sorted(seen['cache_pos'])}, decode rows "
+              f"{sorted(seen['decode_rows'])} with >= "
+              f"{seen['decode_min_valid']} valid; {seen['states_checked']} "
+              f"recurrent states checked against their kv_cache binding, "
+              f"{len(seen['states_wrong'])} wrong, {seen['mixed_calls']} "
+              f"prefills with mixed state dtypes; {bindings}")
+        torch.cuda.empty_cache()
+        serve_argv = ["--arch", arch, "--policy", path, "--matmul-impl",
+                      "qmm_pallas", "--requests", str(TUNED_REQUESTS),
+                      "--slots", str(TUNED_REQUESTS), "--prompt-len",
+                      str(TUNED_PROMPT), "--max-new", str(TUNED_MAX_NEW),
+                      "--capacity", str(cfg.prefix_len + 32),
+                      "--page-size", "16", "--seed", str(args.seed)]
+        reqs, _, served, swall, speak = _drive_serve(torch, libs,
+                                                     serve_argv, {})
+        checks["artifact_serves"] = (
+            len(reqs) == TUNED_REQUESTS
+            and all(r.done and not r.failed
+                    and len(r.generated) == TUNED_MAX_NEW
+                    and all(0 <= t < cfg.vocab for t in r.generated)
+                    for r in reqs)
+            and served["paged_decode"] == 0
+            and (served["flash_decode"] > 0) == bool(n_attn))
+        good = all(checks.values())
+        ok &= good
+        rep[arch] = dict(
+            argv=argv, final_kl=res.final_kl, n_evals=res.n_evals,
+            formats={k: f.name for k, f in res.formats.items()},
+            fmt_histogram=res.fmt_histogram(), bytes=total,
+            bytes_f32=total32, prefills=len(per["prefill"]),
+            decode_steps=len(per["decode"]), wall_s=wall,
+            peak_mem_bytes=peak, serve_launches=served, serve_wall_s=swall,
+            serve_peak_mem_bytes=speak, binding=dict(
+                capacities=sorted(seen["capacities"]),
+                cache_rows=sorted(seen["cache_rows"]),
+                cache_pos=sorted(seen["cache_pos"]),
+                decode_rows=sorted(seen["decode_rows"]),
+                decode_min_valid=seen["decode_min_valid"],
+                states_checked=seen["states_checked"],
+                states_wrong=seen["states_wrong"],
+                mixed_calls=seen["mixed_calls"]),
+            generated=[r.generated for r in reqs], checks=checks, ok=good)
+        print(f"[tune_archs] {arch} --policy {os.path.relpath(path, ROOT)}: "
+              f"{len(reqs)} requests x ({TUNED_PROMPT} + {TUNED_MAX_NEW}) in "
+              f"{swall:.2f} s, launches {served}; checks {checks} "
+              f"{'ok' if good else 'FAIL'}")
+        torch.cuda.empty_cache()
+    return ok
+
+
+# ---------------------------------------------------------------------------
+# phase mesh: the mesh decode wrappers on a 1-rank NCCL mesh, and the
+# kernels at shard-local inputs split on the host
+# ---------------------------------------------------------------------------
+
+MESH_BASES = ("flash_pallas", "paged")
+MESH_WRAPPED = ("flash_shmap+flash_pallas", "flash_shmap+paged",
+                "ring+flash_pallas", "ring+paged")
+MESH_BRANCHES = ("_shmap_decode", "_shmap_decode_paged", "_ring_decode",
+                 "_ring_decode_paged")
+MESH_PROMPT, MESH_MAX_NEW, MESH_CAPACITY = 64, 8, 128
+MESH_LOGIT_TOL = 1e-6          # over max |logit| of the base spelling's
+MESH_SHARDS = (2, 4, 8)
+# the spellings whose decode step is profiled (the paged ones add the
+# same host work; the script's time is bounded)
+MESH_PROFILED = ("flash_pallas", "flash_shmap+flash_pallas",
+                 "ring+flash_pallas")
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _mesh_branch(impl: str) -> str:
+    wrapper, base = impl.split("+")
+    return ("_shmap_decode" if wrapper == "flash_shmap" else
+            "_ring_decode") + ("_paged" if base == "paged" else "")
+
+
+def _mesh_serve(torch, report, libs, args):
+    """llama3-8b at full width and depth, 2 requests x (64 + 8) over 2
+    slots, page 64, capacity 128, under binary32 and transprecision,
+    through the bases and the four wrapped spellings under the ambient
+    (1, 1) mesh.  Holds for each wrapped spelling: its sharded branch
+    taken once per layer a decode step (a spy), 32 launches of its base's
+    kernel a decode step, ``flash_shmap``'s merge one ``all_gather`` a
+    layer, greedy tokens equal to its base's and every decode step's
+    logits within 1e-6 x max |logit| of its base's.  Under
+    transprecision ``_mesh_step_profile`` then profiles one steady decode
+    step of ``flash_pallas`` and its two wrapped spellings."""
+    from repro_torch.core.policy import get_policy
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import qparams
+    from repro_torch.models.registry import build
+    from repro_torch.models.transformer import Model
+
+    model, cfg = build("llama3-8b")
+    L = cfg.n_layers
+    rep = report["mesh"]["serve"] = {}
+    ok = True
+    for pname in ("binary32", "transprecision"):
+        pol = get_policy(pname, matmul_impl="qmm_pallas")
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        packed = qparams.encode_params(
+            model.init_params(gen, pol, device="cuda"), pol)
+        runs = {}
+        def argv_of(impl, _pname=pname):
+            return ["--arch", "llama3-8b", "--policy", _pname,
+                    "--decode-impl", impl, "--matmul-impl", "qmm_pallas",
+                    "--page-size", "64", "--requests", "2", "--slots", "2",
+                    "--prompt-len", str(MESH_PROMPT), "--max-new",
+                    str(MESH_MAX_NEW), "--capacity", str(MESH_CAPACITY),
+                    "--seed", str(args.seed)]
+        for impl in MESH_BASES + MESH_WRAPPED:
+            logits = []
+            real = Model.decode_step
+
+            def keep(self, *a, _real=real, **k):
+                out = _real(self, *a, **k)
+                logits.append(out[0].float().cpu())
+                return out
+            argv = argv_of(impl)
+            Model.decode_step = keep
+            try:
+                with _counting(dispatch, MESH_BRANCHES + ("_all_gather",)) \
+                        as branches:
+                    reqs, per, launches, wall, _ = _drive_serve(
+                        torch, libs, argv,
+                        {"decode": (Model, "decode_step")}, params=packed)
+            finally:
+                Model.decode_step = real
+            runs[impl] = dict(
+                tokens=[r.generated for r in reqs], logits=logits,
+                decode=per["decode"], branches=dict(branches),
+                launches=launches, wall_s=wall,
+                done=all(r.done and not r.failed for r in reqs))
+        if pname == "transprecision":
+            ok &= _mesh_step_profile(torch, report, argv_of, packed)
+        del packed
+        for impl in MESH_WRAPPED:
+            run, base = runs[impl], runs[impl.split("+")[1]]
+            steps = len(run["decode"])
+            # (paged_decode, flash_prefill, flash_decode) a decode step
+            kern = (L, 0, 0) if impl.endswith("paged") else (0, 0, L)
+            scale = max(float(x.abs().max()) for x in base["logits"])
+            lerr = max(float((a - b).abs().max()) for a, b in
+                       zip(run["logits"], base["logits"]))
+            want_branch = {b: (L * steps if b == _mesh_branch(impl) else 0)
+                           for b in MESH_BRANCHES}
+            checks = dict(
+                done=run["done"],
+                branch_taken={b: run["branches"][b]
+                              for b in MESH_BRANCHES} == want_branch,
+                # flash_shmap: one gather of (o, m, l) a layer (the size-1
+                # data dim is not gathered); the 1-rank ring passes nothing
+                merge_collectives=run["branches"]["_all_gather"] == (
+                    L * steps if impl.startswith("flash_shmap") else 0),
+                attention_launches=_counts_ok(
+                    [c[1:4] for c in run["decode"]], kern),
+                tokens_equal_base=run["tokens"] == base["tokens"],
+                logits_within_tol=(len(run["logits"]) == len(base["logits"])
+                                   and lerr <= MESH_LOGIT_TOL * scale))
+            good = all(checks.values())
+            ok &= good
+            rep[f"{pname}/{impl}"] = dict(
+                decode_steps=steps, branches=run["branches"],
+                per_decode_step=sorted(set(run["decode"])),
+                logits_max_abs_diff=lerr, logits_scale=scale,
+                wall_s=run["wall_s"], base_wall_s=base["wall_s"],
+                tokens=run["tokens"], checks=checks, ok=good)
+            print(f"[mesh] {pname} {impl}: {steps} decode steps, branch "
+                  f"calls {run['branches']} (want {L} a step of "
+                  f"{_mesh_branch(impl)}), launches a step "
+                  f"{sorted(set(run['decode']))}; tokens equal "
+                  f"{impl.split('+')[1]}'s: {checks['tokens_equal_base']}; "
+                  f"logits max|diff| {lerr:.3e} of max|logit| {scale:.3g} "
+                  f"(tol {MESH_LOGIT_TOL} x); wall {run['wall_s']:.2f} s "
+                  f"(base {base['wall_s']:.2f}) {'ok' if good else 'FAIL'}")
+        torch.cuda.empty_cache()
+    return ok
+
+
+def _host_rows(rows):
+    """The CPU ops' rows of a profile: {name: (calls, self CPU us)}."""
+    from torch.autograd import DeviceType
+    return {e.key: (e.count, e.self_cpu_time_total) for e in rows
+            if e.device_type == DeviceType.CPU}
+
+
+def _mesh_step_profile(torch, report, argv_of, packed):
+    """One steady decode step of ``flash_pallas`` and its two wrapped
+    spellings (transprecision) under torch.profiler with the CPU ops
+    traced: wall,
+    device busy time and activities, host ops and their self CPU time,
+    and the host ops a wrapped step adds to its base's (by calls, then
+    by self time).  Says where a wrapped step's extra time goes; the
+    tracer inflates every wall alike."""
+    rep = report["mesh"]["step_profile"] = {}
+    host = {}
+    for impl in MESH_PROFILED:
+        busy, wall, _, steps, rows = _profiled_serve(
+            torch, argv_of(impl), window=1, params=packed, cpu=True)
+        acts = device_counts(rows)[0]
+        host[impl] = _host_rows(rows)
+        del rows
+        calls = sum(c for c, _ in host[impl].values())
+        self_us = sum(t for _, t in host[impl].values())
+        rep[impl] = dict(wall_s=wall, device_busy_s=busy, steps=steps,
+                         device_activities=acts, host_op_calls=calls,
+                         host_self_cpu_s=self_us / 1e6)
+        if "+" in impl:
+            base = host[impl.split("+")[1]]
+            extra = {k: (c - base.get(k, (0, 0))[0],
+                         (t - base.get(k, (0, 0))[1]) / 1e3)
+                     for k, (c, t) in host[impl].items()
+                     if c != base.get(k, (0, 0))[0]}
+            top = sorted(extra.items(), key=lambda kv: -kv[1][1])[:8]
+            rep[impl]["extra_host_ops"] = [
+                dict(name=k[:60], calls=c, self_cpu_ms=ms)
+                for k, (c, ms) in top]
+            b = rep[impl.split("+")[1]]
+            print(f"[mesh] profiled step {impl}: wall {wall * 1e3:.2f} ms "
+                  f"(base {b['wall_s'] * 1e3:.2f}), device busy "
+                  f"{busy * 1e3:.3f} ms (base {b['device_busy_s'] * 1e3:.3f})"
+                  f", {acts} device activities (base "
+                  f"{b['device_activities']}), host ops {calls} (base "
+                  f"{b['host_op_calls']}), host self CPU "
+                  f"{self_us / 1e3:.2f} ms (base "
+                  f"{b['host_self_cpu_s'] * 1e3:.2f}); added host ops: "
+                  + ", ".join(f"{k[:40]} x{c} {ms:.2f} ms"
+                              for k, (c, ms) in top[:5]))
+        else:
+            print(f"[mesh] profiled step {impl}: wall {wall * 1e3:.2f} ms, "
+                  f"device busy {busy * 1e3:.3f} ms, {acts} device "
+                  f"activities, host ops {calls}, host self CPU "
+                  f"{self_us / 1e3:.2f} ms")
+        torch.cuda.empty_cache()
+    return all(r["steps"] == 1 for r in rep.values())
+
+
+def _split_cases(torch, np, seed):
+    """The host-split cases: (name, fmt, q, contiguous K/V payload,
+    lengths, pools, block tables).  The serve shape (B 4, H 8, G 4, dh
+    128; 256 rows of which 144, 144, 7 and 0 live; e5m2) and paligemma's
+    MQA decode (B 2, H 1, G 8, dh 256; 324 and 330 of 384; e5m2 and f32),
+    each also as a pool of 64-row pages (shuffled, 16 or 32 pages so that
+    2, 4 and 8 shards divide it)."""
+    from repro_torch.core.formats import BINARY8
+    from repro_torch.core.qtensor import encode
+    cases = []
+    for name, fmt, shp, S, lengths in (
+            ("serve", BINARY8, dict(H=8, G=4, dh=128), 256, (144, 144, 7, 0)),
+            ("mqa", BINARY8, MQA_SHAPE, MQA_S, (324, 330)),
+            ("mqa_f32", None, MQA_SHAPE, MQA_S, (324, 330))):
+        rng = np.random.default_rng(seed)
+        B, H, G, dh = len(lengths), shp["H"], shp["G"], shp["dh"]
+        q = torch.tensor(rng.normal(size=(B, H, G, dh)), dtype=torch.float32)
+        kf = torch.tensor(rng.normal(size=(B, S, H, dh)), dtype=torch.float32)
+        vf = torch.tensor(rng.normal(size=(B, S, H, dh)), dtype=torch.float32)
+        kp = encode(kf, fmt) if fmt is not None else kf
+        vp = encode(vf, fmt) if fmt is not None else vf
+        pps = S // 64
+        num_pages = 8 * -(-(B * pps) // 8)
+        perm = rng.permutation(num_pages)
+        tables = np.full((B, pps), -1, np.int32)
+        for b in range(B):
+            tables[b] = perm[b * pps:(b + 1) * pps]
+        kpool = torch.zeros((num_pages, 64, H, dh), dtype=kp.dtype)
+        vpool = torch.zeros_like(kpool)
+        for b in range(B):
+            for p in range(pps):
+                kpool[tables[b, p]] = kp[b, p * 64:(p + 1) * 64]
+                vpool[tables[b, p]] = vp[b, p * 64:(p + 1) * 64]
+        dev = lambda t: t.to("cuda").contiguous()  # noqa: E731
+        cases.append((name, fmt, dev(q), dev(kp), dev(vp),
+                      torch.tensor(lengths, dtype=torch.int32,
+                                   device="cuda"),
+                      dev(kpool), dev(vpool), dev(torch.tensor(tables))))
+    return cases
+
+
+def check_mesh_split(torch, np, report):
+    """The decode kernels at the inputs the mesh wrappers give them, on
+    one card: each case split on the host into 2, 4 and 8 shards, each
+    shard through the CUDA ``flash_decode`` (the sequence slice, local
+    lengths clamp(len - i * s, 0, s)) and ``paged_decode`` (the pool's
+    page slice, the table rewritten to pool-local ids by
+    ``dispatch._local_table``, -1 elsewhere) with residuals.  Holds: each
+    shard's (o, m, l) against the kernel's walk in PyTorch (the split
+    twins) within 1e-6 on o, 1e-5 on m and 1e-5 relative on l, as
+    ``check_flash_decode`` and ``check_paged`` hold them, and at the
+    serve shape o within 1e-6 of the plain version; a row with nothing
+    live in its shard exactly (0, NEG_INF, 0), no NaN anywhere; the
+    port's ``_merge_partials`` (the shards stacked in rank order, as the
+    gather gives them) and ``_ring_fold`` / ``_ring_finalize`` in rank
+    order and in reverse within 1e-6 of the unsharded kernel.  Reports
+    the byte models at each split: ``attention_hbm_bytes`` of one shard,
+    ``ring_ppermute_bytes`` and ``paged_ring_ppermute_bytes``."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_attention as PA
+
+    rep = report["mesh"]["split"] = []
+    ok = True
+    worst = {"flash_decode": 0.0, "paged_decode": 0.0}
+    for name, fmt, q, kp, vp, lens, kpool, vpool, tbl in _split_cases(
+            torch, np, report["seed"] + 41):
+        S = kp.shape[1]
+        whole = {"flash_decode": FA.flash_decode(q, kp, vp, fmt, lens),
+                 "paged_decode": PA.paged_decode(q, kpool, vpool, fmt, lens,
+                                                 tbl)}
+        for n in MESH_SHARDS:
+            parts = {"flash_decode": [], "paged_decode": []}
+            errs = {"flash_decode": [0.0, 0.0, 0.0],
+                    "paged_decode": [0.0, 0.0, 0.0]}
+            empty_ok, empties = True, 0
+            s_loc, p_loc = S // n, kpool.shape[0] // n
+            for i in range(n):
+                sl = slice(i * s_loc, (i + 1) * s_loc)
+                local = torch.clamp(lens - i * s_loc, 0, s_loc)
+                ks, vs = kp[:, sl].contiguous(), vp[:, sl].contiguous()
+                ltbl = dispatch._local_table(tbl, i * p_loc, p_loc)
+                kps = kpool[i * p_loc:(i + 1) * p_loc]
+                vps = vpool[i * p_loc:(i + 1) * p_loc]
+                for kern, got, twin, plain, live in (
+                        ("flash_decode",
+                         FA.flash_decode(q, ks, vs, fmt, local,
+                                         return_residuals=True),
+                         FA.flash_decode_split_plain(
+                             q, ks, vs, fmt, local, return_residuals=True),
+                         FA.flash_decode_plain(q, ks, vs, fmt, local),
+                         local > 0),
+                        ("paged_decode",
+                         PA.paged_decode(q, kps, vps, fmt, lens, ltbl,
+                                         return_residuals=True),
+                         PA.paged_decode_split_plain(
+                             q, kps, vps, fmt, lens, ltbl,
+                             return_residuals=True),
+                         PA.paged_decode_plain(q, kps, vps, fmt, lens, ltbl),
+                         _paged_live(torch, lens, ltbl, 64))):
+                    o, m, l = got
+                    e = errs[kern]
+                    e[0] = max(e[0], float((o - twin[0]).abs().max()))
+                    e[1] = max(e[1], float((m - twin[1]).abs().max()))
+                    e[2] = max(e[2], float(((l - twin[2]).abs()
+                                            / twin[2].clamp(min=1.0)).max()))
+                    if name == "serve":
+                        e[0] = max(e[0], float((o - plain).abs().max()))
+                    dead = ~live
+                    empties += int(dead.sum())
+                    empty_ok &= not any(bool(torch.isnan(t).any())
+                                        for t in (o, m, l))
+                    empty_ok &= bool((o[dead] == 0).all()) \
+                        and bool((m[dead] == FA.NEG_INF).all()) \
+                        and bool((l[dead] == 0).all())
+                    parts[kern].append((o, m, l))
+            good = empty_ok
+            # the byte models at this split: what one rank's kernel
+            # streams, and what it would send a decode step under ring
+            # (computed, not measured: one card passes nothing)
+            Bq, Hq, Gq, dhq = q.shape
+            nbytes = dict(
+                shard_hbm_bytes=FA.attention_hbm_bytes(
+                    Bq, s_loc, Hq, dhq, fmt, g=Gq),
+                ring_send_bytes=FA.ring_ppermute_bytes(
+                    Bq, S, Hq, dhq, fmt, n_devices=n),
+                paged_ring_send_bytes=PA.paged_ring_ppermute_bytes(
+                    kpool.shape[0], kpool.shape[1], Hq, dhq, fmt,
+                    n_devices=n))
+            entry = dict(case=name, shards=n, empty_rows=empties,
+                         empty_exact=empty_ok, **nbytes)
+            for kern in parts:
+                o, m, l = (torch.stack([p[j] for p in parts[kern]])
+                           for j in range(3))
+                merged = dispatch._merge_partials(o, m, l)
+                folded = []
+                for order in (range(n), reversed(range(n))):
+                    acc, m_run, l_run = dispatch._ring_state(q)
+                    for i in order:
+                        acc, m_run, l_run = dispatch._ring_fold(
+                            acc, m_run, l_run, o[i], m[i], l[i])
+                    folded.append(dispatch._ring_finalize(acc, l_run))
+                comb = max(float((t - whole[kern]).abs().max())
+                           for t in [merged] + folded)
+                e = errs[kern]
+                kgood = e[0] <= 1e-6 and e[1] <= 1e-5 and e[2] <= 1e-5 \
+                    and comb <= 1e-6
+                good &= kgood
+                worst[kern] = max(worst[kern], e[0])
+                entry[kern] = dict(o_err=e[0], m_err=e[1], l_rel_err=e[2],
+                                   combined_err=comb, ok=kgood)
+            entry["ok"] = good
+            ok &= good
+            rep.append(entry)
+            fd, pd = entry["flash_decode"], entry["paged_decode"]
+            print(f"[mesh] split {name} ({'e5m2' if fmt else 'f32'}) into "
+                  f"{n}: flash_decode o/m/l err {fd['o_err']:.1e}/"
+                  f"{fd['m_err']:.1e}/{fd['l_rel_err']:.1e}, merged and "
+                  f"folded vs unsharded {fd['combined_err']:.1e}; "
+                  f"paged_decode {pd['o_err']:.1e}/{pd['m_err']:.1e}/"
+                  f"{pd['l_rel_err']:.1e}, combined {pd['combined_err']:.1e};"
+                  f" {empties} empty shard rows exactly (0, NEG_INF, 0): "
+                  f"{empty_ok}; bytes a rank streams "
+                  f"{nbytes['shard_hbm_bytes']}, sends under ring "
+                  f"{nbytes['ring_send_bytes']} (paged "
+                  f"{nbytes['paged_ring_send_bytes']}) "
+                  f"{'ok' if good else 'FAIL'}")
+    # the host-split cases count under the two kernels' rows
+    report["flash_decode_max_abs_err"] = max(
+        report.get("flash_decode_max_abs_err", 0.0), worst["flash_decode"])
+    report["paged_max_abs_err"] = max(report.get("paged_max_abs_err", 0.0),
+                                      worst["paged_decode"])
+    return ok
+
+
+def _paged_live(torch, lens, tbl, page):
+    """Rows with a live position in the table's mapped pages."""
+    n_pages = tbl.shape[1]
+    pos = torch.arange(n_pages * page, device=tbl.device)[None, :]
+    mapped = torch.repeat_interleave(tbl >= 0, page, dim=1)
+    return ((pos < lens[:, None].to(torch.int64)) & mapped).any(dim=1)
+
+
+def run_mesh(torch, np, report, libs, args):
+    """(a) A 1-rank NCCL process group (``tcp://localhost``, a free
+    port), the (1, 1) ``("data", "model")`` mesh made ambient by
+    ``use_mesh``: ``default_serving_impl`` gives
+    ``flash_shmap+flash_pallas`` under it, and llama3-8b serves through
+    the four wrapped spellings (``_mesh_serve``).  (b) The decode kernels
+    at shard-local inputs split on the host (``check_mesh_split``).  A
+    failed init fails the phase: there is no fallback."""
+    import torch.distributed as dist
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import mesh as mesh_mod
+
+    report["mesh"] = {}
+    torch.cuda.set_device(0)
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        mesh = mesh_mod.make_mesh((1, 1), ("data", "model"), "cuda")
+        init_s = time.perf_counter() - t0
+        with mesh_mod.use_mesh(mesh):
+            default = dispatch.default_serving_impl("cuda")
+            ok = default == "flash_shmap+flash_pallas"
+            print(f"[mesh] NCCL (1, 1) mesh in {init_s:.2f} s; "
+                  f"default_serving_impl under it: {default}")
+            ok &= _mesh_serve(torch, report, libs, args)
+    finally:
+        dist.destroy_process_group()
+    report["mesh"].update(default_serving_impl=default, init_s=init_s)
+    ok &= check_mesh_split(torch, np, report)
+    return ok
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
 ALL_PHASES = ("build", "kernels", "casts", "ops", "serve", "serve_flash",
               "speculative", "serve_f32", "serve_reduced", "logits",
               "resilience", "archs", "encdec", "train", "prefill_cont",
-              "paper", "serve_tune", "profile")
+              "paper", "serve_tune", "tune_archs", "mesh", "profile")
 
 
 def kernel_rows(report):
@@ -6855,6 +7512,10 @@ def main() -> int:
                 ok = run_paper(torch, report, libs)
             elif phase == "serve_tune":
                 ok = run_serve_tune(torch, report, libs, args)
+            elif phase == "tune_archs":
+                ok = run_tune_archs(torch, report, libs, args)
+            elif phase == "mesh":
+                ok = run_mesh(torch, np, report, libs, args)
             elif phase == "profile":
                 ok = run_profile(torch, report, args)
             elif phase == "steps":

@@ -367,3 +367,26 @@ def prefill_hbm_bytes(B: int, Sq: int, Skv: int, H: int, G: int, dh: int,
     once at container width."""
     item = 4 if fmt is None else get_format(fmt).container_bytes
     return 2 * B * Sq * H * G * dh * 4 + 2 * B * Skv * H * dh * item
+
+
+def attention_hbm_bytes(batch: int, seq: int, n_kv: int, head_dim: int,
+                        fmt, *, g: int = 1) -> int:
+    """The reference's model of the bytes one decode step streams through
+    attention: the whole K and V payloads of ``seq`` slots (container
+    width; the dominant term) plus the ``g`` f32 query rows per KV
+    head."""
+    item = 4 if fmt is None else get_format(fmt).container_bytes
+    kv = 2 * batch * seq * n_kv * head_dim * item
+    return kv + batch * n_kv * g * head_dim * 4
+
+
+def ring_ppermute_bytes(batch: int, seq: int, n_kv: int, head_dim: int,
+                        fmt, *, n_devices: int) -> int:
+    """Bytes ONE rank sends per decode step under the ``ring`` wrapper
+    over a contiguous cache: its (seq / n_devices)-slot K and V shards,
+    passed to the next rank on each of the n_devices - 1 rotations, at
+    container width (the packed formats shrink the transfer as they
+    shrink HBM traffic)."""
+    item = 4 if fmt is None else get_format(fmt).container_bytes
+    shard = batch * (seq // n_devices) * n_kv * head_dim * item
+    return 2 * shard * (n_devices - 1)

@@ -250,3 +250,14 @@ def paged_hbm_bytes(lengths, n_kv: int, head_dim: int, fmt, *,
     kv = 2 * int(lengths.sum()) * n_kv * head_dim * item
     return (kv + pages * 4 + len(lengths) * 4
             + 2 * len(lengths) * n_kv * g * head_dim * 4)
+
+
+def paged_ring_ppermute_bytes(num_pages: int, page_size: int, n_kv: int,
+                              head_dim: int, fmt, *, n_devices: int) -> int:
+    """Bytes ONE rank sends per decode step under ``ring+paged``: its
+    (num_pages / n_devices)-page K and V pool shards, passed whole on
+    each of the n_devices - 1 rotations (the block table stays and is
+    rewritten locally, so only payload bytes move)."""
+    item = 4 if fmt is None else get_format(fmt).container_bytes
+    shard = (num_pages // n_devices) * page_size * n_kv * head_dim * item
+    return 2 * shard * (n_devices - 1)

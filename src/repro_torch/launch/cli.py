@@ -27,10 +27,15 @@ def add_backend_args(ap, *, include_pool: bool = True,
     ap.add_argument("--decode-impl", default=None,
                     choices=list(dispatch.legal_impls()),
                     help="attention backend (default: flash_pallas on "
-                         "CUDA, else the model config's); flash_pallas = "
-                         "the flash decode CUDA kernel over the gathered "
-                         "pages, paged = the block-table CUDA kernel, xla "
-                         "= the plain dequantize path")
+                         "CUDA, flash_shmap+flash_pallas under a mesh with "
+                         "a model dim, else the model config's); "
+                         "flash_pallas = the flash decode CUDA kernel over "
+                         "the gathered pages, paged = the block-table CUDA "
+                         "kernel, xla = the plain dequantize path; "
+                         "flash_shmap+BASE / ring+BASE shard the cache "
+                         "over the ambient mesh's model dim and merge the "
+                         "partials (flash_shmap: gathered; ring: rotated "
+                         "shards folded), a bare wrapper means +xla")
     ap.add_argument("--matmul-impl", default=None,
                     choices=list(dispatch.legal_matmul_impls()),
                     help="matmul backend (default: model config); "

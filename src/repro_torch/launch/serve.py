@@ -28,7 +28,11 @@ them).
 ``--disaggregate`` streams finished KV pages from a private prefill pool
 into the decode pool (``StreamedTransport``, CRC-checked): with two or
 more cards worker i's pool sits on card 1 + i mod (cards - 1), on one
-card beside the decode pool.
+card beside the decode pool.  It refuses a mesh-wrapped decode spelling
+(``flash_shmap[+...]``, ``ring[+...]``), whose pool would be sharded
+across the mesh, as the reference does.  The wrapped spellings shard
+under a mesh the caller makes ambient (``launch/mesh.use_mesh``) around
+:func:`main`, and run their base unsharded without one.
 """
 from __future__ import annotations
 
@@ -143,6 +147,14 @@ def main(argv=None, *, params=None):
         if impl is not None:
             policy = dataclasses.replace(policy, decode_impl=impl)
     model, cfg = build(args.arch, reduced=args.reduced)
+    effective_impl = policy.decode_impl or cfg.decode_impl
+    if args.disaggregate and len(dispatch.canonicalize_impl(
+            effective_impl)) > 1:
+        raise ValueError(
+            f"--disaggregate streams pages between single-device pools; "
+            f"mesh-sharded spelling {effective_impl!r} keeps the pool "
+            f"sharded across the mesh -- use a base spelling "
+            f"(xla / flash_pallas / paged)")
     if params is None:
         gen = torch.Generator(device=device).manual_seed(args.seed)
         params = model.init_params(gen, policy, device=device)

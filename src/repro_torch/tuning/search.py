@@ -36,6 +36,23 @@ seeded with ``seed`` (or handed over by ``params_for(policy)``), and at
 most one weight set is kept between candidates: at full width one set is
 8-32 GB.  An enc-dec config's prefills and decode steps all get zero stub
 frame embeddings, as the reference's do.
+
+Every config is tuned.  On the recurrent configs (rwkv6, recurrentgemma)
+the ``layers.{li}.kv_cache`` binding of a depth group sets that layer's
+recurrent state format (``policy.at_layer(li)``, as in the reference),
+rwkv6 has no ``attn`` layer and so no ``attn_probs`` variable, and the
+KV bytes per token count attention layers only.  Candidates run
+whole-prompt ``Model.prefill``, so a state is rounded once at the
+prompt's end, as the reference's candidates are.
+
+A prefix-LM (paligemma-3b) departs from the reference on purpose: its
+candidates prefill ``make_batch``'s ``prefix_len`` zero stub patch
+embeddings before the prompt, and ``_capacity`` counts those rows, so
+every decode position attends over the prefix as the port's engine
+serves it.  The reference sizes its capacity without the prefix
+(``src/repro/tuning/search.py:169-170``); its ``_build_cache`` then keeps
+only the last rows as a ring, and its KL references decode over a
+context that has lost the prefix.
 """
 from __future__ import annotations
 
@@ -155,20 +172,6 @@ class ServeTuner:
                                                object]] = None):
         if not sets:
             raise ValueError("ServeTuner needs at least one calibration set")
-        if cfg.prefix_len:
-            # the reference sizes its capacity without the prefix
-            # (src/repro/tuning/search.py:169), so its KL references drop
-            # the prefix rows from decode; the port keeps them
-            raise ValueError(
-                f"ServeTuner does not tune the prefix-LM arch {cfg.arch} "
-                f"yet: its decode context would drop the "
-                f"{cfg.prefix_len} prefix rows")
-        if cfg.family in ("ssm", "hybrid"):
-            # the reference tunes them with the recurrent state under the
-            # kv_cache role (src/repro/tuning/search.py:129); not ported
-            raise ValueError(
-                f"ServeTuner does not tune the recurrent {cfg.family} arch "
-                f"{cfg.arch} yet: its recurrent states have no binding")
         self.device = resolve_device(device)
         self.model, self.cfg = model, cfg
         self.sets = list(sets)
@@ -194,7 +197,10 @@ class ServeTuner:
             self.variables[name] = tuple(
                 f"layers.{li}.kv_cache" for li in group)
 
-        self._capacity = (max(len(p) for s in self.sets for p in s.prompts)
+        # a prefix-LM's cache holds its prefix rows too (the stated
+        # departure from the reference, which sizes without them)
+        self._capacity = (cfg.prefix_len
+                          + max(len(p) for s in self.sets for p in s.prompts)
                           + self.decode_steps)
         self._params_key: Optional[Tuple[str, ...]] = None
         self._params_val = None

@@ -52,7 +52,6 @@ from repro_torch.models.base import ModelConfig  # noqa: E402
 from repro_torch.models.convert import (params_from_numpy,  # noqa: E402
                                         tensor_from_numpy)
 from repro_torch.models.registry import build  # noqa: E402
-from repro_torch.tuning import CalibrationSet, ServeTuner  # noqa: E402
 from test_torch_model import _close, _f32, to_numpy  # noqa: E402
 
 RWKV, RG = "rwkv6-1.6b", "recurrentgemma-2b"
@@ -581,12 +580,6 @@ def _refuse_verify():
                       _paged(cfg, policy, False), policy)
 
 
-def _refuse_tuner():
-    model, cfg, _, _ = _rg()
-    ServeTuner(model, cfg, [CalibrationSet((tuple(PROMPT),))],
-               device="cpu")
-
-
 def _refuse_fused():
     ModelConfig(arch="rwkv6-1.6b", family="ssm", n_layers=2, d_model=64,
                 n_heads=4, n_kv=4, d_ff=128, vocab=256, rwkv_head_dim=16,
@@ -595,15 +588,13 @@ def _refuse_fused():
 
 @pytest.mark.parametrize("call,match", [
     (_refuse_window, "sliding window"), (_refuse_speculative, "recurrent"),
-    (_refuse_verify, "recurrent"), (_refuse_tuner, "recurrent"),
-    (_refuse_fused, "rwkv_fused")],
+    (_refuse_verify, "recurrent"), (_refuse_fused, "rwkv_fused")],
     ids=["capacity-above-window", "SpeculativeDecoder", "verify_step",
-         "ServeTuner", "rwkv_fused"])
+         "rwkv_fused"])
 def test_recurrent_refusals(call, match):
     """What the recurrent configs do not take: a paged capacity above the
     window (the reference's check), speculation and the verify step
-    (recurrent state cannot roll back, in the reference too),
-    ``ServeTuner`` (not ported for them yet) and the reference's
-    ``rwkv_fused`` experiment."""
+    (recurrent state cannot roll back, in the reference too) and the
+    reference's ``rwkv_fused`` experiment."""
     with pytest.raises(ValueError, match=match):
         call()

@@ -51,7 +51,6 @@ from repro_torch.launch.serve import build_draft  # noqa: E402
 from repro_torch.models import qparams  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.models.registry import build  # noqa: E402
-from repro_torch.tuning import CalibrationSet, ServeTuner  # noqa: E402
 from test_torch_model import _close, _f32, _jit, to_numpy  # noqa: E402
 
 ARCH = "paligemma-3b"
@@ -290,11 +289,6 @@ def test_reference_prefill_drops_the_prefix():
     _close(ld, ld_cap, 1e-5 * scale)
 
 
-def _refuse_tuner(model, cfg, policy, params):
-    ServeTuner(model, cfg, [CalibrationSet((tuple(PROMPT),))],
-               device="cpu")
-
-
 def _refuse_speculative(model, cfg, policy, params):
     Engine(model, cfg, policy, params, slots=2, capacity=CAP,
            page_size=PAGE, device="cpu",
@@ -312,14 +306,13 @@ def _refuse_verify(model, cfg, policy, params):
                       _paged_states(cfg, policy), policy)
 
 
-@pytest.mark.parametrize("call", [_refuse_tuner, _refuse_speculative,
-                                  _refuse_chunk, _refuse_verify],
-                         ids=["ServeTuner", "SpeculativeDecoder",
-                              "prefill_chunk", "verify_step"])
+@pytest.mark.parametrize("call", [_refuse_speculative, _refuse_chunk,
+                                  _refuse_verify],
+                         ids=["SpeculativeDecoder", "prefill_chunk",
+                              "verify_step"])
 def test_prefix_lm_refusals(call):
     """What the prefix-LM does not take, as in the reference: chunked
     prefill, the verify step and speculation (prefix context cannot roll
-    back); and ``ServeTuner``, whose reference sizes its capacity
-    without the prefix."""
+    back)."""
     with pytest.raises(ValueError, match="prefix"):
         call(*_port("binary32", "paged"))
