@@ -232,6 +232,37 @@ Run from the root of a checkout.  Phases:
                   the port's merge and ring fold of the shards within
                   1e-6 of the unsharded kernel; the byte models at each
                   split.
+    train_mesh -- multi-device training on a 1-rank NCCL mesh (its own
+                  process group, started after mesh's is destroyed):
+                  (a) llama3-8b at full width, 4 of 32 layers, batch 8 x
+                  128, flash_pallas, transprecision: 3 sharded steps
+                  (params and AdamW state by tree_param_shardings, the
+                  batch by batch_spec) whose losses equal the train
+                  phase's unsharded steps bit for bit, 8 flash_prefill
+                  and 17 add_rmsnorm a step and nothing else, peak GB
+                  and device ms; a checkpoint saved under the mesh
+                  restores with shardings= bit for bit; 2 more steps
+                  with the gradients reduced in binary8 with stochastic
+                  rounding (the stochastic cast kernel, one launch a
+                  leaf); (b) granite-moe-1b-a400m at full size,
+                  moe_impl="shard_map", binary32: 3 steps whose losses
+                  equal moe_impl="dense"'s bit for bit; (c)
+                  qwen3-moe-30b-a3b at full width, forward only: a
+                  64-row chunk and a decode step under shard_map (its
+                  packed leaves dequantized) against the dense packed
+                  path, at 48 layers finite and reported, at 2 layers
+                  within 2^-5 x max|logit|; (d) the stochastic cast
+                  kernel bit for bit its plain version with the same
+                  bits (4096 x 14336 f32 and ragged sizes, the four
+                  paper formats), timed against its 12-byte bound;
+                  compressed_psum, compressed_allgather_sum and
+                  tree_compress_psum over step (a)'s gradients on the
+                  1-rank mesh (a dim of one rank runs no collective)
+                  bit for bit decompress(compress(...)), their wire
+                  bytes; (e) params + AdamW state per rank under (1,
+                  2), (1, 4), (2, 4) and (16, 16) for llama3-8b at 32
+                  layers and qwen3-moe-30b-a3b, from the rules on the
+                  meta device.
 14. profile    -- short paged and speculative serve runs under
                   torch.profiler: device busy share and the kernels that
                   take the device time; one steady decode step's device
@@ -3588,21 +3619,23 @@ def check_recurrent_logits(torch, report, args):
 
 
 def _first_step_logits(torch, model, cfg, pol, dec, mm, seed, *, prompt,
-                       page):
+                       page, params=None):
     """Logits of one prefill chunk of ``prompt`` random tokens (seeded)
     into a one-slot paged cache of 4 pages of ``page``, then of one
     decode step, under ``pol`` with decode backend ``dec`` and matmul
     ``mm`` (``qmm_pallas`` packs the weights): the kernel path
-    (paged / flash_pallas, qmm_pallas) or the plain one (xla, xla)."""
+    (paged / flash_pallas, qmm_pallas) or the plain one (xla, xla).
+    ``params``: served as they are (else made from ``seed``)."""
     from repro_torch.core.policy import get_policy
     from repro_torch.kernels import paged_cache
     from repro_torch.models import qparams
 
     policy = get_policy(pol, decode_impl=dec, matmul_impl=mm)
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    params = model.init_params(gen, policy, device="cuda")
-    if mm == "qmm_pallas":
-        params = qparams.encode_params(params, policy)
+    if params is None:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        params = model.init_params(gen, policy, device="cuda")
+        if mm == "qmm_pallas":
+            params = qparams.encode_params(params, policy)
     states = [paged_cache.set_block_tables(
         paged_cache.init_paged_cache(
             1, 4, page, 4, cfg.n_kv, cfg.head_dim,
@@ -7091,13 +7124,503 @@ def run_mesh(torch, np, report, libs, args):
 
 
 # ---------------------------------------------------------------------------
+# phase train_mesh: multi-device training on a 1-rank NCCL mesh
+# ---------------------------------------------------------------------------
+
+MESH_TRAIN_STEPS = 3           # sharded steps held to the train phase's
+MESH_COMPRESS_STEPS = 2        # then steps with binary8 + stochastic grads
+MOE_TRAIN_ARCH = "granite-moe-1b-a400m"
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 2, 128, 3
+MOE_FWD_ARCH = "qwen3-moe-30b-a3b"
+SR_FMTS = ("binary8", "binary8alt", "binary16", "binary16alt")
+SR_SHAPES = ((4096, 14336), (1,), (7,), (1000003,), (333, 17))
+RANK_MESHES = ((1, 2), (1, 4), (2, 4), (16, 16))
+RANK_BYTES_ARCHS = ((TRAIN_ARCH, 32), (MOE_FWD_ARCH, None))
+CARD_BYTES = 80e9
+
+
+def _mesh_train_llama(torch, np, report, libs, args, mesh):
+    """(a): the sharded step at the train phase's shape; then the
+    checkpoint under the mesh; then the compressed, stochastic steps.
+    Returns (ok, the gradients of one step for (d))."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core.policy import get_policy
+    from repro_torch.core.tree import leaves
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import flexfloat_cast as FF
+    from repro_torch.launch import sharding
+    from repro_torch.launch import train as train_cli
+    from repro_torch.optim import adamw
+
+    out = report["train_mesh"]
+    model, cfg = _train_model()
+    L = cfg.n_layers
+    pol = get_policy("transprecision", decode_impl="flash_pallas")
+    data = SyntheticLM(DataConfig(seed=args.seed, global_batch=TRAIN_BATCH,
+                                  seq_len=TRAIN_SEQ), cfg)
+    want_losses = report.get("train", {}).get("losses")
+    if want_losses is None:
+        # the train phase did not run: its unsharded steps, here
+        gen = torch.Generator("cuda").manual_seed(report["seed"])
+        params = model.init_params(gen, pol, device="cuda")
+        opt = adamw.init(params, pol)
+        step_fn = train_cli.make_train_step(model, pol, TRAIN_LR)
+        want_losses = []
+        for s in range(MESH_TRAIN_STEPS):
+            loss, params, opt = step_fn(params, opt,
+                                        data.batch_at(s, device="cuda"))
+            want_losses.append(float(loss))
+        del params, opt, step_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator("cuda").manual_seed(report["seed"])
+    params = model.init_params(gen, pol, device="cuda")
+    shs = train_cli.shardings_for(params, pol, mesh)
+    params = sharding.tree_local_blocks(params, shs[0])
+    opt = adamw.init(params, pol)
+    step_fn = train_cli.make_train_step(model, pol, TRAIN_LR, mesh,
+                                                shs)
+    want = (2 * L, 4 * L + 1)
+    rows, params, opt, ok = _train_steps(
+        torch, step_fn, params, opt, data, range(MESH_TRAIN_STEPS), libs,
+        want=want)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [r["loss"] for r in rows]
+    same = losses == want_losses[:MESH_TRAIN_STEPS]
+    ok &= same
+    train_rows = report.get("train", {}).get("steps", [])
+    print(f"[train_mesh] (a) {TRAIN_ARCH} {L} layers on the (1, 1) NCCL "
+          f"mesh, sharded step: losses {losses} vs the unsharded "
+          f"{want_losses[:MESH_TRAIN_STEPS]} bit for bit: {same}; peak "
+          f"{peak:.2f} GB (train phase {report.get('train', {}).get('peak_gb', float('nan')):.2f}); "
+          f"device ms {[round(r['device_ms'], 1) for r in rows]} (train "
+          f"phase {[round(r['device_ms'], 1) for r in train_rows[:MESH_TRAIN_STEPS]]}) "
+          f"{'ok' if ok else 'FAIL'}")
+    out["sharded_step"] = dict(steps=rows, losses=losses,
+                               unsharded_losses=want_losses, bit_equal=same,
+                               peak_gb=peak, launches_per_step=dict(
+                                   flash_prefill=want[0],
+                                   add_rmsnorm=want[1]))
+    out["flash_prefill_launches"] = sum(r["launches"]["flash_prefill"]
+                                        for r in rows)
+
+    # the gradients of the next step's batch, for (d)
+    _, grads = train_cli.loss_and_grads(
+        model, params, data.batch_at(MESH_TRAIN_STEPS, device="cuda"), pol)
+
+    # a checkpoint under the mesh, restored with shardings=
+    ckpt_dir = tempfile.mkdtemp(prefix="train_mesh_ckpt_")
+    try:
+        mgr = CheckpointManager(ckpt_dir, keep=1)
+        t0 = time.perf_counter()
+        mgr.save(MESH_TRAIN_STEPS - 1, (params, opt),
+                 extra={"data": data.state(MESH_TRAIN_STEPS - 1)},
+                 shardings=shs)
+        mgr.wait()
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        (p2, o2), _ = mgr.restore(MESH_TRAIN_STEPS - 1,
+                                  tuple(_meta_like(torch, t)
+                                        for t in (params, opt)),
+                                  device="cuda", shardings=shs)
+        restore_s = time.perf_counter() - t0
+        bits = all(torch.equal(a, b) for a, b in zip(
+            leaves((params, opt)), leaves((p2, o2))))
+        del p2, o2
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ok &= bits
+    out["checkpoint"] = dict(save_s=save_s, restore_s=restore_s,
+                             bit_for_bit=bits)
+    print(f"[train_mesh] (a) checkpoint under the mesh: save (gather, copy, "
+          f"write) {save_s:.1f} s, restore with shardings= {restore_s:.1f} "
+          f"s, bit for bit: {bits} {'ok' if bits else 'FAIL'}")
+
+    # binary8 gradients with stochastic rounding: the cast kernel's main
+    # path (one launch a leaf, counted per step)
+    n_leaves = len(leaves(params))
+    step_fn = train_cli.make_train_step(
+        model, pol, TRAIN_LR, mesh, shs, compress=True,
+        stochastic_seed=args.seed)
+    srows = []
+    for s in range(MESH_TRAIN_STEPS, MESH_TRAIN_STEPS + MESH_COMPRESS_STEPS):
+        for lib in libs:
+            lib.reset_counts()
+        loss, params, opt = step_fn(params, opt,
+                                    data.batch_at(s, device="cuda"))
+        loss = float(loss)
+        torch.cuda.synchronize()
+        by = dict(FF.LIB.by_symbol)
+        srows.append(dict(step=s, loss=loss, cast_launches=by))
+    sr = sum(r["cast_launches"].get("flexfloat_cast_sr_launch", 0)
+             for r in srows)
+    good = sr == n_leaves * MESH_COMPRESS_STEPS and all(
+        np.isfinite(r["loss"]) and r["cast_launches"].get(
+            "flexfloat_cast_launch", 0) == 0 for r in srows)
+    ok &= good
+    out["compressed_steps"] = srows
+    out["sr_launches"] = sr
+    print(f"[train_mesh] (a) {MESH_COMPRESS_STEPS} steps with binary8 "
+          f"stochastic gradients: losses {[r['loss'] for r in srows]}, "
+          f"cast launches {[r['cast_launches'] for r in srows]} (want "
+          f"{n_leaves} stochastic a step, no nearest) "
+          f"{'ok' if good else 'FAIL'}")
+    del params, opt, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok, grads
+
+
+def _mesh_train_moe(torch, np, report, libs, args, mesh):
+    """(b): granite-moe at full size, binary32: the sharded step with
+    ``moe_impl="shard_map"`` against the unsharded step with the dense
+    dispatch, bit for bit."""
+    from repro_torch import configs
+    from repro_torch.core.policy import get_policy
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import sharding
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import adamw
+
+    full = configs.get(MOE_TRAIN_ARCH)
+    pol = get_policy("binary32", decode_impl="flash_pallas")
+    L = full.n_layers
+    losses, rows_of = {}, {}
+    ok = True
+    for impl in ("dense", "shard_map"):
+        cfg = dataclasses.replace(full, moe_impl=impl)
+        model = Model(cfg)
+        data = SyntheticLM(DataConfig(seed=args.seed,
+                                      global_batch=MOE_TRAIN_BATCH,
+                                      seq_len=MOE_TRAIN_SEQ), cfg)
+        gen = torch.Generator("cuda").manual_seed(report["seed"] + 40)
+        params = model.init_params(gen, pol, device="cuda")
+        if impl == "dense":
+            step_fn = train_cli.make_train_step(model, pol, TRAIN_LR)
+        else:
+            shs = train_cli.shardings_for(params, pol, mesh)
+            params = sharding.tree_local_blocks(params, shs[0])
+            step_fn = train_cli.make_train_step(
+                model, pol, TRAIN_LR, mesh, shs)
+        opt = adamw.init(params, pol)
+        rows, params, opt, good = _train_steps(
+            torch, step_fn, params, opt, data, range(MOE_TRAIN_STEPS), libs,
+            want=(2 * L, 4 * L + 1))
+        ok &= good
+        losses[impl] = [r["loss"] for r in rows]
+        rows_of[impl] = rows
+        del params, opt, step_fn, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    same = losses["dense"] == losses["shard_map"]
+    fin = all(np.isfinite(losses["shard_map"]))
+    ok &= same and fin
+    report["train_mesh"]["moe"] = dict(arch=MOE_TRAIN_ARCH, policy="binary32",
+                                       losses=losses, bit_equal=same,
+                                       steps=rows_of)
+    print(f"[train_mesh] (b) {MOE_TRAIN_ARCH} full size, binary32, batch "
+          f"{MOE_TRAIN_BATCH} x {MOE_TRAIN_SEQ}: shard_map losses "
+          f"{losses['shard_map']} vs dense {losses['dense']} bit for bit: "
+          f"{same} {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def _mesh_moe_forward(torch, report, args, mesh):
+    """(c): qwen3-moe at full width, a 64-row chunk and a decode step, the
+    dense packed path (grouped kernels) against ``shard_map`` (every
+    packed leaf dequantized, as the reference's): at full depth (48
+    layers) finite logits and the launches (no grouped kernel under
+    shard_map), at 2 layers (the logits phase's MoE depth) the logits
+    within the transprecision bound.  Both depths' gaps are reported:
+    the reference's shard_map path also dequantizes the binary32 router,
+    whose product beside bf16 activations then rounds it to bf16, so
+    near-tied routing choices flip and the flips compound with depth
+    (ROADMAP Queue 3 item 13)."""
+    from repro_torch import configs
+    from repro_torch.core.policy import get_policy
+    from repro_torch.kernels import qmatmul as Q
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import qparams
+    from repro_torch.models.transformer import Model
+
+    policy = get_policy("transprecision", decode_impl="paged",
+                        matmul_impl="qmm_pallas")
+    tol = LOGIT_TOL["transprecision"]
+    entry = report["train_mesh"]["moe_forward"] = dict(arch=MOE_FWD_ARCH,
+                                                       tol=tol)
+    ok = True
+    for layers in (None, 2):
+        full = configs.get(MOE_FWD_ARCH)
+        if layers is not None:
+            full = dataclasses.replace(full, n_layers=layers)
+        L = full.n_layers
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        params = qparams.encode_params(
+            Model(full).init_params(gen, policy, device="cuda"), policy)
+        res, grouped = {}, {}
+        for impl in ("dense", "shard_map"):
+            cfg = dataclasses.replace(full, moe_impl=impl)
+            before = sum(Q.LIB.by_kernel.get(k, 0) for k in GROUPED_KERNELS)
+            with mesh_mod.use_mesh(mesh):
+                res[impl] = _first_step_logits(
+                    torch, Model(cfg), cfg, "transprecision", "paged",
+                    "qmm_pallas", args.seed, prompt=64, page=64,
+                    params=params)
+            grouped[impl] = sum(Q.LIB.by_kernel.get(k, 0)
+                                for k in GROUPED_KERNELS) - before
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        errs = [float((a - b).abs().max()) / float(b.abs().max())
+                for a, b in zip(res["shard_map"], res["dense"])]
+        good = grouped["dense"] == 4 * L and grouped["shard_map"] == 0 \
+            and all(bool(torch.isfinite(t).all()) for t in res["shard_map"])
+        if layers is not None:
+            good &= max(errs) <= tol
+        ok &= good
+        entry[f"layers_{L}"] = dict(rel_errs=dict(zip(
+            ("prefill chunk", "decode step"), errs)),
+            held=layers is not None, grouped_launches=grouped, ok=good)
+        print(f"[train_mesh] (c) {MOE_FWD_ARCH} full width, {L} layers: "
+              f"shard_map vs the dense packed path max|diff|/max|logit| "
+              f"(chunk, step) {', '.join(f'{e:.3e}' for e in errs)} "
+              + (f"(tol {tol:g})" if layers is not None else
+                 "(reported: routing flips compound with depth)")
+              + f"; grouped kernel launches dense {grouped['dense']} (want "
+              f"{4 * L}), shard_map {grouped['shard_map']} (want 0) "
+              f"{'ok' if good else 'FAIL'}")
+    return ok
+
+
+def _sr_inputs(torch, gen, shape):
+    """Wide-range f32 values (subnormal to overflow of every paper
+    format, NaN and +/-Inf among them) and uniform 32-bit words."""
+    n = 1
+    for d in shape:
+        n *= d
+    x = torch.randn(shape, generator=gen, device="cuda") * torch.exp2(
+        torch.randint(-40, 40, shape, generator=gen, device="cuda")
+        .to(torch.float32))
+    flat = x.view(-1)
+    flat[: min(n, 3)] = torch.tensor([float("nan"), float("inf"),
+                                      -float("inf")][: min(n, 3)],
+                                     device="cuda")
+    bits = torch.randint(-2 ** 31, 2 ** 31, shape, dtype=torch.int32,
+                         generator=gen, device="cuda")
+    return x, bits
+
+
+def _mesh_stochastic(torch, np, report, timer, mesh, grads):
+    """(d): the stochastic cast kernel bit for bit its plain version, its
+    time; the three compressed reductions over step (a)'s gradients."""
+    from repro_torch.core.tree import leaves
+    from repro_torch.kernels import flexfloat_cast as FF
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.optim import grad_compress as GC
+
+    gen = torch.Generator(device="cuda").manual_seed(report["seed"] + 41)
+    ok = True
+    worst = 0.0
+    cases = []
+    for shape in SR_SHAPES:
+        x, bits = _sr_inputs(torch, gen, shape)
+        for name in SR_FMTS:
+            got = FF.flexfloat_cast(x, name, rbits=bits)
+            want = FF.flexfloat_cast_plain(x, name, rbits=bits)
+            same = torch.equal(got.view(torch.int32),
+                               want.view(torch.int32))
+            fin = torch.isfinite(want)
+            err = float((got[fin] - want[fin]).abs().max()) \
+                if bool(fin.any()) else 0.0
+            worst = max(worst, err)
+            rne = torch.equal(got.view(torch.int32), FF.flexfloat_cast(
+                x, name).view(torch.int32))
+            good = same and (not rne or x.numel() < 16)
+            ok &= good
+            cases.append(dict(shape=list(shape), fmt=name, bit_for_bit=same,
+                              max_abs_err=err, equals_nearest=rne))
+        del x, bits
+    report["flexfloat_cast_sr_max_abs_err"] = worst if ok else None
+    report["train_mesh"]["sr_cases"] = cases
+    print(f"[train_mesh] (d) stochastic cast kernel vs its plain version, "
+          f"{len(cases)} cases (shapes {list(SR_SHAPES)} x {SR_FMTS}): "
+          f"all bit for bit {all(c['bit_for_bit'] for c in cases)}, none "
+          f"equal to nearest rounding on the large shapes "
+          f"{'ok' if ok else 'FAIL'}")
+
+    x, bits = _sr_inputs(torch, gen, (4096, 14336))
+    n = x.numel()
+    for name in ("binary8", "binary16alt"):
+        t_k = timer(lambda: FF.flexfloat_cast(x, name, rbits=bits))
+        t_p = timer(lambda: FF.flexfloat_cast_plain(x, name, rbits=bits),
+                    iters=3, warmup=1)
+        nbytes = n * 12
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        report["timings"].append(dict(
+            kernel="flexfloat_cast_sr", fmt=name, shape=[4096, 14336],
+            ms=t_k, plain_ms=t_p, library_ms=None, bound_ms=bound,
+            bound_by="bytes", bytes=nbytes))
+        print(f"[timing] flexfloat_cast_sr {name:<11} 4096x14336 kernel "
+              f"{t_k:.4f} ms  plain {t_p:.4f} ms  library none  bound "
+              f"{bound:.4f} ms")
+    del x, bits
+
+    # the compressed reductions over step (a)'s gradients on the 1-rank
+    # mesh (no collective runs over a dim of one rank)
+    gl = leaves(grads)
+    wire = dict(psum=0, allgather=0)
+    same = dict(psum=True, allgather=True, tree=True)
+    with mesh_mod.use_mesh(mesh):
+        for g in gl:
+            payload, res = GC.compress(g, None)
+            want = GC.decompress(payload)
+            for what, fn in (("psum", GC.compressed_psum),
+                             ("allgather", GC.compressed_allgather_sum)):
+                s, r = fn(g, None, ("data",))
+                same[what] &= torch.equal(s.view(torch.int32),
+                                          want.view(torch.int32)) \
+                    and torch.equal(r.view(torch.int32),
+                                    res.view(torch.int32))
+            wire["psum"] += g.numel() * 4
+            wire["allgather"] += payload.numel() * payload.element_size()
+            del payload, res, want
+        tree, _ = GC.tree_compress_psum(grads, None, "data")
+        for g, s in zip(gl, leaves(tree)):
+            want = GC.decompress(GC.compress(g, None)[0])
+            same["tree"] &= torch.equal(s.view(torch.int32),
+                                        want.view(torch.int32))
+        del tree
+    good = all(same.values())
+    ok &= good
+    report["train_mesh"]["compressed"] = dict(bit_for_bit=same,
+                                              wire_bytes=wire,
+                                              leaves=len(gl))
+    print(f"[train_mesh] (d) compressed_psum / compressed_allgather_sum / "
+          f"tree_compress_psum over {len(gl)} gradient leaves on the "
+          f"1-rank mesh, bit "
+          f"for bit decompress(compress(g)): {same}; wire bytes a rank: "
+          f"f32 psum {wire['psum']:,}, uint8 all-gather "
+          f"{wire['allgather']:,} {'ok' if good else 'FAIL'}")
+    return ok
+
+
+def rank_bytes(torch, arch, layers):
+    """Params + AdamW state one rank stores under each of
+    ``RANK_MESHES`` (transprecision), from the rules on ``meta``
+    tensors; and the whole tree's bytes, which the port's storage-only
+    step also gathers on every rank for the compute."""
+    from repro_torch import configs
+    from repro_torch.core.policy import get_policy
+    from repro_torch.launch import sharding
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import adamw
+
+    cfg = configs.get(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    pol = get_policy("transprecision")
+    params = Model(cfg).init_params(torch.Generator(), pol, device="meta")
+    opt = adamw.init(params, pol)
+    one = sharding.MeshShape(("data", "model"), (1, 1))
+    p1, o1 = train_cli.shardings_for(params, pol, one)
+    out = dict(arch=arch, layers=cfg.n_layers,
+               params_bytes=sharding.tree_block_bytes(params, p1),
+               opt_bytes=sharding.tree_block_bytes(opt, o1), per_rank={})
+    for shape in RANK_MESHES:
+        mesh = sharding.MeshShape(("data", "model"), shape)
+        ps, os_ = train_cli.shardings_for(params, pol, mesh)
+        out["per_rank"]["x".join(map(str, shape))] = dict(
+            params=sharding.tree_block_bytes(params, ps),
+            opt=sharding.tree_block_bytes(opt, os_))
+    return out
+
+
+def _mesh_rank_bytes(torch, report):
+    """(e): per-rank bytes of params + AdamW state."""
+    rows = []
+    for arch, layers in RANK_BYTES_ARCHS:
+        r = rank_bytes(torch, arch, layers)
+        rows.append(r)
+        stored = {k: (v["params"] + v["opt"]) / 1e9
+                  for k, v in r["per_rank"].items()}
+        gathered = r["params_bytes"] / 1e9
+        print(f"[train_mesh] (e) {arch} ({r['layers']} layers): params "
+              f"{r['params_bytes'] / 1e9:.2f} GB + AdamW "
+              f"{r['opt_bytes'] / 1e9:.2f} GB in all; stored a rank "
+              + ", ".join(f"{k} {v:.2f} GB" for k, v in stored.items())
+              + f"; the storage-only step also gathers {gathered:.2f} GB of "
+              f"params and holds as many gradient bytes a rank")
+    llama = rows[0]
+    four = llama["per_rank"]["1x4"]
+    need = (four["params"] + four["opt"] + 2 * llama["params_bytes"]) / 1e9
+    fits = need * 1e9 < CARD_BYTES
+    report["train_mesh"]["rank_bytes"] = dict(rows=rows, llama_1x4_need_gb=need,
+                                              llama_fits_four=fits)
+    print(f"[train_mesh] (e) {TRAIN_ARCH} at 32 layers on four cards (1, 4): "
+          f"{need:.2f} GB a rank before activations (stored blocks + "
+          f"gathered params + full gradients) of {CARD_BYTES / 1e9:.0f} GB: "
+          f"{'fits' if fits else 'does not fit'}")
+    return all(v["params"] > 0 for r in rows for v in r["per_rank"].values())
+
+
+def run_train_mesh(torch, np, report, libs, args, timer):
+    """Multi-device training on a 1-rank NCCL mesh (``tcp://localhost``,
+    a free port; its own group, the mesh phase's destroyed before): (a)
+    the sharded step, its checkpoint and its compressed stochastic
+    gradients; (b) the expert-parallel MoE's training steps; (c) the
+    expert-parallel MoE's forward at qwen3-moe's size; (d) the stochastic
+    cast kernel and the compressed reductions; (e) per-rank bytes.  A
+    failed init fails the phase: there is no fallback."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_mod
+
+    report["train_mesh"] = {}
+    secs = report["train_mesh"]["seconds"] = {}
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        mesh = mesh_mod.make_mesh((1, 1), ("data", "model"), "cuda")
+        t0 = time.perf_counter()
+        ok, grads = _mesh_train_llama(torch, np, report, libs, args, mesh)
+        secs["a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ok &= _mesh_stochastic(torch, np, report, timer, mesh, grads)
+        del grads
+        gc.collect()
+        torch.cuda.empty_cache()
+        secs["d"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ok &= _mesh_train_moe(torch, np, report, libs, args, mesh)
+        secs["b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ok &= _mesh_moe_forward(torch, report, args, mesh)
+        secs["c"] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    t0 = time.perf_counter()
+    ok &= _mesh_rank_bytes(torch, report)
+    secs["e"] = time.perf_counter() - t0
+    print("[train_mesh] seconds: " + ", ".join(f"{k} {v:.1f}"
+                                               for k, v in secs.items()))
+    return ok
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
 ALL_PHASES = ("build", "kernels", "casts", "ops", "serve", "serve_flash",
               "speculative", "serve_f32", "serve_reduced", "logits",
               "resilience", "archs", "encdec", "train", "prefill_cont",
-              "paper", "serve_tune", "tune_archs", "mesh", "profile")
+              "paper", "serve_tune", "tune_archs", "mesh", "train_mesh",
+              "profile")
 
 
 def kernel_rows(report):
@@ -7223,6 +7746,13 @@ def kernel_rows(report):
          "src/repro/kernels/flexfloat_cast.py:33",
          paper_counts.get("flexfloat_cast_launch", 0), cast_err,
          timing("flexfloat_cast", fmt="binary16alt")),
+        # the cast kernel with stochastic rounding (the reference's is
+        # XLA arithmetic in quantize_tile, not a Pallas body); launches
+        # of train_mesh's compressed-gradient steps
+        ("flexfloat_cast_sr", ff_src, "src/repro/kernels/codec.py:93",
+         report.get("train_mesh", {}).get("sr_launches", 0),
+         report.get("flexfloat_cast_sr_max_abs_err"),
+         timing("flexfloat_cast_sr", fmt="binary8")),
         ("quantize_encode", ff_src,
          "src/repro/kernels/flexfloat_cast.py:37",
          ops_counts.get("quantize_encode_launch", 0), cast_err,
@@ -7516,6 +8046,9 @@ def main() -> int:
                 ok = run_tune_archs(torch, report, libs, args)
             elif phase == "mesh":
                 ok = run_mesh(torch, np, report, libs, args)
+            elif phase == "train_mesh":
+                timer = timer or Timer(torch)
+                ok = run_train_mesh(torch, np, report, libs, args, timer)
             elif phase == "profile":
                 ok = run_profile(torch, report, args)
             elif phase == "steps":

@@ -1,5 +1,5 @@
 """Atomic, async checkpoints in the reference's on-disk layout: the port
-of ``repro.checkpoint.manager`` for one process.
+of ``repro.checkpoint.manager``.
 
 ``<dir>/step_N.tmp/<flat-key>.npy`` for every leaf plus a
 ``manifest.json`` (step, extra, each key's shape and dtype name), then
@@ -11,6 +11,15 @@ as their integer containers (``uint16`` / ``uint8``) with the true dtype
 name in the manifest, as the reference stores them, so either package
 reads the other's checkpoints.  Saves copy to the host at once and write
 on a thread (``wait()`` joins it); the last ``keep`` steps are kept.
+
+Sharded trees (``launch/sharding.py``: each leaf this rank's block, with
+a tree of ``NamedSharding``): ``save(..., shardings=)`` gathers every
+leaf on the calling thread, every rank taking part (the writer thread
+issues no collective), and only rank 0 writes, in the same layout; with
+a process group the next ``wait()`` ends with a barrier of all ranks, so
+no rank restores a step before its manifest exists.  ``restore(..., shardings=)`` reads the
+full arrays and keeps this rank's block of each for the *current* mesh:
+a step saved on one mesh restores onto another (elastic re-sharding).
 """
 from __future__ import annotations
 
@@ -23,6 +32,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.collectives import gather_block, local_block
 from repro_torch.core.tree import flatten_with_path, path_key, unflatten
 from repro_torch.models.convert import _NARROW
 
@@ -61,24 +71,52 @@ def from_host(arr: np.ndarray, name: str, device) -> torch.Tensor:
     return t.to(device)
 
 
+def _group_running() -> bool:
+    import torch.distributed as dist
+    return dist.is_available() and dist.is_initialized()
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank()
+
+
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3):
         self.dir = directory
         self.keep = keep
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._barrier = False       # a sharded save's wait() ends with one
         os.makedirs(directory, exist_ok=True)
 
-    def save(self, step: int, tree, extra: Optional[Dict] = None):
-        """Copy every leaf to the host now; write on a thread."""
-        host = {k: to_host(v) for k, v in _flatten(tree).items()}
+    def save(self, step: int, tree, extra: Optional[Dict] = None,
+             shardings=None):
+        """Copy every leaf to the host now; write on a thread.  With
+        ``shardings`` (a tree of ``NamedSharding`` in ``tree``'s
+        structure) every rank calls this: the leaves are gathered here,
+        one at a time, and rank 0 writes them."""
+        self.wait()
+        flat = _flatten(tree)
+        flat_sh = list(_flatten(shardings).values()) \
+            if shardings is not None else [None] * len(flat)
+        group = shardings is not None and _group_running()
+        writer = not group or _rank() == 0
+        host = {}
+        for (k, v), s in zip(flat.items(), flat_sh):
+            full = v if s is None else gather_block(v, s.spec, s.mesh)
+            if writer:
+                host[k] = to_host(full)
+            del full
+        self._barrier = group
+        if not writer:
+            return
         meta = {
             "step": step,
             "extra": extra or {},
             "keys": {k: {"shape": list(a.shape), "dtype": name}
                      for k, (a, name) in host.items()},
         }
-        self.wait()
         self._thread = threading.Thread(
             target=self._write_catching, args=(step, host, meta),
             daemon=True)
@@ -106,10 +144,15 @@ class CheckpointManager:
         self._gc()
 
     def wait(self):
-        """Join the pending write; raise what it raised."""
+        """Join the pending write (and, after a sharded save, meet every
+        rank at a barrier); raise what the write raised."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            import torch.distributed as dist
+            self._barrier = False
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -133,17 +176,31 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, tree_like, device=None):
+    def manifest(self, step: int) -> Dict:
+        """Step ``step``'s manifest (step, extra, keys)."""
+        with open(os.path.join(self.dir, f"step_{step}",
+                               "manifest.json")) as f:
+            return json.load(f)
+
+    def restore(self, step: int, tree_like, device=None, shardings=None):
         """The tree of ``tree_like``'s structure from step ``step``, each
         leaf on ``device`` (default: the device of ``tree_like``'s
-        leaf), in the dtype the manifest names.  Returns ``(tree,
-        manifest)``."""
+        leaf), in the dtype the manifest names.  With ``shardings`` (a
+        tree of ``NamedSharding`` for the current mesh) each leaf is this
+        rank's block.  Returns ``(tree, manifest)``."""
         path = os.path.join(self.dir, f"step_{step}")
-        with open(os.path.join(path, "manifest.json")) as f:
-            meta = json.load(f)
+        meta = self.manifest(step)
+        flat = _flatten(tree_like)
+        flat_sh = list(_flatten(shardings).values()) \
+            if shardings is not None else [None] * len(flat)
         out = []
-        for k, like in _flatten(tree_like).items():
+        for (k, like), s in zip(flat.items(), flat_sh):
             arr = np.load(os.path.join(path, k.replace("/", "_") + ".npy"))
             dev = device if device is not None else like.device
-            out.append(from_host(arr, meta["keys"][k]["dtype"], dev))
+            name = meta["keys"][k]["dtype"]
+            if s is None:
+                out.append(from_host(arr, name, dev))
+            else:   # narrowed on the host: the full array stays there
+                out.append(local_block(from_host(arr, name, "cpu"), s.spec,
+                                       s.mesh).to(dev))
         return unflatten(tree_like, out), meta

@@ -25,20 +25,17 @@ def quantize(x: torch.Tensor, fmt: Union[FpFormat, str], *,
     saturate: clamp overflow to +/-max_normal instead of +/-Inf.
     rbits: uniform u32 random bits, one per element, for stochastic
         rounding in the normal range (the reference draws them from a JAX
-        key inside the call; the port takes them explicitly).  The cast
-        kernel rounds to nearest even only, so ``rbits`` on a CUDA tensor
-        raises.
+        key inside the call; the port takes them explicitly).  On a CUDA
+        tensor the cast kernel reads them (``flexfloat_cast_sr_launch``).
     """
     fmt = get_format(fmt)
     x = torch.as_tensor(x)
     if x.dtype != torch.float32:
         x = x.to(torch.float32)
     if x.device.type != "cpu":
-        if rbits is not None:
-            raise NotImplementedError(
-                "stochastic rounding (rbits=) has no CUDA kernel: it serves "
-                "gradient compression, which comes with the training port")
-        return flexfloat_cast(x, fmt, saturate=saturate)
+        if rbits is None:
+            return flexfloat_cast(x, fmt, saturate=saturate)
+        return flexfloat_cast(x, fmt, saturate=saturate, rbits=rbits)
     return quantize_tile(x, fmt.e, fmt.m, saturate, rbits)
 
 

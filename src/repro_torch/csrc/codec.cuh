@@ -2,7 +2,8 @@
 //
 // The same bit math as repro_torch/kernels/codec.py (the plain version the
 // CPU tests hold bit-identical to the JAX codec, repro/kernels/codec.py):
-// quantize (RNE to (e, m) with gradual underflow and Inf/NaN), encode
+// quantize (RNE to (e, m) with gradual underflow and Inf/NaN, or
+// stochastic rounding in the normal range with a random word), encode
 // (exact member of (e, m) -> packed field) and decode (packed field ->
 // exact f32).  All three kernels (qmm.cu, paged_decode.cu,
 // flash_prefill.cu) include this header and decode their packed tiles in
@@ -92,8 +93,14 @@ __device__ __forceinline__ float decode_t(uint32_t b, int rt_e, int rt_m) {
 
 // f32 -> nearest member of (e, m) (RNE), IEEE overflow to +/-Inf (or to
 // +/-max_normal with saturate), gradual underflow, canonical quiet NaN.
-__device__ __forceinline__ float quantize_value(float x, int e, int m,
-                                                bool saturate) {
+// With kSR, stochastic rounding in the normal range: the increment added
+// below the cut is the top (23 - m) bits of the random word r instead of
+// RNE's half-ulp (the reference's jax.random.bits(...) >> (32 - shift),
+// repro/kernels/codec.py:93-98); below the normal range it stays RNE, as
+// in the reference.
+template <bool kSR>
+__device__ __forceinline__ float quantize_core(float x, int e, int m,
+                                               bool saturate, uint32_t r) {
   if (e == 8 && m == 23) return x;
   const int bias = (1 << (e - 1)) - 1;
   const int emax = bias, emin = 1 - bias, qe = emin - m;
@@ -119,8 +126,12 @@ __device__ __forceinline__ float quantize_value(float x, int e, int m,
   const int shift = 23 - m;
   uint32_t mag_r = mag;
   if (shift > 0) {
-    const uint32_t lsb = (mag >> shift) & 1u;
-    const uint32_t rnd = ((1u << (shift - 1)) - 1u) + lsb;
+    uint32_t rnd;
+    if constexpr (kSR) {
+      rnd = r >> (32 - shift);
+    } else {
+      rnd = ((1u << (shift - 1)) - 1u) + ((mag >> shift) & 1u);
+    }
     mag_r = (mag + rnd) & ~((1u << shift) - 1u);
   }
   if ((int)(mag_r >> 23) > emax + 127) {
@@ -129,6 +140,18 @@ __device__ __forceinline__ float quantize_value(float x, int e, int m,
     mag_r = saturate ? max_bits : kInf;
   }
   return __uint_as_float(sign | mag_r);
+}
+
+__device__ __forceinline__ float quantize_value(float x, int e, int m,
+                                                bool saturate) {
+  return quantize_core<false>(x, e, m, saturate, 0u);
+}
+
+// Stochastic rounding with the random word r (one a value).
+__device__ __forceinline__ float quantize_value_sr(float x, int e, int m,
+                                                   bool saturate,
+                                                   uint32_t r) {
+  return quantize_core<true>(x, e, m, saturate, r);
 }
 
 // Exact member of (e, m) -> packed field (low 1 + e + m bits).

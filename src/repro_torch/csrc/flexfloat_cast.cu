@@ -4,6 +4,10 @@
 // Replaces: repro/kernels/flexfloat_cast.py, the three Pallas bodies behind
 // its one pallas_call (_run_elementwise):
 //   _cast_kernel   (flexfloat_cast)     f32 -> f32 rounded to (e, m)
+//                  (flexfloat_cast_sr_launch: the same with stochastic
+//                  rounding on explicit random words, which the reference
+//                  computes as XLA arithmetic in quantize_tile,
+//                  repro/kernels/codec.py:93-98, not as a Pallas body)
 //   _encode_kernel (quantize_encode)    f32 -> rounded, packed container
 //   _decode_kernel (dequantize_decode)  container -> exact f32
 // All three call codec.cuh, the same bit math every other kernel of the
@@ -110,27 +114,46 @@ template <> struct Vec4<uint8_t> { using type = uchar4; };
 template <> struct Vec4<uint16_t> { using type = ushort4; };
 template <> struct Vec4<uint32_t> { using type = uint4; };
 
+// kSR: stochastic rounding, with r[i] the random word of element i (read
+// beside x, 16 bytes a thread in the aligned body: 12 bytes an element
+// move in all).
+template <bool kSR>
+__device__ __forceinline__ float cast_t(float x, uint32_t r, int e, int m,
+                                        bool sat) {
+  if constexpr (kSR) {
+    return codec::quantize_value_sr(x, e, m, sat, r);
+  } else {
+    return cast_one(x, e, m, sat);
+  }
+}
+
+template <bool kSR>
 __global__ void __launch_bounds__(kThreads)
-cast_kernel(const float* __restrict__ x, float* __restrict__ y, int64_t n,
-            int e, int m, int sat, int vec) {
+cast_kernel(const float* __restrict__ x, const uint32_t* __restrict__ r,
+            float* __restrict__ y, int64_t n, int e, int m, int sat,
+            int vec) {
   const int64_t stride = (int64_t)gridDim.x * kThreads;
   int64_t i0 = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   int64_t done = 0;
   if (vec) {
     const int64_t n4 = n / 4;
     const float4* x4 = reinterpret_cast<const float4*>(x);
+    const uint4* r4 = reinterpret_cast<const uint4*>(r);
     float4* y4 = reinterpret_cast<float4*>(y);
     for (int64_t i = i0; i < n4; i += stride) {
       float4 v = x4[i];
-      v.x = cast_one(v.x, e, m, sat);
-      v.y = cast_one(v.y, e, m, sat);
-      v.z = cast_one(v.z, e, m, sat);
-      v.w = cast_one(v.w, e, m, sat);
+      uint4 w = make_uint4(0u, 0u, 0u, 0u);
+      if constexpr (kSR) w = r4[i];
+      v.x = cast_t<kSR>(v.x, w.x, e, m, sat);
+      v.y = cast_t<kSR>(v.y, w.y, e, m, sat);
+      v.z = cast_t<kSR>(v.z, w.z, e, m, sat);
+      v.w = cast_t<kSR>(v.w, w.w, e, m, sat);
       y4[i] = v;
     }
     done = n4 * 4;
   }
-  for (int64_t i = done + i0; i < n; i += stride) y[i] = cast_one(x[i], e, m, sat);
+  for (int64_t i = done + i0; i < n; i += stride)
+    y[i] = cast_t<kSR>(x[i], kSR ? r[i] : 0u, e, m, sat);
 }
 
 // Thread i of the grid encodes vector trip i (vec = 16 / sizeof(T)
@@ -216,9 +239,24 @@ extern "C" int flexfloat_cast_launch(const void* x, void* y, int64_t n,
                                      int e, int m, int saturate, int vec,
                                      int n_sm, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cast_kernel<<<grid_for(n, vec, n_sm), kThreads, 0, s>>>(
-      static_cast<const float*>(x), static_cast<float*>(y), n, e, m,
-      saturate, vec);
+  cast_kernel<false><<<grid_for(n, vec, n_sm), kThreads, 0, s>>>(
+      static_cast<const float*>(x), nullptr, static_cast<float*>(y), n, e,
+      m, saturate, vec);
+  return (int)cudaGetLastError();
+}
+
+// The same cast with stochastic rounding: rbits holds one uniform u32 word
+// an element (the wrapper's explicit random bits, as the plain version
+// quantize_tile(..., rbits) takes them); vec = 1 when x, rbits and y are
+// all 16 B aligned.
+extern "C" int flexfloat_cast_sr_launch(const void* x, const void* rbits,
+                                        void* y, int64_t n, int e, int m,
+                                        int saturate, int vec, int n_sm,
+                                        void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cast_kernel<true><<<grid_for(n, vec, n_sm), kThreads, 0, s>>>(
+      static_cast<const float*>(x), static_cast<const uint32_t*>(rbits),
+      static_cast<float*>(y), n, e, m, saturate, vec);
   return (int)cudaGetLastError();
 }
 

@@ -65,6 +65,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.core import ambient_mesh as mesh_mod
+from repro_torch.core import collectives as coll
 
 BASE_IMPLS = ("xla", "flash_pallas", "paged")
 WRAPPER_IMPLS = ("flash_shmap", "ring")
@@ -282,35 +283,25 @@ def _batch_rows(mesh, batch: int) -> slice:
     or every row when ``_batch_pspec`` replicates the batch."""
     if _batch_pspec(mesh, batch) is None:
         return slice(0, batch)
-    d = 0
-    for a in mesh_mod.dp_axes(mesh):
-        d = d * mesh_mod.axis_size(mesh, a) + mesh.get_local_rank(a)
+    d = coll.axes_index(mesh, mesh_mod.dp_axes(mesh))
     per = batch // mesh_mod.dp_size(mesh)
     return slice(d * per, (d + 1) * per)
 
 
-def _all_gather(mesh, axis: str, t: torch.Tensor) -> torch.Tensor:
-    """``t`` of every rank of the ``axis`` group, stacked in rank order
-    on a new leading axis (the same tensor on every rank)."""
-    import torch.distributed as dist
-
-    t = t.contiguous()
-    parts = [torch.empty_like(t)
-             for _ in range(mesh_mod.axis_size(mesh, axis))]
-    dist.all_gather(parts, t, group=mesh.get_group(axis))
-    return torch.stack(parts)
-
-
 def _gather_batch(mesh, out: torch.Tensor, batch: int) -> torch.Tensor:
-    """This rank's rows -> the whole batch: gathered over the data dims,
-    innermost first, so the blocks land in ``_batch_rows`` order (a dim
-    of size 1 holds the rows already)."""
+    """This rank's rows -> the whole batch: gathered over the data dims
+    in ``_batch_rows`` order (a dim of size 1 holds the rows already and
+    issues no collective)."""
     if _batch_pspec(mesh, batch) is None:
         return out
-    for a in reversed(mesh_mod.dp_axes(mesh)):
-        if mesh_mod.axis_size(mesh, a) > 1:
-            out = torch.cat(tuple(_all_gather(mesh, a, out)))
-    return out
+    return coll.all_gather_cat(out, mesh, mesh_mod.dp_axes(mesh))
+
+
+def _all_gather(mesh, axis: str, t: torch.Tensor) -> torch.Tensor:
+    """``t`` of every rank of the ``axis`` group, stacked in rank order
+    on a new leading axis (the same tensor on every rank); one name for
+    the merge's collective, which the card's mesh phase counts."""
+    return coll.all_gather_cat(t[None], mesh, axis)
 
 
 def _merge_partials(o, m, l):

@@ -3,7 +3,9 @@ unpack: the CUDA kernels and their plain PyTorch versions.
 
 The port of ``repro.kernels.flexfloat_cast``.  ``flexfloat_cast``,
 ``quantize_encode`` and ``dequantize_decode`` keep the reference's
-signatures without the Pallas ``block`` / ``interpret`` arguments.  On a
+signatures without the Pallas ``block`` / ``interpret`` arguments
+(``flexfloat_cast`` also takes ``rbits``, the explicit random words of
+stochastic rounding).  On a
 CUDA tensor each launches its kernel in ``csrc/flexfloat_cast.cu`` (one
 flat grid-stride pass over any shape and element count); on a CPU tensor
 it runs the plain version, the port's int64 codec
@@ -25,15 +27,33 @@ from .codec import decode_tile, encode_tile, quantize_tile
 _SIG = [_build.P, _build.P, _build.I64] + [_build.I32] * 5 + [_build.P]
 LIB = _build.register(_build.KernelLib("flexfloat_cast", {
     "flexfloat_cast_launch": _SIG,
+    "flexfloat_cast_sr_launch": [_build.P] + _SIG,
     "quantize_encode_launch": _SIG,
     "dequantize_decode_launch": _SIG,
 }))
 
 
-def flexfloat_cast_plain(x, fmt, *, saturate: bool = False) -> torch.Tensor:
+def flexfloat_cast_plain(x, fmt, *, saturate: bool = False,
+                         rbits=None) -> torch.Tensor:
     fmt = get_format(fmt)
     return quantize_tile(torch.as_tensor(x).to(torch.float32), fmt.e, fmt.m,
-                         saturate)
+                         saturate, rbits)
+
+
+def u32_words(rbits, like: torch.Tensor) -> torch.Tensor:
+    """``rbits`` (any integer dtype, ``like``'s shape) as contiguous int32
+    words on ``like``'s device: the low 32 bits of each value, as the
+    plain version reads them."""
+    r = torch.as_tensor(rbits, device=like.device)
+    if tuple(r.shape) != tuple(like.shape):
+        raise ValueError(f"rbits has shape {tuple(r.shape)}, the input "
+                         f"{tuple(like.shape)}")
+    if r.dtype in (torch.int32, torch.uint32):
+        return r.contiguous().view(torch.int32)
+    if r.is_floating_point() or r.dtype == torch.bool:
+        raise ValueError(f"rbits must be integers, got {r.dtype}")
+    r = r.to(torch.int64) & 0xFFFF_FFFF
+    return torch.where(r >= 2 ** 31, r - 2 ** 32, r).to(torch.int32)
 
 
 def quantize_encode_plain(x, fmt) -> torch.Tensor:
@@ -60,19 +80,35 @@ def _launch(symbol: str, x, out, fmt, third: int) -> torch.Tensor:
     return out
 
 
-def flexfloat_cast(x, fmt, *, saturate: bool = False) -> torch.Tensor:
+def flexfloat_cast(x, fmt, *, saturate: bool = False,
+                   rbits=None) -> torch.Tensor:
     """Sanitize ``x`` to ``fmt``: round to nearest even, gradual
     underflow, overflow to +/-Inf (or +/-max_normal with ``saturate``),
-    canonical NaN.  Returns float32 of ``x``'s shape."""
+    canonical NaN.  Returns float32 of ``x``'s shape.  With ``rbits``
+    (uniform random u32 words, one an element, any integer dtype)
+    stochastic rounding in the normal range (``flexfloat_cast_sr_launch``:
+    the same kernel reading the words beside ``x``)."""
     fmt = get_format(fmt)
     x = torch.as_tensor(x).to(torch.float32)
     if fmt.is_binary32:
         return x
     if x.device.type == "cpu":
-        return flexfloat_cast_plain(x, fmt, saturate=saturate)
+        return flexfloat_cast_plain(x, fmt, saturate=saturate, rbits=rbits)
     x = x.contiguous()
-    return _launch("flexfloat_cast_launch", x, torch.empty_like(x), fmt,
-                   int(saturate))
+    if rbits is None:
+        return _launch("flexfloat_cast_launch", x, torch.empty_like(x), fmt,
+                       int(saturate))
+    words = u32_words(rbits, x)
+    _build.check_no_grad("flexfloat_cast_sr", x=x)
+    out = torch.empty_like(x)
+    n = x.numel()
+    if n == 0:
+        return out
+    vec = int(all(t.data_ptr() % 16 == 0 for t in (x, words, out)))
+    LIB.launch("flexfloat_cast_sr_launch", _build.ptr(x), _build.ptr(words),
+               _build.ptr(out), n, fmt.e, fmt.m, int(saturate), vec,
+               _build.sm_count(x.device), _build.stream_ptr(x.device))
+    return out
 
 
 def quantize_encode(x, fmt) -> torch.Tensor:

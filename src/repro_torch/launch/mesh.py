@@ -14,43 +14,19 @@ this module touches no process-group state.
 Single pod: 16 x 16 = 256 ranks.  Multi-pod: 2 x 16 x 16 = 512, a
 leading pure data-parallel ``pod`` dim.
 
-``use_mesh(mesh)``, ``get_ambient_mesh()`` and the axis helpers live in
-``core/ambient_mesh.py``, below the kernels that read them, and are
-re-exported here.
+``use_mesh(mesh)``, ``get_ambient_mesh()``, the axis helpers and
+``make_mesh`` live in ``core/ambient_mesh.py``, below the kernels, the
+checkpoints and the elastic runtime that read them, and are re-exported
+here.  The data-parallel dims taken together (``("pod", "data")``) have
+no process group of their own: the collectives of
+``core/collectives.py`` reduce and gather over them one dim after the
+other.
 """
 from __future__ import annotations
 
-import math
-from typing import Sequence
-
 from repro_torch.core.ambient_mesh import (  # noqa: F401 (re-exported)
-    axis_names, axis_size, dp_axes, dp_size, get_ambient_mesh,
+    axis_names, axis_size, dp_axes, dp_size, get_ambient_mesh, make_mesh,
     model_axis_size, use_mesh)
-
-
-def make_mesh(shape: Sequence[int], axes: Sequence[str],
-              device_type: str = "cuda"):
-    """A ``DeviceMesh`` of ``shape`` over the default process group's
-    ranks (row-major), its dims named ``axes``.  Raises ``RuntimeError``
-    when no process group is running and ``ValueError`` when the world
-    size is not the mesh's size."""
-    import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
-
-    shape, axes = tuple(int(s) for s in shape), tuple(axes)
-    if len(shape) != len(axes):
-        raise ValueError(f"mesh shape {shape} and axes {axes} differ in "
-                         f"length")
-    if not dist.is_initialized():
-        raise RuntimeError(
-            "make_mesh needs a running process group: call "
-            "torch.distributed.init_process_group(backend, init_method=..., "
-            "world_size=..., rank=...) first")
-    world = dist.get_world_size()
-    if math.prod(shape) != world:
-        raise ValueError(f"a {shape} mesh needs {math.prod(shape)} ranks, "
-                         f"the process group has {world}")
-    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 
 def production_shape(multi_pod: bool = False):

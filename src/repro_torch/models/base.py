@@ -11,6 +11,8 @@ from typing import Optional, Tuple
 
 FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
 NORMS = ("rmsnorm", "layernorm")
+# the global dispatch, and expert parallelism over the ambient mesh
+MOE_IMPLS = ("dense", "shard_map")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,7 +58,7 @@ class ModelConfig:
     rglru_width: Optional[int] = None     # recurrent branch width (d_model)
     conv_width: int = 4
 
-    moe_impl: str = "dense"               # the global dispatch only
+    moe_impl: str = "dense"               # "dense" | "shard_map"
     decode_impl: str = "xla"              # attention backend spelling
     matmul_impl: str = "xla"              # matmul backend spelling
     attn_chunk: int = 4096
@@ -77,9 +79,8 @@ class ModelConfig:
         if self.norm not in NORMS:
             raise ValueError(f"repro_torch ports {NORMS}, got "
                              f"{self.norm!r}")
-        if self.moe_impl != "dense":
-            raise ValueError(f"repro_torch ports the global MoE dispatch "
-                             f"(moe_impl 'dense') only, got "
+        if self.moe_impl not in MOE_IMPLS:
+            raise ValueError(f"moe_impl is one of {MOE_IMPLS}, got "
                              f"{self.moe_impl!r}")
         if self.rwkv_fused:
             raise ValueError("repro_torch does not port the reference's "

@@ -365,7 +365,7 @@ def _head_plain(x, w, policy):
 
 
 def lm_head_loss(x, head_w, labels, policy, n_chunks: int = 4,
-                 label_mask=None):
+                 label_mask=None, count=None):
     """Mean cross-entropy of ``x`` (B, S, d) against ``labels`` (B, S),
     computed over ``n_chunks`` sequence chunks (fewer when S does not
     divide) so the (B, S, V) logits are never whole.  The logits are
@@ -373,14 +373,15 @@ def lm_head_loss(x, head_w, labels, policy, n_chunks: int = 4,
     (a tied head's too: no :data:`HEAD_ROWS` blocks here).  The label's
     logit is picked by ``torch.gather``, one index a row, so its backward
     adds each gradient to a place of its own.  ``label_mask`` (B, S)
-    weights each position's loss and counts the positions."""
+    weights each position's loss and counts the positions; ``count``, when
+    given, divides the sum instead of the positions counted here."""
     B, S, _ = x.shape
     n_chunks = max(1, min(n_chunks, S))
     while S % n_chunks:
         n_chunks -= 1
     C = S // n_chunks
     total = torch.zeros((), dtype=F32, device=x.device)
-    count = torch.zeros((), dtype=F32, device=x.device)
+    own = torch.zeros((), dtype=F32, device=x.device)
     for i in range(n_chunks):
         lo, hi = i * C, (i + 1) * C
         logits = pdot(x[:, lo:hi], head_w, policy, "embed_w",
@@ -392,11 +393,11 @@ def lm_head_loss(x, head_w, labels, policy, n_chunks: int = 4,
         if label_mask is not None:
             ms = label_mask[:, lo:hi].to(F32)
             nll = nll * ms
-            count = count + torch.sum(ms)
+            own = own + torch.sum(ms)
         else:
-            count = count + np.float32(B * C)
+            own = own + np.float32(B * C)
         total = total + torch.sum(nll)
-    return total / torch.clamp_min(count, 1.0)
+    return total / torch.clamp_min(own if count is None else count, 1.0)
 
 
 def lm_logits(x, head_w, policy):

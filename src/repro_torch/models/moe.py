@@ -11,8 +11,14 @@ epilogue and w_out, each reading each expert's kept-row count
 kept row; the reference unrolls one launch per expert and weight) and
 combined back with the router weights.  Nothing here waits for the
 device: the counts stay there (no ``bincount``, whose CUDA version reads
-its maximum on the host).  The expert-parallel ``moe_apply_sharded`` waits
-for multi-device.
+its maximum on the host).
+
+Under an ambient mesh (``core/ambient_mesh.use_mesh``) with a ``model``
+dim and ``cfg.moe_impl == "shard_map"``, :func:`moe_apply_sharded` runs
+the reference's expert-parallel schedule; under the sharded train step's
+split batch the global path first gathers the data shards' tokens
+(:func:`_moe_apply_gathered`), so it routes over the global batch as the
+reference's GSPMD step does.
 
 Where the reference's order is not torch's default, the port fixes it:
 
@@ -36,7 +42,12 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core import collectives as coll
+from repro_torch.core.ambient_mesh import (axis_names, batch_split_axes,
+                                           dp_axes, dp_size,
+                                           get_ambient_mesh, model_axis_size)
 from repro_torch.core.policy import PrecisionPolicy
+from repro_torch.core.qtensor import QTensor
 
 from .layers import (F32, act_cast, dense_init, grouped_ffn_in, pdot,
                      pgrouped_dot)
@@ -74,11 +85,11 @@ class Routing(NamedTuple):
     rows: torch.Tensor    # (E,) int32 kept rows an expert, min(count, C)
 
 
-def moe_route(p, xt, cfg, policy: PrecisionPolicy) -> Routing:
-    """Routing and dispatch indices of the (T, d) tokens ``xt``."""
-    T = xt.shape[0]
+def top_k(p, xt, cfg, policy: PrecisionPolicy):
+    """``(top_p, top_e, hot, aux)`` of the (T, d) tokens ``xt``: the
+    renormalized top-K router weights and experts, their (T, K, E)
+    one-hot, and the Switch-style aux loss."""
     E, K = cfg.moe_experts, cfg.moe_topk
-    dev = xt.device
     logits = pdot(xt, p["router"], policy, "router_w",
                   out_act=False).to(F32)
     probs = torch.softmax(logits, dim=-1)
@@ -92,7 +103,15 @@ def moe_route(p, xt, cfg, policy: PrecisionPolicy) -> Routing:
     me = torch.mean(probs, dim=0)
     hot = torch.nn.functional.one_hot(top_e, E)          # (T, K, E)
     ce = torch.mean(hot.to(F32).sum(1), dim=0)
-    aux = E * torch.sum(me * ce / K)
+    return top_p, top_e, hot, E * torch.sum(me * ce / K)
+
+
+def moe_route(p, xt, cfg, policy: PrecisionPolicy) -> Routing:
+    """Routing and dispatch indices of the (T, d) tokens ``xt``."""
+    T = xt.shape[0]
+    E, K = cfg.moe_experts, cfg.moe_topk
+    dev = xt.device
+    top_p, top_e, hot, aux = top_k(p, xt, cfg, policy)
 
     C = capacity(cfg, T)
     flat_e = top_e.reshape(T * K)
@@ -108,7 +127,37 @@ def moe_route(p, xt, cfg, policy: PrecisionPolicy) -> Routing:
 
 
 def moe_apply(p, x, cfg, policy: PrecisionPolicy):
-    """x: (B, S, d) -> ((B, S, d), load-balancing aux loss)."""
+    """x: (B, S, d) -> ((B, S, d), load-balancing aux loss).  Takes the
+    expert-parallel path when the config asks for it and the ambient mesh
+    has a ``model`` dim, as the reference's does; under a split batch the
+    global path gathers the tokens first."""
+    mesh = get_ambient_mesh()
+    if mesh is not None:
+        if cfg.moe_impl == "shard_map" and "model" in axis_names(mesh):
+            return moe_apply_sharded(p, x, cfg, policy, mesh)
+        if batch_split_axes():
+            return _moe_apply_gathered(p, x, cfg, policy, mesh)
+    return _moe_apply_global(p, x, cfg, policy)
+
+
+def _moe_apply_gathered(p, x, cfg, policy: PrecisionPolicy, mesh):
+    """The global path over the whole batch when each rank holds its rows:
+    the data shards' tokens gathered (``coll.gather_rows``, whose
+    backward sums every rank's cotangent of a row), routed together
+    (capacity from the global T, drops decided over all tokens, the aux
+    over all tokens, as the reference's GSPMD step computes
+    ``_moe_apply_global``), the rank's rows kept."""
+    axes = batch_split_axes()
+    rows = x.shape[0]
+    y, aux = _moe_apply_global(p, coll.gather_rows(x, mesh, axes), cfg,
+                               policy)
+    i = coll.axes_index(mesh, axes)
+    return y[i * rows:(i + 1) * rows], aux
+
+
+def _moe_apply_global(p, x, cfg, policy: PrecisionPolicy):
+    """The reference's ``_moe_apply_global``: global sort-based
+    dispatch."""
     B, S, d = x.shape
     E, K = cfg.moe_experts, cfg.moe_topk
     T = B * S
@@ -146,3 +195,118 @@ def combine(weighted, order, T: int, K: int) -> torch.Tensor:
     for k in range(K):
         yt = yt + weighted[mine[:, k]]
     return yt
+
+
+# ---------------------------------------------------------------------------
+# the expert-parallel path (the reference's ``moe_apply_sharded``)
+# ---------------------------------------------------------------------------
+
+def _own_experts(w, E: int, E_loc: int, j: int):
+    """Model rank ``j``'s ``E_loc`` experts of ``w``: ``w`` itself when it
+    is already the rank's block (the sharded train step keeps expert
+    leaves as their ``("model", None, None)`` blocks), else its slice."""
+    if w.shape[0] == E_loc:
+        return w
+    if w.shape[0] == E:
+        return w[j * E_loc:(j + 1) * E_loc]
+    raise ValueError(f"an expert leaf of {tuple(w.shape)} is neither the "
+                     f"{E} experts nor a block of {E_loc}")
+
+
+def moe_apply_sharded(p, x, cfg, policy: PrecisionPolicy, mesh):
+    """Expert parallelism over ``mesh``'s ``model`` dim, the reference's
+    ``shard_map`` schedule (``repro/models/moe.py:123-214``): the tokens
+    of each data shard are routed locally with capacity ``max(8,
+    ceil(cf * T_loc * K / E))``, ``T_loc = B * S / n_dp``; model rank j
+    owns experts ``[j E_loc, (j + 1) E_loc)`` and computes their part of
+    every local token's output; the parts are summed over ``model``
+    (``coll.sum_over``, differentiable); the aux loss is averaged over
+    the data-parallel dims and over ``model``.
+
+    Packed experts are dequantized first, as the reference does
+    (``repro/models/moe.py:126-132``): the local grouped product runs on
+    plain arrays (``pgrouped_dot``), so this path launches no grouped
+    kernel, in the reference neither.  Unlike the global path, the expert
+    outputs enter the combine unrounded (the reference's ``ye`` is not
+    ``act_cast`` here), so under a narrow activation format the two paths
+    differ even on one rank; under binary32 they agree bit for bit.
+
+    ``x`` is this rank's rows when the ambient mesh says the batch is
+    split (they must be split over every data-parallel dim, as
+    ``shard_map``'s ``P(dp)`` splits them); otherwise every rank holds
+    the whole batch, takes its rows and gathers the outputs back.
+    Gradients follow the sharded train step's convention
+    (``core/collectives.py``): the tokens and router weights enter the
+    rank's part through ``coll.enter_partial``, whose backward sums the
+    model ranks' parts."""
+    p = {k: (v.dequantize() if isinstance(v, QTensor) else v)
+         for k, v in p.items()}
+    B, S, d = x.shape
+    E, K = cfg.moe_experts, cfg.moe_topk
+    dp = dp_axes(mesh)
+    n_model = model_axis_size(mesh)
+    n_dp = dp_size(mesh)
+    if E % n_model:
+        raise ValueError(f"{E} experts do not divide over {n_model} model "
+                         f"ranks")
+    E_loc = E // n_model
+    split = batch_split_axes()
+    if split:
+        if n_dp > 1 and tuple(split) != tuple(dp):
+            raise ValueError(f"the expert-parallel MoE needs the batch split "
+                             f"over every data-parallel dim {dp}, got "
+                             f"{tuple(split)}")
+        xb = x
+    else:
+        if B % n_dp:
+            raise ValueError(f"batch {B} does not divide over {n_dp} data "
+                             f"shards")
+        i = coll.axes_index(mesh, dp)
+        xb = x[i * (B // n_dp):(i + 1) * (B // n_dp)]
+    T = xb.shape[0] * S
+    C = max(8, int(math.ceil(cfg.capacity_factor * T * K / E)))
+    j = coll.axis_index(mesh, "model")
+    dev = x.device
+
+    xt = xb.reshape(T, d)
+    top_p, top_e, _, aux = top_k(p, xt, cfg, policy)
+    if dp:
+        aux = coll.mean_over(aux, mesh, dp)
+    aux = coll.mean_over(aux, mesh, "model")
+
+    flat_e = top_e.reshape(T * K)
+    mine = torch.div(flat_e, E_loc, rounding_mode="floor") == j
+    loc_e = torch.where(mine, flat_e - j * E_loc,
+                        torch.full_like(flat_e, E_loc))
+    order = torch.sort(loc_e, stable=True).indices   # foreign ones last
+    se = loc_e[order]
+    st = torch.div(order, K, rounding_mode="floor")
+    sp = coll.enter_partial(top_p, mesh, "model").reshape(T * K)[order]
+    counts = (loc_e[:, None] == torch.arange(E_loc, device=dev)).sum(0)
+    starts = torch.cumsum(counts, 0) - counts
+    own = se < E_loc
+    pos = torch.arange(T * K, device=dev) - torch.where(
+        own, starts[torch.clamp(se, max=E_loc - 1)], 0)
+    keep = own & (pos < C)
+    dest = torch.where(keep, se * C + pos, torch.full_like(se, E_loc * C))
+
+    xp = coll.enter_partial(xt, mesh, "model")
+    xe = torch.zeros((E_loc * C + 1, d), dtype=x.dtype, device=dev)
+    xe[dest] = xp[st]
+    xe = xe[:E_loc * C].reshape(E_loc, C, d)
+    rows = torch.clamp(counts, max=C).to(torch.int32)
+    w = {k: _own_experts(p[k], E, E_loc, j)
+         for k in ("w_in", "w_gate", "w_out") if k in p}
+    a = grouped_ffn_in(xe, w, policy, cfg.act_fn, rows)
+    ye = pgrouped_dot(a, w["w_out"], policy, "ffn_w",
+                      rows=rows).reshape(E_loc * C, d)
+
+    gathered = ye[torch.where(keep, dest, 0)]
+    gathered = torch.where(keep[:, None], gathered,
+                           torch.zeros((), dtype=ye.dtype, device=dev))
+    weighted = gathered * sp[:, None].to(F32)
+    yt = coll.sum_over(combine(weighted, order, T, K), mesh, "model")
+    y = act_cast(yt, policy).reshape(xb.shape)
+    if not split and n_dp > 1:
+        y = coll.all_gather_cat(y, mesh, dp, dim=0)
+    return y, aux

@@ -177,7 +177,8 @@ class Model:
         _, h = add_norm(x, f, params["final_norm"], policy, self.cfg.norm)
         return lm_logits(h, self._head_w(params), policy)
 
-    def train_loss(self, params, batch, policy: PrecisionPolicy):
+    def train_loss(self, params, batch, policy: PrecisionPolicy,
+                   loss_count=None):
         """The training loss of ``batch`` (``tokens``, ``labels`` (B, S);
         optionally ``label_mask``, a prefix-LM's ``prefix_embeds`` and an
         enc-dec config's ``encoder_embeds``): the whole-sequence causal
@@ -188,7 +189,10 @@ class Model:
         an MoE config's ``0.01 * aux / n_layers``.  Attention follows
         ``decode_impl``: under ``flash_pallas`` the ``flash_prefill``
         kernel with a recompute backward.  Not under ``torch.no_grad``:
-        the caller differentiates it."""
+        the caller differentiates it.  ``loss_count`` divides the
+        summed cross-entropy instead of this batch's count (the sharded
+        train step passes the global count over the data shards, so the
+        shards' losses average to the global-batch mean)."""
         cfg = self.cfg
         policy = self._policy(policy)
         x = embed_lookup(params["embed"], batch["tokens"], policy,
@@ -227,7 +231,8 @@ class Model:
             h = h[:, prefix_len:]
         loss = lm_head_loss(h, self._head_w(params), batch["labels"], policy,
                             n_chunks=cfg.loss_chunks,
-                            label_mask=batch.get("label_mask"))
+                            label_mask=batch.get("label_mask"),
+                            count=loss_count)
         if cfg.moe_experts:
             loss = loss + 0.01 * aux_total / max(cfg.n_layers, 1)
         return loss

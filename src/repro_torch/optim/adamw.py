@@ -74,15 +74,19 @@ def global_norm_scale(grads, grad_clip: float) -> torch.Tensor:
 def apply(grads, state: AdamWState, policy: PrecisionPolicy, *,
           lr: float = 1e-3, b1: float = 0.9, b2: float = 0.95,
           eps: float = 1e-8, weight_decay: float = 0.0,
-          grad_clip: float = 1.0):
+          grad_clip: float = 1.0, clip_scale=None):
     """Returns ``(new_master, new_state)``; ``grads`` has the params'
     structure.  ``state`` is donated, as the reference's train step
     donates it: the new master and moments are written into its tensors
     (no second copy of the state is ever held) and returned in a new
-    ``AdamWState``."""
+    ``AdamWState``.  ``clip_scale``, when given, is the clip factor
+    (the sharded train step computes it from the whole gradient, each
+    rank holding blocks of it)."""
     step = state.step + 1
     dev = state.step.device
-    if grad_clip:
+    if clip_scale is not None:
+        scale = clip_scale
+    elif grad_clip:
         scale = global_norm_scale(grads, grad_clip)
     else:
         scale = torch.ones((), dtype=F32, device=dev)

@@ -223,17 +223,20 @@ def test_codec_dispatch_by_device(recorders):
         ("quantize_encode", "meta", "binary16alt", {}),
         ("quantize_encode", "meta", "binary16alt", {}),
         ("dequantize_decode", "meta", "binary8", {})]
-    with pytest.raises(NotImplementedError, match="no CUDA kernel"):
-        tff.quantize(off_cpu, "binary8",
-                     rbits=torch.empty((3, 5), dtype=torch.int64,
-                                       device="meta"))
+    # stochastic rounding routes to the cast kernel with its bits
+    bits = torch.empty((3, 5), dtype=torch.int64, device="meta")
+    tff.quantize(off_cpu, "binary8", rbits=bits)
+    name, dev, fmt, kw = recorders[-1]
+    assert (name, dev, fmt, sorted(kw)) == ("flexfloat_cast", "meta",
+                                            "binary8", ["rbits", "saturate"])
+    assert kw["rbits"] is bits and kw["saturate"] is False
     # binary32 and native-dtype payloads are bitcasts, not the codec
     assert tqt.encode(off_cpu, "binary32").dtype == torch.uint32
     assert tqt.encode(off_cpu.to(torch.bfloat16), "binary16alt").dtype \
         == torch.uint16
     assert tqt.decode(torch.empty(4, dtype=torch.uint32, device="meta"),
                       "binary32").dtype == torch.float32
-    assert len(recorders) == 4
+    assert len(recorders) == 5
 
     # a CPU tensor takes the plain codec and never a wrapper
     x = torch.linspace(-3, 3, 15).reshape(3, 5)
@@ -244,7 +247,7 @@ def test_codec_dispatch_by_device(recorders):
                                             "binary16alt"))
     assert torch.equal(tqt.decode(p, "binary16alt"),
                        codec.decode_tile(p, "binary16alt"))
-    assert len(recorders) == 4
+    assert len(recorders) == 5
 
 
 def test_serve_tuner_refuses_a_missing_card():
