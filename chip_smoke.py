@@ -263,6 +263,28 @@ Run from the root of a checkout.  Phases:
                   2), (1, 4), (2, 4) and (16, 16) for llama3-8b at 32
                   layers and qwen3-moe-30b-a3b, from the rules on the
                   meta device.
+    rwkv_fused -- rwkv6-1.6b with rwkv_fused=1 (the reference's fused
+                  token shift: wrkvg 2048 x 8256, cm_kr 2048 x 9216) at
+                  full width and depth through serve.main(["--set",
+                  "rwkv_fused=1", ...]): 2 x (100 + 8) in chunks of 64 +
+                  36, 97 qmm_tc, 48 dequantize_decode, 48 plain dxx @ wm
+                  products and 49 add_layernorm a decode step or chunk;
+                  one profiled steady decode step beside the unfused
+                  config's; dequantize_decode at the two leaves bit for
+                  bit and timed, the derived weights and their products
+                  timed; logits at 2 layers, kernel route against the
+                  plain route; one training step at 4 layers.
+    dryrun     -- the compile-only tooling: the single-mesh sweep of
+                  launch/dryrun.py on the host (10 configs x 4 shapes on
+                  meta tensors, 21 jobs started after the build at
+                  nice 19; 32 ok, the 8
+                  long_500k of the quadratic configs skipped), rwkv6's
+                  train_4k with and without rwkv_fused=1 (5 all-gathers
+                  fewer a layer), the report's tables to
+                  dryrun_report.md, and llama3-8b decode_32k at rank 0's
+                  share run for real on the card: its bytes against the
+                  cell's gathered arguments, its device time against the
+                  cell's t_memory_s, within the stated tolerances.
 14. profile    -- short paged and speculative serve runs under
                   torch.profiler: device busy share and the kernels that
                   take the device time; one steady decode step's device
@@ -374,22 +396,41 @@ class Timer:
 # phase 1: the tensor-core kernel is compiled to tensor-core instructions
 # ---------------------------------------------------------------------------
 
-def check_tc_sass(lib, report):
-    """``cuobjdump -sass`` of the built qmm library: every instantiation
-    of the tensor-core kernel ``qmm_tc`` must hold HMMA (or HGMMA)
-    instructions.  Counts per function go to the report."""
+# counts each function's HMMA / HGMMA instructions in a SASS listing (run
+# in a process of its own: the qmm library's listing is large)
+_SASS_COUNT = r"""
+import json, subprocess, sys
+sass = subprocess.run([sys.argv[1], "-sass", sys.argv[2]],
+                      capture_output=True, text=True).stdout
+counts, fn = {}, None
+for line in sass.splitlines():
+    if "Function :" in line:
+        fn = line.split("Function :")[1].strip()
+        counts[fn] = 0
+    elif fn is not None and ("HMMA" in line or "HGMMA" in line):
+        counts[fn] += 1
+print(json.dumps(counts))
+"""
+
+
+def start_tc_sass(lib):
+    """Start ``cuobjdump -sass`` of the built qmm library and the count of
+    each function's HMMA / HGMMA instructions in a process of its own, so
+    the next phases run beside it; :func:`check_tc_sass` reads it."""
     from repro_torch.kernels import _build
 
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(lib.so_path)],
-                          capture_output=True, text=True).stdout
-    counts, fn = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            fn = line.split("Function :")[1].strip()
-            counts[fn] = 0
-        elif fn is not None and ("HMMA" in line or "HGMMA" in line):
-            counts[fn] = counts.get(fn, 0) + 1
+    return subprocess.Popen([sys.executable, "-c", _SASS_COUNT, tool,
+                             str(lib.so_path)], stdout=subprocess.PIPE,
+                            text=True)
+
+
+def check_tc_sass(proc, report):
+    """The result of :func:`start_tc_sass`: every instantiation of the
+    tensor-core kernel ``qmm_tc`` must hold HMMA (or HGMMA) instructions.
+    Counts per function go to the report."""
+    out, _ = proc.communicate(timeout=900)
+    counts = json.loads(out) if proc.returncode == 0 else {}
     tc = {f: n for f, n in counts.items() if "qmm_tc" in f}
     ok = bool(tc) and all(n > 0 for n in tc.values())
     report["qmm_tc_sass_hmma"] = tc
@@ -620,7 +661,8 @@ def arch_step_products(cfg):
     """The products one decode step or prefill call of ``cfg`` launches
     on ``qmm_tc``, by shape: ``[(names, K, N, gated act or None,
     launches)]``.  A layer: its mixer's (attention wq, wk, wv, wo; rwkv's
-    time mix wr, wk, wv, wg, wo and channel mix cm_k, cm_v, cm_r; the
+    time mix wr, wk, wv, wg, wo and channel mix cm_k, cm_v, cm_r, or
+    under ``rwkv_fused`` wrkvg, wo, cm_kr and cm_v; the
     RG-LRU block's w_branch, w_gate, w_rec_gate, w_in_gate, w_out), then
     but for rwkv the fused gated FFN (one ``qmm_ffn``) and w_out; an MoE
     layer's experts are grouped launches and its router binary32, both
@@ -639,6 +681,11 @@ def arch_step_products(cfg):
             add("wq", d, cfg.q_dim)
             add("wk/wv", d, cfg.kv_dim, n=2)
             add("wo", cfg.q_dim, d)
+        elif kind == "rwkv" and cfg.rwkv_fused:
+            add("wrkvg", d, 4 * d + RWKV_RANK)
+            add("wo", d, d)
+            add("cm_kr", d, ff + d)
+            add("cm_v", ff, d)
         elif kind == "rwkv":
             add("wr/wk/wv/wg/wo/cm_r", d, d, n=6)
             add("cm_k", d, ff)
@@ -653,6 +700,17 @@ def arch_step_products(cfg):
             add("w_out", ff, d)
     return [("/".join(names), K, N, act, c)
             for (K, N, act), (names, c) in prods.items()]
+
+
+RWKV_RANK = 64              # rwkv6's decay LoRA rank (wrkvg's last 64)
+
+
+def fused_dense(cfg) -> int:
+    """Plain products a call of ``cfg`` runs outside the kernels on a
+    derived weight: under ``rwkv_fused`` two a rwkv layer (``dxx @ wm``
+    in the time mix and the channel mix), each beside one
+    ``dequantize_decode`` of its packed leaf (``qparams.as_array``)."""
+    return 2 * cfg.attn_pattern.count("rwkv") if cfg.rwkv_fused else 0
 
 
 def arch_qmm_cases(cfg):
@@ -700,7 +758,9 @@ def check_qmm_archs(torch, report, timer):
     decode step's and whole prompt's rows), and the binary32 routers
     (K x E) on the GEMV (M 4) and ``qmm_tile`` (M 64); and whisper-tiny's
     (``encdec_qmm_cases``: M 1, 64 and 1500, the ungated gelu FFN with
-    its bias in the epilogue, the head's ragged N 51,865).  Then one qwen3
+    its bias in the epilogue, the head's ragged N 51,865); and the fused
+    rwkv6's ``wrkvg`` (K 2048, N 8256) and ``cm_kr`` (N 9216) at M 2, 64
+    and 36.  Then one qwen3
     expert launch (M 8, K 2048, N 768) timed against its bound and
     torch.matmul, and paligemma's gated gelu FFN (``time_qmm_gelu``)."""
     from repro_torch import configs
@@ -720,6 +780,11 @@ def check_qmm_archs(torch, report, timer):
              for name, Ms, K, N, act, f32 in arch_qmm_cases(
                  configs.get(arch))
              for M in Ms]
+    # the fused rwkv6's two wide products (N 8256 and 9216; its wo, cm_v
+    # and head are rwkv6's)
+    cases += [(FUSED_LABEL, name, M, K, N, act, False, BINARY16ALT, False)
+              for name, Ms, K, N, act, _ in arch_qmm_cases(fused_cfg())
+              if name in ("wrkvg", "cm_kr") for M in Ms]
     # whisper-tiny's ungated gelu FFN, the bias in the epilogue
     cases += [(ENCDEC_ARCH, name, M, K, N, act, False, BINARY16ALT, bias)
               for name, M, K, N, act, bias in encdec_qmm_cases(
@@ -742,6 +807,7 @@ def check_qmm_archs(torch, report, timer):
         ok &= good
         for k in (("all", "expert") if name.startswith("expert")
                   else ("all", "whisper") if arch == ENCDEC_ARCH
+                  else ("all", "fused") if arch == FUSED_LABEL
                   else ("all", "gelu") if act == "gelu" else ("all",)):
             worst[k] = max(worst.get(k, 0.0), float(err.max()))
         key = f"{arch} {name[:28]} M={M} K={K} N={N} {fmt.name}" \
@@ -762,6 +828,7 @@ def check_qmm_archs(torch, report, timer):
     report["qmm_expert_max_abs_err"] = worst["expert"]
     report["qmm_gelu_max_abs_err"] = worst.get("gelu")
     report["qmm_whisper_max_abs_err"] = worst.get("whisper")
+    report["qmm_fused_max_abs_err"] = worst.get("fused")
 
     qwen3 = configs.get("qwen3-moe-30b-a3b")   # one expert launch, M 8
     M, K, N = 8, qwen3.d_model, qwen3.d_ff
@@ -792,7 +859,8 @@ RECURRENT_ARCHS = ("rwkv6-1.6b", "recurrentgemma-2b")
 
 
 def time_qmm_recurrent(torch, report, timer):
-    """qmm_tc at rwkv6-1.6b's and recurrentgemma-2b's widths, binary16alt:
+    """qmm_tc at rwkv6-1.6b's (also with ``rwkv_fused=1``: wrkvg, wo,
+    cm_kr, cm_v) and recurrentgemma-2b's widths, binary16alt:
     every packed product of a decode step (M 2, the 2 slots; the untied
     head at N 65,536 included) and of a 64-row prefill chunk (the head at
     the last row), each shape timed once and counted as often as the
@@ -813,8 +881,8 @@ def time_qmm_recurrent(torch, report, timer):
 
     fmt = BINARY16ALT
     gen = torch.Generator(device="cuda").manual_seed(report["seed"] + 21)
-    for arch in RECURRENT_ARCHS:
-        cfg = configs.get(arch)
+    for arch, cfg in [(a, configs.get(a)) for a in RECURRENT_ARCHS] \
+            + [(FUSED_LABEL, fused_cfg())]:
         prods = arch_step_products(cfg)
         head = [] if cfg.tied_embeddings else [
             ("head", cfg.d_model, cfg.vocab, None, 1)]
@@ -3559,62 +3627,73 @@ def check_recurrent_logits(torch, report, args):
     transprecision the recurrent states are rounded to e5m2 at every
     chunk end, so the two routes are different computations (in the
     reference too), and are not compared."""
-    from repro_torch.core.policy import get_policy
-    from repro_torch.models import qparams
     from repro_torch.models.registry import build
-    from repro_torch.models.transformer import Model
 
     ok = True
     for arch, layers in (("rwkv6-1.6b", 2), ("recurrentgemma-2b", 3)):
         _, full = build(arch)
-        cfg = dataclasses.replace(full, n_layers=layers)
-        model = Model(cfg)
-        g = torch.Generator().manual_seed(args.seed)
-        toks = torch.randint(0, cfg.vocab, (1, RECURRENT_PROMPT),
-                             generator=g).to(torch.int32).cuda()
-        kernels = [("paged", "qmm_pallas")] + (
-            [("flash_pallas", "qmm_pallas")]
-            if "attn" in cfg.attn_pattern else [])
-        for pol in LOGIT_TOL:
-            res = {}
-            for dec, mm in kernels + [("xla", "xla")]:
-                policy = get_policy(pol, decode_impl=dec, matmul_impl=mm)
-                gen = torch.Generator(device="cuda").manual_seed(args.seed)
-                params = model.init_params(gen, policy, device="cuda")
-                if mm == "qmm_pallas":
-                    params = qparams.encode_params(params, policy)
-                res[dec] = _recurrent_logits(torch, model, cfg, params,
-                                             policy, toks, "chunked")
-                if pol == "binary32" and dec == "paged":
-                    res["whole"] = _recurrent_logits(
-                        torch, model, cfg, params, policy, toks, "whole")
-                del params
-                torch.cuda.empty_cache()
-            pairs = [(dec, "xla", LOGIT_TOL[pol]) for dec, _ in kernels]
-            if pol == "binary32":
-                pairs.append(("paged", "whole", CHUNKED_TOL))
-            for a_key, b_key, rel in pairs:
-                for i, what in enumerate(("prefill", "decode step")):
-                    a, b = res[a_key][i], res[b_key][i]
-                    err = float((a - b).abs().max())
-                    scale = float(b.abs().max())
-                    good = err <= rel * max(scale, 1.0) and bool(
-                        torch.isfinite(a).all())
-                    ok &= good
-                    kind = ("chunked vs whole" if b_key == "whole" else
-                            f"kernel ({a_key}) vs plain")
-                    report["logits"].append(dict(
-                        arch=arch, policy=pol, what=f"{kind} {what}",
-                        layers=layers, max_abs_err=err,
-                        max_abs_logit=scale, tol_rel=rel,
-                        argmax_equal=bool((a.argmax(-1) == b.argmax(-1))
-                                          .all()), ok=good))
-                    print(f"[logits] {arch} {pol:<14} {kind} {what}, "
-                          f"{layers}-layer full width, 64 + 36: max|diff| "
-                          f"= {err:.3e} (max|logit| {scale:.3f}, tol "
-                          f"{rel:.2e} x that) {'ok' if good else 'FAIL'}")
-        del model
-        torch.cuda.empty_cache()
+        ok &= recurrent_logit_checks(
+            torch, report, args, arch,
+            dataclasses.replace(full, n_layers=layers))
+    return ok
+
+
+def recurrent_logit_checks(torch, report, args, label, cfg):
+    """:func:`check_recurrent_logits`' checks of one config ``cfg``
+    (full width, cut in depth), reported under ``label``."""
+    from repro_torch.core.policy import get_policy
+    from repro_torch.models import qparams
+    from repro_torch.models.transformer import Model
+
+    ok = True
+    layers = cfg.n_layers
+    model = Model(cfg)
+    g = torch.Generator().manual_seed(args.seed)
+    toks = torch.randint(0, cfg.vocab, (1, RECURRENT_PROMPT),
+                         generator=g).to(torch.int32).cuda()
+    kernels = [("paged", "qmm_pallas")] + (
+        [("flash_pallas", "qmm_pallas")]
+        if "attn" in cfg.attn_pattern else [])
+    for pol in LOGIT_TOL:
+        res = {}
+        for dec, mm in kernels + [("xla", "xla")]:
+            policy = get_policy(pol, decode_impl=dec, matmul_impl=mm)
+            gen = torch.Generator(device="cuda").manual_seed(args.seed)
+            params = model.init_params(gen, policy, device="cuda")
+            if mm == "qmm_pallas":
+                params = qparams.encode_params(params, policy)
+            res[dec] = _recurrent_logits(torch, model, cfg, params,
+                                         policy, toks, "chunked")
+            if pol == "binary32" and dec == "paged":
+                res["whole"] = _recurrent_logits(
+                    torch, model, cfg, params, policy, toks, "whole")
+            del params
+            torch.cuda.empty_cache()
+        pairs = [(dec, "xla", LOGIT_TOL[pol]) for dec, _ in kernels]
+        if pol == "binary32":
+            pairs.append(("paged", "whole", CHUNKED_TOL))
+        for a_key, b_key, rel in pairs:
+            for i, what in enumerate(("prefill", "decode step")):
+                a, b = res[a_key][i], res[b_key][i]
+                err = float((a - b).abs().max())
+                scale = float(b.abs().max())
+                good = err <= rel * max(scale, 1.0) and bool(
+                    torch.isfinite(a).all())
+                ok &= good
+                kind = ("chunked vs whole" if b_key == "whole" else
+                        f"kernel ({a_key}) vs plain")
+                report["logits"].append(dict(
+                    arch=label, policy=pol, what=f"{kind} {what}",
+                    layers=layers, max_abs_err=err,
+                    max_abs_logit=scale, tol_rel=rel,
+                    argmax_equal=bool((a.argmax(-1) == b.argmax(-1))
+                                      .all()), ok=good))
+                print(f"[logits] {label} {pol:<14} {kind} {what}, "
+                      f"{layers}-layer full width, 64 + 36: max|diff| "
+                      f"= {err:.3e} (max|logit| {scale:.3f}, tol "
+                      f"{rel:.2e} x that) {'ok' if good else 'FAIL'}")
+    del model
+    torch.cuda.empty_cache()
     return ok
 
 
@@ -4537,7 +4616,9 @@ def arch_launches(cfg, decode_impl):
     attention call an attention layer; the untied head one qmm_tc, the
     tied one ``torch.matmul``; two norms a layer and the final one, each
     one fused launch with its residual add and cast (``add_rmsnorm`` for
-    the rmsnorm configs, ``add_layernorm`` for command-r and rwkv6).  A
+    the rmsnorm configs, ``add_layernorm`` for command-r and rwkv6);
+    under ``rwkv_fused`` two ``dequantize_decode`` a layer
+    (``fused_dense``).  A
     prefix-LM's "chunk" is its whole prompt (prefix and tokens in one
     call), which launches what a chunk does; a recurrent config's 36-row
     chunk launches what its 64-row one does."""
@@ -4549,21 +4630,24 @@ def arch_launches(cfg, decode_impl):
     grouped = 2 * L if cfg.moe_experts else 0
     norms = 2 * L + 1
     qmm = tc + router + grouped
+    casts = fused_dense(cfg)          # as_array's dequantize_decode
     dec = (qmm, A if decode_impl == "paged" else 0, 0,
-           0 if decode_impl == "paged" else A, 0, norms)
-    pre = (qmm, 0, A, 0, 0, norms)
+           0 if decode_impl == "paged" else A, casts, norms)
+    pre = (qmm, 0, A, 0, casts, norms)
     return dec, pre, (router, 0, tc), (0, router, tc), grouped
 
 
-def _arch_serve(torch, report, libs, args, arch, decode_impl, params, cfg):
-    """One counted serve of ``arch`` over ``params``; the checks of
-    :func:`run_archs`.  Returns (ok, the report entry)."""
+def _arch_serve(torch, report, libs, args, arch, decode_impl, params, cfg,
+                extra=(), label=None):
+    """One counted serve of ``arch`` over ``params`` (``extra``: more
+    serve flags, e.g. ``--set rwkv_fused=1``; ``label`` names its stats
+    file); the checks of :func:`run_archs`.  Returns (ok, the report
+    entry)."""
     from repro_torch.engine import worker
     from repro_torch.models import layers, moe
 
-    key = f"{arch}/{decode_impl}"
-    stats = f"archs_{arch}_{decode_impl}_stats.jsonl"
-    argv = ["--arch", arch, "--policy", "transprecision",
+    stats = f"archs_{label or arch}_{decode_impl}_stats.jsonl"
+    argv = [*extra, "--arch", arch, "--policy", "transprecision",
             "--decode-impl", decode_impl, "--matmul-impl", "qmm_pallas",
             "--page-size", str(ARCH_PAGE), "--requests", str(ARCH_REQUESTS),
             "--slots", str(ARCH_SLOTS), "--prompt-len",
@@ -4644,11 +4728,12 @@ def _arch_serve(torch, report, libs, args, arch, decode_impl, params, cfg):
     ok &= _counts_ok(per["prefill/grouped"], want_grouped)
     ok &= experts[0] == calls * want_grouped and per_expert[0] == 0
     # the tied head: one torch.matmul a column piece (a call's logits are
-    # at most 2 rows, one 8-row block); every other plain product is on
+    # at most 2 rows, one 8-row block), and the fused rwkv's products on
+    # its derived weights (fused_dense); every other plain product is on
     # a kernel.  The dense gated FFN: one qmm_ffn a layer a call
     pieces, last = head_pieces(cfg)
     ok &= (pieces, last) == WANT_HEAD_PIECES.get(arch, (0, 0))
-    ok &= head["_compute_operands"] == calls * pieces
+    ok &= head["_compute_operands"] == calls * (pieces + fused_dense(cfg))
     L = 0 if cfg.moe_experts else sum(k != "rwkv" for k in cfg.attn_pattern)
     want_ffn = {"decode": len(per["decode"]) * L,
                 "prefill": len(per["prefill"]) * L}
@@ -4702,7 +4787,8 @@ def _arch_serve(torch, report, libs, args, arch, decode_impl, params, cfg):
           f"{want_dec[5]} a call), standalone residual adds and three-step "
           f"norms {apart} (want 0); per-expert qmm_tc launches "
           f"{per_expert[0]} (want 0); head torch.matmul pieces "
-          f"{head['_compute_operands']} (want {calls} calls x {pieces}"
+          f"{head['_compute_operands']} (want {calls} calls x "
+          f"{pieces + fused_dense(cfg)}"
           f"{f', the last {last} columns wide' if pieces else ''}); gated "
           f"{cfg.act_fn} qmm_ffn launches {ffn_rows} (want {want_ffn}); "
           f"slot rows after prefill {landed} (want "
@@ -7613,6 +7699,490 @@ def run_train_mesh(torch, np, report, libs, args, timer):
 
 
 # ---------------------------------------------------------------------------
+# rwkv_fused: the reference's fused token-shift experiment at full width
+# ---------------------------------------------------------------------------
+
+FUSED_ARCH, FUSED_LABEL = "rwkv6-1.6b", "rwkv6-1.6b+fused"
+FUSED_SET = ("--set", "rwkv_fused=1")
+FUSED_TRAIN_LAYERS, FUSED_TRAIN_BATCH, FUSED_TRAIN_SEQ = 4, 2, 128
+
+
+def fused_cfg():
+    """rwkv6-1.6b with ``rwkv_fused=1``: its five token-shift projections
+    one product (``wrkvg``, 2048 x 8256), its channel mix's two one
+    (``cm_kr``, 2048 x 9216)."""
+    from repro_torch import configs
+    return dataclasses.replace(configs.get(FUSED_ARCH), rwkv_fused=1)
+
+
+def _step_profile(torch, argv, params):
+    """One steady decode step of ``serve.main(argv, params=params)`` under
+    torch.profiler: wall and device ms, device activities, and the device
+    time and launches of the cast kernel's ``decode_kernel`` (the
+    dequantize) and of the library's GEMM / GEMV kernels (the plain
+    ``torch.matmul`` products: the decay LoRA's, and the fused path's
+    ``dxx @ wm``)."""
+    busy, wall, top, _, rows = _profiled_serve(torch, argv, window=1,
+                                               params=params)
+    ev = device_rows(rows)
+
+    def part(pick):
+        sel = [e for e in ev if pick(e.key.lower())]
+        return sum(e.count for e in sel), sum(_dev_us(e) for e in sel) / 1e3
+    dq_n, dq_ms = part(lambda k: "decode_kernel" in k)
+    # the library's products: cuBLAS GEMM and GEMV kernels, not qmm's
+    mm_n, mm_ms = part(lambda k: ("gemm" in k or "gemv" in k)
+                       and "qmm" not in k)
+    return dict(wall_ms=wall * 1e3, device_ms=busy * 1e3,
+                busy_share=busy / wall, activities=sum(e.count for e in ev),
+                dequantize_launches=dq_n, dequantize_ms=dq_ms,
+                gemm_launches=mm_n, gemm_ms=mm_ms, top=top[:5])
+
+
+def time_fused_pieces(torch, report, timer, params, cfg):
+    """What the fused path adds to a rwkv6 step, at full width on the
+    served packed leaves of layer 0 (binary16alt): ``dequantize_decode``
+    of ``wrkvg`` (2048 x 8256) and ``cm_kr`` (2048 x 9216) held bit for
+    bit to its plain version and to ``.view(bfloat16).float()`` and timed
+    beside both and its byte bound; the derived weight (``as_array``,
+    the mixer broadcast, the product and the bf16 rounding:
+    ``rwkv6._mix_scaled``); and the plain product ``dxx @ wm`` at a
+    decode step's 2 rows and a chunk's 64 (``pdot``: bf16 operands in
+    f32, ``torch.matmul``).  A step runs each once a layer per leaf."""
+    from repro_torch.core.policy import get_policy
+    from repro_torch.kernels import flexfloat_cast as FF
+    from repro_torch.models import layers, rwkv6
+
+    pol = get_policy("transprecision", matmul_impl="qmm_pallas")
+    mix = params["layers"][0]["mix"]
+    d, ff = cfg.d_model, cfg.d_ff
+    g = torch.Generator(device="cuda").manual_seed(report["seed"] + 41)
+    ok, out = True, {}
+    for leaf, m, widths, role in (
+            ("wrkvg", mix["mu"], (d, d, d, d, RWKV_RANK), "attn_w"),
+            ("cm_kr", mix["cm_mu"], (ff, d), "ffn_w")):
+        w = mix[leaf]
+        p, fmt = w.payload, w.fmt
+        got = FF.dequantize_decode(p, fmt)
+        same = torch.equal(got, FF.dequantize_decode_plain(p, fmt)) and \
+            torch.equal(got, p.view(torch.bfloat16).float())
+        ok &= same
+        n = p.numel()
+        nbytes = FF.elementwise_hbm_bytes(n, fmt.container_bytes, 4)
+        t_k = timer(lambda: FF.dequantize_decode(p, fmt))
+        t_p = timer(lambda: FF.dequantize_decode_plain(p, fmt), iters=3,
+                    warmup=1)
+        t_l = timer(lambda: p.view(torch.bfloat16).float())
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        report["timings"].append(dict(
+            kernel="dequantize_decode_fused", leaf=leaf, fmt=fmt.name,
+            shape=list(p.shape), ms=t_k, plain_ms=t_p, library_ms=t_l,
+            bound_ms=bound, bound_by="bytes", bytes=nbytes,
+            max_abs_err=0.0 if same else None))
+        dt = pol.dtype(role)
+        t_wm = timer(lambda: rwkv6._mix_scaled(w, m, widths, dt))
+        wm = rwkv6._mix_scaled(w, m, widths, dt)
+        prods = {}
+        for rows in (ARCH_SLOTS, ARCH_PAGE):
+            dxx = torch.randn((rows, d), generator=g, device="cuda").to(
+                pol.dtype("act"))
+            prods[rows] = timer(lambda: layers.pdot(dxx, wm, pol, role,
+                                                    out_act=False))
+        out[leaf] = dict(shape=list(p.shape), dequantize_ms=t_k,
+                         dequantize_plain_ms=t_p, view_float_ms=t_l,
+                         dequantize_bound_ms=bound, bit_exact=same,
+                         derived_weight_ms=t_wm,
+                         product_ms={str(k): v for k, v in prods.items()})
+        print(f"[rwkv_fused] {leaf} {tuple(p.shape)} binary16alt: "
+              f"dequantize_decode {t_k:.4f} ms (plain {t_p:.3f} ms, "
+              f".view(bfloat16).float() {t_l:.4f} ms, bound {bound:.4f} "
+              f"ms), bit for bit both {same}; the derived weight m * W "
+              f"{t_wm:.4f} ms; dxx @ wm at {ARCH_SLOTS} rows "
+              f"{prods[ARCH_SLOTS]:.4f} ms, at {ARCH_PAGE} rows "
+              f"{prods[ARCH_PAGE]:.4f} ms {'ok' if same else 'FAIL'}")
+        del got, wm
+    L = cfg.n_layers
+    step = L * sum(v["derived_weight_ms"] + v["product_ms"][str(ARCH_SLOTS)]
+                   for v in out.values())
+    out["per_decode_step_ms"] = step
+    print(f"[rwkv_fused] the derived weights and their products, {L} "
+          f"layers: {step:.3f} ms a decode step (dequantize included)")
+    report["rwkv_fused"]["pieces"] = out
+    torch.cuda.empty_cache()
+    return ok
+
+
+def _fused_train(torch, np, report, args):
+    """One training step of the fused config at full width and
+    ``FUSED_TRAIN_LAYERS`` layers (transprecision, batch 2 x 128,
+    ``launch/train.make_train_step``): a finite loss, and ``wrkvg`` and
+    ``cm_kr`` moved by the update (the gradient reaches both terms)."""
+    from repro_torch.core.policy import get_policy
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import adamw
+
+    cfg = dataclasses.replace(fused_cfg(), n_layers=FUSED_TRAIN_LAYERS)
+    model, pol = Model(cfg), get_policy("transprecision")
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    params = model.init_params(gen, pol, device="cuda")
+    before = {k: params["layers"][0]["mix"][k].clone()
+              for k in ("wrkvg", "cm_kr")}
+    opt = adamw.init(params, pol)
+    step = make_train_step(model, pol, TRAIN_LR)
+    data = SyntheticLM(DataConfig(global_batch=FUSED_TRAIN_BATCH,
+                                  seq_len=FUSED_TRAIN_SEQ), cfg)
+    torch.cuda.reset_peak_memory_stats()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    loss, params, opt = step(params, opt, data.batch_at(0, device="cuda"))
+    b.record()
+    loss = float(loss)
+    torch.cuda.synchronize()
+    moved = {k: float((params["layers"][0]["mix"][k].float()
+                       != v.float()).float().mean())
+             for k, v in before.items()}
+    ok = bool(np.isfinite(loss)) and all(f > 0.5 for f in moved.values())
+    report["rwkv_fused"]["train"] = dict(
+        layers=FUSED_TRAIN_LAYERS, batch=FUSED_TRAIN_BATCH,
+        seq=FUSED_TRAIN_SEQ, loss=loss, device_ms=a.elapsed_time(b),
+        peak_mem_bytes=torch.cuda.max_memory_allocated(),
+        share_moved=moved, ok=ok)
+    print(f"[rwkv_fused] train: {FUSED_TRAIN_LAYERS} layers, full width, "
+          f"batch {FUSED_TRAIN_BATCH} x {FUSED_TRAIN_SEQ}, transprecision: "
+          f"loss {loss:.6f}, device {a.elapsed_time(b):.1f} ms, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; share of "
+          f"elements the step moved {moved} (want finite, > 0.5) "
+          f"{'ok' if ok else 'FAIL'}")
+    del params, opt, before
+    torch.cuda.empty_cache()
+    return ok
+
+
+def run_rwkv_fused(torch, np, report, libs, args, timer):
+    """rwkv6-1.6b with ``rwkv_fused=1`` (the reference's experiment: five
+    token-shift projections in one product, the channel mix's two in
+    one) at full width and depth, random weights from ``--seed``:
+    ``serve.main(["--set", "rwkv_fused=1", ...])`` under transprecision,
+    ``qmm_pallas`` and ``flash_pallas``, 2 x (100 + 8) in chunks of 64 +
+    36 (the archs phase's checks, :func:`_arch_serve`): 97 ``qmm_tc`` a
+    decode step or chunk (wrkvg, wo, cm_kr, cm_v a layer and the head),
+    48 ``dequantize_decode`` (``as_array`` of wrkvg and cm_kr), 48 plain
+    ``dxx @ wm`` products and 49 ``add_layernorm``; tok/s, TTFT, peak
+    memory.  One profiled steady decode step of the fused config and of
+    the unfused one, in turn (device ms, activities, the dequantize
+    kernel's and the GEMMs' device time); the pieces the fused path adds
+    (:func:`time_fused_pieces`); the logits at 2 layers, kernel route
+    against the plain route (:func:`recurrent_logit_checks`); and one
+    training step at 4 layers (:func:`_fused_train`)."""
+    from repro_torch.core.policy import get_policy
+    from repro_torch.models.registry import build
+    from repro_torch.models.transformer import Model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = report["rwkv_fused"] = {}
+    secs = {}
+    t0 = time.perf_counter()
+    cfg = fused_cfg()
+    policy = get_policy("transprecision", decode_impl="flash_pallas",
+                        matmul_impl="qmm_pallas")
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    params = Model(cfg).init_params(gen, policy, device="cuda")
+    init_peak = torch.cuda.max_memory_allocated()
+    ok, entry = _arch_serve(torch, report, libs, args, FUSED_ARCH,
+                            "flash_pallas", params, cfg, extra=FUSED_SET,
+                            label="rwkv6-fused")
+    entry["init_peak_mem_bytes"] = init_peak
+    out["serve"] = entry
+    secs["serve"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    from repro_torch.models import qparams
+    ok &= time_fused_pieces(torch, report, timer,
+                            qparams.encode_params(params, policy), cfg)
+    argv = ["--arch", FUSED_ARCH, "--policy", "transprecision",
+            "--decode-impl", "flash_pallas", "--matmul-impl", "qmm_pallas",
+            "--page-size", str(ARCH_PAGE), "--requests", str(ARCH_REQUESTS),
+            "--slots", str(ARCH_SLOTS), "--prompt-len",
+            str(RECURRENT_PROMPT), "--max-new", "4", "--capacity",
+            str(arch_capacity(cfg)), "--seed", str(args.seed)]
+    steps = out["steps"] = {}
+    steps["fused"] = _step_profile(torch, [*FUSED_SET, *argv], params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, ucfg = build(FUSED_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    params = model.init_params(gen, policy, device="cuda")
+    steps["unfused"] = _step_profile(torch, argv, params)
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the counted serve holds the launches; the profile shows the kernel
+    # ran (it may drop an event at the window's start: 47 of 48 seen)
+    for k, st in steps.items():
+        good = (st["dequantize_launches"] > 0) == (k == "fused")
+        ok &= good
+        print(f"[rwkv_fused] one steady decode step, {k}: wall "
+              f"{st['wall_ms']:.1f} ms, device {st['device_ms']:.2f} ms "
+              f"({100 * st['busy_share']:.1f} %), {st['activities']} device "
+              f"activities; dequantize {st['dequantize_launches']} launches "
+              f"(launched {fused_dense(cfg) if k == 'fused' else 0}) "
+              f"{st['dequantize_ms']:.3f} ms; GEMMs {st['gemm_launches']} "
+              f"launches {st['gemm_ms']:.3f} ms {'ok' if good else 'FAIL'}")
+    secs["profile"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    ok &= recurrent_logit_checks(torch, report, args, FUSED_LABEL,
+                                 dataclasses.replace(cfg, n_layers=2))
+    secs["logits"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ok &= _fused_train(torch, np, report, args)
+    secs["train"] = time.perf_counter() - t0
+    out["seconds"] = secs
+    print("[rwkv_fused] seconds: " + ", ".join(f"{k} {v:.1f}"
+                                               for k, v in secs.items()))
+    return ok
+
+
+# ---------------------------------------------------------------------------
+# dryrun: the compile-only tooling on the host, and one cell on the card
+# ---------------------------------------------------------------------------
+
+DRYRUN_TIMEOUT_S = 400           # the most the dryrun phase waits
+CROSS_ARCH, CROSS_SHAPE = "llama3-8b", "decode_32k"
+# the card cross-check's tolerances, stated before its first run: the
+# bytes the arguments take on the card within 1 % of the cell's
+# gathered_argument_bytes (the allocator rounds each tensor up to 512
+# bytes); the device time of the rank's decode step between 0.8 and 3 x
+# the cell's t_memory_s (a roofline term is a lower bound at the
+# data-sheet rate; 0.8 leaves room for L2 hits of the counted bytes)
+CROSS_BYTES_TOL, CROSS_TIME_RANGE = 0.01, (0.8, 3.0)
+
+
+# one sweep job: run launch/dryrun.main once for each of its shapes
+_SWEEP_JOB = r"""
+import sys
+from repro_torch.launch import dryrun
+arch, out, shapes, extra = sys.argv[1], sys.argv[2], sys.argv[3], sys.argv[4:]
+for shape in shapes.split(","):
+    dryrun.main(["--arch", arch, "--shape", shape, "--mesh", "single",
+                 "--out", out, *extra])
+"""
+
+
+def start_sweep(report, out_dir):
+    """Start the single-mesh sweep (10 configs x 4 shapes) and rwkv6's
+    train_4k with ``--set rwkv_fused=1`` through ``launch/dryrun.main``:
+    a config's train cell in a job of its own (the longest), its other
+    shapes in another, every job a host process at the lowest priority
+    (``nice`` 19: it takes only the cores the phases leave idle) with no
+    card (``CUDA_VISIBLE_DEVICES`` empty), all started at once;
+    :func:`finish_sweep` waits for them."""
+    from repro_torch import configs
+    from repro_torch.configs.shapes import SHAPES
+
+    os.makedirs(out_dir, exist_ok=True)
+    for fn in os.listdir(out_dir):
+        if fn.endswith(".json"):
+            os.remove(os.path.join(out_dir, fn))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=report["src"], OMP_NUM_THREADS="1")
+    rest = ",".join(s for s in SHAPES if s != "train_4k")
+    jobs = [(FUSED_ARCH, "train_4k", "--set", "rwkv_fused=1", "--tag",
+             "fused")]
+    jobs += [(a, "train_4k") for a in configs.ARCHS]
+    jobs += [(a, rest) for a in configs.ARCHS]
+    log = open(os.path.join(out_dir, "sweep.log"), "w")
+    procs = [subprocess.Popen(
+        ["nice", "-n", "19", sys.executable, "-c", _SWEEP_JOB, a, out_dir,
+         shapes, *extra], env=env, stdout=log, stderr=subprocess.STDOUT)
+        for a, shapes, *extra in jobs]
+    return dict(procs=procs, log=log, out_dir=out_dir,
+                t0=time.perf_counter())
+
+
+def stop_sweep(job) -> None:
+    """Kill what is left of a sweep and close its log."""
+    for p in job["procs"]:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    job["log"].close()
+
+
+def finish_sweep(job):
+    """Wait (at most ``DRYRUN_TIMEOUT_S``) for :func:`start_sweep`'s jobs;
+    returns (the cells, the jobs' exit codes, seconds from their start to
+    this call's end, seconds this call waited)."""
+    t0 = time.perf_counter()
+    try:
+        for p in job["procs"]:
+            p.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S
+                               - (time.perf_counter() - t0)))
+    finally:
+        stop_sweep(job)
+    waited = time.perf_counter() - t0
+    cells = {}
+    out_dir = job["out_dir"]
+    for fn in sorted(os.listdir(out_dir)):
+        if fn.endswith(".json"):
+            with open(os.path.join(out_dir, fn)) as f:
+                cells[fn[:-5]] = json.load(f)
+    return (cells, [p.returncode for p in job["procs"]],
+            time.perf_counter() - job["t0"], waited)
+
+
+def _cross_check(torch, report, cell, args):
+    """``CROSS_ARCH`` ``CROSS_SHAPE`` at one rank's share on the card:
+    rank 0 of the single mesh decodes 8 of the 128 rows over a
+    32768-row e5m2 cache, with the whole model's weights (the step
+    gathers them): the model's weights and the 8 rows' caches made on
+    the card (transprecision, the cell's plain ``xla`` spellings), their
+    bytes against the cell's ``gathered_argument_bytes``, and one decode
+    step's device time (CUDA events, median of 3 after one warm-up,
+    each step on the same inputs) against its ``t_memory_s``."""
+    from repro_torch import configs
+    from repro_torch.core.policy import get_policy
+    from repro_torch.models.attention import KVCache
+    from repro_torch.models.transformer import Model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = configs.get(CROSS_ARCH)
+    want = cell["memory"]["gathered_argument_bytes"]
+    B = 128 // cell["mesh_shape"]["data"]
+    S = 32768
+    model, pol = Model(cfg), get_policy("transprecision")
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    params = model.init_params(gen, pol, device="cuda")
+    states = [s._replace(pos=S - 1) if isinstance(s, KVCache) else s
+              for s in model.init_state(B, S, pol, device="cuda")]
+    tokens = torch.randint(0, cfg.vocab, (B, 1), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    times = []
+    for i in range(4):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        logits, new = model.decode_step(params, tokens, states, pol)
+        b.record()
+        b.synchronize()
+        if i:
+            times.append(a.elapsed_time(b))
+        finite = bool(torch.isfinite(logits.float()).all())
+        del logits, new
+    times.sort()
+    ms = times[len(times) // 2]
+    peak = torch.cuda.max_memory_allocated() - base
+    t_mem = cell["roofline"]["t_memory_s"] * 1e3
+    bytes_ok = abs(held - want) <= CROSS_BYTES_TOL * want
+    lo, hi = CROSS_TIME_RANGE
+    time_ok = lo * t_mem <= ms <= hi * t_mem
+    ok = bytes_ok and time_ok and finite
+    report["dryrun"]["cross_check"] = dict(
+        arch=CROSS_ARCH, shape=CROSS_SHAPE, rows=B, cache_rows=S,
+        held_bytes=held, gathered_argument_bytes=want,
+        argument_size_in_bytes=cell["memory"]["argument_size_in_bytes"],
+        bytes_ratio=held / want, bytes_tol=CROSS_BYTES_TOL,
+        device_ms=ms, device_ms_all=times, t_memory_ms=t_mem,
+        time_ratio=ms / t_mem, time_range=CROSS_TIME_RANGE,
+        bytes_per_device=cell["bytes_per_device"], peak_bytes=peak,
+        logits_finite=finite, ok=ok)
+    print(f"[dryrun] card cross-check {CROSS_ARCH} {CROSS_SHAPE} at rank "
+          f"0's share ({B} rows x {S} cached, transprecision, xla): held "
+          f"{held / 1e9:.3f} GB against the cell's gathered arguments "
+          f"{want / 1e9:.3f} GB (ratio {held / want:.4f}, tol +-"
+          f"{CROSS_BYTES_TOL:.0%}; its blocks by the rules "
+          f"{cell['memory']['argument_size_in_bytes'] / 1e9:.3f} GB); "
+          f"decode step {ms:.2f} ms device (steps {times}) against "
+          f"t_memory {t_mem:.2f} ms (ratio {ms / t_mem:.3f}, want "
+          f"{lo}-{hi}); peak {peak / 1e9:.2f} GB; logits finite {finite} "
+          f"({report['nvidia_smi']}) {'ok' if ok else 'FAIL'}")
+    del params, states, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok
+
+
+def run_dryrun(torch, report, args, sweep):
+    """The compile-only tooling (``launch/dryrun.py``, ``report.py``,
+    ``hlo_analysis.py``): (a) the single-mesh sweep on the host (10
+    configs x 4 shapes on ``meta`` tensors, no kernel launched): 40
+    cells, 32 ok and the 8 ``long_500k`` cells of the quadratic configs
+    skipped, none in error; (b) rwkv6-1.6b's train_4k with and without
+    ``--set rwkv_fused=1``: 5 all-gathers fewer a layer (wr, wk, wv, wg,
+    wd1 -> wrkvg; cm_k, cm_r -> cm_kr); the report's tables rendered to
+    ``dryrun_report.md``; (c) the card cross-check
+    (:func:`_cross_check`)."""
+    from repro_torch import configs
+    from repro_torch.configs.shapes import SHAPES, SUBQUADRATIC
+    from repro_torch.launch import report as rep
+
+    out = report["dryrun"] = {}
+    cells, rcs, secs, waited = finish_sweep(sweep)
+    out_dir = sweep["out_dir"]
+    single = {k: v for k, v in cells.items() if not v.get("tag")}
+    status = [v["status"] for v in single.values()]
+    skipped = sorted((v["arch"], v["shape"]) for v in single.values()
+                     if v["status"] == "skipped")
+    want_skip = sorted((a, "long_500k") for a in configs.ARCHS
+                       if a not in SUBQUADRATIC)
+    ok = (len(single) == len(configs.ARCHS) * len(SHAPES)
+          and status.count("ok") == 32 and skipped == want_skip
+          and "error" not in status and all(rc == 0 for rc in rcs))
+    fused = next(v for v in cells.values() if v.get("tag") == "fused")
+    plain = single[f"{FUSED_ARCH}__train_4k__single__transprecision"]
+    ag = [c["collectives"]["all-gather"]["count"] for c in (plain, fused)]
+    L = fused_cfg().n_layers
+    fewer = ag[0] - ag[1] == 5 * L
+    ok &= fewer
+    with open(os.path.join(args.out, "dryrun_report.md"), "w") as f:
+        f.write(rep.render(out_dir))
+    roof = {f"{v['arch']} {v['shape']}": dict(
+        dominant=v["roofline"]["dominant"],
+        bound_s=v["roofline"]["bound_step_time_s"],
+        t_compute_s=v["roofline"]["t_compute_s"],
+        t_memory_s=v["roofline"]["t_memory_s"],
+        t_collective_s=v["roofline"]["t_collective_s"],
+        useful=v["roofline"]["useful_flops_ratio"],
+        model_flops=v["roofline"]["model_flops"], run_s=v["run_s"])
+        for v in single.values() if v["status"] == "ok"}
+    out.update(cells=len(single), ok_cells=status.count("ok"),
+               skipped=skipped, rcs=rcs, seconds=secs, waited_s=waited,
+               rwkv_train_all_gathers=dict(unfused=ag[0], fused=ag[1]),
+               rwkv_train_flops=dict(unfused=plain["flops_per_device"],
+                                     fused=fused["flops_per_device"]),
+               rooflines=roof)
+    print(f"[dryrun] single-mesh sweep on the host: {len(rcs)} jobs read "
+          f"{secs:.1f} s after their start, this phase waited {waited:.1f} "
+          f"s for them: {len(single)} cells, "
+          f"{status.count('ok')} ok, skipped {len(skipped)} "
+          f"(want the 8 long_500k of the quadratic configs: "
+          f"{skipped == want_skip}), errors {status.count('error')}, exit "
+          f"codes {rcs}; rwkv6 train_4k all-gathers {ag[0]} -> {ag[1]} "
+          f"with rwkv_fused=1 (want {5 * L} fewer) "
+          f"{'ok' if ok else 'FAIL'}")
+    for k, r in sorted(roof.items()):
+        print(f"[dryrun] {k:<34} {r['dominant']:<10} bound "
+              f"{r['bound_s']:.4g} s (compute {r['t_compute_s']:.4g}, "
+              f"memory {r['t_memory_s']:.4g}, collective "
+              f"{r['t_collective_s']:.4g}); model/counted flops "
+              f"{r['useful']:.4f}")
+    cell = single.get(f"{CROSS_ARCH}__{CROSS_SHAPE}__single__transprecision")
+    ok &= cell is not None and _cross_check(torch, report, cell, args)
+    return ok
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -7620,7 +8190,7 @@ ALL_PHASES = ("build", "kernels", "casts", "ops", "serve", "serve_flash",
               "speculative", "serve_f32", "serve_reduced", "logits",
               "resilience", "archs", "encdec", "train", "prefill_cont",
               "paper", "serve_tune", "tune_archs", "mesh", "train_mesh",
-              "profile")
+              "rwkv_fused", "dryrun", "profile")
 
 
 def kernel_rows(report):
@@ -7660,7 +8230,11 @@ def kernel_rows(report):
     Training's shapes, launches from the train phase's 8 steps:
     ``flash_prefill_train`` (B 8, Sq = Skv 128, H 8, G 4, dh 128, f32
     K/V, causal; its forward and the remat recompute) and
-    ``add_rmsnorm_train`` (1024 rows, d 4096); and ``flash_prefill_cont``
+    ``add_rmsnorm_train`` (1024 rows, d 4096); the fused rwkv6's
+    (``rwkv_fused=1``), launches from the rwkv_fused phase's serve:
+    ``qmm_tc_rwkv6_fused`` and ``qmm_tc_rwkv6_fused_decode_step``, and
+    ``dequantize_decode_wrkvg`` / ``dequantize_decode_cm_kr`` (2048 x 8256
+    and 2048 x 9216, binary16alt); and ``flash_prefill_cont``
     (64 rows at q_offset 64 over a 128-row e5m2 cache), the prefill_cont
     phase's launch.  The
     MoE expert product's two
@@ -7698,6 +8272,10 @@ def kernel_rows(report):
     qwen3_grouped = archs.get("qwen3-moe-30b-a3b/flash_pallas", {}).get(
         "grouped_by_kernel", {})
     rwkv = archs.get("rwkv6-1.6b/flash_pallas", {})
+    fused = report.get("rwkv_fused", {}).get("serve", {})
+    # the fused serve's dequantize launches: one wrkvg and one cm_kr a
+    # layer a call
+    fused_dq = fused.get("launches", {}).get("flexfloat_cast", 0) // 2
     rg = archs.get("recurrentgemma-2b/flash_pallas", {})
     rg_paged = archs.get("recurrentgemma-2b/paged", {})
 
@@ -7830,6 +8408,25 @@ def kernel_rows(report):
          tc_launches(rg, "decode_step"),
          report.get("qmm_archs_max_abs_err"),
          timing("qmm_tc_recurrentgemma-2b_decode_step")),
+        # the fused rwkv6 (rwkv_fused=1): qmm_tc per chunk and per decode
+        # step (wrkvg 2048 x 8256, wo, cm_kr 2048 x 9216, cm_v, the head),
+        # and as_array's dequantize_decode of the two wide leaves
+        ("qmm_tc_rwkv6_fused", qmm_src, qmm_tpu,
+         tc_launches(fused, "prefill_chunk"),
+         report.get("qmm_fused_max_abs_err"),
+         timing(f"qmm_tc_{FUSED_LABEL}_chunk")),
+        ("qmm_tc_rwkv6_fused_decode_step", qmm_src, qmm_tpu,
+         tc_launches(fused, "decode_step"),
+         report.get("qmm_fused_max_abs_err"),
+         timing(f"qmm_tc_{FUSED_LABEL}_decode_step")),
+        ("dequantize_decode_wrkvg", ff_src,
+         "src/repro/kernels/flexfloat_cast.py:42", fused_dq,
+         (timing("dequantize_decode_fused", leaf="wrkvg") or {}).get(
+             "max_abs_err"), timing("dequantize_decode_fused", leaf="wrkvg")),
+        ("dequantize_decode_cm_kr", ff_src,
+         "src/repro/kernels/flexfloat_cast.py:42", fused_dq,
+         (timing("dequantize_decode_fused", leaf="cm_kr") or {}).get(
+             "max_abs_err"), timing("dequantize_decode_fused", leaf="cm_kr")),
         ("add_layernorm_d2048", "src/repro_torch/csrc/rmsnorm.cu",
          "src/repro/models/layers.py:228",
          norm_launches(rwkv, "add_layernorm_launch"),
@@ -7945,7 +8542,7 @@ def main() -> int:
         fail("torch.cuda.is_available() is false: this script measures "
              "the port on a CUDA card", 2)
     sys.path.insert(0, src)
-    from repro_torch.kernels import (_build, flash_attention, flexfloat_cast,
+    from repro_torch.kernels import (flash_attention, flexfloat_cast,
                                      paged_attention, qmatmul, rmsnorm)
 
     os.makedirs(args.out, exist_ok=True)
@@ -7964,9 +8561,29 @@ def main() -> int:
     print(f"[device] {torch.cuda.get_device_name(0)} | torch "
           f"{torch.__version__} cuda {torch.version.cuda} | {smi}")
 
+    jobs = {}                   # the dry-run sweep, once started
+    try:
+        return _run_phases(torch, np, args, phases, libs, report, smi, jobs)
+    finally:
+        if "sweep" in jobs:
+            stop_sweep(jobs["sweep"])
+
+
+def _run_phases(torch, np, args, phases, libs, report, smi, jobs):
+    """Every phase of ``phases`` in turn, then the report and the last
+    lines; returns 0 (a failed phase exits through :func:`fail`).  The
+    dry-run sweep starts as the first phase after the build begins (the
+    build's nvcc processes would share the host's cores with it) and runs
+    on the host beside the phases before its own."""
+    from repro_torch.kernels import _build, qmatmul
+
     results = {}
     timer = None
+    sass = None                 # the SASS check, read after the phases
     for phase in phases:
+        if "dryrun" in phases and "sweep" not in jobs and phase != "build":
+            jobs["sweep"] = start_sweep(
+                report, os.path.join(args.out, "dryrun_single"))
         t0 = time.perf_counter()
         try:
             if phase == "build":
@@ -7979,7 +8596,7 @@ def main() -> int:
                         f.write(f"== {lib.name}\n{lib.ptxas_report()}\n")
                 ok = True
                 if hasattr(qmatmul, "TC_FMT_CODES"):
-                    ok = check_tc_sass(qmatmul.LIB, report)
+                    sass = start_tc_sass(qmatmul.LIB)
             elif phase == "kernels":
                 timer = timer or Timer(torch)
                 ok = check_qmm(torch, np, report)
@@ -8049,6 +8666,11 @@ def main() -> int:
             elif phase == "train_mesh":
                 timer = timer or Timer(torch)
                 ok = run_train_mesh(torch, np, report, libs, args, timer)
+            elif phase == "rwkv_fused":
+                timer = timer or Timer(torch)
+                ok = run_rwkv_fused(torch, np, report, libs, args, timer)
+            elif phase == "dryrun":
+                ok = run_dryrun(torch, report, args, jobs["sweep"])
             elif phase == "profile":
                 ok = run_profile(torch, report, args)
             elif phase == "steps":
@@ -8066,6 +8688,8 @@ def main() -> int:
         print(f"[phase] {phase}: {'ok' if ok else 'FAILED'} in "
               f"{secs:.1f} s", flush=True)
 
+    if sass is not None:
+        results["build"] &= check_tc_sass(sass, report)
     kernels = kernel_rows(report)
     report["kernels"] = kernels
     report["phases"] = results

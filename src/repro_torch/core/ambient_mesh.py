@@ -37,13 +37,21 @@ _AMBIENT: list = []   # the stack of (mesh, batch_split) set by use_mesh
 @dataclasses.dataclass(frozen=True)
 class MeshShape:
     """A mesh's dim names and sizes without ranks: what the rules read
-    (``mesh_dim_names`` and ``size(dim)``, as a ``DeviceMesh`` has).  A
-    collective over its dims has one rank to reduce and runs none."""
+    (``mesh_dim_names`` and ``size(dim)``, as a ``DeviceMesh`` has).  It
+    stands for rank 0 (every coordinate 0).  A collective over a dim of
+    one rank runs none; over a wider dim it takes the shape route
+    (``core/collectives.py``): recorded and answered with a ``meta``
+    tensor of its result's shape."""
     mesh_dim_names: Tuple[str, ...]
     sizes: Tuple[int, ...]
 
-    def size(self, dim: int) -> int:
+    def size(self, dim) -> int:
+        if isinstance(dim, str):
+            dim = self.mesh_dim_names.index(dim)
         return self.sizes[dim]
+
+    def get_local_rank(self, dim: str) -> int:
+        return 0
 
     @property
     def shape(self) -> Dict[str, int]:

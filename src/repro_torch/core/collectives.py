@@ -16,6 +16,12 @@ concatenates the innermost dim's blocks first, which gives the blocks in
 row-major order of the dims' coordinates, as a ``PartitionSpec`` entry
 ``("pod", "data")`` orders them.
 
+On a :class:`~repro_torch.core.ambient_mesh.MeshShape` (a mesh's dims
+without ranks, read as rank 0) a collective over a dim of more than one
+rank takes the shape route of ``kernels/_route.py``: it records its kind
+under the reference's HLO name and its result's bytes, and returns a
+``meta`` tensor of its result's shape (``launch/dryrun.py``).
+
 gloo (the CPU backend) has no float8 or 16/32-bit unsigned integers: a
 gather moves such tensors as the signed integers of their width; a sum
 refuses them.
@@ -44,7 +50,9 @@ from typing import List, Sequence, Tuple, Union
 
 import torch
 
-from .ambient_mesh import axis_names, axis_size
+from repro_torch.kernels._route import meta_empty, record_collective
+
+from .ambient_mesh import MeshShape, axis_names, axis_size
 
 Axes = Union[str, Sequence[str]]
 
@@ -95,6 +103,11 @@ def all_reduce_sum(t: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
         return t
     if t.dtype in _WIRE:
         raise TypeError(f"gloo cannot sum {t.dtype}: decode it first")
+    if isinstance(mesh, MeshShape):
+        out = meta_empty(t.shape, t.dtype)
+        for _ in live:
+            record_collective("all-reduce", out)
+        return out
     out = t.clone()
     for a in live:
         dist.all_reduce(out, group=mesh.get_group(a))
@@ -110,6 +123,12 @@ def all_gather_cat(t: torch.Tensor, mesh, axes: Axes,
     for a in _live(mesh, axes):
         t = t.contiguous()
         n = axis_size(mesh, a)
+        if isinstance(mesh, MeshShape):
+            shape = list(t.shape)
+            shape[dim] *= n
+            t = record_collective("all-gather",
+                                  meta_empty(shape, t.dtype))
+            continue
         if t.dtype in _WIRE:
             wt = t.view(_WIRE[t.dtype])
             parts = [torch.empty_like(wt) for _ in range(n)]

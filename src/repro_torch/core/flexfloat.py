@@ -11,6 +11,7 @@ from typing import Optional, Union
 
 import torch
 
+from repro_torch.kernels._route import route
 from repro_torch.kernels.codec import quantize_tile
 from repro_torch.kernels.flexfloat_cast import flexfloat_cast
 
@@ -32,7 +33,7 @@ def quantize(x: torch.Tensor, fmt: Union[FpFormat, str], *,
     x = torch.as_tensor(x)
     if x.dtype != torch.float32:
         x = x.to(torch.float32)
-    if x.device.type != "cpu":
+    if route(x) != "cpu":              # the kernel, or its shape route
         if rbits is None:
             return flexfloat_cast(x, fmt, saturate=saturate)
         return flexfloat_cast(x, fmt, saturate=saturate, rbits=rbits)

@@ -5,8 +5,9 @@ exact (e, m) bit pattern of every element in the narrowest unsigned
 container (uint8/uint16/uint32) plus the format, and
 ``decode(encode(x)) == quantize(x)`` bit for bit.  On a CUDA tensor the
 codec runs as the ``quantize_encode`` / ``dequantize_decode`` kernels
-(``kernels/flexfloat_cast.py``), on a CPU tensor as their plain versions
-(``kernels/codec.py``).  For the formats with a native torch dtype,
+(``kernels/flexfloat_cast.py``; on a ``meta`` tensor their shape route),
+on a CPU tensor as their plain versions (``kernels/codec.py``).  For the
+formats with a native torch dtype,
 ``to_native`` / ``from_native`` reinterpret the payload (paper flow step
 5), and ``pack_words`` / ``unpack_words`` give the FPU's 32-bit vector
 word layout.
@@ -17,6 +18,7 @@ from typing import Union
 
 import torch
 
+from repro_torch.kernels._route import route
 from repro_torch.kernels.codec import (decode_tile, encode_tile,
                                        pack_word_tile, unpack_word_tile)
 from repro_torch.kernels.flexfloat_cast import (dequantize_decode,
@@ -40,7 +42,7 @@ def encode(x: torch.Tensor, fmt: Union[FpFormat, str], *,
     fmt = get_format(fmt)
     if fmt.native_dtype is not None and x.dtype == fmt.native_dtype:
         return x.contiguous().view(fmt.container_dtype)
-    if x.device.type != "cpu":
+    if route(x) != "cpu":              # the kernel, or its shape route
         if fmt.is_binary32:
             return x.to(torch.float32).contiguous().view(torch.uint32)
         return quantize_encode(x, fmt)
@@ -52,7 +54,7 @@ def encode(x: torch.Tensor, fmt: Union[FpFormat, str], *,
 def decode(bits: torch.Tensor, fmt: Union[FpFormat, str]) -> torch.Tensor:
     """Exact expansion of packed (e, m) bit fields to float32."""
     fmt = get_format(fmt)
-    if bits.device.type != "cpu":
+    if route(bits) != "cpu":           # the kernel, or its shape route
         if fmt.is_binary32:
             return bits.contiguous().view(torch.float32)
         return dequantize_decode(bits, fmt)

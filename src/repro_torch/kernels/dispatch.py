@@ -67,6 +67,8 @@ import torch
 from repro_torch.core import ambient_mesh as mesh_mod
 from repro_torch.core import collectives as coll
 
+from ._route import meta_empty, record_collective
+
 BASE_IMPLS = ("xla", "flash_pallas", "paged")
 WRAPPER_IMPLS = ("flash_shmap", "ring")
 DEFAULT_INNER = "xla"  # a bare wrapper spelling means wrapper+xla
@@ -272,7 +274,11 @@ def _sharded_wrapper_factory(sharded: Callable, sharded_paged: Callable
 
 def _batch_pspec(mesh, batch: int):
     """The batch axis's partition, as the reference's: the mesh's data
-    dims when they divide the batch, else None (replicated)."""
+    dims when they divide the batch, else None (replicated).  Inside
+    ``use_mesh(mesh, batch_split=...)`` the rank's operands hold only its
+    own rows already: None (no narrowing, no gather)."""
+    if mesh_mod.batch_split_axes():
+        return None
     dp = mesh_mod.dp_axes(mesh)
     return dp if batch % max(mesh_mod.dp_size(mesh), 1) == 0 else None
 
@@ -425,6 +431,11 @@ def _ring_pass(mesh, *shards):
     16-bit integer dtype."""
     import torch.distributed as dist
 
+    if isinstance(mesh, mesh_mod.MeshShape):
+        # a mesh without ranks: the shape route (kernels/_route.py)
+        return [record_collective("collective-permute",
+                                  meta_empty(t.shape, t.dtype))
+                for t in shards]
     group = mesh.get_group("model")
     n, i = mesh_mod.model_axis_size(mesh), mesh.get_local_rank("model")
     nxt = dist.get_global_rank(group, (i + 1) % n)

@@ -36,6 +36,7 @@ import torch
 from repro_torch.core.formats import FpFormat, get_format
 
 from . import _build
+from ._route import meta_empty, route, shape_route
 from .codec import decode_tile
 
 NEG_INF = -1e30  # finite sentinel: keeps exp(m_prev - m_new) well-defined
@@ -226,12 +227,38 @@ def flash_decode(q, k_payload, v_payload, fmt, lengths, *,
     if scale is None:
         scale = float(1.0 / np.sqrt(dh))
     lengths = torch.clamp(lengths.to(torch.int32), max=S)
-    if q.device.type == "cpu":
+    where = route(q)
+    if where == "cpu":
         return flash_decode_plain(q, k_payload, v_payload, fmt, lengths,
                                   scale=scale,
                                   return_residuals=return_residuals)
+    if where == "meta":
+        # no lengths on meta: every one of the S slots counts as live
+        return decode_shape("flash_decode", q, S, fmt, return_residuals,
+                            decode_hbm_bytes([S] * B, S, H, dh, fmt, g=G),
+                            k=k_payload, v=v_payload)
     return _decode_cuda(q, k_payload, v_payload, fmt, lengths.contiguous(),
                         scale, return_residuals)
+
+
+def decode_flops(B: int, H: int, G: int, dh: int, live: int) -> int:
+    """Operations of one decode call over ``live`` slots a row: the
+    scores and the weighted sum, a multiply and an add each per element
+    (the softmax's few per score left out)."""
+    return 4 * B * H * G * dh * live
+
+
+def decode_shape(name, q, S: int, fmt, return_residuals: bool,
+                 nbytes: int, **operands):
+    """The shape route of a decode kernel: ``meta`` outputs (and
+    partials) of ``q``'s shape, ``S`` live slots a row."""
+    B, H, G, dh = q.shape
+    out = meta_empty(q.shape, torch.float32)
+    if return_residuals:
+        out = (out, meta_empty((B, H, G), torch.float32),
+               meta_empty((B, H, G), torch.float32))
+    return shape_route(name, out, flops=decode_flops(B, H, G, dh, S),
+                       nbytes=nbytes, q=q, **operands)
 
 
 def decode_hbm_bytes(lengths, S: int, n_kv: int, head_dim: int, fmt, *,
@@ -256,6 +283,23 @@ def prefill_mask(Sq: int, Skv: int, q_offset: int, window: Optional[int],
     if prefix_len:
         m = m | (ki < prefix_len)
     return m
+
+
+def visible_pairs(Sq: int, Skv: int, q_offset: int,
+                  window: Optional[int], prefix_len: int) -> int:
+    """(query, key) pairs :func:`prefill_mask` lets through, counted
+    row by row without the (Sq, Skv) mask."""
+    qi = q_offset + np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(qi, Skv - 1)                  # last key seen, causal
+    lo = np.zeros_like(qi) if window is None \
+        else np.maximum(qi - window + 1, 0)
+    n = np.maximum(hi - lo + 1, 0)
+    if prefix_len:
+        p = min(prefix_len, Skv)
+        # keys below the prefix are always seen: add those the causal
+        # (and window) range left out
+        n = n + p - np.clip(np.minimum(hi, p - 1) - lo + 1, 0, p)
+    return int(n.sum())
 
 
 def flash_prefill_plain(q, k, v, fmt=None, *, scale: Optional[float] = None,
@@ -319,10 +363,18 @@ def flash_prefill(q, k_payload, v_payload, fmt=None, *,
         q.shape, k_payload.shape, v_payload.shape)
     if scale is None:
         scale = float(1.0 / np.sqrt(dh))
-    if q.device.type == "cpu":
+    where = route(q)
+    if where == "cpu":
         return flash_prefill_plain(q, k_payload, v_payload, fmt, scale=scale,
                                    window=window, prefix_len=prefix_len,
                                    q_offset=q_offset)
+    if where == "meta":
+        pairs = visible_pairs(Sq, Skv, q_offset, window, prefix_len)
+        return shape_route(
+            "flash_prefill", meta_empty(q.shape, torch.float32),
+            flops=4 * B * H * G * dh * pairs,
+            nbytes=prefill_hbm_bytes(B, Sq, Skv, H, G, dh, fmt), q=q,
+            k=k_payload, v=v_payload)
     return _prefill_cuda(q, k_payload, v_payload, fmt, scale, window,
                          prefix_len, q_offset)
 

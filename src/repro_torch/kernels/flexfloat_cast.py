@@ -22,6 +22,7 @@ import torch
 from repro_torch.core.formats import get_format
 
 from . import _build
+from ._route import route, shape_route
 from .codec import decode_tile, encode_tile, quantize_tile
 
 _SIG = [_build.P, _build.P, _build.I64] + [_build.I32] * 5 + [_build.P]
@@ -92,8 +93,15 @@ def flexfloat_cast(x, fmt, *, saturate: bool = False,
     x = torch.as_tensor(x).to(torch.float32)
     if fmt.is_binary32:
         return x
-    if x.device.type == "cpu":
+    where = route(x)
+    if where == "cpu":
         return flexfloat_cast_plain(x, fmt, saturate=saturate, rbits=rbits)
+    if where == "meta":
+        n = x.numel()
+        name = "flexfloat_cast" if rbits is None else "flexfloat_cast_sr"
+        return shape_route(name, torch.empty_like(x, device="meta"),
+                           flops=n, nbytes=elementwise_hbm_bytes(
+                               n, 4 if rbits is None else 8, 4), x=x)
     x = x.contiguous()
     if rbits is None:
         return _launch("flexfloat_cast_launch", x, torch.empty_like(x), fmt,
@@ -116,12 +124,17 @@ def quantize_encode(x, fmt) -> torch.Tensor:
     uint8 / uint16 / uint32 container."""
     fmt = get_format(fmt)
     x = torch.as_tensor(x).to(torch.float32)
-    if x.device.type == "cpu":
+    where = route(x)
+    if where == "cpu":
         return quantize_encode_plain(x, fmt)
-    x = x.contiguous()
-    _build.check_no_grad("quantize_encode", x=x)
     out = torch.empty(x.shape, dtype=fmt.container_dtype, device=x.device)
     n = x.numel()
+    if where == "meta":
+        return shape_route("quantize_encode", out, flops=n,
+                           nbytes=elementwise_hbm_bytes(
+                               n, 4, fmt.container_bytes), x=x)
+    x = x.contiguous()
+    _build.check_no_grad("quantize_encode", x=x)
     if n == 0:
         return out
     vec, blocks = encode_plan(
@@ -137,7 +150,8 @@ def dequantize_decode(payload, fmt) -> torch.Tensor:
     """Unpack (e, m) containers to exact f32 values."""
     fmt = get_format(fmt)
     payload = torch.as_tensor(payload)
-    if payload.device.type == "cpu":
+    where = route(payload)
+    if where == "cpu":
         return dequantize_decode_plain(payload, fmt)
     if payload.dtype != fmt.container_dtype:
         raise ValueError(f"dequantize_decode: {fmt.name} payloads are "
@@ -145,6 +159,11 @@ def dequantize_decode(payload, fmt) -> torch.Tensor:
     payload = payload.contiguous()
     out = torch.empty(payload.shape, dtype=torch.float32,
                       device=payload.device)
+    if where == "meta":
+        n = payload.numel()
+        return shape_route("dequantize_decode", out, flops=n,
+                           nbytes=elementwise_hbm_bytes(
+                               n, fmt.container_bytes, 4), payload=payload)
     return _launch("dequantize_decode_launch", payload, out, fmt,
                    fmt.container_bytes)
 

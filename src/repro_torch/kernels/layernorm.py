@@ -33,8 +33,9 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from ._route import route, shape_route
 from .rmsnorm import (LIB, add_rmsnorm_hbm_bytes, fused_norm_diff,
-                      launch_fused, norm_operands, residual_add,
+                      launch_fused, norm_flops, norm_operands, residual_add,
                       row_mean_plain)
 
 
@@ -49,10 +50,16 @@ def layernorm_plain(x, gamma, beta, eps: float = 1e-5) -> torch.Tensor:
 def layernorm_f32(x, gamma, beta, eps: float = 1e-5) -> torch.Tensor:
     """layernorm of ``x`` (..., d) with ``gamma``, ``beta`` (d,), as f32:
     the kernel on a CUDA tensor (one launch), the twin on a CPU one."""
-    if x.device.type == "cpu":
+    where = route(x)
+    if where == "cpu":
         return layernorm_plain(x, gamma, beta, eps)
     x, (g, b), y, rows = norm_operands("layernorm", x, gamma=gamma,
                                        beta=beta)
+    if where == "meta":
+        d = x.shape[-1]
+        return shape_route(
+            "layernorm", y, flops=norm_flops(rows, d, "layernorm"),
+            nbytes=layernorm_hbm_bytes(rows, d, x.element_size()))
     if rows == 0:
         return y
     LIB.launch("layernorm_launch", _build.ptr(x), _build.ptr(g),
@@ -84,7 +91,7 @@ def add_layernorm(x, y, gamma, beta, out_dtype, eps: float = 1e-5):
     alone (``s`` is ``x``).  When an operand needs a gradient the launch
     goes through ``rmsnorm.FusedNormFn`` (the same launch; the backward
     recomputes the plain version)."""
-    if x.device.type == "cpu":
+    if route(x) == "cpu":
         return add_layernorm_plain(x, y, gamma, beta, out_dtype, eps)
     if _build.needs_grad(x, y, gamma, beta):
         return fused_norm_diff(

@@ -25,7 +25,9 @@ import torch
 from repro_torch.core.formats import get_format
 
 from . import _build
-from .flash_attention import F64, NEG_INF, check_kernel_shape, payload_to_f32
+from ._route import route
+from .flash_attention import (F64, NEG_INF, check_kernel_shape, decode_shape,
+                              payload_to_f32)
 from .paged_cache import gather_pages
 
 LIB = _build.register(_build.KernelLib("paged_decode", {
@@ -230,10 +232,18 @@ def paged_decode(q, k_pool, v_pool, fmt, lengths, block_tables, *,
         scale = float(1.0 / np.sqrt(dh))
     lengths = torch.clamp(lengths.to(torch.int32), max=n_pages * page)
     tables = block_tables.to(torch.int32)
-    if q.device.type == "cpu":
+    where = route(q)
+    if where == "cpu":
         return paged_decode_plain(q, k_pool, v_pool, fmt, lengths, tables,
                                   scale=scale,
                                   return_residuals=return_residuals)
+    if where == "meta":
+        # no lengths on meta: every row's whole table counts as live
+        S = n_pages * page
+        return decode_shape("paged_decode", q, S, fmt, return_residuals,
+                            paged_hbm_bytes([S] * B, H, dh, fmt,
+                                            page_size=page, g=G),
+                            k=k_pool, v=v_pool)
     return _paged_cuda(q, k_pool, v_pool, fmt, lengths.contiguous(),
                        tables.contiguous(), scale, return_residuals)
 

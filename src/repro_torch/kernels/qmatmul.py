@@ -56,6 +56,7 @@ import torch
 from repro_torch.core.formats import FpFormat, get_format
 
 from . import _build
+from ._route import meta_empty, route, shape_route
 from .codec import decode_tile, quantize_tile, tf32_round, tf32_truncate
 
 ACTS = {None: 0, "silu": 1, "gelu": 2, "relu2": 3}
@@ -302,9 +303,20 @@ def qmatmul(a_payload, b_payload, fmt_a, fmt_b,
         assert gate_payload.shape == b_payload.shape
     if act not in ACTS:
         raise ValueError(act)
-    if a_payload.device.type == "cpu":
+    where = route(a_payload)
+    if where == "cpu":
         return qmatmul_plain(a_payload, b_payload, fmt_a, fmt_b, out_fmt,
                              gate_payload=gate_payload, bias=bias, act=act)
+    if where == "meta":
+        gated = gate_payload is not None
+        a_item = 4 if fmt_a is None else fmt_a.container_bytes
+        nbytes = qmm_hbm_bytes(M, K, N, fmt_b, gated=gated,
+                               bias=bias is not None) - M * K * (4 - a_item)
+        return shape_route(qmm_kernel(fmt_b, M),
+                           meta_empty((M, N), torch.float32),
+                           flops=qmm_flops(M, K, N, gated=gated),
+                           nbytes=nbytes, a=a_payload, b=b_payload,
+                           gate=gate_payload, bias=bias)
     return _qmm_cuda(a_payload, b_payload, fmt_b, out_fmt, gate_payload,
                      bias, act, fmt_a=fmt_a)
 
@@ -324,6 +336,13 @@ def qmm_hbm_bytes(M: int, K: int, N: int, fmt_w, *, gated: bool = False,
     item = 4 if fmt_w is None else get_format(fmt_w).container_bytes
     total = K * N * item * (2 if gated else 1) + M * K * 4 + M * N * 4
     return total + (N * 4 if bias else 0)
+
+
+def qmm_flops(M: int, K: int, N: int, *, gated: bool = False) -> int:
+    """Operations of one qmatmul: a multiply and an add per product
+    (two products an output when gated); the epilogue's few per output
+    are left out."""
+    return 2 * M * K * N * (2 if gated else 1)
 
 
 def grouped_plan(C: int, K: int, N: int, n_sm: int,
@@ -403,8 +422,11 @@ def qmm_grouped(a, payload, fmt, rows) -> torch.Tensor:
     experts with a kept row; on a CPU tensor the plain version."""
     fmt = get_format(fmt)
     _grouped_args("qmm_grouped", a, payload, rows)
-    if a.device.type == "cpu":
+    where = route(a)
+    if where == "cpu":
         return qmm_grouped_plain(a, payload, fmt, rows)
+    if where == "meta":
+        return _grouped_shape(a, payload, fmt, False)
     return _qmm_grouped_cuda(a, payload, fmt, rows)
 
 
@@ -424,10 +446,35 @@ def qmm_grouped_ffn(a, w_in, w_gate, fmt, rows, *, act: str = "silu",
                          f"!= w_in {tuple(w_in.shape)}")
     if act not in ACTS:
         raise ValueError(act)
-    if a.device.type == "cpu":
+    where = route(a)
+    if where == "cpu":
         return qmm_grouped_ffn_plain(a, w_in, w_gate, fmt, rows, act=act,
                                      out_fmt=out_fmt)
+    if where == "meta":
+        return _grouped_shape(a, w_in, fmt, w_gate is not None)
     return _qmm_grouped_cuda(a, w_in, fmt, rows, w_gate, act, out_fmt)
+
+
+def _grouped_shape(a, b, fmt: FpFormat, gated: bool) -> torch.Tensor:
+    """The shape route of the grouped product: a ``meta`` tensor holds
+    no kept-row counts, so every expert counts as live with all its C
+    rows."""
+    _grouped_route(fmt)
+    E, C, K = a.shape
+    N = b.shape[2]
+    name = "qmm_tc_grouped_ffn" if gated else "qmm_tc_grouped"
+    return shape_route(
+        name, meta_empty((E, C, N), torch.float32),
+        flops=E * qmm_flops(C, K, N, gated=gated),
+        nbytes=qmm_grouped_hbm_bytes([C] * E, K, N, fmt, C, gated), a=a,
+        b=b)
+
+
+def _grouped_route(fmt: FpFormat) -> None:
+    """The grouped kernel takes the four packed formats only."""
+    if _build.fmt_code(fmt) not in TC_FMT_CODES:
+        raise ValueError(f"qmm_grouped: {fmt.name} weights take the "
+                         f"per-expert loop (qmm_grouped_loop)")
 
 
 # per-tile arrival counters of the grouped kernel's split-K reduce, one
@@ -450,10 +497,8 @@ def _qmm_grouped_cuda(a, b, fmt: FpFormat, rows, gate=None, act=None,
                       out_fmt: Optional[FpFormat] = None) -> torch.Tensor:
     E, C, K = a.shape
     N = b.shape[2]
+    _grouped_route(fmt)
     code = _build.fmt_code(fmt)
-    if code not in TC_FMT_CODES:
-        raise ValueError(f"qmm_grouped: {fmt.name} weights take the "
-                         f"per-expert loop (qmm_grouped_loop)")
     _build.check_operands("qmm_grouped", a.device, a=a, b=b, gate=gate,
                           rows=rows)
     if a.dtype != torch.float32 or b.dtype != fmt.container_dtype \

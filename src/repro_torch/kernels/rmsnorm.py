@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from ._route import route, shape_route
 
 THREADS = 128   # csrc/rmsnorm.cu kThreads: the partials of a row
 
@@ -116,9 +117,15 @@ def norm_operands(what: str, x, **params):
 def rmsnorm_f32(x, gamma, eps: float = 1e-6) -> torch.Tensor:
     """rmsnorm of ``x`` (..., d) with ``gamma`` (d,), as f32: the kernel
     on a CUDA tensor (one launch), the twin on a CPU one."""
-    if x.device.type == "cpu":
+    where = route(x)
+    if where == "cpu":
         return rmsnorm_plain(x, gamma, eps)
     x, (g,), y, rows = norm_operands("rmsnorm", x, gamma=gamma)
+    if where == "meta":
+        d = x.shape[-1]
+        return shape_route(
+            "rmsnorm", y, flops=norm_flops(rows, d, "rmsnorm"),
+            nbytes=rmsnorm_hbm_bytes(rows, d, x.element_size()))
     if rows == 0:
         return y
     LIB.launch("rmsnorm_launch", _build.ptr(x), _build.ptr(g),
@@ -131,6 +138,19 @@ def rmsnorm_hbm_bytes(rows: int, d: int, in_bytes: int) -> int:
     """Bytes one call must move: x read once, gamma (f32) read once, y
     (f32) written once."""
     return rows * d * (in_bytes + 4) + d * 4
+
+
+# operations a normalized element costs: rmsnorm squares, adds, scales
+# by r and by (1 + gamma); layernorm subtracts the mean, squares, adds,
+# scales by r and gamma, adds beta and sums the mean; a residual add is one
+NORM_OPS = {"rmsnorm": 4, "layernorm": 7}
+
+
+def norm_flops(rows: int, d: int, kind: str, add: bool = False) -> int:
+    """Operations of one norm call over ``rows`` x ``d`` (with the
+    residual add when ``add``); the per-row square root and divide are
+    left out."""
+    return rows * d * (NORM_OPS[kind] + (1 if add else 0))
 
 
 def residual_add(x, y):
@@ -176,7 +196,7 @@ def add_rmsnorm(x, y, gamma, out_dtype, eps: float = 1e-6):
     ``x``).  When an operand needs a gradient the launch goes through
     :class:`FusedNormFn` (the same launch; the backward recomputes the
     plain version)."""
-    if x.device.type == "cpu":
+    if route(x) == "cpu":
         return add_rmsnorm_plain(x, y, gamma, out_dtype, eps)
     if _build.needs_grad(x, y, gamma):
         return fused_norm_diff(
@@ -255,6 +275,15 @@ def launch_fused(what, x, y, out_dtype, eps, **params):
                                         device=x.device)
     out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
     rows = x.numel() // d if d else 0
+    if route(x) == "meta":
+        y_bytes = 0 if y is None else y.element_size()
+        res_bytes = 0 if y is None else s.element_size()
+        nbytes = add_rmsnorm_hbm_bytes(rows, d, x.element_size(), y_bytes,
+                                       res_bytes, out.element_size())
+        kind = "layernorm" if what == "add_layernorm" else "rmsnorm"
+        return shape_route(what, (s, out),
+                           flops=norm_flops(rows, d, kind, y is not None),
+                           nbytes=nbytes + 4 * d * (len(ps) - 1))
     if rows == 0:
         return s, out
     LIB.launch(f"{what}_launch", _build.ptr(x), _build.ptr(y),

@@ -112,3 +112,25 @@ def add_resilience_args(ap):
                          "consecutive over-budget steps raise a "
                          "classified WatchdogTimeout (default: off)")
     return ap
+
+
+def add_set_arg(ap):
+    """``--set key=value`` (repeatable): a model-config override, as the
+    reference's dry-run takes it (e.g. ``--set rwkv_fused=1``)."""
+    ap.add_argument("--set", action="append", default=[],
+                    help="cfg override key=value (e.g. rwkv_fused=1)")
+    return ap
+
+
+def parse_overrides(pairs) -> dict:
+    """``["k=v", ...]`` -> ``{k: v}``, a value that parses as an int
+    taken as one."""
+    out = {}
+    for kv in pairs:
+        k, v = kv.split("=", 1)
+        try:
+            v = int(v)
+        except ValueError:
+            pass
+        out[k] = v
+    return out

@@ -11,7 +11,9 @@ path -- ``--arch --reduced --requests --slots --prompt-len --max-new
 ``--router --prefill-workers --max-pending``, the speculative
 ``--speculate-k --draft-config`` and the resilience ``--fault-plan
 --deadline-steps --max-requeues --watchdog-s`` -- plus ``--kv-fmt``
-(a named policy's KV format), ``--device`` (default ``cuda``; raises when
+(a named policy's KV format), ``--set key=value`` (a model-config
+override, as the reference's dry-run takes it: ``--set rwkv_fused=1``
+serves the fused rwkv6 experiment), ``--device`` (default ``cuda``; raises when
 no card is present unless ``--device cpu``) and ``--seed`` (weights from
 a ``torch.Generator``, prompts from numpy).  It prints the reference's
 ``[serve]`` lines (the summary, and the ``router:`` and ``resilience:``
@@ -53,9 +55,11 @@ from repro_torch.engine import (ColocatedTransport, Engine, EngineStats,
                                 format_error, run_router)
 from repro_torch.kernels import dispatch
 from repro_torch.launch.cli import (add_backend_args, add_resilience_args,
-                                    add_router_args, add_speculative_args)
+                                    add_router_args, add_set_arg,
+                                    add_speculative_args, parse_overrides)
 from repro_torch.models import qparams
 from repro_torch.models.registry import build
+from repro_torch.models.transformer import Model
 from repro_torch.tuning.artifact import load_policy
 
 __all__ = ["Request", "build_draft", "cli_main", "main"]
@@ -88,6 +92,7 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3-8b", choices=configs.ARCHS)
     ap.add_argument("--reduced", action="store_true")
+    add_set_arg(ap)
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -147,6 +152,9 @@ def main(argv=None, *, params=None):
         if impl is not None:
             policy = dataclasses.replace(policy, decode_impl=impl)
     model, cfg = build(args.arch, reduced=args.reduced)
+    if args.set:
+        cfg = dataclasses.replace(cfg, **parse_overrides(args.set))
+        model = Model(cfg)
     effective_impl = policy.decode_impl or cfg.decode_impl
     if args.disaggregate and len(dispatch.canonicalize_impl(
             effective_impl)) > 1:

@@ -82,9 +82,6 @@ class ModelConfig:
         if self.moe_impl not in MOE_IMPLS:
             raise ValueError(f"moe_impl is one of {MOE_IMPLS}, got "
                              f"{self.moe_impl!r}")
-        if self.rwkv_fused:
-            raise ValueError("repro_torch does not port the reference's "
-                             "rwkv_fused token-shift experiment")
         if self.head_dim is None:
             object.__setattr__(self, "head_dim",
                                self.d_model // max(self.n_heads, 1))

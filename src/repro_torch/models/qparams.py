@@ -24,8 +24,10 @@ from repro_torch.core.qtensor import QTensor
 # the role each call site passes: "wk"/"wv"/"wo" are shared by attention
 # and rwkv's time mix, both under "attn_w"; rglru's gates pack under
 # "attn_w" although the reference makes them in the ffn_w dtype
-_ATTN_W = ("wq", "wk", "wv", "wo", "wr", "wg", "w_rec_gate", "w_in_gate")
-_FFN_W = ("w_in", "w_gate", "w_out", "cm_k", "cm_v", "cm_r", "w_branch")
+_ATTN_W = ("wq", "wk", "wv", "wo", "wr", "wg", "wrkvg", "w_rec_gate",
+           "w_in_gate")
+_FFN_W = ("w_in", "w_gate", "w_out", "cm_k", "cm_v", "cm_r", "cm_kr",
+          "w_branch")
 ROLE_BY_NAME = {
     **{n: "attn_w" for n in _ATTN_W},
     **{n: "ffn_w" for n in _FFN_W},
@@ -75,6 +77,15 @@ def encode_params(params, policy: PrecisionPolicy, *,
             return leaf
         return QTensor.quantize(leaf, policy.fmt(role, param_layer(path)))
     return map_tree(enc, params)
+
+
+def as_array(w, dtype=None) -> torch.Tensor:
+    """A packed-or-plain weight as a dense tensor: a :class:`QTensor`
+    dequantized (``dequantize_decode`` on a card), a plain one as it is;
+    ``dtype`` casts the result.  For the few sites that scale a weight
+    elementwise before a product (rwkv's fused token shift)."""
+    arr = w.dequantize() if isinstance(w, QTensor) else w
+    return arr if dtype is None else arr.to(dtype)
 
 
 def packed_bytes(params) -> int:

@@ -8,6 +8,18 @@ associative_scan`, in the reference's combine order.  Decode carries the
 O(1) recurrent state (B, H, dk, dv) per layer.  Every ``exp`` argument
 within a chunk is <= 0 (decay ratios), so nothing overflows.
 
+``cfg.rwkv_fused`` (the reference's experiment; no config sets it) folds
+the five token-shift projections of the time mix into one wide product
+and the channel mix's two into one, through the lerp identity ``mix(x,
+xx, m) @ W = x @ W + (xx - x) @ (m * W)``: ``wrkvg`` (d, 4d + 64) holds
+r, k, v, g and the decay LoRA's first weight side by side, ``cm_kr``
+(d, d_ff + d) the channel mix's k and r.  The second term's weight ``wm
+= m * W`` is derived anew at every call (``qparams.as_array`` of the
+packed leaf, scaled, rounded to the role's storage dtype) and multiplied
+as a plain array, outside the packed-weight kernel, as the reference
+does.  Because ``wm`` is rounded to the storage dtype, the fused path is
+another computation than the unfused one except under binary32.
+
 The wkv recurrence, the decay LoRA and the group norm are no TPU kernels
 in the reference (XLA computes them): here they are torch ops on
 tensors; the projections go through ``pdot`` (``qmm_tc`` on a card over
@@ -24,6 +36,7 @@ import torch
 from repro_torch.core.policy import PrecisionPolicy
 
 from .layers import act_cast, dense_init, pdot
+from .qparams import as_array
 from .scan import associative_scan, linear_combine
 
 F32 = torch.float32
@@ -46,6 +59,25 @@ def rwkv_init(gen, cfg, dtype, device=None):
     def w(shape, scale=None, dt=dtype):
         return dense_init(gen, shape, scale=scale, dtype=dt, device=device)
 
+    if cfg.rwkv_fused:
+        # the five token-shift projections (r, k, v, g, the decay LoRA's
+        # input side) as one product, the channel mix's two as one
+        return {
+            "mu": uniform((5, d)),
+            "wrkvg": w((d, 4 * d + RANK)),
+            "wo": w((d, d)),
+            "w0": torch.full((d,), -2.0, dtype=F32, device=device),
+            "wd2": w((RANK, d), scale=0.1, dt=F32),
+            "u": torch.randn((d,), generator=gen, dtype=F32, device=device)
+            * 0.1,
+            "ln_g": torch.ones((H, cfg.rwkv_head_dim), dtype=F32,
+                               device=device),
+            "ln_b": torch.zeros((H, cfg.rwkv_head_dim), dtype=F32,
+                                device=device),
+            "cm_mu": uniform((2, d)),
+            "cm_kr": w((d, ff + d)),
+            "cm_v": w((ff, d)),
+        }
     return {
         "mu": uniform((5, d)),                       # r, k, v, g, w mix
         "wr": w((d, d)), "wk": w((d, d)), "wv": w((d, d)), "wg": w((d, d)),
@@ -81,6 +113,26 @@ def _silu(x):
     return x * torch.sigmoid(x)
 
 
+def _mix_scaled(w, m, widths, dtype):
+    """The fused path's derived weight ``m * W``: each row i of the
+    dense ``W`` (dequantized when packed) times the mixer of its column
+    block, ``m[j][i]`` over the ``widths[j]`` columns of block j, in f32,
+    rounded to ``dtype`` (the role's storage dtype)."""
+    d = m.shape[1]
+    mcat = torch.cat([m[j][:, None].expand(d, n)
+                      for j, n in enumerate(widths)], dim=1)
+    return (as_array(w).to(F32) * mcat).to(dtype)
+
+
+def _fused_dot(x, xx, w, m, widths, policy, role):
+    """``x @ W + (xx - x) @ (m * W)`` in f32 (no activation cast): the
+    lerp identity of every mixed projection at once."""
+    dxx = act_cast(xx.to(F32) - x.to(F32), policy)
+    wm = _mix_scaled(w, m, widths, policy.dtype(role))
+    return (pdot(x, w, policy, role, out_act=False)
+            + pdot(dxx, wm, policy, role, out_act=False))
+
+
 def _group_norm(x, g, b, eps=1e-5):
     """x: (..., H, dh) normalized per head (biased variance, as
     ``jnp.var``)."""
@@ -105,16 +157,27 @@ def time_mix(p, x, cfg, policy: PrecisionPolicy, state=None):
     def mixed(i):
         return _mix(x, xx, mu[i][None, None, :], policy)
 
-    r = pdot(mixed(0), p["wr"], policy, "attn_w")
-    k = pdot(mixed(1), p["wk"], policy, "attn_w")
-    v = pdot(mixed(2), p["wv"], policy, "attn_w")
-    g = _silu(pdot(mixed(3), p["wg"], policy, "attn_w").to(F32))
     # the decay LoRA in f32 (wd1 / wd2 are f32 at init, bf16 once
     # ``optim.adamw.materialize_params`` stores them as attn_w: JAX
     # promotes them to f32 here)
-    lora = torch.matmul(torch.tanh(torch.matmul(mixed(4).to(F32),
-                                                p["wd1"].to(F32))),
-                        p["wd2"].to(F32))
+    if "wrkvg" in p:
+        rank = p["wrkvg"].shape[1] - 4 * d
+        y = _fused_dot(x, xx, p["wrkvg"], mu, (d, d, d, d, rank), policy,
+                       "attn_w")
+        r = act_cast(y[..., :d], policy)
+        k = act_cast(y[..., d:2 * d], policy)
+        v = act_cast(y[..., 2 * d:3 * d], policy)
+        g = _silu(y[..., 3 * d:4 * d].to(F32))
+        lora = torch.matmul(torch.tanh(y[..., 4 * d:].to(F32)),
+                            p["wd2"].to(F32))
+    else:
+        r = pdot(mixed(0), p["wr"], policy, "attn_w")
+        k = pdot(mixed(1), p["wk"], policy, "attn_w")
+        v = pdot(mixed(2), p["wv"], policy, "attn_w")
+        g = _silu(pdot(mixed(3), p["wg"], policy, "attn_w").to(F32))
+        lora = torch.matmul(torch.tanh(torch.matmul(mixed(4).to(F32),
+                                                    p["wd1"].to(F32))),
+                            p["wd2"].to(F32))
     lw = -torch.exp(p["w0"] + lora)                     # (B, S, d) <= 0
 
     rh = r.reshape(B, S, H, dh).to(F32)
@@ -195,14 +258,19 @@ def channel_mix(p, x, cfg, policy: PrecisionPolicy, state=None):
               else torch.zeros((B, d), dtype=x.dtype, device=x.device))
     xx = _shift(x, x_prev)
     m = p["cm_mu"]
-    xk = _mix(x, xx, m[0], policy)
-    xr = _mix(x, xx, m[1], policy)
-    kk = pdot(xk, p["cm_k"], policy, "ffn_w", out_act=False)
+    if "cm_kr" in p:
+        ff = p["cm_v"].shape[0]
+        y = _fused_dot(x, xx, p["cm_kr"], m, (ff, d), policy, "ffn_w")
+        kk, rr = y[..., :ff], y[..., ff:]
+    else:
+        kk = pdot(_mix(x, xx, m[0], policy), p["cm_k"], policy, "ffn_w",
+                  out_act=False)
+        rr = pdot(_mix(x, xx, m[1], policy), p["cm_r"], policy, "ffn_w",
+                  out_act=False)
     kk = torch.relu(kk.to(F32))
     kk = act_cast(kk * kk, policy)
     vv = pdot(kk, p["cm_v"], policy, "ffn_w")
-    rr = torch.sigmoid(pdot(xr, p["cm_r"], policy, "ffn_w",
-                            out_act=False).to(F32))
+    rr = torch.sigmoid(rr.to(F32))
     out = act_cast(rr * vv.to(F32), policy)
     new_state = None
     if state is not None:

@@ -248,6 +248,9 @@ def test_the_launch_passes_the_entry_points_arguments(monkeypatch, with_y):
     beta, res, out, rows, d, eps, the four dtype codes, the stream), and
     no residual buffer without an add."""
     seen = []
+    # meta stands in for a CUDA tensor: routed as one (on meta itself the
+    # launch takes the shape route, tests/test_torch_dryrun.py)
+    monkeypatch.setattr(trms, "route", lambda t: "cuda")
     monkeypatch.setattr(trms.LIB, "launch", lambda sym, *a, kernel=None:
                         seen.append((sym, a, kernel)))
     monkeypatch.setattr(_build, "ptr", lambda t: t)

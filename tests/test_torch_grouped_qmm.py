@@ -229,6 +229,9 @@ def test_moe_layer_equals_the_per_expert_loop(arch, pol_name, monkeypatch):
 
 def test_a_tensor_off_the_cpu_never_takes_the_plain_version(monkeypatch):
     seen = []
+    # meta stands in for a CUDA tensor: routed as one (on meta itself the
+    # wrapper takes the shape route, tests/test_torch_dryrun.py)
+    monkeypatch.setattr(tq, "route", lambda t: "cuda")
     monkeypatch.setattr(tq, "qmm_grouped_plain",
                         lambda *a: pytest.fail("plain version on meta"))
     monkeypatch.setattr(tq, "_qmm_grouped_cuda",
@@ -345,6 +348,7 @@ def test_gated_hbm_bytes_count_both_weights_of_live_experts():
 
 def test_gated_call_off_the_cpu_takes_the_kernel_dispatch(monkeypatch):
     seen = []
+    monkeypatch.setattr(tq, "route", lambda t: "cuda")   # meta as CUDA
     monkeypatch.setattr(tq, "qmm_grouped_ffn_plain",
                         lambda *a, **k: pytest.fail("plain version on meta"))
     monkeypatch.setattr(tq, "_qmm_grouped_cuda",

@@ -48,7 +48,6 @@ from repro_torch.kernels import paged_cache as tpc  # noqa: E402
 from repro_torch.launch.serve import build_draft  # noqa: E402
 from repro_torch.models import qparams  # noqa: E402
 from repro_torch.models import rglru, rwkv6, scan  # noqa: E402
-from repro_torch.models.base import ModelConfig  # noqa: E402
 from repro_torch.models.convert import (params_from_numpy,  # noqa: E402
                                         tensor_from_numpy)
 from repro_torch.models.registry import build  # noqa: E402
@@ -580,21 +579,13 @@ def _refuse_verify():
                       _paged(cfg, policy, False), policy)
 
 
-def _refuse_fused():
-    ModelConfig(arch="rwkv6-1.6b", family="ssm", n_layers=2, d_model=64,
-                n_heads=4, n_kv=4, d_ff=128, vocab=256, rwkv_head_dim=16,
-                rwkv_fused=1)
-
-
 @pytest.mark.parametrize("call,match", [
     (_refuse_window, "sliding window"), (_refuse_speculative, "recurrent"),
-    (_refuse_verify, "recurrent"), (_refuse_fused, "rwkv_fused")],
-    ids=["capacity-above-window", "SpeculativeDecoder", "verify_step",
-         "rwkv_fused"])
+    (_refuse_verify, "recurrent")],
+    ids=["capacity-above-window", "SpeculativeDecoder", "verify_step"])
 def test_recurrent_refusals(call, match):
     """What the recurrent configs do not take: a paged capacity above the
     window (the reference's check), speculation and the verify step
-    (recurrent state cannot roll back, in the reference too) and the
-    reference's ``rwkv_fused`` experiment."""
+    (recurrent state cannot roll back, in the reference too)."""
     with pytest.raises(ValueError, match=match):
         call()

@@ -121,6 +121,38 @@ def test_param_spec_matches_reference(shapes, arch, mesh_name):
         mesh.size(len(mesh.sizes) - 1) == 1 or arch == "whisper-tiny"
 
 
+@pytest.mark.parametrize("mesh_name", list(MESHES))
+def test_rwkv_fused_param_spec_matches_reference(mesh_name):
+    """rwkv6-1.6b with ``rwkv_fused=1`` at full size: ``wrkvg`` (2048,
+    8256) and ``cm_kr`` (2048, 9216) fall to column-parallel, leaf for
+    leaf the reference's specs."""
+    import dataclasses
+
+    from repro.models.registry import build_from_config
+    from repro_torch.models.transformer import Model
+
+    jcfg = dataclasses.replace(jconfigs.get("rwkv6-1.6b"), rwkv_fused=1)
+    jtree = jax.eval_shape(lambda k: build_from_config(jcfg).init_params(
+        k, jget_policy("transprecision")), jax.random.PRNGKey(0))
+    jflat = [("|".join(jsharding._pstr(p) for p in path), tuple(leaf.shape))
+             for path, leaf in jax.tree_util.tree_flatten_with_path(jtree)[0]]
+    cfg = dataclasses.replace(configs.get("rwkv6-1.6b"), rwkv_fused=1)
+    params = Model(cfg).init_params(torch.Generator(),
+                                    get_policy("transprecision"),
+                                    device="meta")
+    jmesh, mesh = meshes(mesh_name)
+    flat = flatten_with_path(params)
+    assert [(sharding.path_name(p), tuple(t.shape)) for p, t in flat] \
+        == jflat
+    got = [s.spec for _, s in flatten_with_path(
+        sharding.tree_param_shardings(params, mesh))]
+    assert got == [jspec(jsharding.param_spec(path, shape, jmesh))
+                   for path, shape in jflat]
+    specs = dict(zip([p for p, _ in jflat], got))
+    for leaf in ("wrkvg", "cm_kr"):
+        assert specs[f"layers|0|mix|{leaf}"] == (None, "model")
+
+
 @pytest.mark.parametrize("mesh_name", ["16x16", "2x16x16", "2x4", "1x4"])
 @pytest.mark.parametrize("arch", ["llama3-8b", "granite-moe-1b-a400m",
                                   "rwkv6-1.6b"])
